@@ -1,0 +1,219 @@
+"""ServiceGraph: the L0 topology IR.
+
+Mirrors ``graph.ServiceGraph`` (isotope/convert/pkg/graph/graph.go:21-23)
+plus the decode pipeline (unmarshal.go:30-112): a top-level ``defaults``
+block seeds per-service and per-call defaults (type=http, numReplicas=1 when
+absent), then each service is decoded against those defaults and the result
+is validated (validation.go:28-67): every call must target a defined
+service, and concurrent commands may not nest.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import yaml
+
+from isotope_tpu_torch.models.errors import config_path
+from isotope_tpu_torch.models.pct import Percentage
+from isotope_tpu_torch.models.script import (
+    ConcurrentCommand,
+    RequestCommand,
+    Script,
+)
+from isotope_tpu_torch.models.service import (
+    Service,
+    decode_cluster,
+    decode_strict_int,
+)
+from isotope_tpu_torch.models.size import ByteSize
+from isotope_tpu_torch.models.svctype import ServiceType
+
+
+class RequestToUndefinedServiceError(ValueError):
+    def __init__(self, service_name: str):
+        self.service_name = service_name
+        super().__init__(f'cannot call undefined service "{service_name}"')
+
+
+class NestedConcurrentCommandError(ValueError):
+    def __init__(self):
+        super().__init__("concurrent commands may not be nested")
+
+
+_DEFAULTS_FIELDS = {
+    "type",
+    "errorRate",
+    "responseSize",
+    "script",
+    "requestSize",
+    "numReplicas",
+    "numRbacPolicies",
+    "cluster",
+}
+
+
+@dataclasses.dataclass
+class ServiceGraph:
+    services: List[Service] = dataclasses.field(default_factory=list)
+    # Retained so encode() can round-trip the defaults block.
+    defaults: dict = dataclasses.field(default_factory=dict)
+    # Raw ``policies:`` block (in-graph resilience policies — circuit
+    # breakers, retry budgets, HPA autoscalers; sim/policies.py — plus
+    # the per-service ``lb:`` load-balancing laws; sim/lb.py).  Kept
+    # raw here so host-only consumers (converters, encode round-trip)
+    # never pay the decode; the compiler lowers it to dense per-service
+    # tables (compiler/compile.py compile_policies / compile_lb) with
+    # key-pathed validation errors.
+    policies: dict = dataclasses.field(default_factory=dict)
+    # Raw ``rollouts:`` block (reactive canary rollouts — per-service
+    # step schedules, SLO gates, rollback policies, canary physics
+    # overrides; sim/rollout.py).  Same raw-until-compiled discipline
+    # as ``policies`` (compiler/compile.py compile_rollouts).
+    rollouts: dict = dataclasses.field(default_factory=dict)
+
+    # -- decode ------------------------------------------------------------
+
+    @classmethod
+    def decode(cls, doc: dict) -> "ServiceGraph":
+        if not isinstance(doc, dict):
+            raise ValueError(f"service graph must be a mapping: {doc!r}")
+        raw_defaults = doc.get("defaults") or {}
+        with config_path("defaults"):
+            default_service, default_request = _effective_defaults(
+                raw_defaults
+            )
+        services = []
+        for i, s in enumerate(doc.get("services") or []):
+            with config_path(f"services[{i}]"):
+                services.append(
+                    Service.decode(s, default_service, default_request)
+                )
+        raw_policies = doc.get("policies") or {}
+        if not isinstance(raw_policies, dict):
+            with config_path("policies"):
+                raise ValueError(
+                    f"policies must be a mapping: {raw_policies!r}"
+                )
+        raw_rollouts = doc.get("rollouts") or {}
+        if not isinstance(raw_rollouts, dict):
+            with config_path("rollouts"):
+                raise ValueError(
+                    f"rollouts must be a mapping: {raw_rollouts!r}"
+                )
+        graph = cls(
+            services=services,
+            defaults=dict(raw_defaults),
+            policies=dict(raw_policies),
+            rollouts=dict(raw_rollouts),
+        )
+        graph.validate()
+        return graph
+
+    @classmethod
+    def from_yaml(cls, text: str) -> "ServiceGraph":
+        return cls.decode(yaml.safe_load(text))
+
+    @classmethod
+    def from_yaml_file(cls, path) -> "ServiceGraph":
+        with open(path) as f:
+            return cls.decode(yaml.safe_load(f))
+
+    # -- encode ------------------------------------------------------------
+
+    def encode(self) -> dict:
+        out: dict = {}
+        if self.defaults:
+            out["defaults"] = dict(self.defaults)
+        default_service, _ = _effective_defaults(self.defaults)
+        out["services"] = [s.encode(default_service) for s in self.services]
+        if self.policies:
+            out["policies"] = dict(self.policies)
+        if self.rollouts:
+            out["rollouts"] = dict(self.rollouts)
+        return out
+
+    def to_yaml(self) -> str:
+        return yaml.safe_dump(
+            self.encode(), default_flow_style=False, sort_keys=False
+        )
+
+    # -- validation (validation.go:28-67) ----------------------------------
+
+    def validate(self) -> None:
+        names = {s.name for s in self.services}
+        for i, service in enumerate(self.services):
+            with config_path(f"services[{i}].script"):
+                _validate_commands(service.script, names)
+
+    # -- convenience -------------------------------------------------------
+
+    def service_names(self) -> List[str]:
+        return [s.name for s in self.services]
+
+    def entrypoints(self) -> List[Service]:
+        return [s for s in self.services if s.is_entrypoint]
+
+    def __len__(self) -> int:
+        return len(self.services)
+
+
+def _effective_defaults(raw_defaults: dict):
+    """Build the effective per-service / per-call defaults from a raw
+    ``defaults`` block (unmarshal.go:66-112)."""
+    unknown = set(raw_defaults) - _DEFAULTS_FIELDS
+    if unknown:
+        raise ValueError(f"unknown defaults fields: {sorted(unknown)}")
+
+    def field(key, decode, fallback):
+        if key not in raw_defaults:
+            return fallback
+        with config_path(key):
+            return decode(raw_defaults[key])
+
+    # Per-call default: requestSize seeds RequestCommand.Size
+    # (unmarshal.go:104-107).
+    default_request = RequestCommand(
+        service_name="",
+        size=field("requestSize", ByteSize.decode, ByteSize(0)),
+    )
+    # Per-service defaults (unmarshal.go:66-73, 96-103): type=http,
+    # numReplicas=1 unless overridden.
+    default_service = Service(
+        name="",
+        type=field("type", ServiceType.decode, ServiceType.HTTP),
+        num_replicas=field(
+            "numReplicas",
+            lambda v: decode_strict_int(v, "numReplicas"),
+            1,
+        ),
+        error_rate=field("errorRate", Percentage.decode, Percentage(0.0)),
+        response_size=field("responseSize", ByteSize.decode, ByteSize(0)),
+        # In the reference the defaults block is unmarshaled in the
+        # metadata pass BEFORE DefaultRequestCommand is installed
+        # (unmarshal.go:30-43), so calls inside the defaults script do
+        # NOT inherit requestSize — they get a zero-size default.
+        script=field(
+            "script",
+            lambda v: Script.decode(v, RequestCommand(service_name="")),
+            Script(),
+        ),
+        num_rbac_policies=field(
+            "numRbacPolicies",
+            lambda v: decode_strict_int(v, "numRbacPolicies"),
+            0,
+        ),
+        cluster=field("cluster", decode_cluster, ""),
+    )
+    return default_service, default_request
+
+
+def _validate_commands(cmds, names) -> None:
+    for cmd in cmds:
+        if isinstance(cmd, RequestCommand):
+            if cmd.service_name not in names:
+                raise RequestToUndefinedServiceError(cmd.service_name)
+        elif isinstance(cmd, ConcurrentCommand):
+            _validate_commands(cmd, names)
+            if any(isinstance(sub, ConcurrentCommand) for sub in cmd):
+                raise NestedConcurrentCommandError()

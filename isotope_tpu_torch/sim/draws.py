@@ -1,0 +1,140 @@
+"""Random streams of one simulated block, and where they come from.
+
+The engine consumes a fixed set of random tensors per block of ``n``
+requests over ``H`` hops.  Which of them exist is static — it follows
+from the topology and the parameters (the reference's static coin
+elimination and copula dimensions, ``isotope_tpu/sim/engine.py``
+4761-4880, arrivals at 4885, service times at 4639-4660) — and is
+described by a :class:`DrawSpec` that the engine builds.
+
+A *draw source* maps an integer index and a spec to one :class:`Draws`.
+The indices are the integers the JAX engine folds into its key: ``None``
+for the run's own key, ``i`` for closed-loop pilot ``i`` and
+``1_000_000 + b`` for summary block ``b`` (engine.py:2066, 4543).
+:class:`TorchDraws` draws every index from its own seeded
+``torch.Generator``; tests hand the engine the JAX engine's own draws
+through a source of the same shape, which is how the port is held to
+the reference draw for draw.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+#: block-key offset of ``run_summary`` (the reference's fold_in salt)
+BLOCK_INDEX_BASE = 1_000_000
+
+SVC_EXPONENTIAL = "exponential"  # unit exponentials (exponential, pareto)
+SVC_NORMAL = "normal"            # unit normals (lognormal)
+
+
+class DrawSpec(NamedTuple):
+    """Which random tensors one block consumes, and their shapes."""
+
+    n: int                # requests in the block
+    hops: int             # H
+    need_send: bool       # u_send: some call has a send probability < 1
+    need_err: bool        # u_err: some hop has a nonzero error rate
+    copula: bool          # z_h (+ z_small / z_call) instead of u_wait
+    sib_dim: int          # columns of z_small (0: no sibling copula)
+    retry_dim: int        # columns of z_call (0: no retry copula)
+    svc: Optional[str]    # SVC_EXPONENTIAL | SVC_NORMAL | None
+    arrivals: bool        # arr: open-loop inter-arrival draws
+
+
+class Draws(NamedTuple):
+    """One block's random tensors; ``None`` where the engine draws none."""
+
+    u_send: Optional[torch.Tensor] = None   # (N, H) U[0, 1)
+    u_err: Optional[torch.Tensor] = None    # (N, H) U[0, 1)
+    z_h: Optional[torch.Tensor] = None      # (N, H) N(0, 1), own term
+    z_small: Optional[torch.Tensor] = None  # (N, sib_dim) N(0, 1)
+    z_call: Optional[torch.Tensor] = None   # (N, retry_dim) N(0, 1)
+    u_wait: Optional[torch.Tensor] = None   # (N, H) U[0, 1), no copula
+    svc: Optional[torch.Tensor] = None      # (N, H) unit exp. or normal
+    arr: Optional[torch.Tensor] = None      # (N,) unit exponentials
+
+    def to(self, device) -> "Draws":
+        """The same draws as float32 tensors on ``device``."""
+        return Draws(*(
+            None if t is None
+            else torch.as_tensor(t).to(device=device, dtype=torch.float32)
+            for t in self
+        ))
+
+    def check(self, spec: DrawSpec) -> None:
+        """Raise unless the draws have exactly the spec's fields/shapes."""
+        n, h = spec.n, spec.hops
+        want = {
+            "u_send": (n, h) if spec.need_send else None,
+            "u_err": (n, h) if spec.need_err else None,
+            "z_h": (n, h) if spec.copula else None,
+            "z_small": (n, spec.sib_dim) if spec.sib_dim else None,
+            "z_call": (n, spec.retry_dim) if spec.retry_dim else None,
+            "u_wait": None if spec.copula else (n, h),
+            "svc": (n, h) if spec.svc is not None else None,
+            "arr": (n,) if spec.arrivals else None,
+        }
+        for name, shape in want.items():
+            t = getattr(self, name)
+            got = None if t is None else tuple(t.shape)
+            if got != shape:
+                raise ValueError(
+                    f"draws.{name}: expected shape {shape}, got {got}"
+                )
+
+
+class TorchDraws:
+    """Draw source backed by ``torch.Generator``s on one device.
+
+    Index ``i`` of seed ``s`` draws from a generator seeded by numpy's
+    ``SeedSequence([s, i])`` (``[s]`` for the run's own index ``None``),
+    so every block and pilot has an independent, reproducible stream.
+    """
+
+    def __init__(self, seed: int, device="cuda"):
+        self.seed = int(seed)
+        self.device = torch.device(device)
+
+    def generator(self, index: Optional[int]) -> torch.Generator:
+        entropy = [self.seed] if index is None else [self.seed, int(index)]
+        state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+        g = torch.Generator(device=self.device)
+        g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
+        return g
+
+    def draws(self, index: Optional[int], spec: DrawSpec) -> Draws:
+        g = self.generator(index)
+        n, h = spec.n, spec.hops
+        kw = dict(generator=g, device=self.device, dtype=torch.float32)
+
+        def uniform(*shape):
+            return torch.rand(shape, **kw)
+
+        def normal(*shape):
+            return torch.randn(shape, **kw)
+
+        def exponential(*shape):
+            return torch.empty(
+                shape, device=self.device, dtype=torch.float32
+            ).exponential_(generator=g)
+
+        out = Draws(
+            u_send=uniform(n, h) if spec.need_send else None,
+            u_err=uniform(n, h) if spec.need_err else None,
+            z_h=normal(n, h) if spec.copula else None,
+            u_wait=None if spec.copula else uniform(n, h),
+        )
+        svc = None
+        if spec.svc == SVC_EXPONENTIAL:
+            svc = exponential(n, h)
+        elif spec.svc == SVC_NORMAL:
+            svc = normal(n, h)
+        return out._replace(
+            svc=svc,
+            arr=exponential(n) if spec.arrivals else None,
+            z_small=normal(n, spec.sib_dim) if spec.sib_dim else None,
+            z_call=normal(n, spec.retry_dim) if spec.retry_dim else None,
+        )

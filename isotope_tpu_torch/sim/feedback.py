@@ -1,0 +1,390 @@
+"""Load-dependent retry/timeout feedback for offered-load estimation.
+
+The engine's queueing waits are driven by per-service visit counts
+(``CompiledGraph.expected_visits``).  Statically, a retry attempt's reach
+is discounted only by the target's ``errorRate`` (compiler/compile.py) —
+but the reference's retries also fire on *timeouts*
+(isotope/service/pkg/srv/executable.go: the http client timeout is a
+transport error, and transport errors trigger the next serial attempt),
+and timeout probability depends on load.  Under a chaos phase that cuts
+capacity, waits lengthen, timeouts trip, retries amplify the offered
+load, which lengthens waits further — the retry-storm feedback loop the
+static tables cannot represent (VERDICT r3 §weak-3, ORACLE.md).
+
+This module closes the loop with a per-phase fixed point, solved on the
+host once per offered rate (cached):
+
+    visits -> M/M/k waits -> P(timeout) per call -> per-attempt failure
+    probabilities -> dynamic hop reach (retry amplification + transport
+    truncation of later steps) -> visits'
+
+Approximations (stated envelope; see ORACLE.md):
+
+- An attempt's round trip is modeled as ``rtt + W + R`` where ``W`` is
+  the target's stationary M/M/k wait (exact tail: an atom at 0 plus an
+  exponential) and ``R`` — service time plus everything below —
+  enters as a single exponential with the subtree's mean (deterministic
+  service times shift instead).  Nested wait *variance* below the
+  called service is folded into that mean.
+- Mean of a concurrent group's join is approximated by the max of the
+  member means.
+- A 500 is fast (skips the script) and is assumed never to time out.
+
+The fixed point is damped (0.5) and bounded: even when the amplified
+load saturates a station, the clamped wait law keeps P(timeout) <= 1,
+so visits are bounded by the full attempt tree.
+
+A copy of ``isotope_tpu.sim.feedback`` without the mTLS, retry-budget
+and lb-law inputs: the port's Simulator refuses those features, so the
+fixed point here is the plain M/M/k one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
+from isotope_tpu_torch.sim.queueing import _MAX_RHO
+
+
+def np_mmk(lam, mu, k):
+    """Numpy mirror of queueing.mmk_params: (p_wait, wait_rate, rho_raw)."""
+    lam = np.asarray(lam, np.float64)
+    k = np.asarray(k, np.float64)
+    rho_raw = lam / (k * mu)
+    rho = np.minimum(rho_raw, _MAX_RHO)
+    a = rho * k
+    kmax = int(k.max()) if k.size else 1
+    b = np.ones_like(a)
+    bk = np.ones_like(a)
+    for j in range(1, kmax + 1):
+        b = a * b / (j + a * b)
+        bk = np.where(k == j, b, bk)
+    p_wait = bk / (1.0 - rho * (1.0 - bk))
+    wait_rate = k * mu * (1.0 - rho)
+    return p_wait, wait_rate, rho_raw
+
+
+def _tail_w_plus_exp(p, r, rest_mean, x):
+    """P(W + R > x): W = Exp(r) w.p. ``p`` else 0; R ~ Exp(1/rest_mean).
+
+    Vectorized hypoexponential survival with the Erlang-C atom; the
+    ``r == 1/rest_mean`` degeneracy uses the Gamma(2) limit.
+    """
+    x = np.maximum(x, 0.0)
+    small = rest_mean < 1e-12
+    mu_r = 1.0 / np.maximum(rest_mean, 1e-12)
+    near = np.abs(r - mu_r) < 1e-9 * np.maximum(mu_r, 1.0)
+    denom = np.where(near, 1.0, mu_r - r)
+    hypo = np.where(
+        near,
+        (1.0 + r * x) * np.exp(-r * x),
+        (mu_r * np.exp(-r * x) - r * np.exp(-mu_r * x)) / denom,
+    )
+    tail_r = np.exp(-mu_r * x)
+    out = (1.0 - p) * tail_r + p * hypo
+    # R negligible: pure wait tail (atom at zero when x == 0)
+    pure = np.where(x > 0.0, p * np.exp(-r * x), 1.0)
+    return np.clip(np.where(small, pure, out), 0.0, 1.0)
+
+
+def _tail_w_shifted(p, r, rest_mean, x):
+    """P(W + rest_mean > x) for deterministic service times."""
+    y = x - rest_mean
+    tail = p * np.exp(-r * np.maximum(y, 0.0))
+    return np.clip(np.where(y > 0.0, tail, 1.0), 0.0, 1.0)
+
+
+@dataclasses.dataclass
+class _LevelCalls:
+    """Per-level call tables (numpy, static)."""
+
+    hop_ids: np.ndarray          # (L,) global hop ids of this level
+    svc: np.ndarray              # (L,) service of each hop
+    step_base: np.ndarray        # (L, P) sleep floors
+    step_real: np.ndarray        # (L, P) bool
+    # per call (K may be 0):
+    parent_local: np.ndarray     # (K,)
+    step: np.ndarray             # (K,)
+    timeout: np.ndarray          # (K,) f64 (inf = none)
+    attempts: np.ndarray         # (K,) i64
+    target: np.ndarray           # (K,) service index
+    send_prob: np.ndarray        # (K,)
+    rtt: np.ndarray              # (K,) request+response wire time
+    first_child: np.ndarray      # (K,) global hop id of attempt 0
+    att_global: np.ndarray       # (maxA, K) global hop ids (garbage where
+    att_valid: np.ndarray        # (maxA, K) bool              ... invalid)
+
+
+class RetryFeedback:
+    """Per-(chaos x churn)-phase visit counts with retry feedback.
+
+    ``active`` is False when no call has a finite timeout — then timeouts
+    can never fire, failure probabilities are the static error rates, and
+    the static tables are already exact; callers should skip this path.
+    """
+
+    def __init__(
+        self,
+        compiled: CompiledGraph,
+        params,
+        mu: float,
+        eff_replicas_pc: np.ndarray,   # (PC, S) clamped >= 1
+        svc_down_pc: np.ndarray,       # (PC, S) bool
+        own_combo: np.ndarray,         # (Cc, H) churn-combo hop multipliers
+        static_visits_pc: np.ndarray,  # (PC, S)
+    ):
+        self.compiled = compiled
+        self.params = params
+        self.mu = float(mu)
+        self.eff = np.asarray(eff_replicas_pc, np.float64)
+        self.down = np.asarray(svc_down_pc, bool)
+        self.own = np.asarray(own_combo, np.float64)
+        self.static = np.asarray(static_visits_pc, np.float64)
+        self.n_combos = self.own.shape[0]
+
+        t = compiled.services
+        self._err = t.error_rate.astype(np.float64)
+        hs = compiled.hop_service
+        net_out, net_back = hop_wire_times(compiled, params.network)
+
+        self.active = False
+        self._levels: List[_LevelCalls] = []
+        ms = compiled.max_steps
+        for lvl in compiled.levels:
+            K = len(lvl.call_seg)
+            if K:
+                first_local = lvl.att_child[0]
+                g0 = lvl.child_ids[first_local]
+                att_global = lvl.child_ids[
+                    np.clip(lvl.att_child, 0, max(len(lvl.child_ids) - 1, 0))
+                ]
+                self.active |= bool(np.isfinite(lvl.call_timeout).any())
+            else:
+                g0 = np.zeros(0, np.int64)
+                att_global = np.zeros((1, 0), np.int64)
+            self._levels.append(
+                _LevelCalls(
+                    hop_ids=lvl.hop_ids.astype(np.int64),
+                    svc=hs[lvl.hop_ids].astype(np.int64),
+                    step_base=lvl.step_base.astype(np.float64),
+                    step_real=lvl.step_is_real.astype(bool),
+                    parent_local=(lvl.call_seg // ms).astype(np.int64),
+                    step=(lvl.call_seg % ms).astype(np.int64),
+                    timeout=lvl.call_timeout.astype(np.float64),
+                    attempts=lvl.att_valid.sum(0).astype(np.int64),
+                    target=hs[g0].astype(np.int64),
+                    send_prob=compiled.hop_send_prob[g0].astype(np.float64),
+                    rtt=(net_out[g0] + net_back[g0]),
+                    first_child=g0.astype(np.int64),
+                    att_global=att_global.astype(np.int64),
+                    att_valid=lvl.att_valid.astype(bool),
+                )
+            )
+        self._cache: dict = {}
+
+    # ------------------------------------------------------------------
+
+    def visits_pc(self, offered: float) -> np.ndarray:
+        """(PC, S) visit counts at root rate ``offered``, with feedback.
+
+        The rate is quantized to 4 significant figures before keying the
+        cache: visits are a smooth function of the rate, and the
+        closed-loop bisection probes ~40 distinct rates per solve — raw
+        float keys would re-run the host fixed point for every probe.
+        """
+        key = float(f"{float(offered):.4g}")
+        if key not in self._cache:
+            rows = [
+                self._solve_row(key, i) for i in range(self.static.shape[0])
+            ]
+            self._cache[key] = np.stack(rows)
+        return self._cache[key]
+
+    def _upper_visits(self, row: int) -> np.ndarray:
+        """Visit counts if every retry attempt always ran (pf=1, no
+        truncation) — the all-attempts upper bound used to probe for the
+        storm branch of a bistable fixed point."""
+        compiled = self.compiled
+        down = self.down[row]
+        own = self.own[row % self.n_combos]
+        reach = np.zeros(compiled.num_hops)
+        reach[0] = 0.0 if down[compiled.hop_service[0]] else 1.0
+        for lc in self._levels:
+            K = len(lc.step)
+            if not K:
+                continue
+            base = (
+                reach[lc.hop_ids[lc.parent_local]]
+                * (1.0 - self._err[lc.svc[lc.parent_local]])
+                * lc.send_prob
+                * own[lc.first_child]
+            )
+            base = np.where(down[lc.target], 0.0, base)
+            for a in range(lc.att_global.shape[0]):
+                valid = lc.att_valid[a]
+                if valid.any():
+                    reach[lc.att_global[a][valid]] = base[valid]
+        return np.bincount(
+            compiled.hop_service, weights=reach,
+            minlength=compiled.num_services,
+        )
+
+    def _solve_row(self, offered: float, row: int) -> np.ndarray:
+        """Solve the phase's visit fixed point, handling bistability.
+
+        Retry feedback makes the load map non-monotone in a way that can
+        admit TWO stable fixed points: a low branch (few timeouts) and a
+        storm branch (every attempt times out, load = the full attempt
+        tree).  The DES shows the physical system falls into the storm
+        branch whenever it exists — one congestion burst trips timeouts,
+        the retries sustain the backlog — so when iterating from the
+        static (low) and the all-attempts (high) initializations
+        converges to materially different loads, the pessimistic storm
+        branch wins (and its >= 1 utilization raises ``unstable``).
+        """
+        low = self._iterate_row(offered, row, self.static[row].copy())
+        high = self._iterate_row(offered, row, self._upper_visits(row))
+        gap = np.abs(high - low).max() / max(high.max(), 1e-12)
+        return high if gap > 0.05 else low
+
+    def _iterate_row(
+        self,
+        offered: float,
+        row: int,
+        visits: np.ndarray,
+        iters: int = 24,
+        tol: float = 1e-5,
+    ) -> np.ndarray:
+        compiled = self.compiled
+        S = compiled.num_services
+        H = compiled.num_hops
+        eff = self.eff[row]
+        down = self.down[row]
+        own = self.own[row % self.n_combos]
+        cpu = self.params.cpu_time_s
+        deterministic = self.params.service_time == "deterministic"
+        if down[compiled.hop_service[0]]:
+            return visits  # down entry: nothing flows; the init is exact
+
+        for _ in range(iters):
+            lam = offered * visits
+            p_wait, wait_rate, _ = np_mmk(lam, self.mu, eff)
+            ew = np.where(down, 0.0, p_wait / wait_rate)
+
+            # -- bottom-up: subtree means + per-call failure probabilities
+            mean_run = np.zeros(H)
+            lvl_pf: List[Optional[np.ndarray]] = [None] * len(self._levels)
+            lvl_surv: List[Optional[np.ndarray]] = [None] * len(self._levels)
+            lvl_send: List[Optional[np.ndarray]] = [None] * len(self._levels)
+            for d in reversed(range(len(self._levels))):
+                lc = self._levels[d]
+                L, P = lc.step_base.shape
+                K = len(lc.step)
+                if K:
+                    t = lc.target
+                    pe = self._err[t]
+                    m_child = mean_run[lc.first_child]
+                    rest = cpu + np.maximum(
+                        m_child - ew[t] - cpu, 0.0
+                    )  # mean below the wait: svc + busy
+                    x = lc.timeout - lc.rtt
+                    finite = np.isfinite(lc.timeout)
+                    tail = _tail_w_shifted if deterministic else (
+                        _tail_w_plus_exp
+                    )
+                    pt = np.where(
+                        finite,
+                        tail(p_wait[t], wait_rate[t], rest,
+                             np.where(finite, x, 0.0)),
+                        0.0,
+                    )
+                    pt = np.where(down[t], 1.0, pt)
+                    pf = pe + (1.0 - pe) * pt
+                    # P(an attempt ends in transport): a down callee always
+                    # transport-fails; otherwise a 500 (fast) never times
+                    # out, so transport == timeout on the non-500 branch
+                    p_transport = np.where(down[t], 1.0, (1.0 - pe) * pt)
+                    # attempt n+1 runs iff attempt n failed (q); the
+                    # call truncates its caller when the last attempt
+                    # that runs ends in transport
+                    q = pf
+                    trunc = p_transport * q ** np.maximum(
+                        lc.attempts - 1, 0
+                    )
+                    send_eff = lc.send_prob * own[lc.first_child]
+                    # expected call duration over serial attempts
+                    d_ok = lc.rtt + m_child
+                    d_att = (1.0 - pe) * (
+                        (1.0 - pt) * d_ok
+                        + pt * np.where(finite, lc.timeout, d_ok)
+                    ) + pe * (lc.rtt + ew[t] + cpu)
+                    d_att = np.where(down[t], 0.0, d_att)
+                    with np.errstate(divide="ignore", invalid="ignore"):
+                        geo = np.where(
+                            q >= 1.0 - 1e-12,
+                            lc.attempts.astype(np.float64),
+                            (1.0 - q ** lc.attempts) / (1.0 - q),
+                        )
+                    dur_call = send_eff * geo * d_att
+                    seg = lc.parent_local * P + lc.step
+                    slot_max = np.zeros(L * P)
+                    np.maximum.at(slot_max, seg, dur_call)
+                    ff = np.ones(L * P)
+                    np.multiply.at(ff, seg, 1.0 - send_eff * trunc)
+                    surv = np.cumprod(
+                        np.concatenate(
+                            [np.ones((L, 1)), ff.reshape(L, P)[:, :-1]],
+                            axis=1,
+                        ),
+                        axis=1,
+                    )
+                    lvl_pf[d] = q
+                    lvl_surv[d], lvl_send[d] = surv, send_eff
+                    step_dur = np.maximum(
+                        lc.step_base, slot_max.reshape(L, P)
+                    ) * lc.step_real
+                else:
+                    surv = np.ones((L, P))
+                    lvl_surv[d] = surv
+                    step_dur = lc.step_base * lc.step_real
+                busy = (surv * step_dur).sum(1)
+                pe_h = self._err[lc.svc]
+                mean_run[lc.hop_ids] = (
+                    ew[lc.svc] + cpu + (1.0 - pe_h) * busy
+                )
+
+            # -- top-down: dynamic reach -------------------------------
+            reach = np.zeros(H)
+            reach[0] = 1.0
+            for d, lc in enumerate(self._levels):
+                K = len(lc.step)
+                if not K:
+                    continue
+                # (1 - parent_err): a parent that 500s skips its script
+                # and sends nothing (the same factor static hop_reach
+                # carries, compiler/compile.py)
+                base = (
+                    reach[lc.hop_ids[lc.parent_local]]
+                    * (1.0 - self._err[lc.svc[lc.parent_local]])
+                    * lvl_surv[d][lc.parent_local, lc.step]
+                    * lvl_send[d]
+                )
+                base = np.where(down[lc.target], 0.0, base)
+                pf = lvl_pf[d]
+                r_a = base
+                for a in range(lc.att_global.shape[0]):
+                    valid = lc.att_valid[a]
+                    if valid.any():
+                        reach[lc.att_global[a][valid]] = r_a[valid]
+                    r_a = r_a * pf
+            new = np.bincount(
+                compiled.hop_service, weights=reach, minlength=S
+            )
+            delta = np.abs(new - visits).max() / max(new.max(), 1e-12)
+            visits = 0.5 * visits + 0.5 * new
+            if delta < tol:
+                break
+        return visits
