@@ -8,26 +8,37 @@ any failure exits non-zero and nothing is caught:
 
 1. card: name and power limit from ``nvidia-smi``;
 2. build: compile the census kernel (``isotope_tpu_torch/native/csrc``)
-   with ``nvcc`` for ``sm_90a``;
+   with ``nvcc`` for ``sm_90a`` and print what ``ptxas -v`` says of
+   each kernel (registers, shared memory, spills);
 3. kernel: hold the kernel against its plain torch version on the card
    at every census shape of the main path (each level with children of
-   the three runs of phase 5 and of the closed loop's rate pilot, as
-   ``Simulator.census_shapes`` gives them) and at fixture shapes (rtol
-   1e-5: the plain version's ``cumsum`` may associate differently), and
-   time both per block of each run, with the L2 cache flushed before
-   every launch;
-4. in situ: one block of 16,384 requests of the flagship tree (1000 qps)
-   and of the retry/timeout/error topology (500 qps), with the same draws, on the card
-   (kernel) and on the CPU (plain version), compared like the CPU tests
-   compare the port with the JAX package;
+   the four runs of phase 5 and of the closed loop's rate pilot, as
+   ``Simulator.census_shapes`` gives them), at the default blocks of
+   ``realistic-star-50.yaml`` and ``realistic-star-auxiliary-50.yaml``
+   and at fixture shapes, among them a 4,096-step axis (rtol 1e-5: the
+   plain version's ``cumsum`` may associate differently), and bit for
+   bit against ``census_sequential``, the kernel's own order of
+   operations in plain torch.  Then, per census call of one block of each
+   of those six configurations, print the kernel's device-only time
+   (``torch.profiler``'s device time for the kernel's own name, L2
+   flushed before every launch), its bound and share of bound, the
+   wrapper's host cost (host clock over a few hundred enqueues) and the
+   plain version's time, and per block the sums;
+4. in situ: one block of 16,384 requests of the flagship tree (1000 qps),
+   of the retry/timeout/error topology (500 qps) and of
+   ``realistic-powerlaw-100.yaml`` (6,500 qps), with the same draws, on
+   the card (kernel) and on the CPU (plain version), compared like the
+   CPU tests compare the port with the JAX package;
 5. main path at full size, after one warm-up block of each run (the
    warm-up also solves and caches the closed loop's rate from the same
    seed, so the timed closed-loop run skips the pilot): the flagship
    (121 hops) open loop at 100k qps in 4 blocks of 262,144 requests,
    ``1000-svc_2000-end.yaml`` open loop at 10k qps in blocks of 32,768,
-   and ``canonical.yaml`` paced closed loop at the CLI defaults; the
-   launch count is set to 0 just before each run and must equal its
-   blocks times its census calls per block just after;
+   ``canonical.yaml`` paced closed loop at the CLI defaults, and
+   ``realistic-powerlaw-100.yaml`` open loop at 6,500 qps (half its
+   capacity) in 2 blocks of its default 335,544; the launch count is set
+   to 0 just before each run and must equal its blocks times its census
+   calls per block just after;
 6. the CLI once on the card, as a subprocess.
 
 It then prints the kernel table as one JSON line and, last, the result
@@ -83,7 +94,13 @@ services:
 FIXTURE_SHAPES = (
     [((13, 37, 5), f, e) for f in (False, True) for e in (False, True)]
     + [((4096, 512, 64), True, True)]
+    # a step axis far past any tile the kernel stages whole
+    + [((64, 3, 4096), True, True)]
 )
+
+# configurations whose census calls phase 3 checks and times but that
+# phase 5 does not run, at their default blocks
+CENSUS_ONLY_TOPOLOGIES = ("realistic-star-50", "realistic-star-auxiliary-50")
 
 # the closed-loop rate pilot's block (``Simulator.solve_closed_rate``)
 PILOT_N = 2048
@@ -134,8 +151,9 @@ def census_bound_ms(n, b, p, with_fail, with_err):
 
 
 def time_ms(fn, flush, reps=20):
-    """Mean device time of ``fn`` over ``reps`` launches, each after an
-    L2 flush, with CUDA events around the call only."""
+    """Mean time of ``fn`` over ``reps`` calls, each after an L2 flush,
+    with CUDA events around the call only: device time plus whatever
+    host time the call's launches leave the device idle."""
     fn()
     torch.cuda.synchronize()
     events = []
@@ -151,56 +169,126 @@ def time_ms(fn, flush, reps=20):
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def kernel_phase(census_mod, runs):
-    """Check the kernel at every census shape of ``runs`` and at the
-    fixtures; time it per block of each run.  Returns the largest error
-    and the times per flagship block (the first run)."""
+def device_ms(fn, flush, reps=20):
+    """Mean device-only time of the census kernel in ``fn``: the
+    profiler's device time for kernels whose name holds ``census``, over
+    ``reps`` calls, each after an L2 flush."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "census" in e.key
+    ]
+    count = sum(e.count for e in kernels)
+    total_us = sum(
+        getattr(e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))
+        for e in kernels
+    )
+    if count != reps or total_us <= 0:
+        raise AssertionError(
+            f"profiler: {count} census kernels with {total_us} us of device "
+            f"time, expected {reps} launches"
+        )
+    return total_us / count / 1e3
+
+
+def host_us(fn, reps=300):
+    """The wrapper's host cost per call: host clock over ``reps``
+    enqueues, without waiting for the device, divided by the count."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def census_check_shapes(runs, census_only):
+    """Every census shape phase 3 checks, in order, without repeats: the
+    main path's (with the closed loop's rate pilot), the census-only
+    configurations' and the fixtures."""
     shapes = []
     for _, sim, load, _, block in runs:
         shapes += sim.census_shapes(block)
         if load.kind == "closed":
             shapes += sim.census_shapes(PILOT_N)
+    for _, sim, block in census_only:
+        shapes += sim.census_shapes(block)
     shapes += [(n, b, p, f, e) for (n, b, p), f, e in FIXTURE_SHAPES]
+    return list(dict.fromkeys(shapes))
+
+
+def kernel_phase(census_mod, runs, census_only):
+    """Check the kernel at every census shape of ``runs`` and
+    ``census_only`` and at the fixtures; time it per call and per block
+    of each.  Returns the largest error, the times per flagship block
+    (the first run) and the device ms per block of each."""
     max_err = 0.0
-    for n, b, p, with_fail, with_err in dict.fromkeys(shapes):
+    for n, b, p, with_fail, with_err in census_check_shapes(
+        runs, census_only
+    ):
         args = census_inputs(n, b, p, with_fail, with_err)
         busy, excl = census_mod.census(*args)
         ref_busy, ref_excl = census_mod.census_reference(*args)
+        seq_busy, seq_excl = census_mod.census_sequential(*args)
         torch.cuda.synchronize()
         torch.testing.assert_close(busy, ref_busy, rtol=KERNEL_RTOL, atol=0)
         torch.testing.assert_close(excl, ref_excl, rtol=KERNEL_RTOL, atol=0)
+        if not (torch.equal(busy, seq_busy) and torch.equal(excl, seq_excl)):
+            raise AssertionError(
+                f"kernel {n}x{b}x{p}: differs from its sequential twin"
+            )
         err = max(
             float((busy - ref_busy).abs().max()),
             float((excl - ref_excl).abs().max()),
         )
         max_err = max(max_err, err)
         log(f"kernel ok {n}x{b}x{p} fail={with_fail} err={with_err} "
-            f"max_abs_err={err:.3e}")
+            f"max_abs_err={err:.3e} (bit-equal to the sequential twin)")
 
-    # time each run's census calls of one block, L2 flushed before each
-    # launch
+    # time each configuration's census calls of one block, L2 flushed
+    # before each launch
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    per_run = []
-    for name, sim, _, _, block in runs:
+    blocks = [(name, sim, block) for name, sim, _, _, block in runs]
+    per_block = []
+    for name, sim, block in blocks + list(census_only):
         ms = plain_ms = bound_ms = 0.0
         for shape in sim.census_shapes(block):
             args = census_inputs(*shape, seed=1)
-            k = time_ms(lambda: census_mod.census(*args), flush)
-            r = time_ms(lambda: census_mod.census_reference(*args), flush)
+            k = device_ms(lambda: census_mod.census(*args), flush)
+            host = host_us(lambda: census_mod.census(*args))
+            r = time_ms(lambda: census_mod.census_reference(*args), flush,
+                        reps=5)
             bd = census_bound_ms(*shape)
-            n, b, p = shape[:3]
-            log(f"kernel time {n}x{b}x{p}: {k:.4f} ms, plain {r:.4f} ms, "
-                f"bound {bd:.4f} ms (bytes)")
+            n, b, p, f, e = shape
+            log(f"kernel time {n}x{b}x{p} fail={f} err={e}: device "
+                f"{k:.4f} ms (profiler), bound {bd:.4f} ms (bytes), "
+                f"{bd / k:.1%} of bound; plain {r:.4f} ms")
+            log(f"kernel host {n}x{b}x{p}: {host:.1f} us per call "
+                f"(wrapper, host clock over 300 enqueues)")
             ms += k
             plain_ms += r
             bound_ms += bd
         log(f"kernel time per {name} block "
-            f"({len(sim.census_shapes(block))} calls): {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
-        per_run.append((ms, plain_ms, bound_ms))
-    ms, plain_ms, bound_ms = per_run[0]
+            f"({len(sim.census_shapes(block))} calls): device {ms:.4f} ms,"
+            f" bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of bound; "
+            f"plain {plain_ms:.4f} ms")
+        per_block.append((name, ms, plain_ms, bound_ms))
+    _, ms, plain_ms, bound_ms = per_block[0]
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms)
+                bound_ms=bound_ms,
+                ms_per_block={name: t for name, t, _, _ in per_block})
 
 
 # -- phase 4: in situ, card against CPU ---------------------------------------
@@ -243,20 +331,20 @@ def in_situ_phase(port, graphs):
 # -- phase 5: the main path at full size -----------------------------------------
 
 
-def main_path_runs(port, flagship_graph):
-    """The three runs of the main path: (name, simulator, load,
+def main_path_runs(port, flagship_graph, device="cuda"):
+    """The four runs of the main path: (name, simulator, load,
     requests, block size)."""
     flagship = port.Simulator(port.compile_graph(flagship_graph),
-                              device="cuda")
+                              device=device)
     svc1000 = port.Simulator(
         port.compile_graph(port.ServiceGraph.from_yaml_file(
             TOPOLOGIES / "1000-svc_2000-end.yaml")),
-        device="cuda",
+        device=device,
     )
     canonical = port.Simulator(
         port.compile_graph(port.ServiceGraph.from_yaml_file(
             TOPOLOGIES / "canonical.yaml")),
-        device="cuda",
+        device=device,
     )
     conns = 64
     closed = port.LoadModel(kind="closed", qps=1000.0, connections=conns,
@@ -267,13 +355,36 @@ def main_path_runs(port, flagship_graph):
     closed_block = (
         min(canonical.default_block_size(), closed_n) // conns * conns
     )
+    powerlaw = port.Simulator(
+        port.compile_graph(port.ServiceGraph.from_yaml_file(
+            TOPOLOGIES / "realistic-powerlaw-100.yaml")),
+        device=device,
+    )
+    powerlaw_block = powerlaw.default_block_size()
     return [
         ("flagship", flagship, port.LoadModel(kind="open", qps=1e5),
          4 * 262_144, 262_144),
         ("1000-svc_2000-end", svc1000, port.LoadModel(kind="open", qps=1e4),
          262_144, 32_768),
         ("canonical closed c=64", canonical, closed, closed_n, closed_block),
+        ("realistic-powerlaw-100", powerlaw,
+         port.LoadModel(kind="open", qps=powerlaw.capacity_qps() / 2),
+         2 * powerlaw_block, powerlaw_block),
     ]
+
+
+def census_only_configs(port, device="cuda"):
+    """(name, simulator, default block) of the topologies whose census
+    calls phase 3 holds and times beside the main path's."""
+    out = []
+    for name in CENSUS_ONLY_TOPOLOGIES:
+        sim = port.Simulator(
+            port.compile_graph(port.ServiceGraph.from_yaml_file(
+                TOPOLOGIES / f"{name}.yaml")),
+            device=device,
+        )
+        out.append((name, sim, sim.default_block_size()))
+    return out
 
 
 def main_path_run(port, name, sim, load, n, block):
@@ -382,16 +493,19 @@ def main() -> int:
     t = time.perf_counter()
     lib = census_mod.LIBRARY.build()
     log(f"build: {lib.name} in {time.perf_counter() - t:.2f} s")
+    log(census_mod.LIBRARY.build_log.strip())
 
     flagship_graph = ServiceGraph.decode(tree_topology(
         num_levels=5, num_branches=3, request_size=1024, response_size=1024,
     ))
     runs = main_path_runs(port, flagship_graph)
-    timing = kernel_phase(census_mod, runs)
+    timing = kernel_phase(census_mod, runs, census_only_configs(port))
 
     in_situ_phase(port, [
         ("flagship", flagship_graph, 1e3),
         ("census-test", ServiceGraph.from_yaml(CENSUS_YAML), 500.0),
+        ("realistic-powerlaw-100", ServiceGraph.from_yaml_file(
+            TOPOLOGIES / "realistic-powerlaw-100.yaml"), 6500.0),
     ])
 
     by_path = main_path_phase(port, runs)
@@ -407,6 +521,7 @@ def main() -> int:
         "launches_by_path": by_path,
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"],
+        "ms_per_block": timing["ms_per_block"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": "bytes",

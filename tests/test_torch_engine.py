@@ -187,6 +187,11 @@ def test_ndtr_matches_reference_in_both_tails():
         ("canonical", 2048, 1000.0),
         ("census", 2048, 500.0),
         ("1000-svc_2000-end", 256, 1000.0),
+        # wide scripts: census steps P = 20 and 26 with error flags,
+        # 3 and 46, 14 and 19
+        ("realistic-powerlaw-100", 256, 200.0),
+        ("realistic-star-50", 256, 200.0),
+        ("realistic-star-auxiliary-50", 256, 200.0),
     ],
 )
 def test_open_loop_run_matches_reference(name, n, qps):
