@@ -11,35 +11,50 @@ any failure exits non-zero and nothing is caught:
    with ``nvcc`` for ``sm_90a`` and print what ``ptxas -v`` says of
    each kernel (registers, shared memory, spills);
 3. kernel: hold the kernel against its plain torch version on the card
-   at every census shape of the main path (each level with children of
-   the four runs of phase 5 and of the closed loop's rate pilot, as
-   ``Simulator.census_shapes`` gives them), at the default blocks of
+   at every census shape of the main path (each dense level with
+   children and each tile holding calls of the six runs of phase 5, and
+   of the closed loops' rate pilots, as ``Simulator.census_shapes`` gives
+   them: among them the star-10k block's tiles and its 1 x 5,021 root,
+   all with a fail step), at the default blocks of
    ``realistic-star-50.yaml`` and ``realistic-star-auxiliary-50.yaml``
    and at fixture shapes, among them a 4,096-step axis (rtol 1e-5: the
    plain version's ``cumsum`` may associate differently), and bit for
    bit against ``census_sequential``, the kernel's own order of
    operations in plain torch.  Then, per census call of one block of each
-   of those six configurations, print the kernel's device-only time
+   of those eight configurations, print the kernel's device-only time
    (``torch.profiler``'s device time for the kernel's own name, L2
    flushed before every launch), its bound and share of bound, the
    wrapper's host cost (host clock over a few hundred enqueues) and the
    plain version's time, and per block the sums;
-4. in situ: one block of 16,384 requests of the flagship tree (1000 qps),
-   of the retry/timeout/error topology (500 qps) and of
-   ``realistic-powerlaw-100.yaml`` (6,500 qps), with the same draws, on
-   the card (kernel) and on the CPU (plain version), compared like the
-   CPU tests compare the port with the JAX package;
+4. in situ: one block of the flagship tree (1000 qps), of the
+   retry/timeout/error topology (500 qps) and of
+   ``realistic-powerlaw-100.yaml`` (6,500 qps), 16,384 requests each, of
+   the star-10k graph with 30 s timeouts (3,355 requests at 6,500 qps)
+   and of ``canonical.yaml`` under ``-qps max`` (16,384 requests, 64
+   connections; its tables and rate solved once on the CPU and used by
+   both sides), with the same draws, on the card (kernel) and on the CPU
+   (plain version), compared like the CPU tests compare the port with
+   the JAX package;
 5. main path at full size, after one warm-up block of each run (the
-   warm-up also solves and caches the closed loop's rate from the same
-   seed, so the timed closed-loop run skips the pilot): the flagship
-   (121 hops) open loop at 100k qps in 4 blocks of 262,144 requests,
-   ``1000-svc_2000-end.yaml`` open loop at 10k qps in blocks of 32,768,
-   ``canonical.yaml`` paced closed loop at the CLI defaults, and
+   warm-up also solves and caches the closed loops' rates from the same
+   seed, so the timed closed-loop runs skip their pilots and tables): the
+   flagship (121 hops) open loop at 100k qps in 4 blocks of 262,144
+   requests, ``1000-svc_2000-end.yaml`` open loop at 10k qps in blocks
+   of 32,768, ``canonical.yaml`` paced closed loop at the CLI defaults,
    ``realistic-powerlaw-100.yaml`` open loop at 6,500 qps (half its
-   capacity) in 2 blocks of its default 335,544; the launch count is set
-   to 0 just before each run and must equal its blocks times its census
-   calls per block just after;
-6. the CLI once on the card, as a subprocess.
+   capacity) in 2 blocks of its default 335,544, the 10,000-service star
+   graph with 30 s timeouts (BASELINE configs[3]) open loop at 6,500 qps
+   (half its capacity) in 4 blocks of its default 3,355, and
+   ``canonical.yaml`` under ``-qps max`` (64 connections, 240 s, capped
+   at 1,000,000 requests: 2 blocks of 524,288); the host build times
+   (``Simulator(...)``, the saturated tables) are printed, the launch
+   count is set to 0 just before each run and must equal its blocks
+   times its census calls per block just after;
+6. the CLI as a subprocess: ``simulate`` once on the card; ``check`` on
+   ``canonical.yaml`` and ``simulate --qps max`` (50,000 requests each),
+   on the card and with ``--device cpu``: both ``check`` runs must give
+   the same exit code and alarm lines (values within rtol 1e-4), both
+   ``simulate`` runs a Fortio document.
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -50,6 +65,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +84,19 @@ F32_OPS_PER_S = 67e12
 
 KERNEL_RTOL = 1e-5
 RESULT_RTOL, RESULT_ATOL = 1e-5, 1e-9
+# saturated closed loop: the finite-population law's quantile map
+# v = -log1p(-u') magnifies one-ULP differences of its normals in the
+# far tail (tests/test_torch_closed.py)
+SAT_RTOL, SAT_ATOL = 1e-4, 1e-5
+# star-10k: the root's busy time is a float32 sum over 5,021 steps,
+# left to right in the kernel and vectorized in the CPU's plain version;
+# the two roundings drift apart by ~sqrt(5021) * 6e-8 = 4e-6 typically,
+# 2.0e-5 at most over 3,355 requests as measured on an H100
+STAR_RTOL = 1e-4
+# check alarm values, card against CPU (utilization x replicas)
+CHECK_RTOL = 1e-4
+# requests of the check and -qps max CLI runs (phase 6)
+CLI_REQUESTS = 50_000
 
 # the retry/timeout/error topology of tests/test_census_pallas.py
 CENSUS_YAML = """
@@ -104,6 +133,10 @@ CENSUS_ONLY_TOPOLOGIES = ("realistic-star-50", "realistic-star-auxiliary-50")
 
 # the closed-loop rate pilot's block (``Simulator.solve_closed_rate``)
 PILOT_N = 2048
+# the saturated tables' fork-join pilots (``Simulator._sat_pilot``)
+SAT_PILOT_N = 32_768
+# BASELINE configs[3]: the 10k realistic star graph with 30 s timeouts
+STAR10K_QPS = 6500.0
 
 
 def log(msg: str) -> None:
@@ -222,7 +255,9 @@ def census_check_shapes(runs, census_only):
     for _, sim, load, _, block in runs:
         shapes += sim.census_shapes(block)
         if load.kind == "closed":
-            shapes += sim.census_shapes(PILOT_N)
+            shapes += sim.census_shapes(
+                SAT_PILOT_N if load.qps is None else PILOT_N
+            )
     for _, sim, block in census_only:
         shapes += sim.census_shapes(block)
     shapes += [(n, b, p, f, e) for (n, b, p), f, e in FIXTURE_SHAPES]
@@ -294,46 +329,76 @@ def kernel_phase(census_mod, runs, census_only):
 # -- phase 4: in situ, card against CPU ---------------------------------------
 
 
-def compare_results(got, want, what):
+def compare_results(got, want, what, rtol=RESULT_RTOL, atol=RESULT_ATOL):
+    """Booleans exactly, float fields within ``rtol``/``atol``; returns
+    the largest difference of the float fields as a share of its
+    tolerance ``atol + rtol * |want|`` (at most 1)."""
     for name in ("hop_sent", "hop_error", "client_error", "unstable"):
         a = getattr(got, name).cpu()
         b = getattr(want, name).cpu()
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: {name} differs")
+    worst = 0.0
     for name in ("client_start", "client_latency", "hop_latency",
                  "hop_start", "utilization"):
+        a = getattr(got, name).cpu().double()
+        b = getattr(want, name).cpu().double()
         torch.testing.assert_close(
-            getattr(got, name).cpu(), getattr(want, name).cpu(),
-            rtol=RESULT_RTOL, atol=RESULT_ATOL, msg=lambda m: f"{what}: {m}",
+            a, b, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}",
         )
+        worst = max(worst, float(((a - b).abs() / (
+            atol + rtol * b.abs())).max()))
+    return worst
 
 
-def in_situ_phase(port, graphs):
-    for name, graph, qps in graphs:
+def share_closed_tables(src, dst, connections):
+    """Hand ``src``'s saturated tables (solved once) to ``dst``, on its
+    device, so both runs sample the same finite-population law."""
+    dst._closed_cache[connections] = tuple(
+        x.to(dst.device) if isinstance(x, torch.Tensor) else x
+        for x in src._closed_tables(connections)
+    )
+
+
+def in_situ_phase(port, cases):
+    """``cases``: (name, graph, load, requests, rtol, atol)."""
+    for name, graph, load, n, rtol, atol in cases:
         compiled = port.compile_graph(graph)
         source = port.TorchDraws(11, "cuda")
-        load = port.LoadModel(kind="open", qps=qps)
+        on_cpu_sim = port.Simulator(compiled, device="cpu")
+        card_sim = port.Simulator(compiled, device="cuda")
+        if load.qps is None:
+            on_cpu_sim.solve_closed_rate(load, n, source)
+            share_closed_tables(on_cpu_sim, card_sim, load.connections)
         before = port.census.launches
-        on_card = port.Simulator(compiled, device="cuda").run(
-            load, 16_384, source
-        )
+        on_card = card_sim.run(load, n, source)
         torch.cuda.synchronize()
         if port.census.launches == before:
             raise AssertionError(f"in situ {name}: kernel never launched")
-        on_cpu = port.Simulator(compiled, device="cpu").run(
-            load, 16_384, source
-        )
-        compare_results(on_card, on_cpu, f"in situ {name}")
+        on_cpu = on_cpu_sim.run(load, n, source)
+        worst = compare_results(on_card, on_cpu, f"in situ {name}", rtol,
+                                atol)
         log(f"in situ ok {name}: card (kernel) == cpu (plain), "
-            f"{int(on_card.hop_events)} hop events")
+            f"{int(on_card.hop_events)} hop events, largest difference "
+            f"{worst:.3f} of its tolerance (rtol {rtol:g}, atol {atol:g} s)")
 
 
 # -- phase 5: the main path at full size -----------------------------------------
 
 
-def main_path_runs(port, flagship_graph, device="cuda"):
-    """The four runs of the main path: (name, simulator, load,
-    requests, block size)."""
+def star10k_graph(port):
+    """BASELINE configs[3]: the 10,000-service realistic star graph with
+    30 s call timeouts."""
+    return port.ServiceGraph.decode(port.with_call_policy(
+        port.realistic_topology(10_000, archetype="star", seed=0),
+        timeout="30s",
+    ))
+
+
+def main_path_runs(port, flagship_graph, device="cuda", build_s=None):
+    """The six runs of the main path: (name, simulator, load, requests,
+    block size).  ``build_s`` collects the host seconds of the star-10k
+    graph's generation, compilation and ``Simulator``."""
     flagship = port.Simulator(port.compile_graph(flagship_graph),
                               device=device)
     svc1000 = port.Simulator(
@@ -361,6 +426,25 @@ def main_path_runs(port, flagship_graph, device="cuda"):
         device=device,
     )
     powerlaw_block = powerlaw.default_block_size()
+    t = time.perf_counter()
+    star_graph = star10k_graph(port)
+    t_graph = time.perf_counter()
+    star_compiled = port.compile_graph(star_graph)
+    t_compile = time.perf_counter()
+    star = port.Simulator(star_compiled, device=device)
+    t_sim = time.perf_counter()
+    if build_s is not None:
+        build_s.update(star10k_graph=t_graph - t,
+                       star10k_compile=t_compile - t_graph,
+                       star10k_simulator=t_sim - t_compile)
+    star_block = star.default_block_size()
+    # -qps max: its own Simulator, so its tables are built (and timed)
+    # apart from the paced run's
+    sat = port.Simulator(canonical.compiled, device=device)
+    sat_load = port.LoadModel(kind="closed", qps=None, connections=conns,
+                              duration_s=240.0)
+    sat_n = min(int(sat.capacity_qps() * 240.0), 1_000_000)
+    sat_block = min(sat.default_block_size(), sat_n) // conns * conns
     return [
         ("flagship", flagship, port.LoadModel(kind="open", qps=1e5),
          4 * 262_144, 262_144),
@@ -370,6 +454,10 @@ def main_path_runs(port, flagship_graph, device="cuda"):
         ("realistic-powerlaw-100", powerlaw,
          port.LoadModel(kind="open", qps=powerlaw.capacity_qps() / 2),
          2 * powerlaw_block, powerlaw_block),
+        ("star-10k-timeouts", star,
+         port.LoadModel(kind="open", qps=STAR10K_QPS), 4 * star_block,
+         star_block),
+        ("canonical-qps-max", sat, sat_load, sat_n, sat_block),
     ]
 
 
@@ -388,7 +476,7 @@ def census_only_configs(port, device="cuda"):
 
 
 def main_path_run(port, name, sim, load, n, block):
-    """One timed run; returns its census launches."""
+    """One timed run; returns its summary and census launches."""
     torch.cuda.synchronize()
     port.census.launches = 0
     t = time.perf_counter()
@@ -402,8 +490,11 @@ def main_path_run(port, name, sim, load, n, block):
     blocks = max(1, -(-n // block))
     hop_events = float(summary.hop_events)
     qs = summary.quantiles_s((0.5, 0.9, 0.99))
-    if count != n:
-        raise AssertionError(f"{name}: count {count} != requests {n}")
+    # run_summary rounds the requests up to whole blocks
+    if count != blocks * block:
+        raise AssertionError(
+            f"{name}: count {count} != {blocks} blocks x {block}"
+        )
     if not np.all(np.isfinite(qs)) or not np.all(qs > 0):
         raise AssertionError(f"{name}: bad quantiles {qs}")
     per_block = len(sim.census_shapes(block))
@@ -412,17 +503,32 @@ def main_path_run(port, name, sim, load, n, block):
             f"{name}: {launches} census launches, expected {blocks} "
             f"blocks x {per_block}"
         )
-    log(f"main path {name}: {count} requests in {blocks} blocks, "
-        f"{wall / blocks * 1e3:.2f} ms per block, "
+    rate = (
+        load.qps if load.kind == "open"
+        else sim.solve_closed_rate(load, n, port.TorchDraws(0, "cuda"))
+    )
+    log(f"main path {name}: {count} requests in {blocks} blocks, offered "
+        f"{rate:.6g} qps, {wall / blocks * 1e3:.2f} ms per block, "
         f"{hop_events / wall:.4e} hop-events/s, p50/p90/p99 "
         f"{qs[0] * 1e3:.4f}/{qs[1] * 1e3:.4f}/{qs[2] * 1e3:.4f} ms, "
         f"census launches {launches} ({per_block} per block)")
     return summary, launches
 
 
-def main_path_phase(port, runs):
+def main_path_phase(port, runs, build_s):
     """Each run once, after one warm-up block of each; returns the census
     launches per run."""
+    # the saturated tables and rate first, timed as host planning (their
+    # fork-join pilots run on the card)
+    for name, sim, load, n, _ in runs:
+        if load.kind == "closed" and load.qps is None:
+            t = time.perf_counter()
+            sim.solve_closed_rate(load, n, port.TorchDraws(0, "cuda"))
+            torch.cuda.synchronize()
+            build_s[f"{name} tables"] = time.perf_counter() - t
+    log("host build: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in build_s.items()
+    ))
     # one block of each first, so the timed runs do not pay the caching
     # allocator's first growth and the first launches; the same seed as
     # the timed runs, so the closed loop's cached rate is that run's own
@@ -446,21 +552,86 @@ def main_path_phase(port, runs):
     return launches
 
 
-def cli_phase():
+# -- phase 6: the CLI --------------------------------------------------------
+
+
+def cli(*args, ok_codes=(0,)):
     out = subprocess.run(
-        [sys.executable, "-m", "isotope_tpu_torch", "simulate",
-         str(TOPOLOGIES / "canonical.yaml"), "--qps", "1000",
-         "--duration", "10s", "--load-kind", "open"],
+        [sys.executable, "-m", "isotope_tpu_torch", *args],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
     )
-    if out.returncode != 0:
-        raise AssertionError(f"CLI failed:\n{out.stderr}")
+    if out.returncode not in ok_codes:
+        raise AssertionError(
+            f"CLI {' '.join(args)} exited {out.returncode}:\n{out.stderr}"
+        )
+    return out
+
+
+def check_lines(err: str):
+    """(text, values) of a check's stderr lines, the numbers cut out."""
+    number = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
+    lines = [line for line in err.splitlines() if line.strip()]
+    return ([number.sub("#", line) for line in lines],
+            [[float(x) for x in number.findall(line)] for line in lines])
+
+
+def cli_phase():
+    canonical = str(TOPOLOGIES / "canonical.yaml")
+    out = cli("simulate", canonical, "--qps", "1000", "--duration", "10s",
+              "--load-kind", "open")
     doc = json.loads(out.stdout)
     count = doc["DurationHistogram"]["Count"]
     if count != 10_000:
         raise AssertionError(f"CLI: Count {count} != 10000")
     log(f"cli ok: {count} requests, p99 "
         f"{doc['DurationHistogram']['Percentiles'][3]['Value'] * 1e3:.4f} ms")
+
+    # check: card against CPU, same verdict and alarm lines.  The two
+    # runs draw from different generators (TorchDraws on the card's and
+    # on the CPU's torch generator), so only values that do not depend
+    # on the draws are held to CHECK_RTOL: those of the alarm lines here
+    # (the CPU alarm: utilization x replicas); the --debug query lines
+    # of the memory and request-rate estimates are printed, not compared
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t = time.perf_counter()
+        out = cli("check", canonical, "--max-requests", str(CLI_REQUESTS),
+                  "--debug", "--device", device, ok_codes=(0, 1))
+        verdict = "\n".join(
+            line for line in out.stderr.splitlines()
+            if line.startswith("ALARM:") or "checks passed" in line
+        )
+        runs[device] = (out.returncode, verdict, out.stderr,
+                        time.perf_counter() - t)
+    (rc_card, v_card, err_card, s_card), (rc_cpu, v_cpu, err_cpu, s_cpu) = (
+        runs["cuda"], runs["cpu"]
+    )
+    text_card, values_card = check_lines(v_card)
+    text_cpu, values_cpu = check_lines(v_cpu)
+    if rc_card != rc_cpu or text_card != text_cpu:
+        raise AssertionError(
+            f"check: card (rc {rc_card}) and cpu (rc {rc_cpu}) differ:\n"
+            f"{err_card}\n{err_cpu}"
+        )
+    for a, b in zip(values_card, values_cpu):
+        np.testing.assert_allclose(a, b, rtol=CHECK_RTOL)
+    log(f"cli check ok: exit code {rc_card} on the card and on the cpu "
+        f"({s_card:.1f} s / {s_cpu:.1f} s), alarm lines equal, values "
+        f"within rtol {CHECK_RTOL:g}")
+    log("cli check on the card: " + " | ".join(err_card.splitlines()))
+    log("cli check on the cpu: " + " | ".join(err_cpu.splitlines()))
+
+    for device in ("cuda", "cpu"):
+        out = cli("simulate", canonical, "--qps", "max", "--max-requests",
+                  str(CLI_REQUESTS), "--device", device)
+        doc = json.loads(out.stdout)
+        if doc["RequestedQPS"] != "max" or not (
+            doc["DurationHistogram"]["Count"] >= CLI_REQUESTS
+        ):
+            raise AssertionError(f"simulate --qps max on {device}: {doc}")
+        log(f"cli simulate --qps max ok on {device}: "
+            f"{doc['DurationHistogram']['Count']} requests, ActualQPS "
+            f"{doc['ActualQPS']:.6g}")
 
 
 def main() -> int:
@@ -469,7 +640,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from isotope_tpu_torch.compiler import compile_graph
-    from isotope_tpu_torch.models.generators import tree_topology
+    from isotope_tpu_torch.models.generators import (
+        realistic_topology,
+        tree_topology,
+        with_call_policy,
+    )
     from isotope_tpu_torch.models.graph import ServiceGraph
     from isotope_tpu_torch.native import census as census_mod
     from isotope_tpu_torch.sim import LoadModel, Simulator, TorchDraws
@@ -478,7 +653,8 @@ def main() -> int:
     port = SimpleNamespace(
         compile_graph=compile_graph, ServiceGraph=ServiceGraph,
         LoadModel=LoadModel, Simulator=Simulator, TorchDraws=TorchDraws,
-        census=census_mod.census,
+        census=census_mod.census, realistic_topology=realistic_topology,
+        with_call_policy=with_call_policy,
     )
 
     # full-precision float32 products everywhere (the copula matmul)
@@ -498,17 +674,28 @@ def main() -> int:
     flagship_graph = ServiceGraph.decode(tree_topology(
         num_levels=5, num_branches=3, request_size=1024, response_size=1024,
     ))
-    runs = main_path_runs(port, flagship_graph)
+    build_s = {}
+    runs = main_path_runs(port, flagship_graph, build_s=build_s)
     timing = kernel_phase(census_mod, runs, census_only_configs(port))
 
+    def open_case(name, graph, qps, n=16_384, rtol=RESULT_RTOL):
+        return (name, graph, LoadModel(kind="open", qps=qps), n, rtol,
+                RESULT_ATOL)
+
     in_situ_phase(port, [
-        ("flagship", flagship_graph, 1e3),
-        ("census-test", ServiceGraph.from_yaml(CENSUS_YAML), 500.0),
-        ("realistic-powerlaw-100", ServiceGraph.from_yaml_file(
+        open_case("flagship", flagship_graph, 1e3),
+        open_case("census-test", ServiceGraph.from_yaml(CENSUS_YAML), 500.0),
+        open_case("realistic-powerlaw-100", ServiceGraph.from_yaml_file(
             TOPOLOGIES / "realistic-powerlaw-100.yaml"), 6500.0),
+        open_case("star-10k-timeouts", star10k_graph(port), STAR10K_QPS,
+                  n=3355, rtol=STAR_RTOL),
+        ("canonical-qps-max", ServiceGraph.from_yaml_file(
+            TOPOLOGIES / "canonical.yaml"),
+         LoadModel(kind="closed", qps=None, connections=64), 16_384,
+         SAT_RTOL, SAT_ATOL),
     ])
 
-    by_path = main_path_phase(port, runs)
+    by_path = main_path_phase(port, runs, build_s)
     launches = sum(by_path.values())
     cli_phase()
 

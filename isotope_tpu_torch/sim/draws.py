@@ -7,24 +7,45 @@ elimination and copula dimensions, ``isotope_tpu/sim/engine.py``
 4761-4880, arrivals at 4885, service times at 4639-4660) — and is
 described by a :class:`DrawSpec` that the engine builds.
 
-A *draw source* maps an integer index and a spec to one :class:`Draws`.
-The indices are the integers the JAX engine folds into its key: ``None``
+A *draw source* maps an index and a spec to one :class:`Draws`.  The
+indices are the integers the JAX engine folds into its key: ``None``
 for the run's own key, ``i`` for closed-loop pilot ``i`` and
-``1_000_000 + b`` for summary block ``b`` (engine.py:2066, 4543).
-:class:`TorchDraws` draws every index from its own seeded
+``1_000_000 + b`` for summary block ``b`` (engine.py:2066, 4543); a
+tuple of integers folds each in turn.  ``source.with_seed(seed)`` is a
+source of the same kind at another root seed: the saturated closed
+loop's fixed-point pilots draw from ``with_seed(SAT_PILOT_SEED)`` at
+index ``(it, i)`` whatever the run's seed (engine.py:1722-1750,
+1840-1850).  :class:`TorchDraws` draws every index from its own seeded
 ``torch.Generator``; tests hand the engine the JAX engine's own draws
 through a source of the same shape, which is how the port is held to
 the reference draw for draw.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+#: a draw index: the run's own (None), one fold-in, or a path of them
+Index = Union[None, int, Tuple[int, ...]]
+
+
+def index_path(index: Index) -> Tuple[int, ...]:
+    """The fold-ins an index stands for, in order."""
+    if index is None:
+        return ()
+    if isinstance(index, tuple):
+        return index
+    return (index,)
+
 #: block-key offset of ``run_summary`` (the reference's fold_in salt)
 BLOCK_INDEX_BASE = 1_000_000
+
+#: root seed of the saturated closed loop's pilot runs (the reference's
+#: ``PRNGKey(20_260_730)``): fixed, so the solved throughput is a
+#: property of the topology, not of the run's seed
+SAT_PILOT_SEED = 20_260_730
 
 SVC_EXPONENTIAL = "exponential"  # unit exponentials (exponential, pareto)
 SVC_NORMAL = "normal"            # unit normals (lognormal)
@@ -37,11 +58,19 @@ class DrawSpec(NamedTuple):
     hops: int             # H
     need_send: bool       # u_send: some call has a send probability < 1
     need_err: bool        # u_err: some hop has a nonzero error rate
-    copula: bool          # z_h (+ z_small / z_call) instead of u_wait
+    copula: bool          # a copula: z_h (+ z_small / z_call), 7 streams
     sib_dim: int          # columns of z_small (0: no sibling copula)
     retry_dim: int        # columns of z_call (0: no retry copula)
     svc: Optional[str]    # SVC_EXPONENTIAL | SVC_NORMAL | None
     arrivals: bool        # arr: open-loop inter-arrival draws
+    # the saturated closed loop's wait law takes normals: z_h instead
+    # of u_wait even without a copula
+    saturated: bool = False
+
+    @property
+    def normal_wait(self) -> bool:
+        """z_h is drawn (and u_wait is not)."""
+        return self.copula or self.saturated
 
 
 class Draws(NamedTuple):
@@ -70,10 +99,10 @@ class Draws(NamedTuple):
         want = {
             "u_send": (n, h) if spec.need_send else None,
             "u_err": (n, h) if spec.need_err else None,
-            "z_h": (n, h) if spec.copula else None,
+            "z_h": (n, h) if spec.normal_wait else None,
             "z_small": (n, spec.sib_dim) if spec.sib_dim else None,
             "z_call": (n, spec.retry_dim) if spec.retry_dim else None,
-            "u_wait": None if spec.copula else (n, h),
+            "u_wait": None if spec.normal_wait else (n, h),
             "svc": (n, h) if spec.svc is not None else None,
             "arr": (n,) if spec.arrivals else None,
         }
@@ -90,22 +119,26 @@ class TorchDraws:
     """Draw source backed by ``torch.Generator``s on one device.
 
     Index ``i`` of seed ``s`` draws from a generator seeded by numpy's
-    ``SeedSequence([s, i])`` (``[s]`` for the run's own index ``None``),
-    so every block and pilot has an independent, reproducible stream.
+    ``SeedSequence([s, i])`` (``[s]`` for the run's own index ``None``,
+    ``[s, i, j]`` for the index path ``(i, j)``), so every block and
+    pilot has an independent, reproducible stream.
     """
 
     def __init__(self, seed: int, device="cuda"):
         self.seed = int(seed)
         self.device = torch.device(device)
 
-    def generator(self, index: Optional[int]) -> torch.Generator:
-        entropy = [self.seed] if index is None else [self.seed, int(index)]
+    def with_seed(self, seed: int) -> "TorchDraws":
+        return TorchDraws(seed, self.device)
+
+    def generator(self, index: Index) -> torch.Generator:
+        entropy = [self.seed] + [int(i) for i in index_path(index)]
         state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
         g = torch.Generator(device=self.device)
         g.manual_seed((int(state[0]) << 31) ^ int(state[1]))
         return g
 
-    def draws(self, index: Optional[int], spec: DrawSpec) -> Draws:
+    def draws(self, index: Index, spec: DrawSpec) -> Draws:
         g = self.generator(index)
         n, h = spec.n, spec.hops
         kw = dict(generator=g, device=self.device, dtype=torch.float32)
@@ -124,8 +157,8 @@ class TorchDraws:
         out = Draws(
             u_send=uniform(n, h) if spec.need_send else None,
             u_err=uniform(n, h) if spec.need_err else None,
-            z_h=normal(n, h) if spec.copula else None,
-            u_wait=None if spec.copula else uniform(n, h),
+            z_h=normal(n, h) if spec.normal_wait else None,
+            u_wait=None if spec.normal_wait else uniform(n, h),
         )
         svc = None
         if spec.svc == SVC_EXPONENTIAL:

@@ -10,13 +10,19 @@ requests is one tensor program over a (request x hop) grid:
   census join (max with the sleep floor, step mask, fail/error
   truncation, row sum, exclusive step prefix) runs in the hand-written
   CUDA kernel of ``native/census.py`` on the card;
+- a level whose dense (hops x steps) grid is pathological (one wide hub
+  among thousands of short scripts) is tiled: hops binned by script
+  width run the dense census on fixed-width tiles, and scripts wider
+  than the tile cap keep the sparse call-slot encoding (packed segment
+  sums over the call-bearing steps only);
 - a downward sweep decides which hops were actually sent, and a second
   one assigns absolute start times;
 - arrivals are a Poisson cumsum (open loop) or per-connection pacing
   (closed loop, Fortio's workers);
 - queueing waits are sampled from the M/M/k law at each service's
   offered load, with the sibling, hierarchical and retry Gaussian
-  copulas of the reference.
+  copulas of the reference; the saturated closed loop (``-qps max``)
+  samples the finite-population law of ``sim/closed.py`` instead.
 
 Random numbers come from a draw source (``sim/draws.py``), so the same
 draws can drive this engine and the JAX one.  The JAX engine groups
@@ -26,8 +32,7 @@ values (the JAX package pins buckets against unrolled levels).
 
 Not in this slice (each raises ``NotImplementedError`` naming its
 ROADMAP item): chaos, churn, mTLS, policies, rollouts, lb laws,
-attribution, timelines, ensembles, the saturated ``-qps max`` closed
-loop, and levels whose step encoding is tiled or sparse.
+attribution, timelines and ensembles.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ import torch.nn.functional as F
 from isotope_tpu_torch.compiler import buckets
 from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
 from isotope_tpu_torch.native.census import census
-from isotope_tpu_torch.sim import queueing
+from isotope_tpu_torch.sim import closed, queueing
 from isotope_tpu_torch.sim.config import (
     CLOSED_LOOP,
     OPEN_LOOP,
@@ -53,6 +58,7 @@ from isotope_tpu_torch.sim.config import (
 )
 from isotope_tpu_torch.sim.draws import (
     BLOCK_INDEX_BASE,
+    SAT_PILOT_SEED,
     SVC_EXPONENTIAL,
     SVC_NORMAL,
     Draws,
@@ -116,13 +122,15 @@ class SimResults(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class _Level:
-    """Device-resident constants for one depth level (dense encoding)."""
+    """Device-resident constants for one depth level."""
 
     offset: int                     # start of this level's slice in hop order
     size: int
     pmax: int
-    step_mask: torch.Tensor         # (L, Pmax) f32 — 1 where a real step
-    step_base: torch.Tensor         # (L, Pmax) f32
+    # dense step grid; None for a tiled or sparse level, whose (L, Pmax)
+    # grid is exactly what those encodings avoid materializing
+    step_mask: Optional[torch.Tensor]  # (L, Pmax) f32 — 1 where a real step
+    step_base: Optional[torch.Tensor]  # (L, Pmax) f32
     child_seg: torch.Tensor         # (C,) i64 — parent_local * Pmax + step
     child_parent_local: torch.Tensor  # (C,) i64
     child_step: torch.Tensor        # (C,) i32 — step index within the parent
@@ -145,6 +153,10 @@ class _Level:
     uniform_calls: Optional[int] = None
     # call-free levels: busy time is fully static — (L,) seconds
     leaf_busy: Optional[torch.Tensor] = None
+    # sparse call-slot step encoding of a skewed wide level; None = dense
+    sparse: Optional["_SparseSteps"] = None
+    # dense-blocked tiling of a skewed wide level; exclusive with sparse
+    tiled: Optional["_TiledSteps"] = None
 
     @property
     def num_children(self) -> int:
@@ -186,6 +198,375 @@ def _call_outcome(t, timeout):
     if timeout is None:
         return None, t
     return t > timeout, torch.minimum(t, timeout)
+
+
+def _const(x, dtype, device) -> torch.Tensor:
+    """A host array as a constant tensor on ``device``."""
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _slot_max(dur_call, n, rows, width, call_seg, uniform):
+    """(n, rows, width) per-step census of concurrent calls: the max
+    duration of the calls at each (parent, step) slot, 0 where none."""
+    if uniform is not None:
+        # call_seg == repeat(arange(rows * width), c): reshape-reduce
+        return dur_call.reshape(n, rows, width, uniform).amax(-1)
+    return torch.zeros(
+        (n, rows * width), dtype=F32, device=dur_call.device
+    ).scatter_reduce_(
+        1, call_seg.expand(n, -1), dur_call, "amax", include_self=True,
+    ).reshape(n, rows, width)
+
+
+def _fail_min(final_transport, call_step, call_row, n, rows, width, P,
+              uniform):
+    """(n, rows) first transport-failed step of each row; sentinel ``P``
+    where no call failed."""
+    fail_contrib = torch.where(final_transport, call_step, P).to(torch.int32)
+    if uniform is not None:
+        return fail_contrib.reshape(n, rows, width * uniform).amin(-1)
+    return torch.full(
+        (n, rows), P, dtype=torch.int32, device=final_transport.device
+    ).scatter_reduce_(
+        1, call_row.expand(n, -1), fail_contrib, "amin", include_self=True,
+    )
+
+
+# -- non-dense step encodings of skewed wide levels ---------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _SparseSteps:
+    """Call-slot step encoding for skewed wide levels.
+
+    One dynamic slot per CALL-BEARING step only: pure-sleep steps fold
+    into static per-hop totals and prefixes, per-hop busy times are
+    packed segment sums (cumsum minus segment starts — no (L x P)
+    tensor ever materializes) and child start offsets gather static
+    sleep prefixes plus the dynamic call prefix at their slot.
+
+    A transport failure can only originate at a call-bearing step, so
+    the first failing slot of a hop (a scatter-min over the slot axis)
+    is its truncation point: slots past it are zeroed before the packed
+    prefix sums, the executed pure-sleep part comes from a static
+    per-slot sleep prefix, and children past the fail step take the
+    parent's truncated busy time as their offset (the dense grid's flat
+    prefix past the failure).
+    """
+
+    n_slots: int
+    slot_base: torch.Tensor          # (S,) f32 sleep floor of each call step
+    call_slot: Optional[torch.Tensor]  # (K,) i64 call -> slot; None: identity
+    has_slots: torch.Tensor          # (L,) bool
+    seg_first: torch.Tensor          # (L,) i64 first slot of the hop (safe 0)
+    seg_last: torch.Tensor           # (L,) i64 last slot of the hop (safe 0)
+    sleep_total: torch.Tensor        # (L,) f32 static pure-sleep busy seconds
+    child_sleep_prefix: torch.Tensor  # (C,) f32 static sleep before the step
+    child_slot: torch.Tensor         # (C,) i64 slot of the child's step
+    child_seg_first: torch.Tensor    # (C,) i64 first slot of the parent
+    slot_hop: torch.Tensor           # (S,) i64 local hop index of each slot
+    slot_step: torch.Tensor          # (S,) i32 step index of each slot
+    slot_sleep_prefix: torch.Tensor  # (S,) f32 static sleep before the slot
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tile:
+    """One dense sub-grid of a tiled level (see :class:`_TiledSteps`):
+    the level's step rows restricted to the tile's hops and truncated to
+    the tile width, so its census is the dense grid's on those rows."""
+
+    hops: np.ndarray                 # (T,) level-local hop indices, sorted
+    width: int                       # W — padded step width of the bin
+    step_mask: torch.Tensor          # (T, W) f32
+    step_base: torch.Tensor          # (T, W) f32
+    num_calls: int
+    call_sel: torch.Tensor           # (Kt,) i64 indices into level call order
+    call_pos: torch.Tensor           # (Kt,) i64 parent position within tile
+    call_step: torch.Tensor          # (Kt,) i32 step index within the parent
+    call_seg: torch.Tensor           # (Kt,) i64 call_pos * W + call_step
+    num_children: int
+    child_flat: torch.Tensor         # (Ct,) i64 child_pos * W + child_step
+    child_hop: torch.Tensor          # (Ct,) i64 level-local parent hop
+    uniform_calls: Optional[int]     # c when call_seg == repeat(arange, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class _TiledSteps:
+    """Dense-blocked encoding of a skewed wide level.
+
+    Hops are binned by script-width class into fixed-width tiles
+    (``compiler/buckets.plan_tiles``) and each tile runs the dense census
+    restricted to its rows; only scripts wider than the tile cap keep
+    the sparse call-slot encoding as a ``residual``.  Per-part busy,
+    fail and offset columns are put back into level order by the static
+    ``hop_inv`` / ``child_inv`` gathers.
+    """
+
+    tiles: Tuple[_Tile, ...]
+    residual: Optional[_SparseSteps]       # over the residual hops only
+    res_size: int                          # R, residual hop count
+    res_hops: Optional[torch.Tensor]       # (R,) i64 level-local indices
+    res_call_sel: Optional[torch.Tensor]   # (Kr,) i64 level call indices
+    res_num_children: int
+    res_child_pos: Optional[torch.Tensor]  # (Cr,) i64 parent among residual
+    res_child_step: Optional[torch.Tensor]  # (Cr,) i32
+    hop_inv: torch.Tensor                  # (L,) i64 concat -> level order
+    child_inv: torch.Tensor                # (C,) i64 concat -> level order
+
+
+def _sparse_tables(
+    num_hops: int,
+    pmax: int,
+    sleep_real: np.ndarray,      # (L, >=pmax) f64 — step_is_real * base
+    step_base: np.ndarray,       # (L, >=pmax)
+    call_seg_p: np.ndarray,      # (K,) parent_local * pmax + step
+    parent_local: np.ndarray,    # (C,)
+    child_step: np.ndarray,      # (C,)
+    device,
+) -> _SparseSteps:
+    """The sparse call-slot tables of one (possibly restricted) hop set:
+    the pure sparse encoding's, or a tiled level's residual part (inputs
+    already renumbered to the restricted order)."""
+    slot_segs = np.unique(call_seg_p)  # sorted
+    n_slots = len(slot_segs)
+    slot_hop = slot_segs // pmax
+    slot_step = slot_segs % pmax
+    call_slot_np = np.searchsorted(slot_segs, call_seg_p)
+    # slots are sorted by hop: the first and last slot of each hop
+    # (0 for a hop without slots)
+    hops = np.arange(num_hops)
+    lo = np.searchsorted(slot_hop, hops, "left")
+    hi = np.searchsorted(slot_hop, hops, "right")
+    has = hi > lo
+    seg_first = np.where(has, lo, 0)
+    seg_last = np.where(has, hi - 1, 0)
+    has_call_step = np.zeros((num_hops, pmax), bool)
+    has_call_step[slot_hop, slot_step] = True
+    sleep_only = sleep_real[:, :pmax] * ~has_call_step
+    sleep_prefix = np.cumsum(sleep_only, 1) - sleep_only
+    child_slot_np = np.searchsorted(
+        slot_segs, parent_local * pmax + child_step
+    )
+
+    def t(x, dtype):
+        return _const(x, dtype, device)
+
+    return _SparseSteps(
+        n_slots=n_slots,
+        slot_base=t(step_base[slot_hop, slot_step], F32),
+        call_slot=(
+            None
+            if np.array_equal(call_slot_np, np.arange(len(call_seg_p)))
+            else t(call_slot_np, torch.int64)
+        ),
+        has_slots=t(has, torch.bool),
+        seg_first=t(seg_first, torch.int64),
+        seg_last=t(seg_last, torch.int64),
+        sleep_total=t(sleep_only.sum(1), F32),
+        child_sleep_prefix=t(sleep_prefix[parent_local, child_step], F32),
+        child_slot=t(child_slot_np, torch.int64),
+        child_seg_first=t(seg_first[parent_local], torch.int64),
+        slot_hop=t(slot_hop, torch.int64),
+        slot_step=t(slot_step, torch.int32),
+        slot_sleep_prefix=t(sleep_prefix[slot_hop, slot_step], F32),
+    )
+
+
+def _uniform_calls(call_seg: np.ndarray, slots: int) -> Optional[int]:
+    """c when ``call_seg == repeat(arange(slots), c)``: every slot holds c
+    calls in order, and the per-slot max is a reshape-reduce."""
+    n_calls = len(call_seg)
+    if n_calls == 0 or n_calls % slots:
+        return None
+    c = n_calls // slots
+    if np.array_equal(call_seg, np.repeat(np.arange(slots), c)):
+        return c
+    return None
+
+
+def _build_tiled_steps(
+    plan,                        # buckets.TilePlan
+    pmax: int,
+    step_is_real: np.ndarray,    # (L, >=pmax) bool
+    step_base: np.ndarray,       # (L, >=pmax)
+    sleep_real: np.ndarray,      # (L, >=pmax) f64
+    call_seg_p: np.ndarray,      # (K,)
+    parent_local: np.ndarray,    # (C,)
+    child_step: np.ndarray,      # (C,)
+    device,
+) -> _TiledSteps:
+    """Lower one level's tile plan into device constants."""
+
+    def t(x, dtype):
+        return _const(x, dtype, device)
+
+    call_parent = call_seg_p // pmax
+    call_step_all = call_seg_p % pmax
+    # one-pass hop -> part map: selecting each part's calls and children
+    # is then a vectorized compare
+    num_hops = len(step_is_real)
+    part_of_hop = np.full(num_hops, -1, np.int64)
+    for ti, (_, hop_idx) in enumerate(plan.tiles):
+        part_of_hop[hop_idx] = ti
+    if len(plan.residual):
+        part_of_hop[plan.residual] = len(plan.tiles)
+    part_of_call = part_of_hop[call_parent]
+    part_of_child = part_of_hop[parent_local]
+    tiles: List[_Tile] = []
+    hop_parts: List[np.ndarray] = []
+    child_parts: List[np.ndarray] = []
+    for ti, (w, hop_idx) in enumerate(plan.tiles):
+        w = int(w)
+        call_sel = np.nonzero(part_of_call == ti)[0]
+        call_pos = np.searchsorted(hop_idx, call_parent[call_sel])
+        cstep = call_step_all[call_sel]
+        call_seg_t = call_pos * w + cstep
+        child_sel = np.nonzero(part_of_child == ti)[0]
+        child_pos = np.searchsorted(hop_idx, parent_local[child_sel])
+        tiles.append(_Tile(
+            hops=hop_idx,
+            width=w,
+            step_mask=t(step_is_real[hop_idx, :w], F32),
+            step_base=t(step_base[hop_idx, :w], F32),
+            num_calls=len(call_sel),
+            call_sel=t(call_sel, torch.int64),
+            call_pos=t(call_pos, torch.int64),
+            call_step=t(cstep, torch.int32),
+            call_seg=t(call_seg_t, torch.int64),
+            num_children=len(child_sel),
+            child_flat=t(child_pos * w + child_step[child_sel], torch.int64),
+            child_hop=t(hop_idx[child_pos], torch.int64),
+            uniform_calls=_uniform_calls(call_seg_t, len(hop_idx) * w),
+        ))
+        hop_parts.append(hop_idx)
+        child_parts.append(child_sel)
+    residual = None
+    res_hops = res_call_sel = res_child_pos = res_child_step = None
+    res_num_children = 0
+    if len(plan.residual):
+        res = plan.residual
+        res_part = len(plan.tiles)
+        call_sel_r = np.nonzero(part_of_call == res_part)[0]
+        call_pos_r = np.searchsorted(res, call_parent[call_sel_r])
+        call_seg_r = call_pos_r * pmax + call_step_all[call_sel_r]
+        child_sel_r = np.nonzero(part_of_child == res_part)[0]
+        parent_r = np.searchsorted(res, parent_local[child_sel_r])
+        child_step_r = child_step[child_sel_r]
+        residual = _sparse_tables(
+            len(res), pmax, sleep_real[res], step_base[res],
+            call_seg_r, parent_r, child_step_r, device,
+        )
+        res_hops = t(res, torch.int64)
+        res_call_sel = t(call_sel_r, torch.int64)
+        res_num_children = len(child_sel_r)
+        res_child_pos = t(parent_r, torch.int64)
+        res_child_step = t(child_step_r, torch.int32)
+        hop_parts.append(res)
+        child_parts.append(child_sel_r)
+    return _TiledSteps(
+        tiles=tuple(tiles),
+        residual=residual,
+        res_size=len(plan.residual),
+        res_hops=res_hops,
+        res_call_sel=res_call_sel,
+        res_num_children=res_num_children,
+        res_child_pos=res_child_pos,
+        res_child_step=res_child_step,
+        hop_inv=t(np.argsort(np.concatenate(hop_parts)), torch.int64),
+        child_inv=t(np.argsort(np.concatenate(child_parts)), torch.int64),
+    )
+
+
+def _sparse_level_sweep(
+    sp: _SparseSteps,
+    n: int,
+    P: int,
+    size: int,
+    dur_call: torch.Tensor,                  # (n, K)
+    final_transport: Optional[torch.Tensor],  # (n, K) bool
+    err_par: Optional[torch.Tensor],          # (n, size) parent 500 coins
+    child_parent_local: torch.Tensor,         # (C,) parent in [0, size)
+    child_step: torch.Tensor,                 # (C,) i32
+):
+    """The sparse call-slot sweep over one hop set.
+
+    Returns ``(busy, fail_step, off)``: per-hop busy seconds (not yet
+    500-zeroed; the level applies the error mask), the per-hop fail step
+    (sentinel ``P`` = no transport failure; ``None`` when none can
+    occur), and per-child start offsets (fail- and error-adjusted,
+    before any retry attempt offset).
+    """
+    dev = dur_call.device
+    S = sp.n_slots
+    if S == 0:
+        # call-free hop set (pure-sleep scripts wider than the tile
+        # cap): busy is static, nothing can fail, no children
+        busy = sp.sleep_total.expand(n, size)
+        off = torch.zeros((n, child_step.shape[0]), dtype=F32, device=dev)
+        return busy, None, off
+    if sp.call_slot is None:
+        slot_agg = dur_call
+        slot_fail = final_transport
+    else:
+        idx = sp.call_slot.expand(n, -1)
+        slot_agg = torch.zeros((n, S), dtype=F32, device=dev).scatter_reduce_(
+            1, idx, dur_call, "amax", include_self=True
+        )
+        slot_fail = (
+            torch.zeros((n, S), dtype=torch.int32, device=dev)
+            .scatter_reduce_(
+                1, idx, final_transport.to(torch.int32), "amax",
+                include_self=True,
+            ) > 0
+            if final_transport is not None
+            else None
+        )
+    dyn = torch.maximum(sp.slot_base, slot_agg)
+    fail_step = None
+    if slot_fail is not None:
+        slots = torch.arange(S, dtype=torch.int32, device=dev)
+        fail_slot = torch.full(
+            (n, size), S, dtype=torch.int32, device=dev
+        ).scatter_reduce_(
+            1, sp.slot_hop.expand(n, -1), torch.where(slot_fail, slots, S),
+            "amin", include_self=True,
+        )
+        failed = fail_slot < S
+        safe = torch.clamp(fail_slot, max=S - 1).to(torch.int64)
+        fail_step = torch.where(failed, sp.slot_step[safe], P)
+        # slots past the hop's fail step do not execute
+        dyn = torch.where(
+            sp.slot_step[None, :] <= fail_step[:, sp.slot_hop], dyn, 0.0
+        )
+        sleep_exec = torch.where(
+            failed, sp.slot_sleep_prefix[safe], sp.sleep_total
+        )
+    else:
+        sleep_exec = sp.sleep_total
+    # packed segment sums: one cumsum over every slot of every hop
+    pcs = torch.cumsum(dyn, 1)
+    excl = pcs - dyn
+    seg_sum = torch.where(
+        sp.has_slots, pcs[:, sp.seg_last] - excl[:, sp.seg_first], 0.0
+    )
+    busy = sleep_exec + seg_sum
+    off = (
+        sp.child_sleep_prefix
+        + excl[:, sp.child_slot]
+        - excl[:, sp.child_seg_first]
+    )
+    if fail_step is not None:
+        # children past the fail step are not sent; the dense grid's
+        # prefix is flat there (== the truncated busy time)
+        off = torch.where(
+            child_step <= fail_step[:, child_parent_local],
+            off, busy[:, child_parent_local],
+        )
+    if err_par is not None:
+        # a 500ing parent runs no steps (dense zeroes the grid before
+        # the prefix)
+        off = off * ~err_par[:, child_parent_local]
+    return busy, fail_step, off
 
 
 class Simulator:
@@ -299,40 +680,52 @@ class Simulator:
                 )
             )
             call_seg_p = call_local * pmax + call_step
-            slots = lvl.num_hops * pmax
-            uniform: Optional[int] = None
-            if n_calls > 0 and n_calls % slots == 0:
-                c = n_calls // slots
-                if np.array_equal(
-                    call_seg_p, np.repeat(np.arange(slots), c)
-                ):
-                    uniform = c
             sleep_real = lvl.step_is_real.astype(np.float64) * (
                 lvl.step_base
             )
+            # a level whose dense (hops x Pmax) grid is pathological
+            # leaves the dense path: the dense-blocked tiling by default,
+            # the pure sparse call-slot encoding with tiling off (the
+            # decision is compiler/buckets.level_encoding, shared with
+            # the reference's vet linter)
             leaf_busy = None
+            enc = "dense"
+            sparse = tiled = None
             if n_calls == 0:
                 leaf_busy = tensor(sleep_real.sum(1), F32)
             else:
-                enc, _ = buckets.level_encoding(
+                enc, tile_plan = buckets.level_encoding(
                     lvl.num_hops, pmax, len(np.unique(call_seg_p)),
                     lvl.step_is_real[:, :pmax].sum(1),
                     sparse_level_elems=params.sparse_level_elems,
                     tiling=params.sparse_tiling,
                     tile_pmax=params.sparse_tile_pmax,
                 )
-                if enc != "dense":
-                    raise _unsupported(
-                        f"a level with the {enc!r} step encoding",
-                        "tiled and sparse levels",
+                if enc == "tiled":
+                    tiled = _build_tiled_steps(
+                        tile_plan, pmax, lvl.step_is_real,
+                        lvl.step_base, sleep_real, call_seg_p,
+                        parent_local, child_step, dev,
                     )
+                elif enc == "sparse":
+                    sparse = _sparse_tables(
+                        lvl.num_hops, pmax, sleep_real, lvl.step_base,
+                        call_seg_p, parent_local, child_step, dev,
+                    )
+            dense = enc == "dense"
             levels.append(
                 _Level(
                     offset=offset,
                     size=lvl.num_hops,
                     pmax=pmax,
-                    step_mask=tensor(lvl.step_is_real[:, :pmax], F32),
-                    step_base=tensor(lvl.step_base[:, :pmax], F32),
+                    step_mask=(
+                        tensor(lvl.step_is_real[:, :pmax], F32)
+                        if dense else None
+                    ),
+                    step_base=(
+                        tensor(lvl.step_base[:, :pmax], F32)
+                        if dense else None
+                    ),
                     child_seg=tensor(
                         parent_local * pmax + child_step, torch.int64
                     ),
@@ -359,8 +752,13 @@ class Simulator:
                     finite_timeout=bool(
                         np.isfinite(lvl.call_timeout).any()
                     ),
-                    uniform_calls=uniform,
+                    uniform_calls=(
+                        _uniform_calls(call_seg_p, lvl.num_hops * pmax)
+                        if dense else None
+                    ),
                     leaf_busy=leaf_busy,
+                    sparse=sparse,
+                    tiled=tiled,
                 )
             )
             offset += lvl.num_hops
@@ -492,10 +890,29 @@ class Simulator:
         )
         self._rate_cache: Dict[tuple, float] = {}
 
+        # -- saturated closed loop (-qps max) -------------------------------
+        # The finite-population tables (sim/closed.py) are built lazily
+        # per connection count; squared coefficient of variation of the
+        # service time, which scales the census-conditional wait
+        self._closed_cache: Dict[int, tuple] = {}
+        self._closed_in: Optional[tuple] = None
+        if params.service_time == SERVICE_TIME_DETERMINISTIC:
+            self._svc_scv = 0.0
+        elif params.service_time == SERVICE_TIME_LOGNORMAL:
+            self._svc_scv = float(np.expm1(params.service_time_param**2))
+        elif params.service_time == SERVICE_TIME_PARETO:
+            a = params.service_time_param
+            self._svc_scv = 1.0 / (a * (a - 2.0)) if a > 2.01 else 25.0
+        else:
+            self._svc_scv = 1.0
+
     # -- draws ------------------------------------------------------------
 
-    def draw_spec(self, n: int, kind: str) -> DrawSpec:
-        """The random tensors one block of ``n`` requests consumes."""
+    def draw_spec(self, n: int, kind: str,
+                  saturated: bool = False) -> DrawSpec:
+        """The random tensors one block of ``n`` requests consumes;
+        ``saturated``: under the finite-population law of ``-qps max``,
+        which takes the flat sibling normals (no hierarchical mix)."""
         copula = self._copula_active or self._retry_active
         kind_svc = self.params.service_time
         if kind_svc == SERVICE_TIME_DETERMINISTIC:
@@ -513,7 +930,7 @@ class Simulator:
             sib_dim=(
                 (
                     self._copula_dim
-                    if self._copula_mix is not None
+                    if self._copula_mix is not None and not saturated
                     else self._num_sib_groups
                 )
                 if self._copula_active
@@ -524,11 +941,12 @@ class Simulator:
             ),
             svc=svc,
             arrivals=kind == OPEN_LOOP,
+            saturated=saturated,
         )
 
-    def _draws(self, source, index: Optional[int], n: int,
-               kind: str) -> Draws:
-        spec = self.draw_spec(n, kind)
+    def _draws(self, source, index, n: int, kind: str,
+               saturated: bool = False) -> Draws:
+        spec = self.draw_spec(n, kind, saturated)
         draws = source.draws(index, spec).to(self.device)
         draws.check(spec)
         return draws
@@ -549,12 +967,10 @@ class Simulator:
         return torch.tensor(x, dtype=F32, device=self.device)
 
     @staticmethod
-    def _check_load(load: LoadModel) -> None:
-        if load.kind == CLOSED_LOOP and load.qps is None:
-            raise _unsupported(
-                "the saturated closed loop (-qps max, sim/closed.py)",
-                "closed loop",
-            )
+    def _saturated(load: LoadModel) -> bool:
+        """True when the run samples the finite-population (MVA) wait
+        law: Fortio's ``-qps max`` closed loop."""
+        return load.kind == CLOSED_LOOP and load.qps is None
 
     def run(
         self,
@@ -565,11 +981,12 @@ class Simulator:
         """Simulate ``num_requests`` under ``load`` with draws from
         ``source`` (its index ``None``).
 
-        Open loop: the queues see exactly ``load.qps``.  Paced closed
-        loop: the rate the queues see is latency-dependent, solved by
-        :meth:`solve_closed_rate` before the run.
+        Open loop: the queues see exactly ``load.qps``.  Closed loop:
+        the rate the queues see is latency-dependent, solved by
+        :meth:`solve_closed_rate` before the run; ``-qps max``
+        (``qps=None``) issues without pacing at the closed network's
+        throughput and samples the finite-population wait law.
         """
-        self._check_load(load)
         if load.kind == OPEN_LOOP:
             res, _, _ = self._simulate_core(
                 num_requests, OPEN_LOOP, 0,
@@ -582,13 +999,15 @@ class Simulator:
             return res
         lam = self.solve_closed_rate(load, num_requests, source)
         c = load.connections
+        sat = self._saturated(load)
         res, _, _ = self._simulate_core(
             num_requests, CLOSED_LOOP, c,
-            self._draws(source, None, num_requests, CLOSED_LOOP),
-            self._scalar(lam), self._scalar(c / load.qps),
+            self._draws(source, None, num_requests, CLOSED_LOOP, sat),
+            self._scalar(lam), self._scalar(0.0 if sat else c / load.qps),
             self._scalar(lam), self._scalar(0.0),
             torch.zeros(c, dtype=F32, device=self.device),
             visits_pc=self._vis_arg(lam),
+            sat_conns=c if sat else 0,
         )
         return res
 
@@ -598,14 +1017,19 @@ class Simulator:
         num_requests: int,
         source,
     ) -> float:
-        """Equilibrium offered rate of Fortio's paced closed loop.
+        """Equilibrium offered rate of Fortio's closed loop.
 
+        ``-qps max``: the closed network's throughput, which the
+        finite-population tables compute (:meth:`_closed_tables`; their
+        fork-join refinement draws its pilots from
+        ``source.with_seed(SAT_PILOT_SEED)``).  Paced:
         ``g(lam) = min(qps, C / E[latency(lam)]) - lam`` is strictly
         decreasing with one root, found by bisection over short pilot
         runs (pilot ``i`` draws from index ``i`` of ``source``).  The
         rate is memoized per load shape.
         """
-        self._check_load(load)
+        if self._saturated(load):
+            return float(self._closed_tables(load.connections, source)[0][0])
         cache_key = (load.qps, load.connections, min(num_requests, 2048))
         if cache_key in self._rate_cache:
             return self._rate_cache[cache_key]
@@ -644,6 +1068,218 @@ class Simulator:
         self._rate_cache[cache_key] = lam
         return lam
 
+    # -- saturated closed loop: finite-population tables --------------------
+
+    def _closed_inputs(self):
+        """Closed-network model inputs (host, float64): fork-join cycle
+        factors per hop, the factor-weighted reach, and each hop's delay
+        weight (wire round trip plus own sleeps).
+
+        Each member of an m-wide concurrent group overlaps its siblings,
+        contributing ~H_m/m of its response to the request's cycle (H_m
+        the harmonic number); factors multiply down the unroll.
+        """
+        if self._closed_in is None:
+            compiled = self.compiled
+            net_out, net_back = hop_wire_times(compiled, self.params.network)
+            fj = np.ones(compiled.num_hops)
+            for lvl in compiled.levels:
+                if not len(lvl.child_ids):
+                    continue
+                seg_calls: Dict[int, int] = {}
+                for seg in lvl.call_seg:
+                    seg_calls[int(seg)] = seg_calls.get(int(seg), 0) + 1
+                factor = {
+                    seg: sum(1.0 / i for i in range(1, m + 1)) / m
+                    for seg, m in seg_calls.items()
+                }
+                parent_global = lvl.hop_ids[
+                    lvl.child_seg // compiled.max_steps
+                ]
+                fj[lvl.child_ids] = fj[parent_global] * np.asarray(
+                    [factor[int(s)] for s in lvl.child_seg]
+                )
+            hop_sleep = np.zeros(compiled.num_hops)
+            for lvl in compiled.levels:
+                hop_sleep[lvl.hop_ids] = (
+                    lvl.step_base * lvl.step_is_real
+                ).sum(1)
+            self._closed_in = (
+                fj, compiled.hop_reach * fj, net_out + net_back + hop_sleep
+            )
+        return self._closed_in
+
+    def _closed_tables(self, connections: int, source=None):
+        """Saturated-closed-loop sampling tables at ``connections``:
+        (throughput (1,) f64, p_zero (1, H), coef (1, D+1, H), e (1, H),
+        center_c (1,) f32 numpy, var_scale (1, H)), the tensors on the
+        run's device; built on first use (the fork-join pilots draw from
+        ``source``) and cached per C.  One row: the port has no chaos or
+        churn phases (ROADMAP queue 1, scenario physics).
+
+        ``center_c``/``var_scale`` realize the population copula:
+        z' = scale * (z - c * e * (e . z)) has exact unit marginals and
+        pairwise correlation rho (sim/closed.py) among the active hops.
+        """
+        if connections not in self._closed_cache:
+            if source is None:
+                raise ValueError(
+                    "the saturated closed-loop tables are built by "
+                    "solve_closed_rate (they need a draw source)"
+                )
+            thr, p0, coef, e, c, scale = self._closed_row(
+                connections, source
+            )
+
+            def t(x):
+                return _const(np.asarray(x)[None], F32, self.device)
+
+            self._closed_cache[connections] = (
+                np.asarray([thr]), t(p0), t(coef), t(e),
+                np.asarray([c], np.float32), t(scale),
+            )
+        return self._closed_cache[connections]
+
+    def _closed_row(self, connections: int, source):
+        """The closed-network tables of the run's one phase (numpy)."""
+        compiled = self.compiled
+        hs = compiled.hop_service
+        visits = self._visits_pc_np[0]
+        reps = np.maximum(compiled.services.replicas.astype(np.float64), 1.0)
+        fj, reach_r, delay_w = self._closed_inputs()
+        delay_r = float((reach_r * delay_w).sum())
+        cycle_visits_r = np.bincount(
+            hs, weights=reach_r, minlength=compiled.num_services
+        )
+        if bool((fj < 1.0).any()):
+            # fork-join: finite-source decomposition, the cycle refined
+            # through the ENGINE's own composition (max over siblings,
+            # copula) so Little's law closes: E[sampled latency] = C /
+            # lambda.  Sample E at a spread of cycles around the
+            # decomposition estimate, fit the locally-linear map
+            # E(c) ~ a + b c by least squares, and solve c* = a / (1 - b)
+            # (the map's contraction factor is ~0.9, so a plain
+            # iteration would amplify pilot noise ~10x).
+            lam, pi, cycle = closed.fork_join_decomposition(
+                visits, cycle_visits_r, reps, self._mu,
+                delay_r, connections,
+            )
+            pilot = self._sat_pilot(connections, source)
+
+            def t(x):
+                return _const(x, F32, self.device)
+
+            def census_at(c):
+                # the repairman sweep is itself a per-station fixed
+                # point in w; iterate it to convergence at cycle c
+                pi_c = pi
+                w_c = np.full(len(visits), 1.0 / self._mu)
+                for _ in range(4):
+                    pi_c, w_c = closed.repairman_marginals(
+                        visits, reps, self._mu, c, w_c, connections
+                    )
+                return pi_c
+
+            c0 = cycle
+            cs, es = [], []
+            for it, f in enumerate((0.85, 0.925, 1.0, 1.075, 1.15)):
+                c = c0 * f
+                pi_c = census_at(c)
+                p0, coef, _ = closed.tables_from_pi(
+                    pi_c, reps, self._mu, scv=self._svc_scv
+                )
+                e_c, cc, sc = self._center_terms(
+                    closed.census_sigma(pi_c), None, hs
+                )
+                es.append(float(pilot(
+                    it, t(p0[hs]), t(coef[:, hs]), t(e_c), t(cc), t(sc)
+                )))
+                cs.append(c)
+            b, a = np.polyfit(np.asarray(cs), np.asarray(es), 1)
+            if b < 0.98:  # sane slope: solve the linear map
+                # clamped to the sampled neighbourhood: the model is local
+                cycle = float(np.clip(a / (1.0 - b), 0.7 * c0, 1.6 * c0))
+            else:  # degenerate fit: keep the decomposition value
+                cycle = c0
+            pi = census_at(cycle)
+            p0, coef, _ = closed.tables_from_pi(
+                pi, reps, self._mu, scv=self._svc_scv
+            )
+            throughput = connections / cycle
+            # partial population centering for fork-join: the empirical
+            # target 0.25 * sum(sigma^2) (var_d=None), fit against the
+            # reference's DES oracle on tree13/star9
+            sigma = closed.census_sigma(pi)
+            var_d = None
+        else:
+            tabs = closed.closed_network_tables(
+                visits, cycle_visits_r, reps, self._mu,
+                delay_r, connections, scv=self._svc_scv,
+            )
+            p0, coef = tabs.p_zero, tabs.coef
+            throughput = tabs.throughput
+            sigma, var_d = tabs.sigma, tabs.var_delay
+        e_h, c_center, scale_h = self._center_terms(sigma, var_d, hs)
+        return (throughput, p0[hs], coef[:, hs], e_h, c_center, scale_h)
+
+    @staticmethod
+    def _center_terms(sigma, var_d, hs):
+        """Population-copula centering terms from census sigmas.
+
+        Linearize j_s ~ mean + sigma_s * z_s; the census constraint
+        sum_s j_s + j_d = C-1 means the sigma-weighted z-combination
+        must carry Var(j_delay), not the independent sum Sigma sigma^2
+        — shrink its projection: z' = (z - c * e * (e . z)) / norm,
+        c = 1 - sqrt(Vd / Ss^2).  ``var_d=None`` selects the fork-join
+        empirical target 0.25 * Ss^2.
+        """
+        c_center = 0.0
+        e_h = np.zeros(len(hs))
+        scale_h = np.ones(len(hs))
+        if sigma is not None:
+            # a station's weight spreads over its hops (independent
+            # draws): sigma/m per hop keeps multi-visit stations from
+            # dominating the projection
+            n_hops_s = np.bincount(hs, minlength=len(sigma))
+            sig_h = sigma[hs] / np.maximum(n_hops_s[hs], 1)
+            ss = float((sig_h**2).sum())
+            if var_d is None:
+                var_d = 0.25 * ss
+            if ss > 1e-18 and var_d < ss:
+                c_center = 1.0 - float(np.sqrt(max(var_d, 0.0) / ss))
+                e_h = sig_h / np.sqrt(ss)
+                shrink = (2 * c_center - c_center**2) * e_h**2
+                scale_h = 1.0 / np.sqrt(1.0 - shrink)
+        return e_h, c_center, scale_h
+
+    def _sat_pilot(self, connections: int, source, n: int = 32_768):
+        """Mean-latency probe of the fork-join fixed point: iteration
+        ``it`` averages two pilot runs of ``n`` requests under the given
+        quantile tables, drawn from index ``(it, i)`` of
+        ``source.with_seed(SAT_PILOT_SEED)`` — a fixed stream, so the
+        converged cycle does not depend on the run's seed (the fixed
+        point amplifies probe noise: a ~0.3% shift of the mean moved
+        the throughput by 5% in the reference's measurements)."""
+        pilots = source.with_seed(SAT_PILOT_SEED)
+        c = max(connections, 1)
+        one, zero = self._scalar(1.0), self._scalar(0.0)
+
+        def probe(it, p0_h, coef_h, e_h, c_ctr, scale_h):
+            means = []
+            for i in range(2):
+                res, _, _ = self._simulate_core(
+                    n, CLOSED_LOOP, connections,
+                    self._draws(pilots, (it, i), n, CLOSED_LOOP, True),
+                    one, zero, one, zero,
+                    torch.zeros(c, dtype=F32, device=self.device),
+                    sat_conns=connections,
+                    sat_override=(p0_h, coef_h, e_h, c_ctr, scale_h),
+                )
+                means.append(res.client_latency.mean())
+            return (means[0] + means[1]) / 2.0
+
+        return probe
+
     def run_summary(
         self,
         load: LoadModel,
@@ -651,6 +1287,7 @@ class Simulator:
         source,
         *,
         block_size: int = 65_536,
+        collector=None,
         trim: bool = False,
     ):
         """Simulate >= ``num_requests`` in memory-bounded blocks and
@@ -659,16 +1296,17 @@ class Simulator:
         A Python loop over blocks carries the open-loop clock ``t0`` and
         the per-connection clocks ``conn_t0`` from one block to the
         next, so the blocks form one continuous timeline; block ``b``
-        draws from index ``1_000_000 + b`` of ``source``.  ``trim=True``
-        also accumulates the collector's steady-state window (skip 62s,
-        cap 180s) into the ``win_*`` fields, placed from the run's
-        expected duration.  The per-service Prometheus series (the
-        reference's ``collector``) come with a later slice.
+        draws from index ``1_000_000 + b`` of ``source``.  ``collector``
+        (a ``metrics.prometheus.MetricsCollector``) adds each block's
+        per-service Prometheus series to ``RunSummary.metrics``.
+        ``trim=True`` also accumulates the collector's steady-state
+        window (skip 62s, cap 180s) into the ``win_*`` fields, placed
+        from the run's expected duration.
         """
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
-        self._check_load(load)
+        sat = self._saturated(load)
         if load.kind == OPEN_LOOP:
             offered = float(load.qps)
             pace = 0.0
@@ -677,7 +1315,8 @@ class Simulator:
         else:
             conns = load.connections
             offered = self.solve_closed_rate(load, num_requests, source)
-            pace = conns / load.qps
+            # -qps max: no pacing, the workers issue back to back
+            pace = 0.0 if sat else conns / load.qps
             # each connection needs at least one request per block, so
             # when connections > block_size the block grows to them
             per = max(1, min(block_size, num_requests) // conns)
@@ -700,11 +1339,13 @@ class Simulator:
         for b in range(num_blocks):
             res, t0, conn_t0 = self._simulate_core(
                 block, load.kind, conns,
-                self._draws(source, BLOCK_INDEX_BASE + b, block, load.kind),
+                self._draws(source, BLOCK_INDEX_BASE + b, block, load.kind,
+                            sat),
                 offered_t, pace_t, offered_t, t0, conn_t0,
                 visits_pc=visits_pc,
+                sat_conns=conns if sat else 0,
             )
-            parts.append(summary_mod.summarize(res, window=win))
+            parts.append(summary_mod.summarize(res, collector, window=win))
         return summary_mod.reduce_stacked(summary_mod.stack(parts))
 
     def default_block_size(self, budget_elems: int = 33_554_432) -> int:
@@ -715,14 +1356,25 @@ class Simulator:
 
     def census_shapes(self, n: int) -> List[Tuple[int, int, int, bool, bool]]:
         """``(N, B, P, fail, err)`` of each census call one block of ``n``
-        requests makes, in call order: one per level with children,
+        requests makes, in call order: one per dense level with children,
         with a fail step where a call has a finite timeout and error
-        coins where a hop has a nonzero error rate."""
-        return [
-            (n, lvl.size, lvl.pmax, lvl.finite_timeout, self._need_err)
-            for lvl in reversed(self._levels)
-            if lvl.num_children > 0
-        ]
+        coins where a hop has a nonzero error rate, and one per tile of
+        a tiled level that holds calls, ``(N, T, W)``, with the level's
+        fail step and no error coins."""
+        shapes = []
+        for lvl in reversed(self._levels):
+            if lvl.num_children == 0 or lvl.sparse is not None:
+                continue
+            if lvl.tiled is None:
+                shapes.append((n, lvl.size, lvl.pmax, lvl.finite_timeout,
+                               self._need_err))
+                continue
+            shapes += [
+                (n, len(tile.hops), tile.width, lvl.finite_timeout, False)
+                for tile in lvl.tiled.tiles
+                if tile.num_calls
+            ]
+        return shapes
 
     def capacity_qps(self) -> float:
         """Saturation throughput: the bottleneck station's capacity."""
@@ -756,7 +1408,122 @@ class Simulator:
             return torch.exp(draw / p) * (mean * (p - 1.0) / p)
         return draw * mean
 
+    def _tiled_sweep(self, lvl: _Level, n: int, dur_call, final_transport,
+                     err_lvl):
+        """Dense tiles + sparse residual of one tiled level.
+
+        Every tile runs the dense census restricted to its rows (through
+        the census kernel on the card, with a fail step and no error
+        flags: the 500 mask is applied to busy by the caller and to the
+        offsets here); the residual keeps the sparse call-slot sweep.
+        Returns ``(busy, fail_step, off)`` in level order, as
+        :func:`_sparse_level_sweep` does.
+        """
+        tl = lvl.tiled
+        P = lvl.pmax
+        dev = self.device
+        transportable = final_transport is not None
+        busy_parts: List[torch.Tensor] = []
+        fail_parts: List[torch.Tensor] = []
+        off_parts: List[torch.Tensor] = []
+        for tile in tl.tiles:
+            T, W = len(tile.hops), tile.width
+            fail_t = None
+            if transportable:
+                fail_t = (
+                    _fail_min(
+                        final_transport[:, tile.call_sel], tile.call_step,
+                        tile.call_pos, n, T, W, P, tile.uniform_calls,
+                    )
+                    if tile.num_calls
+                    # call-free rows cannot transport-fail
+                    else torch.full((n, T), P, dtype=torch.int32,
+                                    device=dev)
+                )
+            if tile.num_calls:
+                agg = _slot_max(
+                    dur_call[:, tile.call_sel], n, T, W, tile.call_seg,
+                    tile.uniform_calls,
+                )
+                busy_t, excl = census(
+                    tile.step_base, tile.step_mask, agg.contiguous(),
+                    fail_t, None,
+                )
+            else:
+                # the dense grid's census of a call-free row
+                busy_t = (
+                    torch.maximum(tile.step_base, torch.zeros((), device=dev))
+                    * tile.step_mask
+                ).sum(-1).expand(n, T)
+            busy_parts.append(busy_t)
+            if transportable:
+                fail_parts.append(fail_t)
+            if tile.num_children:
+                off_t = excl.reshape(n, -1)[:, tile.child_flat]
+                if err_lvl is not None:
+                    # dense zeroes the grid of a 500ing parent before
+                    # the prefix
+                    off_t = off_t * ~err_lvl[:, tile.child_hop]
+                off_parts.append(off_t)
+        if tl.residual is not None:
+            busy_r, fail_r, off_r = _sparse_level_sweep(
+                tl.residual, n, P, tl.res_size,
+                dur_call[:, tl.res_call_sel],
+                final_transport[:, tl.res_call_sel] if transportable
+                else None,
+                err_lvl[:, tl.res_hops] if err_lvl is not None else None,
+                tl.res_child_pos, tl.res_child_step,
+            )
+            busy_parts.append(busy_r)
+            if transportable:
+                # a call-free residual cannot fail
+                fail_parts.append(
+                    fail_r if fail_r is not None
+                    else torch.full((n, tl.res_size), P, dtype=torch.int32,
+                                    device=dev)
+                )
+            if tl.res_num_children:
+                off_parts.append(off_r)
+        busy = torch.cat(busy_parts, 1)[:, tl.hop_inv]
+        fail_step = (
+            torch.cat(fail_parts, 1)[:, tl.hop_inv] if transportable
+            else None
+        )
+        off = torch.cat(off_parts, 1)[:, tl.child_inv]
+        return busy, fail_step, off
+
     # -- the tensor program ------------------------------------------------
+
+    def _saturated_wait(self, z, sat_conns: int, sat_override):
+        """(N, H) waits under the finite-population law: the population
+        copula ``z' = scale * (z - c * e * (e . z))`` centres the normals
+        across hops (the in-flight census is fixed at C), then a per-hop
+        quantile polynomial in ``v = -log1p(-u')`` (Horner, coefficients
+        broadcast over the request axis) of the conditional uniform
+        ``u'`` above the zero-wait mass ``p0``."""
+        if sat_override is not None:
+            p0_h, coef_h, e_o, c_o, scale_o = sat_override
+            zproj = (z * e_o).sum(-1, keepdim=True)
+            z = (z - c_o * e_o * zproj) * scale_o
+        else:
+            _, p0_r, coef_r, e_r, c_r, scale_r = self._closed_tables(
+                sat_conns
+            )
+            p0_h, coef_h = p0_r[0], coef_r[0]
+            c_center = float(c_r[0])
+            if c_center > 0.0:
+                zproj = (z * e_r[0]).sum(-1, keepdim=True)
+                z = (z - c_center * e_r[0] * zproj) * scale_r[0]
+        u_sat = ndtr(z)
+        u_c = torch.clamp(
+            (u_sat - p0_h) / torch.clamp(1.0 - p0_h, min=1e-9),
+            0.0, 1.0 - 1e-7,
+        )
+        v = -torch.log1p(-u_c)
+        w = coef_h[-1]
+        for ci in range(coef_h.shape[0] - 2, -1, -1):
+            w = w * v + coef_h[ci]
+        return torch.where(u_sat < p0_h, 0.0, torch.clamp(w, min=0.0))
 
     def _simulate_core(
         self,
@@ -770,24 +1537,34 @@ class Simulator:
         t0: torch.Tensor,
         conn_t0: torch.Tensor,
         visits_pc: Optional[torch.Tensor] = None,
+        sat_conns: int = 0,
+        sat_override: Optional[Tuple[torch.Tensor, ...]] = None,
     ) -> Tuple[SimResults, torch.Tensor, torch.Tensor]:
         """One block of ``n`` requests; returns ``(results, t_end,
         conn_end)`` for the next block's clocks.
 
         ``offered_qps`` drives the queueing model, ``arrival_qps`` paces
         the open-loop arrival stream; ``t0`` / ``conn_t0`` are the
-        block's starting clocks.
+        block's starting clocks.  ``sat_conns > 0`` switches the wait
+        law to the finite-population closed network of ``sim/closed.py``
+        with that connection count (``-qps max``); ``sat_override`` =
+        ``(p0, coef, e, c, scale)`` replaces its cached tables and
+        centering (the fork-join fixed point's pilots).
         """
         dev = self.device
         zero = torch.zeros((), dtype=F32, device=dev)
         u_send, u_err = draws.u_send, draws.u_err
 
         # ---- wait draws: copulas in normal space, then U(0,1) marginals
+        # (the saturated law keeps the normals, and takes the flat
+        # sibling copula: its composition was calibrated without the
+        # hierarchical mix)
+        z_wait = u_wait = None
         if self._copula_active or self._retry_active:
             z_wait = zero
             if self._copula_active:
                 z_small = draws.z_small
-                if self._copula_mix is not None:
+                if self._copula_mix is not None and not sat_conns:
                     z_act = torch.matmul(z_small, self._copula_mix.T)
                     z_groups = z_small[:, : self._num_sib_groups].clone()
                     z_groups[:, self._copula_rows] = z_act
@@ -799,7 +1576,10 @@ class Simulator:
                     self._retry_w * draws.z_call[:, self._retry_group]
                 )
             z_wait = z_wait + self._own_w * draws.z_h
-            u_wait = ndtr(z_wait)
+            if not sat_conns:
+                u_wait = ndtr(z_wait)
+        elif sat_conns:
+            z_wait = draws.z_h
         else:
             u_wait = draws.u_wait
 
@@ -818,11 +1598,14 @@ class Simulator:
             lam_pc, self._mu, self._replicas_pc, self._k_max
         )
         hop_svc = self._hop_service
-        p_wait_nh = qp.p_wait[0][hop_svc][None, :]
-        wait_rate_nh = qp.wait_rate[0][hop_svc][None, :]
-        wait = queueing.sample_wait_conditional(
-            p_wait_nh, wait_rate_nh, u_wait
-        )  # (N, H)
+        if sat_conns:
+            wait = self._saturated_wait(z_wait, sat_conns, sat_override)
+        else:
+            p_wait_nh = qp.p_wait[0][hop_svc][None, :]
+            wait_rate_nh = qp.wait_rate[0][hop_svc][None, :]
+            wait = queueing.sample_wait_conditional(
+                p_wait_nh, wait_rate_nh, u_wait
+            )  # (N, H)
         svc_time = self._sample_service_time(draws.svc, n)
         err_coin = None if u_err is None else u_err < self._hop_err_rate
 
@@ -924,43 +1707,45 @@ class Simulator:
                     used_lvls[d] = used[:, :C]
 
                 # -- aggregate calls into (parent, step) slots -------------
-                if lvl.uniform_calls is not None:
-                    # call_seg == repeat(arange(size*P), c): reshape-reduce
-                    agg = dur_call.reshape(
-                        n, lvl.size, P, lvl.uniform_calls
-                    ).amax(-1)
-                else:
-                    agg = torch.zeros(
-                        (n, lvl.size * P), dtype=F32, device=dev
-                    ).scatter_reduce_(
-                        1, lvl.call_seg.expand(n, -1), dur_call, "amax",
-                        include_self=True,
-                    ).reshape(n, lvl.size, P)
-                if final_transport is not None:
-                    fail_contrib = torch.where(
-                        final_transport, lvl.call_step, P
-                    ).to(torch.int32)
-                    if lvl.uniform_calls is not None:
-                        fail_step = fail_contrib.reshape(
-                            n, lvl.size, P * lvl.uniform_calls
-                        ).amin(-1)
-                    else:
-                        fail_step = torch.full(
-                            (n, lvl.size), P, dtype=torch.int32, device=dev
-                        ).scatter_reduce_(
-                            1, lvl.call_hop.expand(n, -1), fail_contrib,
-                            "amin", include_self=True,
+                if lvl.sparse is not None or lvl.tiled is not None:
+                    # skewed wide level: tiles + sparse residual, or the
+                    # pure sparse call-slot sweep; the 500 mask applies
+                    # to busy after the sweep
+                    if lvl.tiled is not None:
+                        busy, fail_step, off = self._tiled_sweep(
+                            lvl, n, dur_call, final_transport, err_lvl
                         )
-                # fused census join (native/census.py): max + mask +
-                # fail/err truncation + row sum + exclusive step prefix
-                busy, excl = census(
-                    lvl.step_base, lvl.step_mask, agg.contiguous(),
-                    fail_step, err_lvl,
-                )
-                off = excl.reshape(n, -1)[:, lvl.child_seg]
-                if att_off is not None:
-                    off = off + used_lvls[d] * att_off[:, :C]
-                off_lvls[d] = off
+                    else:
+                        busy, fail_step, off = _sparse_level_sweep(
+                            lvl.sparse, n, P, lvl.size, dur_call,
+                            final_transport, err_lvl,
+                            lvl.child_parent_local, lvl.child_step,
+                        )
+                    if err_lvl is not None:
+                        busy = busy * ~err_lvl
+                    if att_off is not None:
+                        off = off + used_lvls[d] * att_off[:, :C]
+                    off_lvls[d] = off
+                else:
+                    agg = _slot_max(
+                        dur_call, n, lvl.size, P, lvl.call_seg,
+                        lvl.uniform_calls,
+                    )
+                    if final_transport is not None:
+                        fail_step = _fail_min(
+                            final_transport, lvl.call_step, lvl.call_hop,
+                            n, lvl.size, P, P, lvl.uniform_calls,
+                        )
+                    # fused census join (native/census.py): max + mask +
+                    # fail/err truncation + row sum + exclusive prefix
+                    busy, excl = census(
+                        lvl.step_base, lvl.step_mask, agg.contiguous(),
+                        fail_step, err_lvl,
+                    )
+                    off = excl.reshape(n, -1)[:, lvl.child_seg]
+                    if att_off is not None:
+                        off = off + used_lvls[d] * att_off[:, :C]
+                    off_lvls[d] = off
             else:
                 # call-free level: busy time is fully static; an
                 # errorRate 500 skips the whole script

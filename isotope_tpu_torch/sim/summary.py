@@ -1,11 +1,11 @@
 """Run summaries: the small, reducible view of a simulation, in torch.
 
-The port of ``isotope_tpu.sim.summary`` without the per-service
-``MetricsCollector`` series (a later slice).  Everything in a
+The port of ``isotope_tpu.sim.summary``.  Everything in a
 :class:`RunSummary` is O(buckets), never O(N), so any number of request
 blocks accumulates into one summary: each block is reduced by
-:func:`summarize`, the block summaries are stacked with :func:`stack`
-and reduced by :func:`reduce_stacked`.
+:func:`summarize` (with the per-service Prometheus series of a
+``MetricsCollector`` when one is given), the block summaries are stacked
+with :func:`stack` and reduced by :func:`reduce_stacked`.
 """
 from __future__ import annotations
 
@@ -17,6 +17,10 @@ import torch
 from isotope_tpu_torch.metrics.histogram import (
     latency_histogram,
     quantile_from_histogram,
+)
+from isotope_tpu_torch.metrics.prometheus import (
+    MetricsCollector,
+    ServiceMetrics,
 )
 
 F32 = torch.float32
@@ -39,6 +43,7 @@ class RunSummary(NamedTuple):
     win_count: torch.Tensor      # scalar — requests in the trim window
     win_error_count: torch.Tensor
     win_latency_hist: torch.Tensor  # (NUM_BUCKETS,)
+    metrics: Optional[ServiceMetrics]  # per-service series (None = skipped)
     utilization: torch.Tensor    # (S,)
     unstable: torch.Tensor       # (S,) bool
 
@@ -57,6 +62,7 @@ class RunSummary(NamedTuple):
 
 def summarize(
     res,
+    collector: Optional[MetricsCollector] = None,
     window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> RunSummary:
     """Reduce one block's SimResults to a RunSummary.
@@ -104,14 +110,23 @@ def summarize(
         win_count=win_count,
         win_error_count=win_error_count,
         win_latency_hist=win_hist,
+        metrics=collector.collect(res) if collector is not None else None,
         utilization=res.utilization,
         unstable=res.unstable,
     )
 
 
+def _stack_leaves(leaves):
+    if leaves[0] is None:
+        return None
+    if isinstance(leaves[0], ServiceMetrics):
+        return ServiceMetrics(*(torch.stack(x) for x in zip(*leaves)))
+    return torch.stack(leaves)
+
+
 def stack(parts: List[RunSummary]) -> RunSummary:
     """Stack per-block summaries along a new leading block axis."""
-    return RunSummary(*(torch.stack(leaves) for leaves in zip(*parts)))
+    return RunSummary(*(_stack_leaves(leaves) for leaves in zip(*parts)))
 
 
 def merge_m2(counts, sums, m2s, axis=0):
@@ -126,6 +141,9 @@ def merge_m2(counts, sums, m2s, axis=0):
 def reduce_stacked(parts: RunSummary) -> RunSummary:
     """Reduce a summary whose leaves carry a leading block axis to a
     single RunSummary."""
+    metrics = None
+    if parts.metrics is not None:
+        metrics = ServiceMetrics(*(x.sum(0) for x in parts.metrics))
     return RunSummary(
         count=parts.count.sum(0),
         error_count=parts.error_count.sum(0),
@@ -142,6 +160,7 @@ def reduce_stacked(parts: RunSummary) -> RunSummary:
         win_count=parts.win_count.sum(0),
         win_error_count=parts.win_error_count.sum(0),
         win_latency_hist=parts.win_latency_hist.sum(0),
+        metrics=metrics,
         utilization=parts.utilization.amax(0),
         unstable=parts.unstable.any(0),
     )

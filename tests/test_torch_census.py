@@ -147,13 +147,19 @@ def _chip_smoke_shapes():
     sys.path.insert(0, str(root))
     import chip_smoke
     from isotope_tpu_torch.compiler import compile_graph
-    from isotope_tpu_torch.models.generators import tree_topology
+    from isotope_tpu_torch.models.generators import (
+        realistic_topology,
+        tree_topology,
+        with_call_policy,
+    )
     from isotope_tpu_torch.models.graph import ServiceGraph
     from isotope_tpu_torch.sim import LoadModel, Simulator
 
     port = SimpleNamespace(compile_graph=compile_graph,
                            ServiceGraph=ServiceGraph, LoadModel=LoadModel,
-                           Simulator=Simulator)
+                           Simulator=Simulator,
+                           realistic_topology=realistic_topology,
+                           with_call_policy=with_call_policy)
     flagship = ServiceGraph.decode(tree_topology(
         num_levels=5, num_branches=3, request_size=1024, response_size=1024,
     ))
@@ -185,6 +191,23 @@ def test_chip_smoke_covers_the_wide_and_stream_paths():
     assert paths == {"stream", "tile", "wide"}
     assert (335544, 25, 20, False, True) in _SHAPES
     assert (64, 3, 4096, True, True) in _SHAPES
+
+
+def test_chip_smoke_covers_the_star10k_tiles_and_qps_max():
+    """Every census call of one star-10k block (3,355 requests): the
+    root's 1 x 5,021 steps, the tiles of level 1 and the dense levels
+    below, all with a fail step (30 s timeouts) and no error flags; and
+    the -qps max run's calls at its block and at its pilots'."""
+    star = [
+        (3355, 1, 5021), (3355, 4950, 1), (3355, 23, 3), (3355, 16, 8),
+        (3355, 10, 15), (3355, 14, 51), (3355, 4641, 38), (3355, 330, 3),
+    ]
+    for n, b, p in star:
+        assert (n, b, p, True, False) in _SHAPES
+    assert census_mod.launch_plan(3355, 1, 5021).path == "wide"
+    for n in (524_288, 32_768):
+        assert (n, 3, 2, False, False) in _SHAPES
+        assert (n, 1, 2, False, False) in _SHAPES
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

@@ -25,6 +25,8 @@ SHAPES = [
     (4096, 25, 20),   # realistic-powerlaw-100's wide level
     (4096, 1, 46),    # realistic-star-50's hub
     (64, 3, 4096),    # rows too wide to stage whole: the chunked path
+    (64, 1, 5021),    # the star-10k root
+    (512, 14, 51),    # a star-10k tile
 ]
 
 
@@ -100,3 +102,65 @@ def test_kernel_rejects_what_it_does_not_take(card):
         census_mod.census(base, mask, agg.transpose(0, 1), fail, err)
     with pytest.raises(ValueError):
         census_mod.census(base.cpu(), mask, agg, fail, err)
+
+
+# a skewed level (one 7-step hub among leaves) that tiles with
+# sparse_level_elems=1; w0's timeout fires mid-script
+SKEWED = """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - [{call: hub}, {call: s0}, {call: s1}, {call: s2}]
+- name: hub
+  errorRate: 30%
+  script:
+  - sleep: 1ms
+  - call: {service: w0, timeout: 3ms}
+  - sleep: 2ms
+  - call: w1
+  - call: w2
+  - sleep: 3ms
+  - call: w3
+- name: s0
+- name: s1
+- name: s2
+- name: w0
+  script: [{sleep: 5ms}]
+- name: w1
+- name: w2
+  script: [{sleep: 1ms}]
+- name: w3
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_pmax", [64, 3])
+def test_tiled_level_on_the_kernel_matches_the_cpu(card, tile_pmax):
+    """A tiled level's census goes to the kernel on the card, one launch
+    per tile that holds calls, and the run equals the CPU run on the
+    plain version with the same draws (rtol 1e-5)."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+    from isotope_tpu_torch.sim import TorchDraws
+
+    compiled = compile_graph(ServiceGraph.from_yaml(SKEWED))
+    params = SimParams(sparse_level_elems=1, sparse_tile_pmax=tile_pmax)
+    card_sim = Simulator(compiled, params, device="cuda")
+    assert card_sim._levels[1].tiled is not None
+    load = LoadModel(kind="open", qps=1000.0)
+    source = TorchDraws(5, "cuda")
+    before = census_mod.census.launches
+    got = card_sim.run(load, 1024, source)
+    torch.cuda.synchronize()
+    assert census_mod.census.launches - before == len(
+        card_sim.census_shapes(1024)
+    )
+    want = Simulator(compiled, params, device="cpu").run(load, 1024, source)
+    for name in ("hop_sent", "hop_error", "client_error"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    for name in ("client_latency", "hop_latency", "hop_start"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=RTOL,
+                                   atol=1e-9)

@@ -36,7 +36,7 @@ from isotope_tpu_torch.compiler import (
 )
 from isotope_tpu_torch.models.generators import tree_topology
 from isotope_tpu_torch.models.graph import ServiceGraph
-from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator, TorchDraws
 from isotope_tpu_torch.sim import engine as engine_mod
 from isotope_tpu_torch.sim import queueing
 from test_torch_replay import (
@@ -246,15 +246,22 @@ def test_unported_features_raise(kwargs, item):
 
 
 def test_saturated_closed_loop_raises():
-    _, sim = _pair("canonical")
-    with pytest.raises(NotImplementedError, match="closed loop"):
-        sim.run(LoadModel(kind="closed", qps=None), 64,
-                JaxReplayDraws(jax.random.PRNGKey(0)))
+    """The saturated closed loop (``qps=None``) runs since its single-
+    phase law is ported; what still raises is its composition with
+    chaos or churn phases, which needs the scenario-physics slice."""
+    _, pg = _graphs("canonical")
+    sim = Simulator(compile_graph(pg), device="cpu")
+    assert Simulator._saturated(LoadModel(kind="closed", qps=None))
+    assert sim.draw_spec(64, "closed", saturated=True).saturated
+    with pytest.raises(NotImplementedError, match="scenario physics"):
+        Simulator(compile_graph(pg), device="cpu", chaos=("x",))
 
 
 def test_sparse_level_raises():
-    """A skewed wide level leaves the dense encoding; the port refuses
-    it instead of running it wrong."""
+    """A skewed wide level leaves the dense encoding.  The port used to
+    refuse it; it now lowers it as the reference does: tiled by default,
+    sparse with tiling off (held to the reference in
+    ``tests/test_torch_sparse.py``)."""
     doc = {
         "services": [
             {"name": "root", "isEntrypoint": True,
@@ -266,8 +273,20 @@ def test_sparse_level_raises():
              for i in range(39)],
     }
     compiled = compile_graph(ServiceGraph.decode(doc))
-    with pytest.raises(NotImplementedError, match="tiled and sparse"):
-        Simulator(compiled, SimParams(sparse_level_elems=1), device="cpu")
+    tiled = Simulator(compiled, SimParams(sparse_level_elems=1),
+                      device="cpu")
+    sparse = Simulator(
+        compiled, SimParams(sparse_level_elems=1, sparse_tiling=False),
+        device="cpu",
+    )
+    assert any(lvl.tiled is not None for lvl in tiled._levels)
+    assert any(lvl.sparse is not None for lvl in sparse._levels)
+    load = LoadModel(kind="open", qps=100.0)
+    a = tiled.run(load, 64, TorchDraws(7, "cpu"))
+    b = sparse.run(load, 64, TorchDraws(7, "cpu"))
+    assert torch.equal(a.hop_sent, b.hop_sent)
+    np.testing.assert_allclose(a.client_latency.numpy(),
+                               b.client_latency.numpy(), rtol=1e-5)
 
 
 # -- the port imports no JAX ----------------------------------------------------
@@ -302,7 +321,7 @@ def test_port_imports_no_jax():
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "isotope_tpu")]
         assert not bad, bad
-        print(len(names))
+        print(" ".join(names))
         """
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -311,4 +330,11 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    # among them the modules of the tiled levels, the saturated closed
+    # loop and the check command
+    for name in ("sim.engine", "sim.closed", "sim.summary",
+                 "models.generators", "metrics.prometheus",
+                 "metrics.query", "metrics.alarms", "cli"):
+        assert f"isotope_tpu_torch.{name}" in names, name
+    assert len(names) >= 25

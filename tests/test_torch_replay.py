@@ -23,7 +23,12 @@ from isotope_tpu.sim import LoadModel as JaxLoad
 from isotope_tpu.sim import Simulator as JaxSimulator
 from isotope_tpu_torch.compiler import compiled_from_arrays, compiled_to_arrays
 from isotope_tpu_torch.sim import Simulator
-from isotope_tpu_torch.sim.draws import SVC_EXPONENTIAL, SVC_NORMAL, Draws
+from isotope_tpu_torch.sim.draws import (
+    SVC_EXPONENTIAL,
+    SVC_NORMAL,
+    Draws,
+    index_path,
+)
 
 #: float tolerance of the engine comparisons: log, ndtr, cumsum and the
 #: copula matmul round differently in XLA and torch by a few ULP
@@ -38,18 +43,26 @@ FLOAT_FIELDS = (
 
 
 class JaxReplayDraws:
-    """Draw source replaying the JAX engine's streams from ``key``."""
+    """Draw source replaying the JAX engine's streams from ``key``.
+
+    An index folds into the key (a tuple folds each of its integers in
+    turn), and ``with_seed(s)`` replays from ``PRNGKey(s)``: the
+    saturated closed loop's pilots, ``fold_in(fold_in(PRNGKey(
+    20_260_730), it), i)`` in the JAX engine."""
 
     def __init__(self, key, jax_sim=None):
         self.key = key
         self.jax_sim = jax_sim
 
+    def with_seed(self, seed):
+        return JaxReplayDraws(jax.random.PRNGKey(seed), self.jax_sim)
+
     def draws(self, index, spec) -> Draws:
         if self.jax_sim is not None:
             check_spec(spec, self.jax_sim)
-        k = self.key if index is None else jax.random.fold_in(
-            self.key, index
-        )
+        k = self.key
+        for i in index_path(index):
+            k = jax.random.fold_in(k, i)
         if spec.copula:
             (k_send, k_err, k_wait_u, k_svc, k_arr, k_wait2,
              k_wait3) = jax.random.split(k, 7)
@@ -70,9 +83,14 @@ class JaxReplayDraws:
                 if spec.need_err else None
             ),
         )
+        if spec.normal_wait:
+            out = out._replace(z_h=put(jax.random.normal(k_wait_u, (n, h))))
+        else:
+            out = out._replace(
+                u_wait=put(jax.random.uniform(k_wait_u, (n, h)))
+            )
         if spec.copula:
             out = out._replace(
-                z_h=put(jax.random.normal(k_wait_u, (n, h))),
                 z_small=(
                     put(jax.random.normal(k_wait2, (n, spec.sib_dim)))
                     if spec.sib_dim else None
@@ -81,10 +99,6 @@ class JaxReplayDraws:
                     put(jax.random.normal(k_wait3, (n, spec.retry_dim)))
                     if spec.retry_dim else None
                 ),
-            )
-        else:
-            out = out._replace(
-                u_wait=put(jax.random.uniform(k_wait_u, (n, h)))
             )
         if spec.svc == SVC_EXPONENTIAL:
             out = out._replace(
@@ -107,9 +121,10 @@ def check_spec(spec, jax_sim) -> None:
     assert spec.copula == (jax_sim._copula_active or jax_sim._retry_active)
     want_sib = 0
     if jax_sim._copula_active:
+        # the saturated law draws the flat (n, G) sibling normals
         want_sib = (
             jax_sim._copula_dim
-            if jax_sim._copula_mix is not None
+            if jax_sim._copula_mix is not None and not spec.saturated
             else jax_sim._num_sib_groups
         )
     assert spec.sib_dim == want_sib

@@ -249,9 +249,37 @@ def test_cli_defaults_match_reference():
 
 
 def test_cli_refuses_qps_max():
-    with pytest.raises(NotImplementedError, match="closed loop"):
-        cli.main(["simulate", str(CANONICAL), "--qps", "max",
-                  "--device", "cpu"])
+    """``--qps max`` was refused before the saturated closed loop was
+    ported; it now runs Fortio's saturated closed loop and prints its
+    document (requests rounded up to whole blocks of 64 connections, as
+    the reference's run_summary does)."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = cli.main(["simulate", str(CANONICAL), "--qps", "max",
+                       "--max-requests", "2000", "--device", "cpu"])
+    assert rc == 0
+    doc = json.loads(buf.getvalue())
+    assert doc["RequestedQPS"] == "max"
+    assert doc["Labels"] == "canonical_none_maxqps_64c"
+    assert doc["DurationHistogram"]["Count"] == 2 * (2000 // 64 * 64)
+    assert doc["ActualQPS"] > 1000.0
+
+
+def test_cli_check_defaults_match_reference():
+    """The check command's flags and defaults are the JAX command's,
+    plus ``--device``."""
+    from isotope_tpu.commands import simulate_cmd
+    import argparse
+
+    ref = argparse.ArgumentParser()
+    simulate_cmd.register(ref.add_subparsers())
+    want = vars(ref.parse_args(["check", "t.yaml"]))
+    got = vars(cli.build_parser().parse_args(["check", "t.yaml"]))
+    for args in (want, got):
+        args.pop("func")
+        args.pop("command", None)
+    assert got.pop("device") is None
+    assert got == want
 
 
 def test_module_entry_point_runs(tmp_path):
