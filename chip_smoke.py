@@ -12,16 +12,17 @@ any failure exits non-zero and nothing is caught:
    each kernel (registers, shared memory, spills);
 3. kernel: hold the kernel against its plain torch version on the card
    at every census shape of the main path (each dense level with
-   children and each tile holding calls of the six runs of phase 5, and
+   children and each tile holding calls of the nine runs of phase 5, and
    of the closed loops' rate pilots, as ``Simulator.census_shapes`` gives
    them: among them the star-10k block's tiles and its 1 x 5,021 root,
-   all with a fail step), at the default blocks of
+   and every call of the three scenario runs, all with a fail step), at
+   the default blocks of
    ``realistic-star-50.yaml`` and ``realistic-star-auxiliary-50.yaml``
    and at fixture shapes, among them a 4,096-step axis (rtol 1e-5: the
    plain version's ``cumsum`` may associate differently), and bit for
    bit against ``census_sequential``, the kernel's own order of
    operations in plain torch.  Then, per census call of one block of each
-   of those eight configurations, print the kernel's device-only time
+   of those configurations, print the kernel's device-only time
    (``torch.profiler``'s device time for the kernel's own name, L2
    flushed before every launch), its bound and share of bound, the
    wrapper's host cost (host clock over a few hundred enqueues) and the
@@ -32,9 +33,10 @@ any failure exits non-zero and nothing is caught:
    the star-10k graph with 30 s timeouts (3,355 requests at 6,500 qps)
    and of ``canonical.yaml`` under ``-qps max`` (16,384 requests, 64
    connections; its tables and rate solved once on the CPU and used by
-   both sides), with the same draws, on the card (kernel) and on the CPU
-   (plain version), compared like the CPU tests compare the port with
-   the JAX package;
+   both sides), and every block of the three scenario runs of phase 5
+   (svc100k-chaos, canonical-2r-storm, canonical-2r-qps-max-bounce), with
+   the same draws, on the card (kernel) and on the CPU (plain version),
+   compared like the CPU tests compare the port with the JAX package;
 5. main path at full size, after one warm-up block of each run (the
    warm-up also solves and caches the closed loops' rates from the same
    seed, so the timed closed-loop runs skip their pilots and tables): the
@@ -46,15 +48,28 @@ any failure exits non-zero and nothing is caught:
    graph with 30 s timeouts (BASELINE configs[3]) open loop at 6,500 qps
    (half its capacity) in 4 blocks of its default 3,355, and
    ``canonical.yaml`` under ``-qps max`` (64 connections, 240 s, capped
-   at 1,000,000 requests: 2 blocks of 524,288); the host build times
-   (``Simulator(...)``, the saturated tables) are printed, the launch
+   at 1,000,000 requests: 2 blocks of 524,288); then the scenario
+   runs: svc100k-chaos (BASELINE configs[4]: the 100,000-service
+   multitier graph, Pareto service times, a total outage of ``mock-7``
+   in [5 s, 15 s), open loop at 100 qps, 4 blocks of its default 335),
+   canonical-2r-storm (``canonical-2-replicas.yaml`` under ``ISTIO``, open
+   loop at 10,000 qps in 2 blocks of 262,144: one of b's two replicas
+   killed ungracefully in [10 s, 20 s), the canary rotation of c's
+   traffic every 30 s, an mTLS tax of 0 / 1 ms every 20 s) and
+   canonical-2r-qps-max-bounce (the same graph under ``-qps max``, 64
+   connections, 2 blocks of 524,288, b bounced to one replica for 10 s
+   every 60 s from 30 s); the host build times (graph, compile,
+   ``Simulator(...)``, the saturated tables) are printed, the launch
    count is set to 0 just before each run and must equal its blocks
    times its census calls per block just after;
 6. the CLI as a subprocess: ``simulate`` once on the card; ``check`` on
    ``canonical.yaml`` and ``simulate --qps max`` (50,000 requests each),
    on the card and with ``--device cpu``: both ``check`` runs must give
    the same exit code and alarm lines (values within rtol 1e-4), both
-   ``simulate`` runs a Fortio document.
+   ``simulate`` runs a Fortio document; ``simulate --environment ISTIO``
+   on ``two-cluster-canonical.yaml``, on the card and with ``--device
+   cpu``, whose draw-independent values (label, requested load, count,
+   return codes) must agree.
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -137,6 +152,19 @@ PILOT_N = 2048
 SAT_PILOT_N = 32_768
 # BASELINE configs[3]: the 10k realistic star graph with 30 s timeouts
 STAR10K_QPS = 6500.0
+# BASELINE configs[4], the reference's svc100k_chaos case: the 100k
+# multitier graph at 100 qps, mock-7 down in [5 s, 15 s)
+SVC100K_QPS = 100.0
+SVC100K_BLOCKS = 4
+# the storm: canonical-2-replicas.yaml at 10k qps, 2 blocks of 262,144
+STORM_QPS = 10_000.0
+STORM_BLOCK = 262_144
+# in situ, the storm's kill phase overloads b (15,750 visits/s against
+# one replica's 13,000/s): the wait law clamps rho at 0.9999, its rate
+# is 1.3/s, and a wait -log(u / p) / 1.3 near u = p moves by 9e-8 s per
+# float32 spacing of u (one ULP of erfc or log, which the card and the
+# CPU round differently); floats are held to four such spacings there
+STORM_ATOL = 4.0 * 2.0**-23 / 1.3
 
 
 def log(msg: str) -> None:
@@ -202,37 +230,44 @@ def time_ms(fn, flush, reps=20):
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def device_ms(fn, flush, reps=20):
+def device_ms(fn, flush, reps=20, attempts=5):
     """Mean device-only time of the census kernel in ``fn``: the
     profiler's device time for kernels whose name holds ``census``, over
-    ``reps`` calls, each after an L2 flush."""
+    ``reps`` calls, each after an L2 flush.  A profiled pass that
+    records fewer than its ``reps`` launches (seen a few times in a run
+    of a few hundred passes, in bursts) is repeated; after ``attempts``
+    such passes the time is taken with CUDA events around each call
+    instead, which adds the launch gap, and the line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and "census" in e.key
-    ]
-    count = sum(e.count for e in kernels)
-    total_us = sum(
-        getattr(e, "self_device_time_total",
-                getattr(e, "self_cuda_time_total", 0.0))
-        for e in kernels
-    )
-    if count != reps or total_us <= 0:
-        raise AssertionError(
-            f"profiler: {count} census kernels with {total_us} us of device "
-            f"time, expected {reps} launches"
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = [
+            e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "census" in e.key
+        ]
+        count = sum(e.count for e in kernels)
+        total_us = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+            for e in kernels
         )
-    return total_us / count / 1e3
+        if count == reps and total_us > 0:
+            return total_us / count / 1e3
+        log(f"profiled pass {attempt + 1} recorded {count} census "
+            f"kernels with {total_us} us of device time, expected {reps}")
+    ms = time_ms(fn, flush, reps)
+    log(f"profiler recorded no full pass in {attempts}: {ms:.4f} ms "
+        f"per call from CUDA events around each call")
+    return ms
 
 
 def host_us(fn, reps=300):
@@ -361,26 +396,41 @@ def share_closed_tables(src, dst, connections):
 
 
 def in_situ_phase(port, cases):
-    """``cases``: (name, graph, load, requests, rtol, atol)."""
-    for name, graph, load, n, rtol, atol in cases:
-        compiled = port.compile_graph(graph)
+    """``cases``: (name, make, load, requests, block, rtol, atol), where
+    ``make(device)`` builds the case's Simulator on a device; ``block``
+    None runs the requests as one block (``Simulator.run``), else each
+    block of ``Simulator.run_blocks`` is compared."""
+    for name, make, load, n, block, rtol, atol in cases:
         source = port.TorchDraws(11, "cuda")
-        on_cpu_sim = port.Simulator(compiled, device="cpu")
-        card_sim = port.Simulator(compiled, device="cuda")
-        if load.qps is None:
+        on_cpu_sim = make("cpu")
+        card_sim = make("cuda")
+        if load.kind == "closed" and load.qps is None:
             on_cpu_sim.solve_closed_rate(load, n, source)
             share_closed_tables(on_cpu_sim, card_sim, load.connections)
         before = port.census.launches
-        on_card = card_sim.run(load, n, source)
+        if block is None:
+            on_card = [card_sim.run(load, n, source)]
+        else:
+            on_card = list(card_sim.run_blocks(load, n, source,
+                                               block_size=block))
         torch.cuda.synchronize()
         if port.census.launches == before:
             raise AssertionError(f"in situ {name}: kernel never launched")
-        on_cpu = on_cpu_sim.run(load, n, source)
-        worst = compare_results(on_card, on_cpu, f"in situ {name}", rtol,
-                                atol)
+        on_cpu = (
+            [on_cpu_sim.run(load, n, source)] if block is None
+            else on_cpu_sim.run_blocks(load, n, source, block_size=block)
+        )
+        worst = 0.0
+        events = errors = 0
+        for b, (got, want) in enumerate(zip(on_card, on_cpu)):
+            worst = max(worst, compare_results(
+                got, want, f"in situ {name} block {b}", rtol, atol))
+            events += int(got.hop_events)
+            errors += int(got.client_error.sum())
         log(f"in situ ok {name}: card (kernel) == cpu (plain), "
-            f"{int(on_card.hop_events)} hop events, largest difference "
-            f"{worst:.3f} of its tolerance (rtol {rtol:g}, atol {atol:g} s)")
+            f"{len(on_card)} block(s), {events} hop events, {errors} client "
+            f"errors, largest difference {worst:.3f} of its tolerance "
+            f"(rtol {rtol:g}, atol {atol:g} s)")
 
 
 # -- phase 5: the main path at full size -----------------------------------------
@@ -441,10 +491,7 @@ def main_path_runs(port, flagship_graph, device="cuda", build_s=None):
     # -qps max: its own Simulator, so its tables are built (and timed)
     # apart from the paced run's
     sat = port.Simulator(canonical.compiled, device=device)
-    sat_load = port.LoadModel(kind="closed", qps=None, connections=conns,
-                              duration_s=240.0)
-    sat_n = min(int(sat.capacity_qps() * 240.0), 1_000_000)
-    sat_block = min(sat.default_block_size(), sat_n) // conns * conns
+    sat_load, sat_n, sat_block = qps_max_load(port, sat)
     return [
         ("flagship", flagship, port.LoadModel(kind="open", qps=1e5),
          4 * 262_144, 262_144),
@@ -458,6 +505,73 @@ def main_path_runs(port, flagship_graph, device="cuda", build_s=None):
          port.LoadModel(kind="open", qps=STAR10K_QPS), 4 * star_block,
          star_block),
         ("canonical-qps-max", sat, sat_load, sat_n, sat_block),
+    ]
+
+
+def qps_max_load(port, sim, conns=64):
+    """``-qps max`` at the CLI defaults (64 connections, 240 s) capped at
+    1,000,000 requests: (load, requests, block)."""
+    load = port.LoadModel(kind="closed", qps=None, connections=conns,
+                          duration_s=240.0)
+    n = min(int(sim.capacity_qps() * 240.0), 1_000_000)
+    return load, n, min(sim.default_block_size(), n) // conns * conns
+
+
+def scenario_runs(port, build_s, device="cuda"):
+    """The three scenario runs of the main path: (name, simulator on
+    ``device``, load, requests, block, make), ``make(device)`` building
+    the same Simulator (compiled graph, parameters, schedules) on
+    another device.  ``build_s`` collects the host seconds of the
+    svc100k graph's generation, compilation and ``Simulator``."""
+    t = time.perf_counter()
+    graph = port.ServiceGraph.decode(
+        port.realistic_topology(100_000, archetype="multitier", seed=0)
+    )
+    t_graph = time.perf_counter()
+    svc100k = port.compile_graph(graph)
+    t_compile = time.perf_counter()
+    pareto = port.SimParams(service_time="pareto", service_time_param=2.5)
+    outage = (port.ChaosEvent("mock-7", 5.0, 15.0, replicas_down=None),)
+
+    def make_svc100k(device):
+        return port.Simulator(svc100k, pareto, outage, device=device)
+
+    big = make_svc100k(device)
+    build_s.update(svc100k_graph=t_graph - t,
+                   svc100k_compile=t_compile - t_graph,
+                   svc100k_simulator=time.perf_counter() - t_compile)
+    big_block = big.default_block_size()
+
+    canon2 = port.compile_graph(port.ServiceGraph.from_yaml_file(
+        TOPOLOGIES / "canonical-2-replicas.yaml"))
+    istio = port.DEFAULT_ENVIRONMENTS["ISTIO"].apply(port.SimParams())
+    storm = dict(
+        chaos=(port.ChaosEvent("b", 10.0, 20.0, replicas_down=1,
+                               drain=False),),
+        # the reference's canary rotation (100/70/40/20) of c's traffic
+        churn=(port.TrafficSplit("c", 30.0, (1.0, 0.7, 0.4, 0.2)),),
+        mtls=port.MtlsSchedule(20.0, (0.0, 1e-3)),
+    )
+
+    def make_storm(device):
+        return port.Simulator(canon2, istio, device=device, **storm)
+
+    bounce = port.bounce_schedule("b", period_s=60.0, down_s=10.0, count=4,
+                                  start_s=30.0, replicas_down=1)
+
+    def make_bounce(device):
+        return port.Simulator(canon2, chaos=bounce, device=device)
+
+    sat = make_bounce(device)
+    sat_load, sat_n, sat_block = qps_max_load(port, sat)
+    return [
+        ("svc100k-chaos", big, port.LoadModel(kind="open", qps=SVC100K_QPS),
+         SVC100K_BLOCKS * big_block, big_block, make_svc100k),
+        ("canonical-2r-storm", make_storm(device),
+         port.LoadModel(kind="open", qps=STORM_QPS), 2 * STORM_BLOCK,
+         STORM_BLOCK, make_storm),
+        ("canonical-2r-qps-max-bounce", sat, sat_load, sat_n, sat_block,
+         make_bounce),
     ]
 
 
@@ -475,8 +589,10 @@ def census_only_configs(port, device="cuda"):
     return out
 
 
-def main_path_run(port, name, sim, load, n, block):
-    """One timed run; returns its summary and census launches."""
+def main_path_run(port, name, sim, load, n, block, census_ms=None):
+    """One timed run; returns its summary and census launches.
+    ``census_ms``: the census device time per block of phase 3, printed
+    when given."""
     torch.cuda.synchronize()
     port.census.launches = 0
     t = time.perf_counter()
@@ -507,17 +623,26 @@ def main_path_run(port, name, sim, load, n, block):
         load.qps if load.kind == "open"
         else sim.solve_closed_rate(load, n, port.TorchDraws(0, "cuda"))
     )
+    if getattr(sim, "has_chaos", False):
+        windows = sim._windows_arg(rate, sim._saturated(load)).cpu().numpy()
+        log(f"main path {name}: phase windows (start s, row) " + ", ".join(
+            f"({b:.6g}, {int(r)})" for b, r in zip(*windows)))
     log(f"main path {name}: {count} requests in {blocks} blocks, offered "
         f"{rate:.6g} qps, {wall / blocks * 1e3:.2f} ms per block, "
         f"{hop_events / wall:.4e} hop-events/s, p50/p90/p99 "
         f"{qs[0] * 1e3:.4f}/{qs[1] * 1e3:.4f}/{qs[2] * 1e3:.4f} ms, "
-        f"census launches {launches} ({per_block} per block)")
+        f"{int(summary.error_count)} client errors, census launches "
+        f"{launches} ({per_block} per block)" + (
+            "" if census_ms is None
+            else f", census device {census_ms:.4f} ms per block (phase 3)"
+        ))
     return summary, launches
 
 
-def main_path_phase(port, runs, build_s):
+def main_path_phase(port, runs, build_s, census_ms=None):
     """Each run once, after one warm-up block of each; returns the census
-    launches per run."""
+    launches per run.  ``census_ms``: phase 3's census device time per
+    block of each run, printed when given."""
     # the saturated tables and rate first, timed as host planning (their
     # fork-join pilots run on the card)
     for name, sim, load, n, _ in runs:
@@ -539,7 +664,9 @@ def main_path_phase(port, runs, build_s):
 
     launches = {}
     for run in runs:
-        summary, launches[run[0]] = main_path_run(port, *run)
+        summary, launches[run[0]] = main_path_run(
+            port, *run, None if census_ms is None else census_ms[run[0]]
+        )
         if run[0] == "flagship" and (
             float(summary.hop_events) != 121 * int(summary.count)
         ):
@@ -633,6 +760,29 @@ def cli_phase():
             f"{doc['DurationHistogram']['Count']} requests, ActualQPS "
             f"{doc['ActualQPS']:.6g}")
 
+    # a sidecar environment over two clusters' edge classes: the
+    # draw-independent values of the two documents agree
+    two = str(TOPOLOGIES / "two-cluster-canonical.yaml")
+    docs = {}
+    for device in ("cuda", "cpu"):
+        out = cli("simulate", two, "--environment", "ISTIO", "--qps", "1000",
+                  "--duration", "10s", "--load-kind", "open", "--device",
+                  device)
+        doc = json.loads(out.stdout)
+        hist = doc["DurationHistogram"]
+        docs[device] = {
+            "Labels": doc["Labels"], "RequestedQPS": doc["RequestedQPS"],
+            "RequestedDuration": doc["RequestedDuration"],
+            "NumThreads": doc["NumThreads"], "RetCodes": doc["RetCodes"],
+            "Count": hist["Count"],
+        }
+        log(f"cli simulate --environment ISTIO on {device}: {docs[device]}, "
+            f"p50 {hist['Percentiles'][0]['Value'] * 1e3:.4f} ms")
+    if docs["cuda"] != docs["cpu"] or (
+        docs["cuda"]["Labels"] != "two-cluster-canonical_istio_1000qps_64c"
+    ):
+        raise AssertionError(f"simulate --environment ISTIO: {docs}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -647,14 +797,29 @@ def main() -> int:
     )
     from isotope_tpu_torch.models.graph import ServiceGraph
     from isotope_tpu_torch.native import census as census_mod
-    from isotope_tpu_torch.sim import LoadModel, Simulator, TorchDraws
+    from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
+    from isotope_tpu_torch.sim import (
+        LoadModel,
+        SimParams,
+        Simulator,
+        TorchDraws,
+    )
+    from isotope_tpu_torch.sim.config import (
+        ChaosEvent,
+        MtlsSchedule,
+        TrafficSplit,
+        bounce_schedule,
+    )
 
     # the port's entry points, as a user calls them
     port = SimpleNamespace(
         compile_graph=compile_graph, ServiceGraph=ServiceGraph,
         LoadModel=LoadModel, Simulator=Simulator, TorchDraws=TorchDraws,
         census=census_mod.census, realistic_topology=realistic_topology,
-        with_call_policy=with_call_policy,
+        with_call_policy=with_call_policy, SimParams=SimParams,
+        ChaosEvent=ChaosEvent, TrafficSplit=TrafficSplit,
+        MtlsSchedule=MtlsSchedule, bounce_schedule=bounce_schedule,
+        DEFAULT_ENVIRONMENTS=DEFAULT_ENVIRONMENTS,
     )
 
     # full-precision float32 products everywhere (the copula matmul)
@@ -676,12 +841,23 @@ def main() -> int:
     ))
     build_s = {}
     runs = main_path_runs(port, flagship_graph, build_s=build_s)
+    scenarios = scenario_runs(port, build_s)
+    runs += [run[:5] for run in scenarios]
     timing = kernel_phase(census_mod, runs, census_only_configs(port))
 
-    def open_case(name, graph, qps, n=16_384, rtol=RESULT_RTOL):
-        return (name, graph, LoadModel(kind="open", qps=qps), n, rtol,
-                RESULT_ATOL)
+    def plain(graph):
+        compiled = compile_graph(graph)
+        return lambda device: Simulator(compiled, device=device)
 
+    def open_case(name, graph, qps, n=16_384, rtol=RESULT_RTOL):
+        return (name, plain(graph), LoadModel(kind="open", qps=qps), n,
+                None, rtol, RESULT_ATOL)
+
+    scenario_tol = {
+        "svc100k-chaos": (RESULT_RTOL, RESULT_ATOL),
+        "canonical-2r-storm": (RESULT_RTOL, STORM_ATOL),
+        "canonical-2r-qps-max-bounce": (SAT_RTOL, SAT_ATOL),
+    }
     in_situ_phase(port, [
         open_case("flagship", flagship_graph, 1e3),
         open_case("census-test", ServiceGraph.from_yaml(CENSUS_YAML), 500.0),
@@ -689,13 +865,17 @@ def main() -> int:
             TOPOLOGIES / "realistic-powerlaw-100.yaml"), 6500.0),
         open_case("star-10k-timeouts", star10k_graph(port), STAR10K_QPS,
                   n=3355, rtol=STAR_RTOL),
-        ("canonical-qps-max", ServiceGraph.from_yaml_file(
-            TOPOLOGIES / "canonical.yaml"),
-         LoadModel(kind="closed", qps=None, connections=64), 16_384,
+        ("canonical-qps-max", plain(ServiceGraph.from_yaml_file(
+            TOPOLOGIES / "canonical.yaml")),
+         LoadModel(kind="closed", qps=None, connections=64), 16_384, None,
          SAT_RTOL, SAT_ATOL),
+    ] + [
+        # svc100k: its first two blocks; the canonical runs: every block
+        (name, make, load, min(n, 2 * block), block, *scenario_tol[name])
+        for name, _, load, n, block, make in scenarios
     ])
 
-    by_path = main_path_phase(port, runs, build_s)
+    by_path = main_path_phase(port, runs, build_s, timing["ms_per_block"])
     launches = sum(by_path.values())
     cli_phase()
 

@@ -7,7 +7,9 @@ main path:
   device and summarized, and the Fortio-style result JSON is printed.
   The load flags and their defaults are the JAX command's (closed loop,
   64 connections, 1000 qps, 240 s); ``--qps max`` is Fortio's saturated
-  closed loop.
+  closed loop; ``--environment`` picks a sidecar mode of
+  ``runner/config.DEFAULT_ENVIRONMENTS`` (``NONE`` by default, ``ISTIO``
+  adds the client and server proxy passes to every edge).
 - ``check``: the run's Prometheus series (``MetricsCollector``) are
   queried by the reference's stability alarm suite; every alarm is
   printed to stderr and the exit code is 1 when one fires.
@@ -24,11 +26,11 @@ import sys
 from isotope_tpu_torch.utils import duration as dur
 
 
-def _label(topo_path: str, load) -> str:
-    """The reference's run label, in its NONE (no sidecar) environment."""
+def _label(topo_path: str, env: str, load) -> str:
+    """The reference's run label: topology stem, environment, load."""
     stem = pathlib.Path(topo_path).stem
     qps = "max" if load.qps is None else f"{load.qps:g}"
-    return f"{stem}_none_{qps}qps_{load.connections}c"
+    return f"{stem}_{env.lower()}_{qps}qps_{load.connections}c"
 
 
 def _num_requests(load, capacity: float, cap: int) -> int:
@@ -52,6 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--load-kind", choices=["open", "closed"],
                    default="closed",
                    help="closed = fortio workers; open = Poisson arrivals")
+    s.add_argument("--environment", default="NONE",
+                   help="NONE or ISTIO (adds the sidecar latency tax)")
     s.add_argument("--max-requests", type=int, default=1_000_000)
     s.add_argument("--service-time",
                    choices=["exponential", "deterministic", "lognormal",
@@ -91,13 +95,20 @@ def run_simulate(args) -> int:
     from isotope_tpu_torch.compiler import compile_graph
     from isotope_tpu_torch.metrics.fortio import fortio_result_from_summary
     from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
     from isotope_tpu_torch.sim import SimParams, Simulator, TorchDraws
 
-    params = SimParams(
+    if args.environment not in DEFAULT_ENVIRONMENTS:
+        raise ValueError(
+            f"unknown environment {args.environment!r} "
+            f"(expected one of {sorted(DEFAULT_ENVIRONMENTS)})"
+        )
+    env = DEFAULT_ENVIRONMENTS[args.environment]
+    params = env.apply(SimParams(
         service_time=args.service_time,
         # the reference CLI's heavy-tail default for pareto
         service_time_param=1.5 if args.service_time == "pareto" else 1.0,
-    )
+    ))
     load = _load(args)
     graph = ServiceGraph.from_yaml_file(args.topology)
     compiled = compile_graph(graph)
@@ -109,7 +120,7 @@ def run_simulate(args) -> int:
     )
     entry = compiled.entry_service
     doc = fortio_result_from_summary(
-        summary, load, labels=_label(args.topology, load),
+        summary, load, labels=_label(args.topology, env.name, load),
         response_size_bytes=float(compiled.services.response_size[entry]),
     )
     json.dump(doc, sys.stdout, indent=2)

@@ -13,8 +13,9 @@ fields of the physics it implements; the options of layers it has not
 ported yet (attribution, timeline, ensembles) raise in the Simulator,
 and the JAX executor switches (scan buckets, the Pallas census flag,
 packed carries, sharded overlap) have no effect here.  The chaos,
-traffic-split and mTLS schedule types come with the scenario-physics
-slice (ROADMAP queue 1).
+traffic-split and mTLS schedule types (``ChaosEvent``,
+``bounce_schedule``, ``TrafficSplit``, ``MtlsSchedule``) are copied with
+their validation and messages.
 """
 from __future__ import annotations
 
@@ -272,6 +273,144 @@ class SimParams:
         # (sibling_copula_r + retry_copula_r < 1 is required only for
         # hops inside a multi-attempt call; the Simulator enforces it
         # when such calls exist)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosEvent:
+    """Kill replicas of a service during a time window.
+
+    The simulation analogue of the reference's chaos CronJobs
+    (perf/stability/istio-chaos-partial kills all-but-one replica every
+    interval; istio-chaos-total scales components to zero and restores
+    them after chaosDurationMinutes).  ``replicas_down=None`` means all
+    replicas (total outage: callers get transport errors, which — unlike
+    downstream 500s — DO propagate, srv/handler.go:66-76).
+
+    ``drain`` selects the shutdown policy at the window's start — the
+    axis the reference's graceful-shutdown stability test exercises
+    (perf/stability/graceful-shutdown: a long in-flight request across
+    a replica kill):
+
+    - ``True`` (default, graceful): killed replicas finish their
+      in-flight requests; only *new* work sees the reduced capacity
+      (Kubernetes' default terminationGracePeriod behavior).
+    - ``False`` (ungraceful): requests resident on a killed replica at
+      the kill instant die with a connection reset — a transport error
+      at their caller.  Each resident request dies with probability
+      ``replicas_down / alive-replicas-before-the-kill``.
+    """
+
+    service: str
+    start_s: float
+    end_s: float
+    replicas_down: Optional[int] = None  # None == all
+    drain: bool = True
+
+    def __post_init__(self):
+        if self.end_s <= self.start_s:
+            raise ValueError("chaos window must have end_s > start_s")
+        if self.start_s < 0:
+            raise ValueError("chaos window must start at t >= 0")
+        if self.replicas_down is not None and self.replicas_down <= 0:
+            raise ValueError("replicas_down must be positive (or None=all)")
+
+
+def bounce_schedule(
+    service: str,
+    period_s: float,
+    down_s: float,
+    count: int,
+    start_s: float = 0.0,
+    replicas_down: Optional[int] = None,
+    drain: bool = True,
+) -> "tuple[ChaosEvent, ...]":
+    """Rolling-restart chaos: ``count`` outage windows of ``down_s``
+    seconds, one per ``period_s``.
+
+    The simulation analogue of the reference's gateway-bouncer
+    (perf/stability/gateway-bouncer/README.md:14-21: the ingress
+    gateway is rolling-restarted on a loop and fortio clients crash on
+    the connection errors the bounce causes).  Point it at the
+    entrypoint service to bounce the ingress: during each window the
+    entry refuses connections, outside the windows traffic is clean.
+    """
+    if down_s <= 0 or down_s > period_s:
+        raise ValueError("bounce needs 0 < down_s <= period_s")
+    if count <= 0:
+        raise ValueError("bounce count must be positive")
+    return tuple(
+        ChaosEvent(
+            service=service,
+            start_s=start_s + i * period_s,
+            end_s=start_s + i * period_s + down_s,
+            replicas_down=replicas_down,
+            drain=drain,
+        )
+        for i in range(count)
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrafficSplit:
+    """Time-varying traffic weight toward one service.
+
+    The simulation analogue of the reference's config churner
+    (perf/load/templates/config-map.yaml:40-60): an in-cluster
+    ``rollout.sh`` rotates VirtualService v1/v2 weights through
+    100/70/40/20 forever, producing steady-state control-plane churn
+    that actually shifts traffic.  Here every call targeting
+    ``service`` has its send probability multiplied by
+    ``weights[floor(t / period_s) mod len(weights)]`` — model a canary
+    as two services (v1/v2) with complementary weight schedules.
+    """
+
+    service: str
+    period_s: float
+    weights: "tuple[float, ...]"
+
+    def __post_init__(self):
+        if self.period_s <= 0:
+            raise ValueError("churn period_s must be positive")
+        if not self.weights:
+            raise ValueError("churn weights must be non-empty")
+        if any(not 0.0 <= w <= 1.0 for w in self.weights):
+            raise ValueError("churn weights must lie in [0, 1]")
+        object.__setattr__(self, "weights", tuple(self.weights))
+
+    @property
+    def mean_weight(self) -> float:
+        return sum(self.weights) / len(self.weights)
+
+
+@dataclasses.dataclass(frozen=True)
+class MtlsSchedule:
+    """Time-phased per-edge mTLS tax.
+
+    The simulation analogue of the reference's auto-mTLS scale test
+    (perf/load/auto-mtls/scale.py:1-130): istio-sidecar and legacy
+    deployments are alternately scaled so the share of connections
+    paying the mTLS handshake flips over time, exercising istiod's
+    auto-mTLS switching.  Here the *data-plane consequence* is modeled
+    directly: every edge's one-way wire latency gains
+    ``taxes_s[floor(t / period_s) mod len(taxes_s)]`` at the request's
+    arrival time — e.g. ``taxes_s=(0.0, 1e-3)`` alternates the tax off
+    and on each period, and a mixed-fleet phase is a fractional tax.
+    The tax is pure latency (the handshake burns proxy CPU, not
+    service CPU), so offered-load/queueing tables are unaffected —
+    matching how the sidecar-mode environments model proxies.
+    """
+
+    period_s: float
+    taxes_s: "tuple[float, ...]"
+
+    def __post_init__(self):
+        if self.period_s <= 0:
+            raise ValueError("mtls period_s must be positive")
+        if not self.taxes_s:
+            raise ValueError("mtls taxes_s must be non-empty")
+        if any(x < 0 for x in self.taxes_s):
+            raise ValueError("mtls taxes must be >= 0")
+        object.__setattr__(self, "taxes_s", tuple(self.taxes_s))
 
 
 OPEN_LOOP = "open"

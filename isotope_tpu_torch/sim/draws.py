@@ -11,8 +11,11 @@ A *draw source* maps an index and a spec to one :class:`Draws`.  The
 indices are the integers the JAX engine folds into its key: ``None``
 for the run's own key, ``i`` for closed-loop pilot ``i`` and
 ``1_000_000 + b`` for summary block ``b`` (engine.py:2066, 4543); a
-tuple of integers folds each in turn.  ``source.with_seed(seed)`` is a
-source of the same kind at another root seed: the saturated closed
+tuple of integers folds each in turn.  An ungraceful kill event ``e``
+(``ChaosEvent(drain=False)``) draws its (N, H) reset coins from the
+block's index extended by ``KILL_INDEX_BASE + e`` (engine.py:6104).
+``source.with_seed(seed)`` is a source of the same kind at another root
+seed: the saturated closed
 loop's fixed-point pilots draw from ``with_seed(SAT_PILOT_SEED)`` at
 index ``(it, i)`` whatever the run's seed (engine.py:1722-1750,
 1840-1850).  :class:`TorchDraws` draws every index from its own seeded
@@ -42,6 +45,9 @@ def index_path(index: Index) -> Tuple[int, ...]:
 #: block-key offset of ``run_summary`` (the reference's fold_in salt)
 BLOCK_INDEX_BASE = 1_000_000
 
+#: fold-in offset of the ungraceful-kill reset coins of event ``e``
+KILL_INDEX_BASE = 9_990_000
+
 #: root seed of the saturated closed loop's pilot runs (the reference's
 #: ``PRNGKey(20_260_730)``): fixed, so the solved throughput is a
 #: property of the topology, not of the run's seed
@@ -66,6 +72,8 @@ class DrawSpec(NamedTuple):
     # the saturated closed loop's wait law takes normals: z_h instead
     # of u_wait even without a copula
     saturated: bool = False
+    # u_kill: one (N, H) uniform per ungraceful kill event
+    kill_events: int = 0
 
     @property
     def normal_wait(self) -> bool:
@@ -84,6 +92,7 @@ class Draws(NamedTuple):
     u_wait: Optional[torch.Tensor] = None   # (N, H) U[0, 1), no copula
     svc: Optional[torch.Tensor] = None      # (N, H) unit exp. or normal
     arr: Optional[torch.Tensor] = None      # (N,) unit exponentials
+    u_kill: Optional[torch.Tensor] = None   # (E, N, H) U[0, 1)
 
     def to(self, device) -> "Draws":
         """The same draws as float32 tensors on ``device``."""
@@ -105,6 +114,9 @@ class Draws(NamedTuple):
             "u_wait": None if spec.normal_wait else (n, h),
             "svc": (n, h) if spec.svc is not None else None,
             "arr": (n,) if spec.arrivals else None,
+            "u_kill": (
+                (spec.kill_events, n, h) if spec.kill_events else None
+            ),
         }
         for name, shape in want.items():
             t = getattr(self, name)
@@ -170,4 +182,18 @@ class TorchDraws:
             arr=exponential(n) if spec.arrivals else None,
             z_small=normal(n, spec.sib_dim) if spec.sib_dim else None,
             z_call=normal(n, spec.retry_dim) if spec.retry_dim else None,
+            u_kill=(
+                torch.stack([
+                    self.kill_coins(index, e, n, h)
+                    for e in range(spec.kill_events)
+                ])
+                if spec.kill_events else None
+            ),
         )
+
+    def kill_coins(self, index: Index, event: int, n: int, h: int):
+        """Kill event ``event``'s (n, h) reset coins: index ``index``
+        extended by ``KILL_INDEX_BASE + event``."""
+        g = self.generator(index_path(index) + (KILL_INDEX_BASE + event,))
+        return torch.rand((n, h), generator=g, device=self.device,
+                          dtype=torch.float32)

@@ -22,7 +22,13 @@ requests is one tensor program over a (request x hop) grid:
 - queueing waits are sampled from the M/M/k law at each service's
   offered load, with the sibling, hierarchical and retry Gaussian
   copulas of the reference; the saturated closed loop (``-qps max``)
-  samples the finite-population law of ``sim/closed.py`` instead.
+  samples the finite-population law of ``sim/closed.py`` instead;
+- scenario physics: chaos phases (piecewise-constant replica counts,
+  outages that refuse calls and truncate their callers' scripts, drain
+  windows after an overloaded phase, ungraceful kills that reset the
+  requests resident at the kill instant), traffic-split churn (per-hop
+  send-probability weights) and the phased mTLS tax; each request takes
+  its (chaos x churn) phase row from its nominal arrival time.
 
 Random numbers come from a draw source (``sim/draws.py``), so the same
 draws can drive this engine and the JAX one.  The JAX engine groups
@@ -31,13 +37,17 @@ this port sweeps every level one by one, which computes the same
 values (the JAX package pins buckets against unrolled levels).
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): chaos, churn, mTLS, policies, rollouts, lb laws,
-attribution, timelines and ensembles.
+ROADMAP item): policies, rollouts, lb laws, attribution, timelines and
+ensembles.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import itertools
+from typing import (
+    Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
@@ -53,8 +63,11 @@ from isotope_tpu_torch.sim.config import (
     SERVICE_TIME_DETERMINISTIC,
     SERVICE_TIME_LOGNORMAL,
     SERVICE_TIME_PARETO,
+    ChaosEvent,
     LoadModel,
+    MtlsSchedule,
     SimParams,
+    TrafficSplit,
 )
 from isotope_tpu_torch.sim.draws import (
     BLOCK_INDEX_BASE,
@@ -157,6 +170,9 @@ class _Level:
     sparse: Optional["_SparseSteps"] = None
     # dense-blocked tiling of a skewed wide level; exclusive with sparse
     tiled: Optional["_TiledSteps"] = None
+    # (C,) i64 churn-weight column of each child (sentinel E: weight 1);
+    # None without traffic splits
+    child_churn_entry: Optional[torch.Tensor] = None
 
     @property
     def num_children(self) -> int:
@@ -187,17 +203,49 @@ def ndtr(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * y
 
 
-def _call_outcome(t, timeout):
+def _call_outcome(t, timeout, down_child):
     """(transport_failure, duration) of one call attempt.
 
     A finite ``timeout`` clamps the round trip ``t`` and fails the call
-    past it; ``None`` means no timeout can fire, and then no transport
-    failure can occur (a down callee, the other transport failure of the
-    reference, comes with the chaos slice).
+    past it; a down callee (``down_child``) transport-fails at zero cost
+    (the connection is refused, nothing runs).  ``None`` inputs mean the
+    failure mode is statically impossible, and a ``None`` transport
+    result means no transport failure can occur at all.
     """
-    if timeout is None:
-        return None, t
-    return t > timeout, torch.minimum(t, timeout)
+    transport = None
+    dur = t
+    if timeout is not None:
+        transport = t > timeout
+        dur = torch.minimum(t, timeout)
+    if down_child is not None:
+        transport = (
+            down_child if transport is None else (down_child | transport)
+        )
+        dur = torch.where(down_child, 0.0, dur)
+    return transport, dur
+
+
+def _tree_product(compiled: CompiledGraph, own: np.ndarray) -> np.ndarray:
+    """(..., H) products of ``own`` down the unrolled tree: the root's
+    entry is 1 and each hop's is its parent's times its own (one multiply
+    per hop, level by level in BFS order)."""
+    out = np.ones_like(own)
+    for lvl in compiled.levels:
+        cids = lvl.child_ids
+        if len(cids):
+            out[..., cids] = (
+                out[..., compiled.hop_parent[cids]] * own[..., cids]
+            )
+    return out
+
+
+def _clock_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """float32 prefix sums accumulated in float64, as torch's CPU
+    ``cumsum`` accumulates float32: the request clocks (which place
+    requests into phases and against kill instants) then agree between
+    the card and the CPU, where a float32 scan on the card would drift
+    from them by several ULP over a block."""
+    return torch.cumsum(x, dim, dtype=torch.float64).to(torch.float32)
 
 
 def _const(x, dtype, device) -> torch.Tensor:
@@ -576,20 +624,15 @@ class Simulator:
         self,
         compiled: CompiledGraph,
         params: SimParams = SimParams(),
-        chaos=(),
-        churn=(),
-        mtls=None,
+        chaos: Sequence[ChaosEvent] = (),
+        churn: Sequence[TrafficSplit] = (),
+        mtls: Optional[MtlsSchedule] = None,
         policies=None,
         rollouts=None,
         lb=None,
         *,
         device=None,
     ):
-        if chaos or churn or mtls is not None:
-            raise _unsupported(
-                "chaos, traffic-split churn and mTLS schedules",
-                "scenario physics inside _simulate_core",
-            )
         if lb is not None:
             raise _unsupported("lb laws", "sim/lb.py")
         if policies is not None or rollouts is not None:
@@ -611,17 +654,97 @@ class Simulator:
         self._k_max = int(t.replicas.max())
         self._mu = 1.0 / params.cpu_time_s
 
-        # -- offered load: one phase, one traffic combo ---------------------
-        visits_np = compiled.expected_visits()
-        self._visits = torch.tensor(visits_np, dtype=F32, device=dev)
-        self._visits_pc_np = visits_np[None, :]
-        self._visits_pc = torch.tensor(
-            self._visits_pc_np, dtype=F32, device=dev
+        def tensor(x, dtype):
+            return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        # -- auto-mTLS switching --------------------------------------------
+        # a time-phased extra one-way latency on every edge, indexed by
+        # the request's nominal arrival time: pure wire tax, so the
+        # queueing tables are untouched (config.MtlsSchedule)
+        self._mtls = mtls
+        self._mtls_taxes = (
+            tensor(mtls.taxes_s, F32) if mtls is not None else None
         )
-        self._replicas_pc = torch.tensor(
-            np.maximum(t.replicas.astype(np.int64), 1)[None, :],
-            dtype=torch.int32, device=dev,
+
+        # -- traffic splits: per-hop schedule entries ------------------------
+        name_to_idx = {n: i for i, n in enumerate(t.names)}
+        self._churn = tuple(churn)
+        hop_mult, mult_combo, own_combo = self._churn_tables(name_to_idx)
+        self._visits = tensor(compiled.expected_visits(hop_mult), F32)
+
+        # -- chaos phases: piecewise-constant effective replica counts -------
+        for ev in chaos:
+            if ev.service not in name_to_idx:
+                raise ValueError(f"chaos for unknown service: {ev.service!r}")
+        cuts = sorted(
+            {0.0}
+            | {ev.start_s for ev in chaos}
+            | {ev.end_s for ev in chaos}
         )
+        eff = np.tile(t.replicas.astype(np.int64), (len(cuts), 1))  # (P, S)
+        for ev in chaos:
+            s = name_to_idx[ev.service]
+            for p, start in enumerate(cuts):
+                if ev.start_s <= start < ev.end_s:
+                    eff[p, s] -= (
+                        int(t.replicas[s])
+                        if ev.replicas_down is None
+                        else ev.replicas_down
+                    )
+        eff = np.maximum(eff, 0)
+        svc_down = eff == 0                                   # (P, S)
+        # the phase starts in float32, as the JAX engine holds them (its
+        # drain windows and -qps max warp read them back in float64)
+        self._phase_starts = np.asarray(cuts, np.float32)     # (P,)
+        self.has_chaos = bool(chaos)
+
+        # -- post-storm drain windows -----------------------------------------
+        # An overloaded phase leaves a backlog that the next phase drains
+        # at its freed capacity before waits return to that phase's
+        # stationary law: a (2, W) (bounds, row) window table, passed per
+        # run, keeps the congested row live past its cut
+        # (_windows_arg).  W is static: P real windows + up to P-1
+        # drains.
+        P_static = len(cuts)
+        self._num_windows = 2 * P_static - 1 if P_static > 1 else 1
+        ident_b = list(cuts) + [cuts[-1]] * (self._num_windows - P_static)
+        ident_r = list(range(P_static)) + [P_static - 1] * (
+            self._num_windows - P_static
+        )
+        self._ident_windows = tensor(
+            np.stack([np.asarray(ident_b), np.asarray(ident_r, np.float64)])
+            .astype(np.float32),
+            F32,
+        )
+        self._window_cache: Dict[tuple, torch.Tensor] = {}
+
+        # -- ungraceful kills (drain=False): resident-request resets ---------
+        self._kill_tables(chaos, name_to_idx, cuts, eff)
+
+        # -- per-(chaos x churn)-phase offered load --------------------------
+        # A total outage changes where load flows, not just capacity: a
+        # transport error truncates its caller's script, so services in
+        # later steps (and the down subtree) see less traffic during the
+        # window.
+        mult_phase = self._phase_reach_multipliers(svc_down)  # (P, H)
+        P = mult_phase.shape[0]
+        Cc = self._num_combos
+        visits_pc = np.empty((P * Cc, compiled.num_services), np.float64)
+        mult_pc = np.empty((P * Cc, compiled.num_hops), np.float64)
+        for p in range(P):
+            for c in range(Cc):
+                mult_pc[p * Cc + c] = mult_phase[p] * mult_combo[c]
+                visits_pc[p * Cc + c] = compiled.expected_visits(
+                    mult_pc[p * Cc + c]
+                )
+        self._visits_pc_np = visits_pc
+        self._mult_pc = mult_pc
+        self._visits_pc = tensor(visits_pc, F32)
+        # (P*Cc, S) effective replicas (>= 1) and outage flags
+        self._eff_pc_np = np.repeat(np.maximum(eff, 1), Cc, axis=0)
+        self._down_pc_np = np.repeat(svc_down, Cc, axis=0)
+        self._replicas_pc = tensor(self._eff_pc_np, torch.int32)
+        self._svc_down_pc = tensor(self._down_pc_np, torch.bool)
 
         # -- retry-storm feedback (load-dependent visits) -------------------
         # With finite call timeouts the retry/truncation probabilities
@@ -633,16 +756,16 @@ class Simulator:
         ):
             self._feedback = RetryFeedback(
                 compiled, params, self._mu,
-                np.maximum(t.replicas.astype(np.int64), 1)[None, :],
-                np.zeros((1, compiled.num_services), bool),
-                np.ones((1, compiled.num_hops)),
-                self._visits_pc_np,
+                self._eff_pc_np, self._down_pc_np, own_combo, visits_pc,
+                mtls=mtls,
             )
             if not self._feedback.active:  # pragma: no cover - guard match
                 self._feedback = None
 
         hs = compiled.hop_service
         self._hop_service = torch.tensor(hs, dtype=torch.int64, device=dev)
+        # (P*Cc, H) outage flag of each hop's callee per phase row
+        self._down_ph = self._svc_down_pc[:, self._hop_service]
         self._hop_err_rate = torch.tensor(
             t.error_rate[hs], dtype=F32, device=dev
         )
@@ -652,12 +775,12 @@ class Simulator:
 
         # -- static RNG elimination -----------------------------------------
         # Coins that cannot land both ways are not drawn: no sub-1 send
-        # probability -> no send coins, no errorRate -> no error coins.
-        self._need_send = bool((compiled.hop_send_prob[1:] < 1.0).any())
+        # probability and no traffic split -> no send coins, no
+        # errorRate -> no error coins.
+        self._need_send = bool(churn) or bool(
+            (compiled.hop_send_prob[1:] < 1.0).any()
+        )
         self._need_err = bool((t.error_rate[hs] > 0.0).any())
-
-        def tensor(x, dtype):
-            return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
 
         levels: List[_Level] = []
         offset = 0
@@ -759,13 +882,14 @@ class Simulator:
                     leaf_busy=leaf_busy,
                     sparse=sparse,
                     tiled=tiled,
+                    child_churn_entry=(
+                        tensor(self._hop_churn_entry[cids], torch.int64)
+                        if churn else None
+                    ),
                 )
             )
             offset += lvl.num_hops
         self._levels: Tuple[_Level, ...] = tuple(levels)
-        self._track_err = self._need_err or any(
-            bool(np.isfinite(l.call_timeout).any()) for l in compiled.levels
-        )
 
         # -- sibling copula: static hop -> group id map ---------------------
         # Concurrent sibling hops (children spawned by the same parent
@@ -906,6 +1030,227 @@ class Simulator:
         else:
             self._svc_scv = 1.0
 
+    # -- scenario tables (host, numpy) --------------------------------------
+
+    def _churn_tables(self, name_to_idx):
+        """Traffic-split tables: the per-hop schedule entry, the
+        time-averaged hop multiplier (``None`` without churn), and per
+        churn combo (the product of the schedules' cycle positions) the
+        (Cc, H) reach multipliers and own weights.
+
+        Each churned call's send probability is multiplied by its
+        schedule's current weight; descendants inherit through the sent
+        propagation.  Offered load uses the time-averaged weight
+        propagated down the unroll, and the queues of each combo see
+        that combo's own load.
+        """
+        compiled = self.compiled
+        churn = self._churn
+        self._num_combos = 1
+        self._hop_churn_entry = None
+        if not churn:
+            ones = np.ones((1, compiled.num_hops), np.float64)
+            return None, ones, ones
+        entry_of_svc = np.full(compiled.num_services, -1, np.int64)
+        for e_i, ts in enumerate(churn):
+            if ts.service not in name_to_idx:
+                raise ValueError(
+                    f"traffic split for unknown service: {ts.service!r}"
+                )
+            if entry_of_svc[name_to_idx[ts.service]] >= 0:
+                raise ValueError(
+                    f"multiple traffic splits target {ts.service!r}"
+                )
+            entry_of_svc[name_to_idx[ts.service]] = e_i
+        entry_of_hop = entry_of_svc[compiled.hop_service]
+        entry_of_hop[0] = -1  # the client's edge is never churned
+        for ts in churn:
+            if not (entry_of_hop == entry_of_svc[
+                    name_to_idx[ts.service]]).any():
+                # only the root targets it (or nothing does): the split
+                # would be a silent no-op
+                raise ValueError(
+                    f"traffic split for {ts.service!r} matches no "
+                    "callable edge (the client -> entrypoint edge "
+                    "cannot be churned)"
+                )
+        # sentinel column E holds weight 1.0 for unchurned calls
+        self._hop_churn_entry = np.where(
+            entry_of_hop >= 0, entry_of_hop, len(churn)
+        ).astype(np.int32)
+        self._churn_periods = tuple(float(ts.period_s) for ts in churn)
+        self._churn_weights = tuple(
+            torch.tensor(ts.weights, dtype=F32, device=self.device)
+            for ts in churn
+        )
+        means = np.asarray([ts.mean_weight for ts in churn])
+        own = np.where(
+            entry_of_hop >= 0, means[np.clip(entry_of_hop, 0, None)], 1.0
+        )
+        hop_mult = _tree_product(compiled, own)
+        ks = [len(ts.weights) for ts in churn]
+        n_combos = int(np.prod(ks))
+        if n_combos > 256:
+            raise ValueError(
+                f"traffic-split cycle product is {n_combos} "
+                "combinations (> 256); shorten or align the "
+                "weight schedules"
+            )
+        w_combo = np.asarray([
+            [churn[e].weights[combo[e]] for e in range(len(churn))]
+            for combo in itertools.product(*map(range, ks))
+        ])  # (Cc, E)
+        own_c = np.where(
+            entry_of_hop >= 0,
+            w_combo[:, np.clip(entry_of_hop, 0, None)],
+            1.0,
+        )  # (Cc, H)
+        self._num_combos = n_combos
+        return hop_mult, _tree_product(compiled, own_c), own_c
+
+    def _kill_tables(self, chaos, name_to_idx, cuts, eff) -> None:
+        """Ungraceful kills (``drain=False``): the canonical kill tables
+        and each hop's payload-free return path to the client.
+
+        A graceful kill only removes capacity; an ungraceful one also
+        resets the requests resident on the killed replicas at the kill
+        instant.  Applied after the sweeps to requests whose hop on the
+        killed service straddles the kill time: each dies with
+        probability down / alive-before and the client sees a transport
+        failure at about the kill instant (retries of the killed call
+        and truncation downstream are not re-simulated).  One row per
+        ``drain=False`` event in kill-time order, surviving events first
+        and fully-down targets as inert zero rows at the end; row ``e``
+        draws its coins from fold-in ``9_990_000 + e``.
+        """
+        compiled = self.compiled
+        t = compiled.services
+        params = self.params
+        back_cum = None
+        if any(not ev.drain for ev in chaos):
+            # payload-free return legs, one per ancestor edge; a
+            # cross-cluster edge pays the gateway extra on its return
+            leg = np.full(
+                compiled.num_hops, params.network.base_latency_s,
+                np.float64,
+            )
+            if t.num_clusters > 1:
+                cl = t.cluster
+                hs_all = compiled.hop_service
+                par = compiled.hop_parent
+                leg[1:] += np.where(
+                    cl[hs_all[par[1:]]] != cl[hs_all[1:]],
+                    float(params.network.cross_cluster_latency_s),
+                    0.0,
+                )
+            leg[0] += params.network.entry_extra_latency_s
+            back_cum = leg.copy()
+            hi = 1  # level-by-level prefix over the BFS order
+            for lvl in compiled.levels:
+                nxt = hi + lvl.num_children
+                if lvl.num_children:
+                    back_cum[hi:nxt] += back_cum[compiled.hop_parent[hi:nxt]]
+                hi = nxt
+        kill_t: list = []
+        kill_frac: list = []
+        for ev in sorted(chaos, key=lambda e: e.start_s):
+            if ev.drain:
+                continue
+            s = name_to_idx[ev.service]
+            down = (
+                int(t.replicas[s])
+                if ev.replicas_down is None
+                else ev.replicas_down
+            )
+            # the residents are spread over the replicas alive just
+            # before this kill (the prior phase's effective count)
+            p = cuts.index(ev.start_s)
+            k_before = int(eff[p - 1, s]) if p > 0 else int(t.replicas[s])
+            if k_before <= 0:
+                continue  # already fully down: nothing resident to kill
+            kill_t.append(float(ev.start_s))
+            kill_frac.append(np.where(
+                compiled.hop_service == s, min(down / k_before, 1.0), 0.0
+            ))
+        self._num_kill_events = sum(1 for ev in chaos if not ev.drain)
+        while len(kill_t) < self._num_kill_events:
+            kill_t.append(0.0)
+            kill_frac.append(np.zeros(compiled.num_hops))
+        self._kill_t = self._kill_frac = self._back_cum = None
+        if self._num_kill_events:
+            dev = self.device
+            self._kill_t = torch.tensor(
+                np.asarray(kill_t, np.float32), device=dev
+            )
+            self._kill_frac = torch.tensor(
+                np.stack(kill_frac).astype(np.float32), device=dev
+            )
+            self._back_cum = torch.tensor(
+                back_cum.astype(np.float32), device=dev
+            )
+
+    def _phase_reach_multipliers(self, svc_down: np.ndarray) -> np.ndarray:
+        """(P, H) static reach multipliers from outage-driven script
+        truncation: a call to a down service transport-fails, its caller
+        stops after that step (concurrent siblings still run), and the
+        down subtree serves nothing.  Level by level over the BFS order:
+        the reference's loop over hops, with the same products."""
+        compiled = self.compiled
+        H = compiled.num_hops
+        P = svc_down.shape[0]
+        out = np.ones((P, H))
+        parent = compiled.hop_parent
+        step = compiled.hop_step
+        send_prob = compiled.hop_send_prob.astype(np.float64)
+        first_attempt = compiled.hop_attempt == 0
+        for p in range(P):
+            down = svc_down[p]
+            if not down.any():
+                continue
+            tgt_down = down[compiled.hop_service]
+            m = out[p]
+            if tgt_down[0]:
+                # a down entrypoint refuses every connection
+                m[:] = 0.0
+                continue
+            # P(a step does NOT transport-fail): product over its
+            # down-target calls' send coins (one coin per call; retry
+            # attempts share it)
+            no_fail: Dict[tuple, float] = {}
+            for h in np.nonzero(tgt_down & first_attempt)[0]:
+                key = (int(parent[h]), int(step[h]))
+                no_fail[key] = no_fail.get(key, 1.0) * (
+                    1.0 - float(send_prob[h])
+                )
+            per_parent: Dict[int, list] = {}
+            for (q, j), pr in no_fail.items():
+                per_parent.setdefault(q, []).append((j, pr))
+            # surv[h]: the product, in step order, of the no-fail
+            # probabilities of the parent's steps before h's step
+            surv = np.ones(H)
+            if per_parent:
+                affected = np.zeros(H, bool)
+                affected[list(per_parent)] = True
+                kids = np.nonzero(affected[parent])[0]
+                kids = kids[kids > 0]
+                tables = {}
+                for q, items in per_parent.items():
+                    items.sort()
+                    prods = [1.0]
+                    for _, pj in items:
+                        prods.append(prods[-1] * pj)
+                    tables[q] = ([j for j, _ in items], prods)
+                for h in kids:
+                    js, prods = tables[int(parent[h])]
+                    surv[h] = prods[bisect.bisect_left(js, int(step[h]))]
+            for lvl in compiled.levels:
+                cids = lvl.child_ids
+                if len(cids):
+                    m[cids] = np.where(
+                        tgt_down[cids], 0.0, m[parent[cids]] * surv[cids]
+                    )
+        return out
+
     # -- draws ------------------------------------------------------------
 
     def draw_spec(self, n: int, kind: str,
@@ -942,6 +1287,7 @@ class Simulator:
             svc=svc,
             arrivals=kind == OPEN_LOOP,
             saturated=saturated,
+            kill_events=self._num_kill_events,
         )
 
     def _draws(self, source, index, n: int, kind: str,
@@ -954,7 +1300,7 @@ class Simulator:
     # -- public entry points ----------------------------------------------
 
     def _vis_arg(self, offered: float) -> torch.Tensor:
-        """The (1, S) visit table the queues see at ``offered``: the
+        """The (P*Cc, S) visit table the queues see at ``offered``: the
         static table, or the retry-feedback fixed point at that rate."""
         if self._feedback is None:
             return self._visits_pc
@@ -963,14 +1309,82 @@ class Simulator:
             device=self.device,
         )
 
+    def _windows_arg(self, offered: float, sat: bool) -> torch.Tensor:
+        """The (2, W) packed (bounds, row) phase-window table at
+        ``offered``: identity unless an overloaded phase leaves a
+        backlog, in which case drain windows keep the congested row
+        active past its cut for backlog / freed-capacity seconds.
+
+        Saturated (-qps max) runs skip drains: the closed population
+        bounds the backlog at C, so queues drain within one cycle.
+        """
+        P = len(self._phase_starts)
+        if P == 1 or sat or not self.has_chaos:
+            return self._ident_windows
+        key = (float(f"{float(offered):.4g}"),)
+        if key not in self._window_cache:
+            cuts = self._phase_starts.astype(np.float64)
+            S = self.compiled.num_services
+            Cc = self._num_combos
+            visits = (
+                self._feedback.visits_pc(offered)
+                if self._feedback is not None
+                else self._visits_pc_np
+            )
+            lam = offered * visits.reshape(P, Cc, S).mean(1)  # (P, S)
+            eff = self._eff_pc_np[::Cc].astype(np.float64)  # clamped >= 1
+            down = self._down_pc_np[::Cc]
+            cap = np.where(down, 0.0, eff * self._mu)
+            lam = np.where(down, 0.0, lam)
+
+            seq = [(float(cuts[0]), 0)]
+            backlog = np.zeros(S)
+            for p in range(P - 1):
+                dur = float(cuts[p + 1] - cuts[p])
+                backlog += np.maximum(lam[p] - cap[p], 0.0) * dur
+                free = cap[p + 1] - lam[p + 1]
+                drainable = (backlog > 1e-9) & (free > 1e-9)
+                nxt_end = float(cuts[p + 2]) if p + 2 < P else np.inf
+                if drainable.any():
+                    drain_t = float(
+                        (backlog[drainable] / free[drainable]).max()
+                    )
+                    drain_end = min(cuts[p + 1] + drain_t, nxt_end)
+                    if drain_end > cuts[p + 1] + 1e-9:
+                        # the congested row stays live while draining
+                        seq.append((float(cuts[p + 1]), p))
+                        if drain_end < nxt_end:
+                            seq.append((float(drain_end), p + 1))
+                        drained = (
+                            np.maximum(free, 0.0)
+                            * (drain_end - cuts[p + 1])
+                        )
+                        backlog = np.maximum(backlog - drained, 0.0)
+                        continue
+                seq.append((float(cuts[p + 1]), p + 1))
+            while len(seq) < self._num_windows:
+                seq.append(seq[-1])
+            self._window_cache[key] = _const(
+                np.asarray(
+                    [[b for b, _ in seq], [r for _, r in seq]], np.float32
+                ),
+                F32, self.device,
+            )
+        return self._window_cache[key]
+
     def _scalar(self, x: float) -> torch.Tensor:
         return torch.tensor(x, dtype=F32, device=self.device)
 
-    @staticmethod
-    def _saturated(load: LoadModel) -> bool:
+    def _saturated(self, load: LoadModel) -> bool:
         """True when the run samples the finite-population (MVA) wait
-        law: Fortio's ``-qps max`` closed loop."""
-        return load.kind == CLOSED_LOOP and load.qps is None
+        law: Fortio's ``-qps max`` closed loop, with per-phase tables
+        under chaos and churn.  A phased mTLS tax falls back to the
+        open-loop law (the MVA delay station is static)."""
+        return (
+            load.kind == CLOSED_LOOP
+            and load.qps is None
+            and self._mtls is None
+        )
 
     def run(
         self,
@@ -995,6 +1409,7 @@ class Simulator:
                 self._scalar(load.qps), self._scalar(0.0),
                 torch.zeros(1, dtype=F32, device=self.device),
                 visits_pc=self._vis_arg(load.qps),
+                phase_windows=self._windows_arg(load.qps, False),
             )
             return res
         lam = self.solve_closed_rate(load, num_requests, source)
@@ -1003,11 +1418,16 @@ class Simulator:
         res, _, _ = self._simulate_core(
             num_requests, CLOSED_LOOP, c,
             self._draws(source, None, num_requests, CLOSED_LOOP, sat),
-            self._scalar(lam), self._scalar(0.0 if sat else c / load.qps),
+            self._scalar(lam),
+            self._scalar(0.0 if load.qps is None else c / load.qps),
             self._scalar(lam), self._scalar(0.0),
             torch.zeros(c, dtype=F32, device=self.device),
             visits_pc=self._vis_arg(lam),
             sat_conns=c if sat else 0,
+            # chaos-phase placement always reflects the real rate: with
+            # qps=None the workers still issue at the solved throughput
+            nominal_gap=self._scalar(c / lam),
+            phase_windows=self._windows_arg(lam, sat),
         )
         return res
 
@@ -1029,15 +1449,18 @@ class Simulator:
         rate is memoized per load shape.
         """
         if self._saturated(load):
-            return float(self._closed_tables(load.connections, source)[0][0])
+            # phased runs time-weight the per-row rates over the chaos
+            # windows the run spans
+            thr = self._closed_tables(load.connections, source)[0]
+            return self._sat_phased_rate(thr, num_requests)
         cache_key = (load.qps, load.connections, min(num_requests, 2048))
         if cache_key in self._rate_cache:
             return self._rate_cache[cache_key]
         cap = 0.999 * self.capacity_qps()
-        hi = min(load.qps, cap)
+        hi = min(load.qps, cap) if load.qps is not None else cap
         pilot_n = min(num_requests, 2048)
         c = load.connections
-        gap = self._scalar(c / load.qps)
+        gap = self._scalar(0.0 if load.qps is None else c / load.qps)
 
         def implied(lam: float, i: int) -> float:
             res, _, _ = self._simulate_core(
@@ -1047,9 +1470,12 @@ class Simulator:
                 self._scalar(0.0),
                 torch.zeros(c, dtype=F32, device=self.device),
                 visits_pc=self._vis_arg(lam),
+                nominal_gap=self._scalar(c / lam),
+                phase_windows=self._windows_arg(lam, False),
             )
             mean_lat = float(res.client_latency.mean())
-            return min(c / max(mean_lat, 1e-9), load.qps)
+            out = c / max(mean_lat, 1e-9)
+            return min(out, load.qps) if load.qps is not None else out
 
         if implied(hi, 0) >= hi:
             # pacing (or capacity) binds before self-throttling
@@ -1067,6 +1493,29 @@ class Simulator:
         lam = 0.5 * (lo + hi)
         self._rate_cache[cache_key] = lam
         return lam
+
+    def _sat_phased_rate(self, thr: np.ndarray, num_requests: int) -> float:
+        """Average ``-qps max`` throughput over the chaos phases a run of
+        ``num_requests`` spans: walk the phases accumulating requests at
+        each phase's rate until the count is reached (churn combos cycle
+        uniformly, so they average arithmetically within a phase)."""
+        P = len(self._phase_starts)
+        Cc = self._num_combos
+        if P * Cc == 1:
+            return float(thr[0])
+        lam_p = np.asarray(thr, np.float64).reshape(P, Cc).mean(1)
+        cuts = self._phase_starts.astype(np.float64)
+        acc = 0.0
+        for p in range(P):
+            start = cuts[p]
+            end = cuts[p + 1] if p + 1 < P else np.inf
+            rate = max(float(lam_p[p]), 1e-9)
+            seg = (end - start) * rate
+            if p + 1 >= P or acc + seg >= num_requests:
+                t_end = start + (num_requests - acc) / rate
+                return num_requests / max(t_end, 1e-9)
+            acc += seg
+        return float(lam_p[-1])  # pragma: no cover - loop always returns
 
     # -- saturated closed loop: finite-population tables --------------------
 
@@ -1110,12 +1559,12 @@ class Simulator:
         return self._closed_in
 
     def _closed_tables(self, connections: int, source=None):
-        """Saturated-closed-loop sampling tables at ``connections``:
-        (throughput (1,) f64, p_zero (1, H), coef (1, D+1, H), e (1, H),
-        center_c (1,) f32 numpy, var_scale (1, H)), the tensors on the
-        run's device; built on first use (the fork-join pilots draw from
-        ``source``) and cached per C.  One row: the port has no chaos or
-        churn phases (ROADMAP queue 1, scenario physics).
+        """Saturated-closed-loop sampling tables at ``connections``,
+        stacked per (chaos x churn) phase row: (throughput (R,) f64,
+        p_zero (R, H), coef (R, D+1, H), e (R, H), center_c (R,) f32
+        numpy, var_scale (R, H)), the tensors on the run's device; built
+        on first use (an unphased fork-join run's pilots draw from
+        ``source``) and cached per C.  Unphased runs have R == 1.
 
         ``center_c``/``var_scale`` realize the population copula:
         z' = scale * (z - c * e * (e . z)) has exact unit marginals and
@@ -1127,81 +1576,61 @@ class Simulator:
                     "the saturated closed-loop tables are built by "
                     "solve_closed_rate (they need a draw source)"
                 )
-            thr, p0, coef, e, c, scale = self._closed_row(
-                connections, source
-            )
+            R = len(self._phase_starts) * self._num_combos
+            rows = [
+                self._closed_row(connections, r, R == 1, source)
+                for r in range(R)
+            ]
 
-            def t(x):
-                return _const(np.asarray(x)[None], F32, self.device)
+            def t(i):
+                return _const(np.stack([r[i] for r in rows]), F32,
+                              self.device)
 
             self._closed_cache[connections] = (
-                np.asarray([thr]), t(p0), t(coef), t(e),
-                np.asarray([c], np.float32), t(scale),
+                np.asarray([r[0] for r in rows]), t(1), t(2), t(3),
+                np.asarray([r[4] for r in rows], np.float32), t(5),
             )
         return self._closed_cache[connections]
 
-    def _closed_row(self, connections: int, source):
-        """The closed-network tables of the run's one phase (numpy)."""
+    def _closed_row(self, connections: int, row: int, refine: bool,
+                    source):
+        """One phase row's closed-network tables (numpy)."""
         compiled = self.compiled
         hs = compiled.hop_service
-        visits = self._visits_pc_np[0]
-        reps = np.maximum(compiled.services.replicas.astype(np.float64), 1.0)
-        fj, reach_r, delay_w = self._closed_inputs()
+        H = compiled.num_hops
+        visits = self._visits_pc_np[row]
+        reps = np.maximum(self._eff_pc_np[row].astype(np.float64), 1.0)
+        fj, reach_fj, delay_w = self._closed_inputs()
+        reach_r = reach_fj * self._mult_pc[row]
         delay_r = float((reach_r * delay_w).sum())
         cycle_visits_r = np.bincount(
             hs, weights=reach_r, minlength=compiled.num_services
         )
+        if visits.max(initial=0.0) <= 1e-12:
+            # down entry: every connection spins on refused connects
+            lam = connections / max(2.0 * self._entry_one_way, 1e-9)
+            deg = closed.DEFAULT_QUANTILE_DEGREE
+            return (lam, np.ones(H), np.zeros((deg + 1, H)),
+                    np.zeros(H), 0.0, np.ones(H))
         if bool((fj < 1.0).any()):
-            # fork-join: finite-source decomposition, the cycle refined
-            # through the ENGINE's own composition (max over siblings,
-            # copula) so Little's law closes: E[sampled latency] = C /
-            # lambda.  Sample E at a spread of cycles around the
-            # decomposition estimate, fit the locally-linear map
-            # E(c) ~ a + b c by least squares, and solve c* = a / (1 - b)
-            # (the map's contraction factor is ~0.9, so a plain
-            # iteration would amplify pilot noise ~10x).
+            # fork-join: finite-source decomposition.  For unphased runs
+            # the cycle is refined through the ENGINE's own composition
+            # (max over siblings, copula) so Little's law closes:
+            # E[sampled latency] = C / lambda.  Sample E at a spread of
+            # cycles around the decomposition estimate, fit the
+            # locally-linear map E(c) ~ a + b c by least squares, and
+            # solve c* = a / (1 - b) (the map's contraction factor is
+            # ~0.9, so a plain iteration would amplify pilot noise ~10x).
+            # Phase rows keep the decomposition (the pilot measures one
+            # stationary phase, which phased runs do not have).
             lam, pi, cycle = closed.fork_join_decomposition(
                 visits, cycle_visits_r, reps, self._mu,
                 delay_r, connections,
             )
-            pilot = self._sat_pilot(connections, source)
-
-            def t(x):
-                return _const(x, F32, self.device)
-
-            def census_at(c):
-                # the repairman sweep is itself a per-station fixed
-                # point in w; iterate it to convergence at cycle c
-                pi_c = pi
-                w_c = np.full(len(visits), 1.0 / self._mu)
-                for _ in range(4):
-                    pi_c, w_c = closed.repairman_marginals(
-                        visits, reps, self._mu, c, w_c, connections
-                    )
-                return pi_c
-
-            c0 = cycle
-            cs, es = [], []
-            for it, f in enumerate((0.85, 0.925, 1.0, 1.075, 1.15)):
-                c = c0 * f
-                pi_c = census_at(c)
-                p0, coef, _ = closed.tables_from_pi(
-                    pi_c, reps, self._mu, scv=self._svc_scv
+            if refine:
+                cycle, pi = self._refine_cycle(
+                    connections, source, visits, reps, pi, cycle
                 )
-                e_c, cc, sc = self._center_terms(
-                    closed.census_sigma(pi_c), None, hs
-                )
-                es.append(float(pilot(
-                    it, t(p0[hs]), t(coef[:, hs]), t(e_c), t(cc), t(sc)
-                )))
-                cs.append(c)
-            b, a = np.polyfit(np.asarray(cs), np.asarray(es), 1)
-            if b < 0.98:  # sane slope: solve the linear map
-                # clamped to the sampled neighbourhood: the model is local
-                cycle = float(np.clip(a / (1.0 - b), 0.7 * c0, 1.6 * c0))
-            else:  # degenerate fit: keep the decomposition value
-                cycle = c0
-            pi = census_at(cycle)
             p0, coef, _ = closed.tables_from_pi(
                 pi, reps, self._mu, scv=self._svc_scv
             )
@@ -1221,6 +1650,52 @@ class Simulator:
             sigma, var_d = tabs.sigma, tabs.var_delay
         e_h, c_center, scale_h = self._center_terms(sigma, var_d, hs)
         return (throughput, p0[hs], coef[:, hs], e_h, c_center, scale_h)
+
+    def _refine_cycle(self, connections, source, visits, reps, pi, cycle):
+        """Little-law closure of an unphased fork-join row: find the
+        cycle c* with E(c*) = c*, where E(c) is the engine's own
+        composed mean latency under tables built at cycle c.  Returns
+        ``(cycle, pi)`` at the solved cycle."""
+        hs = self.compiled.hop_service
+        pilot = self._sat_pilot(connections, source)
+
+        def t(x):
+            return _const(x, F32, self.device)
+
+        def census_at(c):
+            # the repairman sweep is itself a per-station fixed
+            # point in w; iterate it to convergence at cycle c
+            pi_c = pi
+            w_c = np.full(len(visits), 1.0 / self._mu)
+            for _ in range(4):
+                pi_c, w_c = closed.repairman_marginals(
+                    visits, reps, self._mu, c, w_c, connections
+                )
+            return pi_c
+
+        c0 = cycle
+        cs, es = [], []
+        for it, f in enumerate((0.85, 0.925, 1.0, 1.075, 1.15)):
+            c = c0 * f
+            pi_c = census_at(c)
+            p0, coef, _ = closed.tables_from_pi(
+                pi_c, reps, self._mu, scv=self._svc_scv
+            )
+            e_c, cc, sc = self._center_terms(
+                closed.census_sigma(pi_c), None, hs
+            )
+            es.append(float(pilot(
+                it, c / connections, t(p0[hs]), t(coef[:, hs]), t(e_c),
+                t(cc), t(sc),
+            )))
+            cs.append(c)
+        b, a = np.polyfit(np.asarray(cs), np.asarray(es), 1)
+        if b < 0.98:  # sane slope: solve the linear map
+            # clamped to the sampled neighbourhood: the model is local
+            cycle = float(np.clip(a / (1.0 - b), 0.7 * c0, 1.6 * c0))
+        else:  # degenerate fit: keep the decomposition value
+            cycle = c0
+        return cycle, census_at(cycle)
 
     @staticmethod
     def _center_terms(sigma, var_d, hs):
@@ -1264,7 +1739,7 @@ class Simulator:
         c = max(connections, 1)
         one, zero = self._scalar(1.0), self._scalar(0.0)
 
-        def probe(it, p0_h, coef_h, e_h, c_ctr, scale_h):
+        def probe(it, nominal_gap, p0_h, coef_h, e_h, c_ctr, scale_h):
             means = []
             for i in range(2):
                 res, _, _ = self._simulate_core(
@@ -1274,11 +1749,70 @@ class Simulator:
                     torch.zeros(c, dtype=F32, device=self.device),
                     sat_conns=connections,
                     sat_override=(p0_h, coef_h, e_h, c_ctr, scale_h),
+                    nominal_gap=self._scalar(nominal_gap),
                 )
                 means.append(res.client_latency.mean())
             return (means[0] + means[1]) / 2.0
 
         return probe
+
+    def _block_plan(self, load: LoadModel, num_requests: int, source,
+                    block_size: int = 65_536) -> Tuple[float, int, int]:
+        """``(offered rate, block, number of blocks)`` of a blocked run:
+        the closed loop's rate is solved (and cached) first, and its
+        block is a whole number of requests per connection (it grows to
+        the connection count when that exceeds ``block_size``)."""
+        if load.kind == OPEN_LOOP:
+            offered = float(load.qps)
+            block = max(1, min(block_size, num_requests))
+        else:
+            offered = self.solve_closed_rate(load, num_requests, source)
+            conns = load.connections
+            block = max(1, min(block_size, num_requests) // conns) * conns
+        return offered, block, max(1, -(-num_requests // block))
+
+    def run_blocks(self, load: LoadModel, num_requests: int, source, *,
+                   block_size: int = 65_536) -> Iterator[SimResults]:
+        """The :class:`SimResults` of each block of a run of >=
+        ``num_requests`` (:meth:`_block_plan`).
+
+        A Python loop over blocks carries the open-loop clock ``t0``, the
+        per-connection clocks ``conn_t0`` and the closed loop's request
+        offset (its nominal clock, which places requests into chaos,
+        churn and mTLS phases) from one block to the next, so the blocks
+        form one continuous timeline; block ``b`` draws from index
+        ``1_000_000 + b`` of ``source``.
+        """
+        offered, block, num_blocks = self._block_plan(
+            load, num_requests, source, block_size
+        )
+        sat = self._saturated(load)
+        conns = 0 if load.kind == OPEN_LOOP else load.connections
+        # -qps max: no pacing, the workers issue back to back; the
+        # nominal clock follows the solved rate
+        pace = conns / load.qps if conns and load.qps is not None else 0.0
+        nominal = conns / offered
+        visits_pc = self._vis_arg(offered)
+        windows = self._windows_arg(offered, sat)
+        offered_t = self._scalar(offered)
+        pace_t = self._scalar(pace)
+        nominal_t = self._scalar(nominal)
+        t0 = self._scalar(0.0)
+        conn_t0 = torch.zeros(max(conns, 1), dtype=F32, device=self.device)
+        per = block // max(conns, 1)
+        for b in range(num_blocks):
+            res, t0, conn_t0 = self._simulate_core(
+                block, load.kind, conns,
+                self._draws(source, BLOCK_INDEX_BASE + b, block, load.kind,
+                            sat),
+                offered_t, pace_t, offered_t, t0, conn_t0,
+                visits_pc=visits_pc,
+                sat_conns=conns if sat else 0,
+                nominal_gap=nominal_t,
+                req_offset=b * per,
+                phase_windows=windows,
+            )
+            yield res
 
     def run_summary(
         self,
@@ -1290,62 +1824,30 @@ class Simulator:
         collector=None,
         trim: bool = False,
     ):
-        """Simulate >= ``num_requests`` in memory-bounded blocks and
-        reduce them to one :class:`~isotope_tpu_torch.sim.summary.RunSummary`.
-
-        A Python loop over blocks carries the open-loop clock ``t0`` and
-        the per-connection clocks ``conn_t0`` from one block to the
-        next, so the blocks form one continuous timeline; block ``b``
-        draws from index ``1_000_000 + b`` of ``source``.  ``collector``
-        (a ``metrics.prometheus.MetricsCollector``) adds each block's
-        per-service Prometheus series to ``RunSummary.metrics``.
-        ``trim=True`` also accumulates the collector's steady-state
-        window (skip 62s, cap 180s) into the ``win_*`` fields, placed
-        from the run's expected duration.
+        """Simulate >= ``num_requests`` in memory-bounded blocks
+        (:meth:`run_blocks`) and reduce them to one
+        :class:`~isotope_tpu_torch.sim.summary.RunSummary`.
+        ``collector`` (a ``metrics.prometheus.MetricsCollector``) adds
+        each block's per-service Prometheus series to
+        ``RunSummary.metrics``.  ``trim=True`` also accumulates the
+        collector's steady-state window (skip 62s, cap 180s) into the
+        ``win_*`` fields, placed from the run's expected duration.
         """
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
-        sat = self._saturated(load)
-        if load.kind == OPEN_LOOP:
-            offered = float(load.qps)
-            pace = 0.0
-            conns = 0
-            block = max(1, min(block_size, num_requests))
-        else:
-            conns = load.connections
-            offered = self.solve_closed_rate(load, num_requests, source)
-            # -qps max: no pacing, the workers issue back to back
-            pace = 0.0 if sat else conns / load.qps
-            # each connection needs at least one request per block, so
-            # when connections > block_size the block grows to them
-            per = max(1, min(block_size, num_requests) // conns)
-            block = per * conns
-        num_blocks = max(1, -(-num_requests // block))
-        window = (
-            trim_window_bounds(num_blocks * block, offered) if trim else None
+        offered, block, num_blocks = self._block_plan(
+            load, num_requests, source, block_size
         )
-        visits_pc = self._vis_arg(offered)
-        offered_t = self._scalar(offered)
-        pace_t = self._scalar(pace)
-        t0 = self._scalar(0.0)
-        conn_t0 = torch.zeros(max(conns, 1), dtype=F32, device=self.device)
-        win = (
-            (self._scalar(window[0]), self._scalar(window[1]))
-            if window is not None
-            else None
-        )
-        parts = []
-        for b in range(num_blocks):
-            res, t0, conn_t0 = self._simulate_core(
-                block, load.kind, conns,
-                self._draws(source, BLOCK_INDEX_BASE + b, block, load.kind,
-                            sat),
-                offered_t, pace_t, offered_t, t0, conn_t0,
-                visits_pc=visits_pc,
-                sat_conns=conns if sat else 0,
-            )
-            parts.append(summary_mod.summarize(res, collector, window=win))
+        win = None
+        if trim:
+            lo, hi = trim_window_bounds(num_blocks * block, offered)
+            win = (self._scalar(lo), self._scalar(hi))
+        parts = [
+            summary_mod.summarize(res, collector, window=win)
+            for res in self.run_blocks(load, num_requests, source,
+                                       block_size=block_size)
+        ]
         return summary_mod.reduce_stacked(summary_mod.stack(parts))
 
     def default_block_size(self, budget_elems: int = 33_554_432) -> int:
@@ -1357,20 +1859,22 @@ class Simulator:
     def census_shapes(self, n: int) -> List[Tuple[int, int, int, bool, bool]]:
         """``(N, B, P, fail, err)`` of each census call one block of ``n``
         requests makes, in call order: one per dense level with children,
-        with a fail step where a call has a finite timeout and error
-        coins where a hop has a nonzero error rate, and one per tile of
-        a tiled level that holds calls, ``(N, T, W)``, with the level's
-        fail step and no error coins."""
+        with a fail step where a call has a finite timeout or under
+        chaos (any callee may be down) and error coins where a hop has a
+        nonzero error rate, and one per tile of a tiled level that holds
+        calls, ``(N, T, W)``, with the level's fail step and no error
+        coins."""
         shapes = []
         for lvl in reversed(self._levels):
             if lvl.num_children == 0 or lvl.sparse is not None:
                 continue
+            fail = lvl.finite_timeout or self.has_chaos
             if lvl.tiled is None:
-                shapes.append((n, lvl.size, lvl.pmax, lvl.finite_timeout,
+                shapes.append((n, lvl.size, lvl.pmax, fail,
                                self._need_err))
                 continue
             shapes += [
-                (n, len(tile.hops), tile.width, lvl.finite_timeout, False)
+                (n, len(tile.hops), tile.width, fail, False)
                 for tile in lvl.tiled.tiles
                 if tile.num_calls
             ]
@@ -1494,36 +1998,105 @@ class Simulator:
 
     # -- the tensor program ------------------------------------------------
 
-    def _saturated_wait(self, z, sat_conns: int, sat_override):
+    def _saturated_wait(self, z, sat_conns: int, sat_override, phase_idx):
         """(N, H) waits under the finite-population law: the population
         copula ``z' = scale * (z - c * e * (e . z))`` centres the normals
         across hops (the in-flight census is fixed at C), then a per-hop
         quantile polynomial in ``v = -log1p(-u')`` (Horner, coefficients
         broadcast over the request axis) of the conditional uniform
-        ``u'`` above the zero-wait mass ``p0``."""
+        ``u'`` above the zero-wait mass ``p0``.  ``phase_idx`` (N,)
+        selects each request's (chaos x churn) row of phased tables
+        (``None``: one row)."""
         if sat_override is not None:
             p0_h, coef_h, e_o, c_o, scale_o = sat_override
             zproj = (z * e_o).sum(-1, keepdim=True)
             z = (z - c_o * e_o * zproj) * scale_o
-        else:
+            deg = coef_h.shape[0]
+
+            def coef(ci):
+                return coef_h[ci]
+        elif phase_idx is None:
             _, p0_r, coef_r, e_r, c_r, scale_r = self._closed_tables(
                 sat_conns
             )
-            p0_h, coef_h = p0_r[0], coef_r[0]
+            p0_h = p0_r[0]
             c_center = float(c_r[0])
             if c_center > 0.0:
                 zproj = (z * e_r[0]).sum(-1, keepdim=True)
                 z = (z - c_center * e_r[0] * zproj) * scale_r[0]
+            coef_0 = coef_r[0]
+            deg = coef_0.shape[0]
+
+            def coef(ci):
+                return coef_0[ci]
+        else:
+            # per-phase rows gathered by each request's arrival phase
+            _, p0_r, coef_r, e_r, c_r, scale_r = self._closed_tables(
+                sat_conns
+            )
+            p0_h = p0_r[phase_idx]
+            e_n = e_r[phase_idx]
+            c_n = _const(c_r, F32, self.device)[:, None][phase_idx]
+            scale_n = scale_r[phase_idx]
+            zproj = (z * e_n).sum(-1, keepdim=True)
+            z = (z - c_n * e_n * zproj) * scale_n
+            deg = coef_r.shape[1]
+
+            def coef(ci):
+                return coef_r[:, ci, :][phase_idx]
         u_sat = ndtr(z)
         u_c = torch.clamp(
             (u_sat - p0_h) / torch.clamp(1.0 - p0_h, min=1e-9),
             0.0, 1.0 - 1e-7,
         )
         v = -torch.log1p(-u_c)
-        w = coef_h[-1]
-        for ci in range(coef_h.shape[0] - 2, -1, -1):
-            w = w * v + coef_h[ci]
+        w = coef(deg - 1)
+        for ci in range(deg - 2, -1, -1):
+            w = w * v + coef(ci)
         return torch.where(u_sat < p0_h, 0.0, torch.clamp(w, min=0.0))
+
+    def _nominal_arrivals(self, n, connections, sat_conns, nominal_gap,
+                          req_offset):
+        """(n,) nominal closed-loop arrival times, used only to place
+        requests into chaos, churn and mTLS phases: request ``k`` of each
+        connection's stream at ``(req_offset + k) * nominal_gap``, the
+        remainder requests one step later.  Phased ``-qps max`` warps
+        nominal time piecewise from each phase's throughput instead: the
+        q-th request (globally) fires at R^-1(q), R(t) the cumulative
+        requests under the per-phase rates."""
+        dev = self.device
+        c = max(connections, 1)
+        per = n // c
+        idx = req_offset + torch.arange(per, dtype=F32, device=dev)
+        rem_idx = torch.full((n - c * per,), float(req_offset + per),
+                             dtype=F32, device=dev)
+        P_n = len(self._phase_starts)
+        if sat_conns and P_n * self._num_combos > 1:
+            thr = self._closed_tables(sat_conns)[0]
+            lam_p = np.maximum(
+                thr.reshape(P_n, self._num_combos).mean(1), 1e-9
+            )
+            cuts_np = self._phase_starts.astype(np.float64)
+            r_breaks = np.concatenate(
+                [[0.0], np.cumsum(lam_p[:-1] * np.diff(cuts_np))]
+            )
+            cuts_f = _const(cuts_np, F32, dev)
+            lam_f = _const(lam_p, F32, dev)
+            breaks_f = _const(r_breaks, F32, dev)
+
+            def warp(i):
+                q = i * float(sat_conns)
+                k_ph = torch.clamp(
+                    torch.searchsorted(breaks_f, q, right=True) - 1,
+                    0, P_n - 1,
+                )
+                return cuts_f[k_ph] + (q - breaks_f[k_ph]) / lam_f[k_ph]
+
+            nominal, rem_nominal = warp(idx), warp(rem_idx)
+        else:
+            nominal = idx * nominal_gap
+            rem_nominal = rem_idx * nominal_gap
+        return torch.cat([nominal.expand(c, per).reshape(-1), rem_nominal])
 
     def _simulate_core(
         self,
@@ -1539,6 +2112,9 @@ class Simulator:
         visits_pc: Optional[torch.Tensor] = None,
         sat_conns: int = 0,
         sat_override: Optional[Tuple[torch.Tensor, ...]] = None,
+        nominal_gap: Optional[torch.Tensor] = None,
+        req_offset: int = 0,
+        phase_windows: Optional[torch.Tensor] = None,
     ) -> Tuple[SimResults, torch.Tensor, torch.Tensor]:
         """One block of ``n`` requests; returns ``(results, t_end,
         conn_end)`` for the next block's clocks.
@@ -1550,10 +2126,19 @@ class Simulator:
         with that connection count (``-qps max``); ``sat_override`` =
         ``(p0, coef, e, c, scale)`` replaces its cached tables and
         centering (the fork-join fixed point's pilots).
+
+        ``nominal_gap`` (default ``pace_gap``) and ``req_offset`` (the
+        requests each connection issued in earlier blocks) are the
+        closed loop's nominal clock, which places requests into phases;
+        ``phase_windows`` is the (2, W) table of :meth:`_windows_arg`
+        (default: the identity windows).
         """
         dev = self.device
         zero = torch.zeros((), dtype=F32, device=dev)
         u_send, u_err = draws.u_send, draws.u_err
+        H = self.compiled.num_hops
+        if nominal_gap is None:
+            nominal_gap = pace_gap
 
         # ---- wait draws: copulas in normal space, then U(0,1) marginals
         # (the saturated law keeps the normals, and takes the flat
@@ -1583,14 +2168,53 @@ class Simulator:
         else:
             u_wait = draws.u_wait
 
-        # ---- open-loop arrival times -----------------------------------
+        # ---- arrival times (open loop exact; closed loop nominal, used
+        # only to place requests into phases) -----------------------------
+        P = len(self._phase_starts)
+        Cc = self._num_combos
+        num_phases = P * Cc
+        phased_clock = num_phases > 1 or self._mtls is not None
+        nominal_arrivals = None
         if kind == OPEN_LOOP:
             gaps = draws.arr / arrival_qps
-            arrivals = t0 + torch.cumsum(gaps, 0)
+            arrivals = t0 + _clock_cumsum(gaps, 0)
+            nominal_arrivals = arrivals
         else:
             arrivals = None  # closed-loop arrivals derive from latencies
+            if phased_clock:
+                nominal_arrivals = self._nominal_arrivals(
+                    n, connections, sat_conns, nominal_gap, req_offset
+                )
 
-        # ---- queueing parameters (one phase) ----------------------------
+        # ---- phased mTLS tax at each request's arrival time --------------
+        # (n,) extra one-way latency added to every edge leg
+        tax = None
+        if self._mtls is not None:
+            t_idx = torch.floor(
+                nominal_arrivals / self._mtls.period_s
+            ).to(torch.int64) % len(self._mtls.taxes_s)
+            tax = self._mtls_taxes[t_idx]
+
+        # ---- traffic-split weights at each request's arrival time --------
+        # (N, E+1): one column per schedule and a sentinel 1.0 column for
+        # unchurned calls; ``combo_idx`` linearizes the schedules' cycle
+        # positions for the phase tables
+        combo_idx = None
+        churn_w = None
+        if self._churn:
+            cols = []
+            combo_idx = torch.zeros(n, dtype=torch.int64, device=dev)
+            for period, wts in zip(self._churn_periods, self._churn_weights):
+                idx = torch.floor(nominal_arrivals / period).to(
+                    torch.int64
+                ) % len(wts)
+                cols.append(wts[idx])
+                combo_idx = combo_idx * len(wts) + idx
+            churn_w = torch.stack(
+                cols + [torch.ones_like(nominal_arrivals)], dim=1
+            )
+
+        # ---- queueing parameters, per (chaos x churn) phase -------------
         if visits_pc is None:
             visits_pc = self._visits_pc
         lam_pc = offered_qps * visits_pc
@@ -1598,14 +2222,55 @@ class Simulator:
             lam_pc, self._mu, self._replicas_pc, self._k_max
         )
         hop_svc = self._hop_service
+        down = None
+        phase_idx = None
+        if num_phases > 1:
+            # each request's row, gathered (exact, where the JAX engine
+            # expands the tables with a one-hot matmul)
+            if P > 1:
+                # phase WINDOWS, not raw cuts: drain windows keep an
+                # overloaded row live past its cut (_windows_arg)
+                if phase_windows is None:
+                    phase_windows = self._ident_windows
+                win_idx = torch.searchsorted(
+                    phase_windows[0].contiguous(), nominal_arrivals,
+                    right=True,
+                ) - 1
+                chaos_idx = phase_windows[1].to(torch.int64)[
+                    torch.clamp(win_idx, 0, self._num_windows - 1)
+                ]
+            else:
+                chaos_idx = torch.zeros(n, dtype=torch.int64, device=dev)
+            phase_idx = (
+                chaos_idx * Cc + combo_idx
+                if combo_idx is not None
+                else chaos_idx
+            )
+            if self.has_chaos:
+                down = self._down_ph[phase_idx]
+        elif self.has_chaos:
+            down = self._down_ph[0].expand(n, H)
         if sat_conns:
-            wait = self._saturated_wait(z_wait, sat_conns, sat_override)
+            wait = self._saturated_wait(
+                z_wait, sat_conns, sat_override,
+                phase_idx if sat_override is None else None,
+            )
         else:
-            p_wait_nh = qp.p_wait[0][hop_svc][None, :]
-            wait_rate_nh = qp.wait_rate[0][hop_svc][None, :]
+            if phase_idx is None:
+                p_wait_nh = qp.p_wait[0][hop_svc][None, :]
+                wait_rate_nh = qp.wait_rate[0][hop_svc][None, :]
+            else:
+                p_wait_nh = qp.p_wait[:, hop_svc][phase_idx]
+                wait_rate_nh = qp.wait_rate[:, hop_svc][phase_idx]
             wait = queueing.sample_wait_conditional(
                 p_wait_nh, wait_rate_nh, u_wait
             )  # (N, H)
+        utilization, unstable = qp.utilization, qp.unstable
+        if self.has_chaos:
+            # a fully-down service does no work: zero utilization for
+            # those phases instead of the clamped-to-1-replica saturation
+            utilization = torch.where(self._svc_down_pc, 0.0, utilization)
+            unstable = unstable & ~self._svc_down_pc
         svc_time = self._sample_service_time(draws.svc, n)
         err_coin = None if u_err is None else u_err < self._hop_err_rate
 
@@ -1613,8 +2278,9 @@ class Simulator:
         # Deepest level first, so every call site sees its callees'
         # (hypothetical) latency and status.  ``None`` sentinels carry
         # static knowledge: err_lvls[d] is None when no hop can 500,
-        # fail_lvls[d] when no call can transport-fail, used_lvls[d]
-        # when every call is deterministically sent.
+        # fail_lvls[d] when no call can transport-fail (no finite
+        # timeout and no chaos), used_lvls[d] when every call is
+        # deterministically sent.
         L = len(self._levels)
         lat_lvls: List[Optional[torch.Tensor]] = [None] * L
         err_lvls: List[Optional[torch.Tensor]] = [None] * L
@@ -1634,15 +2300,24 @@ class Simulator:
                 csl = slice(nxt.offset, nxt.offset + nxt.size)
                 C = lvl.num_children
                 timeout = lvl.call_timeout if lvl.finite_timeout else None
+                down_child = down[:, csl] if down is not None else None
                 att_off = None
                 if lvl.ident_attempts:
                     # single attempt, call k <-> child k: elementwise
                     tt = lvl.child_rtt + lat_lvls[d + 1]  # (N, C)
-                    transport_a, dur_a = _call_outcome(tt, timeout)
+                    if tax is not None:
+                        tt = tt + 2.0 * tax[:, None]
+                    transport_a, dur_a = _call_outcome(
+                        tt, timeout, down_child
+                    )
                     if self._need_send:
-                        coin = u_send[:, csl] < lvl.child_send_prob
+                        prob = lvl.child_send_prob
+                        if churn_w is not None:
+                            prob = prob * churn_w[:, lvl.child_churn_entry]
+                        coin = u_send[:, csl] < prob
                         used_lvls[d] = coin
                         dur_call = torch.where(coin, dur_a, zero)
+                        # an unsent call cannot fail anything
                         final_transport = (
                             coin & transport_a
                             if transport_a is not None
@@ -1662,10 +2337,22 @@ class Simulator:
                         if child_err is not None
                         else None
                     )
+                    down_pad = (
+                        F.pad(down_child, (0, 1))
+                        if down_child is not None
+                        else None
+                    )
                     rtt_child = F.pad(lvl.child_rtt, (0, 1))
                     a0 = lvl.att_child[0]
                     if self._need_send:
-                        coin = u_send[:, csl][:, a0] < lvl.child_send_prob[a0]
+                        prob = lvl.child_send_prob[a0]
+                        if churn_w is not None:
+                            # the current schedule weight scales the send
+                            # probability
+                            prob = prob * churn_w[
+                                :, lvl.child_churn_entry[a0]
+                            ]
+                        coin = u_send[:, csl][:, a0] < prob
                     else:
                         coin = torch.ones(
                             (n, lvl.num_calls), dtype=torch.bool, device=dev
@@ -1675,7 +2362,7 @@ class Simulator:
                     final_transport = (
                         torch.zeros((n, lvl.num_calls), dtype=torch.bool,
                                     device=dev)
-                        if lvl.finite_timeout
+                        if lvl.finite_timeout or down_pad is not None
                         else None
                     )
                     used = torch.zeros((n, C + 1), dtype=torch.bool,
@@ -1685,7 +2372,13 @@ class Simulator:
                     for idx, valid in zip(lvl.att_child, lvl.att_valid):
                         use = used_a & valid
                         t = rtt_child[idx] + lat_child[:, idx]
-                        transport_a, dur_a = _call_outcome(t, timeout)
+                        if tax is not None:
+                            t = t + 2.0 * tax[:, None]
+                        transport_a, dur_a = _call_outcome(
+                            t, timeout,
+                            down_pad[:, idx] if down_pad is not None
+                            else None,
+                        )
                         failed_a = transport_a
                         if err_child is not None:
                             ec = err_child[:, idx]
@@ -1764,7 +2457,13 @@ class Simulator:
                 err_lvls[d] = fail_step < P
 
         # ---- downward pass: which hops actually execute ------------------
-        sent_cur = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        # a down ENTRY service refuses the client's connection itself
+        root_down = None
+        if down is not None:
+            root_down = down[:, 0]
+            sent_cur = ~root_down[:, None]
+        else:
+            sent_cur = torch.ones((n, 1), dtype=torch.bool, device=dev)
         sent_chunks: List[torch.Tensor] = []
         for d, lvl in enumerate(self._levels):
             sent_chunks.append(sent_cur)
@@ -1781,17 +2480,29 @@ class Simulator:
                 )
             if used_lvls[d] is not None:
                 sent = sent & used_lvls[d]
+            if down is not None:
+                nxt = self._levels[d + 1]
+                sent = sent & ~down[:, nxt.offset:nxt.offset + nxt.size]
             sent_cur = sent
 
         # ---- closed-loop arrivals (need latencies) -----------------------
-        root_lat = self._root_net + lat_lvls[0][:, 0]
+        root_wire = self._root_net
+        if tax is not None:
+            # the client -> entry edge pays the tax on both legs too
+            root_wire = root_wire + 2.0 * tax
+        root_lat = root_wire + lat_lvls[0][:, 0]
+        if root_down is not None:
+            # a refused connection to the entry costs one wire round trip
+            root_lat = torch.where(
+                root_down, 2 * self._entry_one_way, root_lat
+            )
         if kind == CLOSED_LOOP:
             c = max(connections, 1)
             per = n // c
             rem = n - c * per
             lat_conn = root_lat[: c * per].reshape(c, per)
             spent = torch.maximum(lat_conn, pace_gap)
-            starts = conn_t0[:, None] + torch.cumsum(spent, -1) - spent
+            starts = conn_t0[:, None] + _clock_cumsum(spent, -1) - spent
             conn_end = conn_t0 + spent.sum(-1)
             if rem:
                 # remainder requests (n % c) continue on the first ``rem``
@@ -1807,7 +2518,10 @@ class Simulator:
             conn_end = conn_t0
 
         # ---- downward pass 2: absolute start times -----------------------
-        start_cur = (arrivals + self._entry_one_way)[:, None]
+        entry_wire = self._entry_one_way
+        if tax is not None:
+            entry_wire = entry_wire + tax
+        start_cur = (arrivals + entry_wire)[:, None]
         start_chunks: List[torch.Tensor] = []
         for d, lvl in enumerate(self._levels):
             start_chunks.append(start_cur)
@@ -1815,10 +2529,15 @@ class Simulator:
                 break
             sl = slice(lvl.offset, lvl.offset + lvl.size)
             base = (start_cur + wait[:, sl])[:, lvl.child_parent_local]
-            start_cur = base + off_lvls[d] + lvl.child_net_out
+            out_wire = lvl.child_net_out
+            if tax is not None:
+                out_wire = out_wire + tax[:, None]
+            start_cur = base + off_lvls[d] + out_wire
 
         # ---- assembly into BFS hop order ---------------------------------
         hop_sent = torch.cat(sent_chunks, dim=1)
+        hop_lat = torch.cat(lat_lvls, dim=1)
+        hop_start = torch.cat(start_chunks, dim=1)
         err_hop = torch.cat(
             [
                 e if e is not None
@@ -1827,17 +2546,51 @@ class Simulator:
             ],
             dim=1,
         )
+        client_error = err_hop[:, 0]
+        if root_down is not None:
+            client_error = client_error | root_down
+        if self._num_kill_events:
+            root_lat, client_error = self._kill_resets(
+                draws.u_kill, hop_sent, hop_start, hop_lat, arrivals,
+                root_lat, client_error,
+            )
         res = SimResults(
             client_start=arrivals,
             client_latency=root_lat,
-            client_error=err_hop[:, 0],
+            client_error=client_error,
             hop_sent=hop_sent,
             hop_error=err_hop & hop_sent,
-            hop_latency=torch.cat(lat_lvls, dim=1),
-            hop_start=torch.cat(start_chunks, dim=1),
-            utilization=qp.utilization.amax(0),
-            unstable=qp.unstable.any(0),
+            hop_latency=hop_lat,
+            hop_start=hop_start,
+            utilization=utilization.amax(0),
+            unstable=unstable.any(0),
             offered_qps=offered_qps,
         )
         t_end = conn_end.max() if kind == CLOSED_LOOP else arrivals[-1]
         return res, t_end, conn_end
+
+    def _kill_resets(self, u_kill, hop_sent, hop_start, hop_lat, arrivals,
+                     root_lat, client_error):
+        """Ungraceful kills: a request whose hop on the killed service
+        is in flight at the kill instant dies (transport) with the
+        event's probability; the client sees the reset at about the
+        kill time, after the shortest payload-free return path among
+        its killed hops.  The earliest event wins."""
+        died_any = torch.zeros_like(client_error)
+        for i in range(self._num_kill_events):
+            t_k = self._kill_t[i]
+            strad = (
+                hop_sent & (hop_start < t_k) & (hop_start + hop_lat > t_k)
+            )
+            died_h = strad & (u_kill[i] < self._kill_frac[i][None, :])
+            died = died_h.any(1) & ~died_any
+            ret = torch.where(
+                died_h, self._back_cum[None, :], float("inf")
+            ).amin(1)
+            reset_lat = torch.clamp(t_k - arrivals, min=0.0) + torch.where(
+                torch.isfinite(ret), ret, 0.0
+            )
+            root_lat = torch.where(died, reset_lat, root_lat)
+            client_error = client_error | died
+            died_any = died_any | died
+        return root_lat, client_error

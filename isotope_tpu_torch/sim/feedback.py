@@ -34,9 +34,10 @@ The fixed point is damped (0.5) and bounded: even when the amplified
 load saturates a station, the clamped wait law keeps P(timeout) <= 1,
 so visits are bounded by the full attempt tree.
 
-A copy of ``isotope_tpu.sim.feedback`` without the mTLS, retry-budget
-and lb-law inputs: the port's Simulator refuses those features, so the
-fixed point here is the plain M/M/k one.
+A copy of ``isotope_tpu.sim.feedback`` without the retry-budget and
+lb-law inputs: the port's Simulator refuses those features, so the
+fixed point here is the plain M/M/k one (with the mTLS schedule's
+time-averaged tax).
 """
 from __future__ import annotations
 
@@ -135,6 +136,7 @@ class RetryFeedback:
         svc_down_pc: np.ndarray,       # (PC, S) bool
         own_combo: np.ndarray,         # (Cc, H) churn-combo hop multipliers
         static_visits_pc: np.ndarray,  # (PC, S)
+        mtls=None,                     # Optional[MtlsSchedule]
     ):
         self.compiled = compiled
         self.params = params
@@ -149,6 +151,17 @@ class RetryFeedback:
         self._err = t.error_rate.astype(np.float64)
         hs = compiled.hop_service
         net_out, net_back = hop_wire_times(compiled, params.network)
+        if mtls is not None:
+            # the engine taxes every attempt round trip by 2x the
+            # phase's mTLS tax before the timeout comparison; the
+            # feedback's P(timeout) must see the same inflation or it
+            # under-counts retry load during taxed phases.  The fixed
+            # point is per-(chaos x churn) phase, not per-mTLS phase, so
+            # fold the schedule's TIME-AVERAGED tax (phases are
+            # equal-length).
+            avg_tax = float(np.mean(mtls.taxes_s))
+            net_out = net_out + avg_tax
+            net_back = net_back + avg_tax
 
         self.active = False
         self._levels: List[_LevelCalls] = []

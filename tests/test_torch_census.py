@@ -139,7 +139,8 @@ def test_library_path_is_keyed_by_source():
 
 def _chip_smoke_shapes():
     """Every census shape ``chip_smoke.py`` holds the kernel at, from
-    the same simulators (built here on the CPU)."""
+    the same simulators (built here on the CPU), the scenario runs'
+    (svc100k-chaos among them) included."""
     import sys
     from types import SimpleNamespace
 
@@ -153,19 +154,33 @@ def _chip_smoke_shapes():
         with_call_policy,
     )
     from isotope_tpu_torch.models.graph import ServiceGraph
-    from isotope_tpu_torch.sim import LoadModel, Simulator
+    from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
+    from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+    from isotope_tpu_torch.sim.config import (
+        ChaosEvent,
+        MtlsSchedule,
+        TrafficSplit,
+        bounce_schedule,
+    )
 
     port = SimpleNamespace(compile_graph=compile_graph,
                            ServiceGraph=ServiceGraph, LoadModel=LoadModel,
                            Simulator=Simulator,
                            realistic_topology=realistic_topology,
-                           with_call_policy=with_call_policy)
+                           with_call_policy=with_call_policy,
+                           SimParams=SimParams, ChaosEvent=ChaosEvent,
+                           TrafficSplit=TrafficSplit,
+                           MtlsSchedule=MtlsSchedule,
+                           bounce_schedule=bounce_schedule,
+                           DEFAULT_ENVIRONMENTS=DEFAULT_ENVIRONMENTS)
     flagship = ServiceGraph.decode(tree_topology(
         num_levels=5, num_branches=3, request_size=1024, response_size=1024,
     ))
+    runs = chip_smoke.main_path_runs(port, flagship, device="cpu")
+    runs += [run[:5] for run in
+             chip_smoke.scenario_runs(port, {}, device="cpu")]
     return chip_smoke.census_check_shapes(
-        chip_smoke.main_path_runs(port, flagship, device="cpu"),
-        chip_smoke.census_only_configs(port, device="cpu"),
+        runs, chip_smoke.census_only_configs(port, device="cpu"),
     )
 
 
@@ -208,6 +223,20 @@ def test_chip_smoke_covers_the_star10k_tiles_and_qps_max():
     for n in (524_288, 32_768):
         assert (n, 3, 2, False, False) in _SHAPES
         assert (n, 1, 2, False, False) in _SHAPES
+
+
+def test_chip_smoke_covers_the_scenario_runs():
+    """svc100k-chaos's 31 calls of one block (335 requests), from its
+    1 x 46 root to its 13,026 x 19 level, and the canonical-2-replicas
+    runs' calls, all with a fail step (a down callee can fail any
+    call)."""
+    svc100k = [s for s in _SHAPES if s[0] == 335]
+    assert len(svc100k) == 31 and all(s[3] and not s[4] for s in svc100k)
+    assert (335, 1, 46, True, False) in svc100k
+    assert (335, 13026, 19, True, False) in svc100k
+    for n in (262_144, 524_288):
+        assert (n, 3, 2, True, False) in _SHAPES
+        assert (n, 1, 2, True, False) in _SHAPES
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

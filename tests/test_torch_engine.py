@@ -232,7 +232,7 @@ def test_default_device_raises_without_gpu():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(chaos=("x",)), "scenario physics"),
+        (dict(rollouts=object()), "protected layers"),
         (dict(lb=object()), "sim/lb.py"),
         (dict(policies=object()), "protected layers"),
         (dict(params=SimParams(attribution=True)), "observability"),
@@ -245,16 +245,29 @@ def test_unported_features_raise(kwargs, item):
         Simulator(compile_graph(pg), device="cpu", **kwargs)
 
 
-def test_saturated_closed_loop_raises():
-    """The saturated closed loop (``qps=None``) runs since its single-
-    phase law is ported; what still raises is its composition with
-    chaos or churn phases, which needs the scenario-physics slice."""
+def test_saturated_closed_loop_builds_under_phases():
+    """The saturated closed loop (``qps=None``) composes with chaos
+    phases: a phased ``-qps max`` Simulator builds one table row per
+    phase (held to the reference in ``test_torch_closed_phased.py``);
+    a phased mTLS tax keeps ``-qps max`` on the open-loop law, as in the
+    reference."""
+    from isotope_tpu_torch.sim.config import ChaosEvent, MtlsSchedule
+
     _, pg = _graphs("canonical")
+    sat = LoadModel(kind="closed", qps=None)
     sim = Simulator(compile_graph(pg), device="cpu")
-    assert Simulator._saturated(LoadModel(kind="closed", qps=None))
+    assert sim._saturated(sat)
     assert sim.draw_spec(64, "closed", saturated=True).saturated
-    with pytest.raises(NotImplementedError, match="scenario physics"):
-        Simulator(compile_graph(pg), device="cpu", chaos=("x",))
+    phased = Simulator(
+        compile_graph(pg), device="cpu",
+        chaos=(ChaosEvent("b", 1.0, 2.0, replicas_down=1),),
+    )
+    assert phased._saturated(sat)
+    thr = phased._closed_tables(8, TorchDraws(0, "cpu"))[0]
+    assert thr.shape == (3,) and np.all(thr > 0)
+    taxed = Simulator(compile_graph(pg), device="cpu",
+                      mtls=MtlsSchedule(1.0, (0.0, 1e-3)))
+    assert not taxed._saturated(sat)
 
 
 def test_sparse_level_raises():

@@ -4,11 +4,13 @@
 that rebuilds, from a JAX ``PRNGKey``, exactly the random tensors the
 JAX engine draws for the same block (``isotope_tpu/sim/engine.py``:
 key splits and static coin elimination at 4761-4880, arrivals at 4885,
-service times at 4639-4660, block keys at 4543, pilot keys at 2066).
+service times at 4639-4660, block keys at 4543, pilot keys at 2066,
+ungraceful-kill coins at 6104).
 Both engines then consume the same numbers, so their outputs can be
-compared element by element.  ``test_torch_engine.py`` and
-``test_torch_summary.py`` import these helpers; the tests at the end of
-this file check the replay itself.
+compared element by element.  ``test_torch_engine.py``,
+``test_torch_summary.py`` and the scenario tests import these helpers
+(``scenario_pair`` builds both engines under one chaos / churn / mTLS
+scenario); the tests at the end of this file check the replay itself.
 """
 from __future__ import annotations
 
@@ -20,10 +22,14 @@ import torch
 from isotope_tpu.compiler import compile_graph as jax_compile_graph
 from isotope_tpu.models.graph import ServiceGraph as JaxGraph
 from isotope_tpu.sim import LoadModel as JaxLoad
+from isotope_tpu.sim import SimParams as JaxParams
 from isotope_tpu.sim import Simulator as JaxSimulator
+from isotope_tpu.sim import config as jax_config
 from isotope_tpu_torch.compiler import compiled_from_arrays, compiled_to_arrays
-from isotope_tpu_torch.sim import Simulator
+from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+from isotope_tpu_torch.sim import config as port_config
 from isotope_tpu_torch.sim.draws import (
+    KILL_INDEX_BASE,
     SVC_EXPONENTIAL,
     SVC_NORMAL,
     Draws,
@@ -110,6 +116,13 @@ class JaxReplayDraws:
             out = out._replace(
                 arr=put(jax.random.exponential(k_arr, (n,)))
             )
+        if spec.kill_events:
+            out = out._replace(u_kill=torch.stack([
+                put(jax.random.uniform(
+                    jax.random.fold_in(k, KILL_INDEX_BASE + e), (n, h)
+                ))
+                for e in range(spec.kill_events)
+            ]))
         return out
 
 
@@ -131,6 +144,7 @@ def check_spec(spec, jax_sim) -> None:
     assert spec.retry_dim == (
         jax_sim._num_retry_groups + 1 if jax_sim._retry_active else 0
     )
+    assert spec.kill_events == jax_sim._num_kill_events
 
 
 def port_compiled(jax_compiled):
@@ -138,8 +152,86 @@ def port_compiled(jax_compiled):
     return compiled_from_arrays(compiled_to_arrays(jax_compiled))
 
 
-def assert_results_match(port_res, jax_res) -> None:
-    """Booleans exactly; float fields within RTOL / ATOL."""
+def scenario_pair(jax_compiled, params=None, chaos=(), churn=(),
+                  mtls=None):
+    """(JAX simulator, port simulator on the CPU) of one compiled graph
+    under one scenario.  ``params``: a dict of ``SimParams`` fields, or
+    a (JAX params, port params) pair; ``chaos`` and ``churn`` are lists
+    of ``ChaosEvent`` / ``TrafficSplit`` keyword dicts and ``mtls`` one
+    of ``MtlsSchedule``, each built in both packages."""
+    if params is None or isinstance(params, dict):
+        jax_params = JaxParams(**(params or {}))
+        port_params = SimParams(**(params or {}))
+    else:
+        jax_params, port_params = params
+
+    def both(kind, kw):
+        return (getattr(jax_config, kind)(**kw),
+                getattr(port_config, kind)(**kw))
+
+    chaos_pairs = [both("ChaosEvent", kw) for kw in chaos]
+    churn_pairs = [both("TrafficSplit", kw) for kw in churn]
+    mtls_pair = both("MtlsSchedule", mtls) if mtls else (None, None)
+    jax_sim = JaxSimulator(
+        jax_compiled, jax_params, tuple(a for a, _ in chaos_pairs),
+        tuple(a for a, _ in churn_pairs), mtls_pair[0],
+    )
+    sim = Simulator(
+        port_compiled(jax_compiled), port_params,
+        tuple(b for _, b in chaos_pairs), tuple(b for _, b in churn_pairs),
+        mtls_pair[1], device="cpu",
+    )
+    return jax_sim, sim
+
+
+def run_both(jax_sim, sim, n, key, reset_atol=None, atol=ATOL,
+             rtol=RTOL, **load):
+    """``run`` of both engines on the same draws; the port's results
+    are held to the JAX engine's (``reset_atol``, ``atol``, ``rtol``:
+    see :func:`assert_results_match`) and returned."""
+    want = jax_sim.run(JaxLoad(**load), n, key)
+    got = sim.run(LoadModel(**load), n, JaxReplayDraws(key, jax_sim))
+    assert_results_match(got, want, reset_atol, atol, rtol)
+    return got
+
+
+#: summary fields compared exactly, and within rtol
+SUMMARY_EXACT = ("count", "error_count", "hop_events")
+SUMMARY_CLOSE = ("latency_sum", "latency_min", "latency_max", "end_max")
+
+
+def summaries_both(jax_sim, sim, n, key, block_size, rtol=1e-5,
+                   atol=0.0, **load):
+    """``run_summary`` of both engines on the same draws (blocks carry
+    the clocks); counts exactly, sums within ``rtol`` / ``atol`` s."""
+    want = jax_sim.run_summary(JaxLoad(**load), n, key,
+                               block_size=block_size)
+    got = sim.run_summary(LoadModel(**load), n,
+                          JaxReplayDraws(key, jax_sim),
+                          block_size=block_size)
+    for field in SUMMARY_EXACT:
+        assert float(getattr(got, field)) == float(getattr(want, field)), (
+            field
+        )
+    for field in SUMMARY_CLOSE:
+        np.testing.assert_allclose(
+            float(getattr(got, field)), float(getattr(want, field)),
+            rtol=rtol, atol=atol, err_msg=field,
+        )
+    return got
+
+
+def assert_results_match(port_res, jax_res, reset_atol=None,
+                         atol=ATOL, rtol=RTOL) -> None:
+    """Booleans exactly; float fields within ``rtol`` / ``atol``.
+
+    ``reset_atol``: the client latency of a failed request is held to
+    this absolute tolerance instead.  An ungraceful kill's reset latency
+    is ``t_kill - arrival``, a difference of two clock readings; the
+    arrival clock is a float32 cumsum that XLA and torch associate
+    differently (within RTOL of the clock), so the difference carries
+    the clock's absolute rounding, a few float32 spacings of the kill
+    time (9.5e-7 s between 8 s and 16 s)."""
     for name in BOOL_FIELDS:
         got = getattr(port_res, name).cpu().numpy()
         want = np.asarray(getattr(jax_res, name))
@@ -149,8 +241,15 @@ def assert_results_match(port_res, jax_res) -> None:
     for name in FLOAT_FIELDS:
         got = getattr(port_res, name).cpu().numpy()
         want = np.asarray(getattr(jax_res, name))
+        if name == "client_latency" and reset_atol is not None:
+            failed = np.asarray(jax_res.client_error)
+            np.testing.assert_allclose(
+                got[failed], want[failed], rtol=rtol, atol=reset_atol,
+                err_msg="client_latency of failed requests",
+            )
+            got, want = got[~failed], want[~failed]
         np.testing.assert_allclose(
-            got, want, rtol=RTOL, atol=ATOL, err_msg=name
+            got, want, rtol=rtol, atol=atol, err_msg=name
         )
 
 

@@ -1,11 +1,15 @@
 """Where a block's device time goes in the PyTorch port, on one CUDA card.
 
-    python3 tools/torch_profile.py [--qps Q] [--out PROFILE.json]
+    python3 tools/torch_profile.py [--config C] [--qps Q] [--out PROFILE.json]
 
-Runs the flagship tree (5 levels x 3 branches, 121 hops, 1 KiB
-payloads) open loop through ``Simulator.run_summary`` in blocks of
-262,144 requests: one warm-up block, then two blocks under
-``torch.profiler`` with CPU and CUDA activities.  Prints the card's name
+Runs one configuration open loop through ``Simulator.run_summary``: the
+flagship tree (5 levels x 3 branches, 121 hops, 1 KiB payloads) at
+100k qps in blocks of 262,144 requests (``--config flagship``, the
+default), or svc100k-chaos (BASELINE configs[4]: the 100,000-service
+multitier graph, Pareto service times, ``mock-7`` down in [5 s, 15 s))
+at 100 qps in blocks of its default 335 (``--config svc100k-chaos``):
+one warm-up block, then two blocks under ``torch.profiler`` with CPU
+and CUDA activities.  Prints the card's name
 and power limit, the wall time per block, the summed device time of
 all kernels, the device idle share (1 - device time / wall time) and
 the 15 kernels with the most device time, and with ``--out`` writes the
@@ -23,13 +27,17 @@ import time
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BLOCK = 262_144
+FLAGSHIP_BLOCK = 262_144
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--out", default=None)
-    parser.add_argument("--qps", type=float, default=1e5)
+    parser.add_argument("--config", choices=("flagship", "svc100k-chaos"),
+                        default="flagship")
+    parser.add_argument("--qps", type=float, default=None,
+                        help="open-loop rate (default: 100k for the "
+                             "flagship, 100 for svc100k-chaos)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
@@ -38,26 +46,48 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from isotope_tpu_torch.compiler import compile_graph
-    from isotope_tpu_torch.models.generators import tree_topology
+    from isotope_tpu_torch.models.generators import (
+        realistic_topology,
+        tree_topology,
+    )
     from isotope_tpu_torch.models.graph import ServiceGraph
-    from isotope_tpu_torch.sim import LoadModel, Simulator, TorchDraws
+    from isotope_tpu_torch.sim import (
+        LoadModel,
+        SimParams,
+        Simulator,
+        TorchDraws,
+    )
+    from isotope_tpu_torch.sim.config import ChaosEvent
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    sim = Simulator(compile_graph(ServiceGraph.decode(tree_topology(
-        num_levels=5, num_branches=3, request_size=1024, response_size=1024,
-    ))), device="cuda")
-    load = LoadModel(kind="open", qps=args.qps)
+    if args.config == "flagship":
+        sim = Simulator(compile_graph(ServiceGraph.decode(tree_topology(
+            num_levels=5, num_branches=3, request_size=1024,
+            response_size=1024,
+        ))), device="cuda")
+        block, qps = FLAGSHIP_BLOCK, 1e5
+    else:
+        sim = Simulator(
+            compile_graph(ServiceGraph.decode(realistic_topology(
+                100_000, archetype="multitier", seed=0
+            ))),
+            SimParams(service_time="pareto", service_time_param=2.5),
+            (ChaosEvent("mock-7", 5.0, 15.0),),
+            device="cuda",
+        )
+        block, qps = sim.default_block_size(), 100.0
+    load = LoadModel(kind="open", qps=args.qps or qps)
     source = TorchDraws(0, "cuda")
-    sim.run_summary(load, BLOCK, source, block_size=BLOCK)  # warm-up
+    sim.run_summary(load, block, source, block_size=block)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sim.run_summary(load, 2 * BLOCK, source, block_size=BLOCK)
+        sim.run_summary(load, 2 * block, source, block_size=block)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # the kernels themselves (device-side events), so that no time is
@@ -80,9 +110,10 @@ def main(argv=None) -> int:
     ]
     doc = {
         "card": card,
-        "block_requests": BLOCK,
+        "config": args.config,
+        "block_requests": block,
         "blocks": 2,
-        "qps": args.qps,
+        "qps": load.qps,
         "wall_ms_per_block": wall / 2 * 1e3,
         "device_ms_per_block": device_total / 2 * 1e3,
         "device_idle_share": max(0.0, 1.0 - device_total / wall),
