@@ -12,10 +12,11 @@ any failure exits non-zero and nothing is caught:
    each kernel (registers, shared memory, spills);
 3. kernel: hold the kernel against its plain torch version on the card
    at every census shape of the main path (each dense level with
-   children and each tile holding calls of the nine runs of phase 5, and
-   of the closed loops' rate pilots, as ``Simulator.census_shapes`` gives
-   them: among them the star-10k block's tiles and its 1 x 5,021 root,
-   and every call of the three scenario runs, all with a fail step), at
+   children and each tile holding calls of the eleven runs of phase 5,
+   and of the closed loops' rate pilots, as ``Simulator.census_shapes``
+   gives them: among them the star-10k block's tiles and its 1 x 5,021
+   root, every call of the three scenario runs, all with a fail step,
+   and the panic run's call with both a fail step and error flags), at
    the default blocks of
    ``realistic-star-50.yaml`` and ``realistic-star-auxiliary-50.yaml``
    and at fixture shapes, among them a 4,096-step axis (rtol 1e-5: the
@@ -34,9 +35,11 @@ any failure exits non-zero and nothing is caught:
    and of ``canonical.yaml`` under ``-qps max`` (16,384 requests, 64
    connections; its tables and rate solved once on the CPU and used by
    both sides), and every block of the three scenario runs of phase 5
-   (svc100k-chaos, canonical-2r-storm, canonical-2r-qps-max-bounce), with
-   the same draws, on the card (kernel) and on the CPU (plain version),
-   compared like the CPU tests compare the port with the JAX package;
+   (svc100k-chaos, canonical-2r-storm, canonical-2r-qps-max-bounce), the
+   whole lb-10svc-100r-panic run and one block of 16,384 requests of
+   lb-1000svc-lr, with the same draws, on the card (kernel) and on the
+   CPU (plain version), compared like the CPU tests compare the port
+   with the JAX package;
 5. main path at full size, after one warm-up block of each run (the
    warm-up also solves and caches the closed loops' rates from the same
    seed, so the timed closed-loop runs skip their pilots and tables): the
@@ -58,10 +61,18 @@ any failure exits non-zero and nothing is caught:
    traffic every 30 s, an mTLS tax of 0 / 1 ms every 20 s) and
    canonical-2r-qps-max-bounce (the same graph under ``-qps max``, 64
    connections, 2 blocks of 524,288, b bounced to one replica for 10 s
-   every 60 s from 30 s); the host build times (graph, compile,
-   ``Simulator(...)``, the saturated tables) are printed, the launch
-   count is set to 0 just before each run and must equal its blocks
-   times its census calls per block just after;
+   every 60 s from 30 s); then the lb runs: lb-10svc-100r-panic
+   (``10-svc_1000-end.yaml``, 10 services of 100 replicas, under
+   least_request with d = 2 and a 50% panic threshold, a ring hash of
+   skew 1.2 on ``svc-0-0`` and wrr 3:1:1:1 on ``svc-0-1``, 60 of
+   ``svc-0-2``'s replicas killed in [2 s, 6 s), open loop at 30,000 qps
+   for 8 s in its default block) and lb-1000svc-lr
+   (``1000-svc_2000-end.yaml`` under least_request, the 1000-svc run's
+   load); the host build times (graph, compile, ``Simulator(...)``, the
+   saturated tables) are printed, the launch count is set to 0 just
+   before each run and must equal its blocks times its census calls per
+   block just after; the share of ``svc-0-2``'s hops that fast-fail in
+   the kill window is printed and must be 60% (+-1%), and 0 outside;
 6. the CLI as a subprocess: ``simulate`` once on the card; ``check`` on
    ``canonical.yaml`` and ``simulate --qps max`` (50,000 requests each),
    on the card and with ``--device cpu``: both ``check`` runs must give
@@ -69,7 +80,21 @@ any failure exits non-zero and nothing is caught:
    ``simulate`` runs a Fortio document; ``simulate --environment ISTIO``
    on ``two-cluster-canonical.yaml``, on the card and with ``--device
    cpu``, whose draw-independent values (label, requested load, count,
-   return codes) must agree.
+   return codes) must agree; ``simulate --lb-out`` on the lb topology
+   (written to a temporary YAML), on the card and with ``--device cpu``,
+   whose draw-independent values and lb documents must agree, and
+   ``simulate --qps max`` on it, which must exit non-zero;
+7. oracle: build the DES oracle (``isotope_tpu_torch/native/
+   des_oracle.cpp``) with ``g++`` and hold the engine on the card to
+   it: the six exact interpreter-parity cases of the reference's
+   ``tests/test_oracle.py`` (deterministic service times, 32 quiet
+   requests: client latency within rtol 1e-5, errors and hop events
+   equal), the six open-loop fidelity cases (chain3, tree13, star9 at
+   rho 0.3 and 0.7: 200,000 requests on the card, 1,000,000 in the
+   oracle, warm-up 0.5 s; p50 and p99 within 5%) and the paced closed
+   case (chain3, 64 connections at half capacity, 128,000 / 512,000:
+   p50 and p99 within 5%, throughput within 2%); each relative error is
+   printed.
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -83,6 +108,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -165,6 +191,111 @@ STORM_BLOCK = 262_144
 # float32 spacing of u (one ULP of erfc or log, which the card and the
 # CPU round differently); floats are held to four such spacings there
 STORM_ATOL = 4.0 * 2.0**-23 / 1.3
+
+# lb-10svc-100r-panic: 10-svc_1000-end.yaml (100 replicas a service)
+# under Istio's default balancer (least_request, d = 2) with Envoy's
+# default healthy-panic threshold, a skewed ring and a weighted round
+# robin; 60 of svc-0-2's 100 replicas are killed in [2 s, 6 s), which
+# leaves 40% healthy, below the threshold, so 60% of its hops there
+# fast-fail
+LB_PANIC_POLICIES = {
+    "defaults": {"lb": {"policy": "least_request", "choices_d": 2,
+                        "panic_threshold": "50%"}},
+    "svc-0-0": {"lb": {"policy": "ring_hash", "hash_skew": 1.2}},
+    "svc-0-1": {"lb": {"policy": "wrr", "weights": [3, 1, 1, 1]}},
+}
+LB_PANIC_QPS = 30_000.0
+LB_PANIC_S = 8.0
+LB_KILL = dict(service="svc-0-2", start_s=2.0, end_s=6.0, replicas_down=60)
+LB_PANIC_SHARE, LB_PANIC_BAND = 0.6, 0.01
+# lb-1000svc-lr: 1000-svc_2000-end.yaml under least_request at the
+# 1000-svc run's load
+LB_LR_POLICIES = {"defaults": {"lb": "least_request"}}
+
+# the reference's oracle fixtures (tests/test_oracle.py)
+CHAIN3 = """
+services:
+- name: a
+  isEntrypoint: true
+  script: [{call: b}]
+- name: b
+  script: [{call: c}]
+- name: c
+"""
+TREE13 = """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - [{call: c0}, {call: c1}, {call: c2}]
+""" + "".join(
+    f"- name: c{i}\n  script: [[{{call: l{i}0}}, {{call: l{i}1}}, "
+    f"{{call: l{i}2}}]]\n" for i in range(3)
+) + "".join(f"- name: l{i}{j}\n" for i in range(3) for j in range(3))
+STAR9 = """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - [{call: s0}, {call: s1}, {call: s2}, {call: s3},
+     {call: s4}, {call: s5}, {call: s6}, {call: s7}]
+""" + "".join(f"- name: s{i}\n" for i in range(8))
+PARITY = {
+    "sequential-sleeps-and-calls": """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - sleep: 10ms
+  - call: leaf
+  - sleep: 5ms
+- name: leaf
+""",
+    "concurrent-join-with-sleep": """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - [{sleep: 30ms}, {call: fast}, {call: slow}]
+- name: fast
+- name: slow
+  script: [{sleep: 50ms}]
+""",
+    "error-rate-fast-500-skips-script": """
+services:
+- name: entry
+  isEntrypoint: true
+  script: [{call: flaky}]
+- name: flaky
+  errorRate: 100%
+  script: [{sleep: 80ms}]
+""",
+    "retries-exhausted-by-500s": """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - call: {service: flaky, retries: 2}
+- name: flaky
+  errorRate: 100%
+""",
+    "timeout-is-transport-and-truncates": """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - call: {service: slow, timeout: 10ms}
+  - sleep: 40ms
+- name: slow
+  script: [{sleep: 60ms}]
+""",
+    # b down for the whole run
+    "chaos-total-outage": CHAIN3,
+}
+PARITY_RTOL = 1e-5
+FIDELITY_BAND = 0.05   # p50 and p99, engine against oracle
+THROUGHPUT_BAND = 0.02  # the paced closed loop's solved rate
+ORACLE_WARMUP_S = 0.5
 
 
 def log(msg: str) -> None:
@@ -575,6 +706,73 @@ def scenario_runs(port, build_s, device="cuda"):
     ]
 
 
+def with_policies(port, path, policies):
+    """The graph of ``path`` with a ``policies:`` block attached."""
+    graph = port.ServiceGraph.from_yaml_file(path)
+    graph.policies = dict(policies)
+    return graph
+
+
+def lb_runs(port, device="cuda"):
+    """The two lb runs of the main path: (name, simulator on
+    ``device``, load, requests, block, make), as :func:`scenario_runs`."""
+    out = []
+    for name, topo, policies, chaos, qps, n, block in (
+        ("lb-10svc-100r-panic", "10-svc_1000-end.yaml", LB_PANIC_POLICIES,
+         (port.ChaosEvent(**LB_KILL),), LB_PANIC_QPS,
+         int(LB_PANIC_QPS * LB_PANIC_S), None),
+        ("lb-1000svc-lr", "1000-svc_2000-end.yaml", LB_LR_POLICIES, (),
+         1e4, 262_144, 32_768),
+    ):
+        graph = with_policies(port, TOPOLOGIES / topo, policies)
+        compiled = port.compile_graph(graph)
+        tables = port.compile_lb(graph, compiled)
+
+        def make(device, compiled=compiled, chaos=chaos, tables=tables):
+            return port.Simulator(compiled, chaos=chaos, lb=tables,
+                                  device=device)
+
+        sim = make(device)
+        block = block or min(sim.default_block_size(), n)
+        out.append((name, sim, port.LoadModel(kind="open", qps=qps), n,
+                    block, make))
+    return out
+
+
+def panic_share(port, sim, load, n, block):
+    """The share of ``svc-0-2``'s hops that fast-fail among those of
+    requests arriving in the kill window, and outside it, over the
+    panic run's blocks on the card (draws of the timed run)."""
+    svc = list(sim.compiled.services.names).index(LB_KILL["service"])
+    hops = torch.tensor(np.nonzero(sim.compiled.hop_service == svc)[0],
+                        device=sim.device)
+    counts = torch.zeros(4, dtype=torch.float64, device=sim.device)
+    for res in sim.run_blocks(load, n, port.TorchDraws(0, sim.device),
+                              block_size=block):
+        t = res.client_start
+        inside = ((t >= LB_KILL["start_s"]) & (t < LB_KILL["end_s"]))[:, None]
+        sent = res.hop_sent[:, hops]
+        failed = res.hop_error[:, hops]
+        counts += torch.stack([
+            (failed & inside).sum(), (sent & inside).sum(),
+            (failed & ~inside).sum(), (sent & ~inside).sum(),
+        ]).double()
+    f_in, s_in, f_out, s_out = counts.tolist()
+    share = f_in / s_in
+    log(f"panic: {LB_KILL['service']} {int(f_in)} of {int(s_in)} hops "
+        f"fast-failed in [{LB_KILL['start_s']:g} s, {LB_KILL['end_s']:g} s)"
+        f" ({share:.4%}; 40 of 100 replicas healthy, threshold 50%), "
+        f"{int(f_out)} of {int(s_out)} outside")
+    if abs(share - LB_PANIC_SHARE) > LB_PANIC_BAND or f_out:
+        raise AssertionError(f"panic share {share:.4%} or {f_out} outside")
+    prof = sim._lb_profile_np
+    ring = list(sim.compiled.services.names).index("svc-0-0")
+    hot = prof[ring, 0] / prof[ring, :100].sum()
+    log(f"panic run: svc-0-0's hottest ring backend takes {hot:.4f} of "
+        f"{load.qps:g}/s, rho {hot * load.qps / sim._mu:.4f}"
+        f" against one replica")
+
+
 def census_only_configs(port, device="cuda"):
     """(name, simulator, default block) of the topologies whose census
     calls phase 3 holds and times beside the main path's."""
@@ -636,7 +834,7 @@ def main_path_run(port, name, sim, load, n, block, census_ms=None):
             "" if census_ms is None
             else f", census device {census_ms:.4f} ms per block (phase 3)"
         ))
-    return summary, launches
+    return summary, launches, wall / blocks
 
 
 def main_path_phase(port, runs, build_s, census_ms=None):
@@ -663,8 +861,9 @@ def main_path_phase(port, runs, build_s, census_ms=None):
     torch.cuda.synchronize()
 
     launches = {}
+    walls = {}
     for run in runs:
-        summary, launches[run[0]] = main_path_run(
+        summary, launches[run[0]], walls[run[0]] = main_path_run(
             port, *run, None if census_ms is None else census_ms[run[0]]
         )
         if run[0] == "flagship" and (
@@ -674,6 +873,11 @@ def main_path_phase(port, runs, build_s, census_ms=None):
                 f"flagship: hop_events {float(summary.hop_events)} != "
                 f"121 x {int(summary.count)}"
             )
+    if "lb-1000svc-lr" in walls:
+        log(f"lb-1000svc-lr against its fifo twin: "
+            f"{walls['lb-1000svc-lr'] * 1e3:.2f} / "
+            f"{walls['1000-svc_2000-end'] * 1e3:.2f} ms per block = "
+            f"{walls['lb-1000svc-lr'] / walls['1000-svc_2000-end']:.3f}x")
     log(f"census launches on the main path: {sum(launches.values())} "
         f"{launches}")
     return launches
@@ -782,6 +986,135 @@ def cli_phase():
         docs["cuda"]["Labels"] != "two-cluster-canonical_istio_1000qps_64c"
     ):
         raise AssertionError(f"simulate --environment ISTIO: {docs}")
+    cli_lb_phase()
+
+
+def cli_lb_phase(devices=("cuda", "cpu")):
+    """The lb topology through the CLI on each of ``devices``: its laws
+    apply with no flag, ``--lb-out`` writes them, the draw-independent
+    values agree, and ``--qps max`` is refused."""
+    import yaml
+
+    with tempfile.TemporaryDirectory() as tmp:
+        topo = pathlib.Path(tmp) / "lb-10svc-100r.yaml"
+        topo.write_text(
+            (TOPOLOGIES / "10-svc_1000-end.yaml").read_text()
+            + yaml.safe_dump({"policies": LB_PANIC_POLICIES})
+        )
+        docs = {}
+        for i, device in enumerate(devices):
+            lb_json = pathlib.Path(tmp) / f"lb-{i}.json"
+            out = cli("simulate", str(topo), "--qps", "30000", "--duration",
+                      "2s", "--load-kind", "open", "--lb-out", str(lb_json),
+                      "--device", device)
+            doc = json.loads(out.stdout)
+            hist = doc["DurationHistogram"]
+            docs[i] = {
+                "Labels": doc["Labels"], "RetCodes": doc["RetCodes"],
+                "Count": hist["Count"], "lb": json.loads(lb_json.read_text()),
+            }
+            if "least_request" not in out.stderr or "ring_hash" not in (
+                out.stderr
+            ):
+                raise AssertionError(f"simulate lb on {device}: {out.stderr}")
+            log(f"cli simulate lb on {device}: {doc['Labels']}, "
+                f"{hist['Count']} requests, RetCodes {doc['RetCodes']}, p50 "
+                f"{hist['Percentiles'][0]['Value'] * 1e3:.4f} ms, lb table "
+                f"of {len(out.stderr.splitlines())} lines, its first: "
+                f"{out.stderr.splitlines()[1][:120]}")
+        if docs[0] != docs[1] or docs[0]["Count"] != 60_000:
+            raise AssertionError(f"simulate lb: {docs}")
+        out = cli("simulate", str(topo), "--qps", "max", "--device",
+                  devices[0], ok_codes=(1,))
+        if "-qps max" not in out.stderr:
+            raise AssertionError(f"simulate lb --qps max: {out.stderr}")
+        log("cli simulate lb --qps max refused: "
+            + out.stderr.strip().splitlines()[-1])
+
+
+# -- phase 7: the DES oracle ------------------------------------------------------
+
+
+def oracle_phase(port, device="cuda", scale=1):
+    """The engine on the card against the DES oracle: exact parity
+    cases, then the fidelity cases (their oracle runs in threads on the
+    host while the card runs the engine), each at its requests over
+    ``scale``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from isotope_tpu_torch.native.host import load_library
+    from isotope_tpu_torch.sim.oracle import OracleSimulator
+
+    t = time.perf_counter()
+    load_library("des_oracle")
+    log(f"build: des_oracle (g++) in {time.perf_counter() - t:.2f} s")
+    det = port.SimParams(service_time="deterministic")
+    quiet = port.LoadModel(kind="open", qps=0.001, duration_s=1.0)
+    for name, text in PARITY.items():
+        graph = port.ServiceGraph.from_yaml(text)
+        chaos = (
+            (port.ChaosEvent(service="b", start_s=0.0, end_s=1e9),)
+            if name == "chaos-total-outage" else ()
+        )
+        res_e = port.Simulator(port.compile_graph(graph), det, chaos,
+                               device=device).run(
+            quiet, 32, port.TorchDraws(0, device))
+        res_o = OracleSimulator(graph, det, chaos).run(quiet, 32, seed=0)
+        lat_e = res_e.client_latency.double().cpu().numpy()
+        np.testing.assert_allclose(res_o.client_latency, lat_e,
+                                   rtol=PARITY_RTOL, err_msg=name)
+        np.testing.assert_array_equal(
+            res_o.client_error, res_e.client_error.cpu().numpy(), name)
+        if res_o.hop_events != int(res_e.hop_events):
+            raise AssertionError(f"oracle parity {name}: hop events")
+        rel = float(np.max(np.abs(lat_e / res_o.client_latency - 1.0)))
+        log(f"oracle parity ok {name}: 32 requests, largest relative "
+            f"difference {rel:.3e}, {int(res_o.client_error.sum())} errors,"
+            f" {res_o.hop_events} hop events")
+
+    mu = 1.0 / port.SimParams().cpu_time_s
+    cases = [
+        (f"{name} open rho {rho:g}", text,
+         port.LoadModel(kind="open", qps=rho * mu), 200_000 // scale,
+         1_000_000 // scale)
+        for name, text in (("chain3", CHAIN3), ("tree13", TREE13),
+                           ("star9", STAR9))
+        for rho in (0.3, 0.7)
+    ] + [("chain3 paced closed c=64", CHAIN3,
+          port.LoadModel(kind="closed", qps=0.5 * mu, connections=64),
+          128_000 // scale, 512_000 // scale)]
+    with ThreadPoolExecutor(max_workers=len(cases)) as pool:
+        t = time.perf_counter()
+        futures = [
+            pool.submit(OracleSimulator(port.ServiceGraph.from_yaml(text))
+                        .run, load, n_o, 0)
+            for _, text, load, _, n_o in cases
+        ]
+        for (name, text, load, n_e, n_o), fut in zip(cases, futures):
+            engine = port.Simulator(
+                port.compile_graph(port.ServiceGraph.from_yaml(text)),
+                device=device)
+            res_e = engine.run(load, n_e, port.TorchDraws(0, device))
+            lat_e = res_e.client_latency.double().cpu().numpy()
+            res_o = fut.result()
+            lat_o = res_o.client_latency[
+                res_o.client_start >= ORACLE_WARMUP_S]
+            rels = [float(np.quantile(lat_e, q) / np.quantile(lat_o, q)
+                          - 1.0) for q in (0.5, 0.99)]
+            line = (f"oracle fidelity {name}: engine {n_e} on the card, "
+                    f"oracle {n_o}; p50 {rels[0]:+.4%}, p99 {rels[1]:+.4%}")
+            bad = any(abs(r) > FIDELITY_BAND for r in rels)
+            if load.kind == "closed":
+                thr_o = len(res_o.client_latency) / float(
+                    res_o.client_end.max())
+                thr = float(res_e.offered_qps) / thr_o - 1.0
+                line += f", throughput {thr:+.4%}"
+                bad = bad or abs(thr) > THROUGHPUT_BAND
+            log(line)
+            if bad:
+                raise AssertionError(f"oracle fidelity {name} out of band")
+        log(f"oracle fidelity: {len(cases)} cases in "
+            f"{time.perf_counter() - t:.1f} s")
 
 
 def main() -> int:
@@ -789,7 +1122,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.compiler import compile_graph, compile_lb
     from isotope_tpu_torch.models.generators import (
         realistic_topology,
         tree_topology,
@@ -813,7 +1146,8 @@ def main() -> int:
 
     # the port's entry points, as a user calls them
     port = SimpleNamespace(
-        compile_graph=compile_graph, ServiceGraph=ServiceGraph,
+        compile_graph=compile_graph, compile_lb=compile_lb,
+        ServiceGraph=ServiceGraph,
         LoadModel=LoadModel, Simulator=Simulator, TorchDraws=TorchDraws,
         census=census_mod.census, realistic_topology=realistic_topology,
         with_call_policy=with_call_policy, SimParams=SimParams,
@@ -841,7 +1175,7 @@ def main() -> int:
     ))
     build_s = {}
     runs = main_path_runs(port, flagship_graph, build_s=build_s)
-    scenarios = scenario_runs(port, build_s)
+    scenarios = scenario_runs(port, build_s) + lb_runs(port)
     runs += [run[:5] for run in scenarios]
     timing = kernel_phase(census_mod, runs, census_only_configs(port))
 
@@ -857,6 +1191,7 @@ def main() -> int:
         "svc100k-chaos": (RESULT_RTOL, RESULT_ATOL),
         "canonical-2r-storm": (RESULT_RTOL, STORM_ATOL),
         "canonical-2r-qps-max-bounce": (SAT_RTOL, SAT_ATOL),
+        "lb-10svc-100r-panic": (RESULT_RTOL, RESULT_ATOL),
     }
     in_situ_phase(port, [
         open_case("flagship", flagship_graph, 1e3),
@@ -870,14 +1205,23 @@ def main() -> int:
          LoadModel(kind="closed", qps=None, connections=64), 16_384, None,
          SAT_RTOL, SAT_ATOL),
     ] + [
-        # svc100k: its first two blocks; the canonical runs: every block
+        # svc100k: its first two blocks; the canonical runs and the panic
+        # run: every block
         (name, make, load, min(n, 2 * block), block, *scenario_tol[name])
         for name, _, load, n, block, make in scenarios
+        if name in scenario_tol
+    ] + [
+        (name, make, load, 16_384, None, RESULT_RTOL, RESULT_ATOL)
+        for name, _, load, _, _, make in scenarios
+        if name == "lb-1000svc-lr"
     ])
 
     by_path = main_path_phase(port, runs, build_s, timing["ms_per_block"])
     launches = sum(by_path.values())
+    panic_share(port, *[run[1:5] for run in runs
+                        if run[0] == "lb-10svc-100r-panic"][0])
     cli_phase()
+    oracle_phase(port)
 
     kernels = [{
         "name": "census",

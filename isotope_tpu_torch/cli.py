@@ -9,7 +9,11 @@ main path:
   64 connections, 1000 qps, 240 s); ``--qps max`` is Fortio's saturated
   closed loop; ``--environment`` picks a sidecar mode of
   ``runner/config.DEFAULT_ENVIRONMENTS`` (``NONE`` by default, ``ISTIO``
-  adds the client and server proxy passes to every edge).
+  adds the client and server proxy passes to every edge).  A
+  topology's per-service ``lb:`` laws (``policies:`` block, ``sim/lb.py``)
+  apply on every run, with no flag, as in the reference; an active law
+  prints its table to stderr, ``--lb-out`` writes it as JSON, and
+  ``--qps max`` is refused under one.
 - ``check``: the run's Prometheus series (``MetricsCollector``) are
   queried by the reference's stability alarm suite; every alarm is
   printed to stderr and the exit code is 1 when one fires.
@@ -63,6 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
                    default="exponential",
                    help="per-request CPU-time distribution")
     s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--lb-out", metavar="FILE", default=None,
+                   help="write the load-balancing laws and their static "
+                        "per-backend load split as JSON (isotope-lb/v1); "
+                        "laws come from the topology's per-service `lb:` "
+                        "entries and apply to EVERY run kind (no flag "
+                        "needed)")
     s.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")
     s.set_defaults(func=run_simulate)
@@ -92,11 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_simulate(args) -> int:
-    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.compiler import compile_graph, compile_lb
     from isotope_tpu_torch.metrics.fortio import fortio_result_from_summary
     from isotope_tpu_torch.models.graph import ServiceGraph
     from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
     from isotope_tpu_torch.sim import SimParams, Simulator, TorchDraws
+    from isotope_tpu_torch.sim import lb as lb_mod
 
     if args.environment not in DEFAULT_ENVIRONMENTS:
         raise ValueError(
@@ -112,7 +123,9 @@ def run_simulate(args) -> int:
     load = _load(args)
     graph = ServiceGraph.from_yaml_file(args.topology)
     compiled = compile_graph(graph)
-    sim = Simulator(compiled, params, device=args.device)
+    # a declared lb law is the data plane being measured, on every run
+    lb = compile_lb(graph, compiled)
+    sim = Simulator(compiled, params, lb=lb, device=args.device)
     n = _num_requests(load, sim.capacity_qps(), args.max_requests)
     summary = sim.run_summary(
         load, n, TorchDraws(args.seed, sim.device),
@@ -125,6 +138,19 @@ def run_simulate(args) -> int:
     )
     json.dump(doc, sys.stdout, indent=2)
     sys.stdout.write("\n")
+    if lb is not None and lb.active:
+        lb_doc = lb_mod.to_doc(lb)
+        print(lb_mod.format_table(lb_doc), file=sys.stderr)
+        if args.lb_out:
+            with open(args.lb_out, "w") as f:
+                json.dump(lb_doc, f, indent=2)
+            print(f"lb -> {args.lb_out}", file=sys.stderr)
+    elif args.lb_out:
+        print(
+            "warning: --lb-out set but the topology declares no "
+            "lb entries (fifo everywhere)",
+            file=sys.stderr,
+        )
     return 0
 
 

@@ -8,6 +8,7 @@ from isotope_tpu_torch.compiler.compile import (
     HopBudgetExceededError,
     NoEntrypointError,
     compile_graph,
+    compile_lb,
 )
 from isotope_tpu_torch.compiler.program import (
     CompiledGraph,
@@ -25,6 +26,7 @@ __all__ = [
     "NoEntrypointError",
     "ServiceTable",
     "compile_graph",
+    "compile_lb",
     "compiled_from_arrays",
     "compiled_to_arrays",
 ]

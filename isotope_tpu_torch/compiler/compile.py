@@ -14,9 +14,9 @@ recurse until sockets run out), so rejecting cycles at compile time is
 strictly safer.
 
 This is a copy of ``isotope_tpu.compiler.compile``'s graph lowering
-(``compile_graph`` and its helpers) without the telemetry calls and
-without the policy, lb, rollout, ensemble and chaos table builders,
-which later slices of the port bring.
+(``compile_graph`` and its helpers) and of ``compile_lb``, without the
+telemetry calls and without the policy, rollout, ensemble and chaos
+table builders, which later slices of the port bring.
 """
 from __future__ import annotations
 
@@ -290,3 +290,23 @@ def _compile_graph(
         levels=tuple(levels),
         max_steps=max_steps,
     )
+
+
+def compile_lb(graph: ServiceGraph, compiled: CompiledGraph):
+    """Lower a topology's per-service ``lb:`` entries (inside the
+    ``policies:`` block) to dense per-service tables in COMPILED
+    service order (``sim/lb.LbTables``), which the engine's
+    per-station wait-law selection consumes.
+
+    Returns ``None`` when no service declares an ``lb:`` law (the
+    engine's unchanged default path).  Decode errors carry key paths
+    (``policies.worker.lb.choices_d: ...``).
+    """
+    if not graph.policies:
+        return None
+    from isotope_tpu_torch.sim import lb as lb_mod
+
+    lbs = lb_mod.LbSet.decode(graph.policies, compiled.services.names)
+    if lbs.empty:
+        return None
+    return lb_mod.build_tables(lbs, compiled.services)

@@ -13,7 +13,10 @@ for the run's own key, ``i`` for closed-loop pilot ``i`` and
 ``1_000_000 + b`` for summary block ``b`` (engine.py:2066, 4543); a
 tuple of integers folds each in turn.  An ungraceful kill event ``e``
 (``ChaosEvent(drain=False)``) draws its (N, H) reset coins from the
-block's index extended by ``KILL_INDEX_BASE + e`` (engine.py:6104).
+block's index extended by ``KILL_INDEX_BASE + e`` (engine.py:6104),
+and a run with panic routing under chaos (``sim/lb.py``) its (N, H)
+panic coins from the index extended by ``PANIC_INDEX``
+(engine.py:5275-5288).
 ``source.with_seed(seed)`` is a source of the same kind at another root
 seed: the saturated closed
 loop's fixed-point pilots draw from ``with_seed(SAT_PILOT_SEED)`` at
@@ -48,6 +51,9 @@ BLOCK_INDEX_BASE = 1_000_000
 #: fold-in offset of the ungraceful-kill reset coins of event ``e``
 KILL_INDEX_BASE = 9_990_000
 
+#: fold-in of the lb panic-routing coins
+PANIC_INDEX = 660_001
+
 #: root seed of the saturated closed loop's pilot runs (the reference's
 #: ``PRNGKey(20_260_730)``): fixed, so the solved throughput is a
 #: property of the topology, not of the run's seed
@@ -74,6 +80,8 @@ class DrawSpec(NamedTuple):
     saturated: bool = False
     # u_kill: one (N, H) uniform per ungraceful kill event
     kill_events: int = 0
+    # u_panic: the lb panic-routing coins (panic threshold under chaos)
+    panic: bool = False
 
     @property
     def normal_wait(self) -> bool:
@@ -93,6 +101,7 @@ class Draws(NamedTuple):
     svc: Optional[torch.Tensor] = None      # (N, H) unit exp. or normal
     arr: Optional[torch.Tensor] = None      # (N,) unit exponentials
     u_kill: Optional[torch.Tensor] = None   # (E, N, H) U[0, 1)
+    u_panic: Optional[torch.Tensor] = None  # (N, H) U[0, 1)
 
     def to(self, device) -> "Draws":
         """The same draws as float32 tensors on ``device``."""
@@ -117,6 +126,7 @@ class Draws(NamedTuple):
             "u_kill": (
                 (spec.kill_events, n, h) if spec.kill_events else None
             ),
+            "u_panic": (n, h) if spec.panic else None,
         }
         for name, shape in want.items():
             t = getattr(self, name)
@@ -184,16 +194,19 @@ class TorchDraws:
             z_call=normal(n, spec.retry_dim) if spec.retry_dim else None,
             u_kill=(
                 torch.stack([
-                    self.kill_coins(index, e, n, h)
+                    self.folded_uniform(index, KILL_INDEX_BASE + e, n, h)
                     for e in range(spec.kill_events)
                 ])
                 if spec.kill_events else None
             ),
+            u_panic=(
+                self.folded_uniform(index, PANIC_INDEX, n, h)
+                if spec.panic else None
+            ),
         )
 
-    def kill_coins(self, index: Index, event: int, n: int, h: int):
-        """Kill event ``event``'s (n, h) reset coins: index ``index``
-        extended by ``KILL_INDEX_BASE + event``."""
-        g = self.generator(index_path(index) + (KILL_INDEX_BASE + event,))
+    def folded_uniform(self, index: Index, fold: int, n: int, h: int):
+        """(n, h) uniforms of index ``index`` extended by ``fold``."""
+        g = self.generator(index_path(index) + (fold,))
         return torch.rand((n, h), generator=g, device=self.device,
                           dtype=torch.float32)

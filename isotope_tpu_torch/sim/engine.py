@@ -28,7 +28,11 @@ requests is one tensor program over a (request x hop) grid:
   windows after an overloaded phase, ungraceful kills that reset the
   requests resident at the kill instant), traffic-split churn (per-hop
   send-probability weights) and the phased mTLS tax; each request takes
-  its (chaos x churn) phase row from its nominal arrival time.
+  its (chaos x churn) phase row from its nominal arrival time;
+- per-service load-balancing laws (``sim/lb.py``: least_request,
+  ring_hash, wrr) replace the M/M/k wait law where a topology declares
+  them, and panic routing under chaos fast-fails the dead-backend share
+  of a pool below its threshold through the 500 path.
 
 Random numbers come from a draw source (``sim/draws.py``), so the same
 draws can drive this engine and the JAX one.  The JAX engine groups
@@ -37,7 +41,7 @@ this port sweeps every level one by one, which computes the same
 values (the JAX package pins buckets against unrolled levels).
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): policies, rollouts, lb laws, attribution, timelines and
+ROADMAP item): policies, rollouts, attribution, timelines and
 ensembles.
 """
 from __future__ import annotations
@@ -57,6 +61,7 @@ from isotope_tpu_torch.compiler import buckets
 from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
 from isotope_tpu_torch.native.census import census
 from isotope_tpu_torch.sim import closed, queueing
+from isotope_tpu_torch.sim import lb as lb_mod
 from isotope_tpu_torch.sim.config import (
     CLOSED_LOOP,
     OPEN_LOOP,
@@ -633,8 +638,6 @@ class Simulator:
         *,
         device=None,
     ):
-        if lb is not None:
-            raise _unsupported("lb laws", "sim/lb.py")
         if policies is not None or rollouts is not None:
             raise _unsupported(
                 "policies and rollouts", "protected layers"
@@ -746,6 +749,26 @@ class Simulator:
         self._replicas_pc = tensor(self._eff_pc_np, torch.int32)
         self._svc_down_pc = tensor(self._down_pc_np, torch.bool)
 
+        # -- load-balancing laws (sim/lb.py) ----------------------------------
+        # ``lb`` (compiler.compile_lb's tables) swaps the wait law per
+        # service; None or an all-fifo table with no panic leaves every
+        # wait on the M/M/k law.  Panic routing needs something that can
+        # unhealth a pool: here, chaos.  Its inputs are the alive
+        # replicas per phase row (unclamped: a fully-killed pool is 0
+        # healthy, not 1) and the static pool size.
+        self._lb = lb
+        self._lb_dev = None
+        self._lb_profile_np = None
+        if lb is not None and lb.active:
+            self._lb_profile_np = lb_mod.effective_profile(lb, self._k_max)
+            self._lb_dev = lb_mod.device_tables(lb, self._k_max, dev)
+        self._lb_panic = (
+            self._lb_dev is not None and lb.any_panic and self.has_chaos
+        )
+        if self._lb_panic:
+            self._lb_alive_pc = tensor(np.repeat(eff, Cc, axis=0), F32)
+            self._lb_total_row = tensor(t.replicas, F32)[None, :]
+
         # -- retry-storm feedback (load-dependent visits) -------------------
         # With finite call timeouts the retry/truncation probabilities
         # are load-dependent, so the visit table is a per-rate fixed
@@ -758,6 +781,14 @@ class Simulator:
                 compiled, params, self._mu,
                 self._eff_pc_np, self._down_pc_np, own_combo, visits_pc,
                 mtls=mtls,
+                # the fixed point sees the same per-station wait laws
+                # (sim/lb.np_wait_stats), or a hot ring-hash arc's retry
+                # storm goes statically unseen
+                lb=(
+                    (lb, self._lb_profile_np)
+                    if self._lb_profile_np is not None
+                    else None
+                ),
             )
             if not self._feedback.active:  # pragma: no cover - guard match
                 self._feedback = None
@@ -1288,6 +1319,7 @@ class Simulator:
             arrivals=kind == OPEN_LOOP,
             saturated=saturated,
             kill_events=self._num_kill_events,
+            panic=self._lb_panic and not saturated,
         )
 
     def _draws(self, source, index, n: int, kind: str,
@@ -1386,6 +1418,17 @@ class Simulator:
             and self._mtls is None
         )
 
+    def _check_lb_load(self, load: LoadModel) -> None:
+        """An active lb law cannot run under the saturated ``-qps max``
+        law, whose finite-population tables have no per-backend
+        dispatch: refuse it rather than fall back to fifo."""
+        if self._lb_dev is not None and self._saturated(load):
+            raise ValueError(
+                "lb laws do not support saturated -qps max loads: the "
+                "finite-population wait tables have no per-backend "
+                "dispatch; use a paced closed loop or open loop"
+            )
+
     def run(
         self,
         load: LoadModel,
@@ -1401,6 +1444,7 @@ class Simulator:
         (``qps=None``) issues without pacing at the closed network's
         throughput and samples the finite-population wait law.
         """
+        self._check_lb_load(load)
         if load.kind == OPEN_LOOP:
             res, _, _ = self._simulate_core(
                 num_requests, OPEN_LOOP, 0,
@@ -1448,6 +1492,7 @@ class Simulator:
         runs (pilot ``i`` draws from index ``i`` of ``source``).  The
         rate is memoized per load shape.
         """
+        self._check_lb_load(load)
         if self._saturated(load):
             # phased runs time-weight the per-row rates over the chaos
             # windows the run spans
@@ -1783,6 +1828,7 @@ class Simulator:
         form one continuous timeline; block ``b`` draws from index
         ``1_000_000 + b`` of ``source``.
         """
+        self._check_lb_load(load)
         offered, block, num_blocks = self._block_plan(
             load, num_requests, source, block_size
         )
@@ -1836,6 +1882,7 @@ class Simulator:
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
+        self._check_lb_load(load)
         offered, block, num_blocks = self._block_plan(
             load, num_requests, source, block_size
         )
@@ -1861,17 +1908,17 @@ class Simulator:
         requests makes, in call order: one per dense level with children,
         with a fail step where a call has a finite timeout or under
         chaos (any callee may be down) and error coins where a hop has a
-        nonzero error rate, and one per tile of a tiled level that holds
-        calls, ``(N, T, W)``, with the level's fail step and no error
-        coins."""
+        nonzero error rate or panic routing can fast-fail it, and one per
+        tile of a tiled level that holds calls, ``(N, T, W)``, with the
+        level's fail step and no error coins."""
+        err = self._need_err or self._lb_panic
         shapes = []
         for lvl in reversed(self._levels):
             if lvl.num_children == 0 or lvl.sparse is not None:
                 continue
             fail = lvl.finite_timeout or self.has_chaos
             if lvl.tiled is None:
-                shapes.append((n, lvl.size, lvl.pmax, fail,
-                               self._need_err))
+                shapes.append((n, lvl.size, lvl.pmax, fail, err))
                 continue
             shapes += [
                 (n, len(tile.hops), tile.width, fail, False)
@@ -2218,10 +2265,28 @@ class Simulator:
         if visits_pc is None:
             visits_pc = self._visits_pc
         lam_pc = offered_qps * visits_pc
-        qp = queueing.mmk_params(
-            lam_pc, self._mu, self._replicas_pc, self._k_max
-        )
         hop_svc = self._hop_service
+        # panic routing (sim/lb.py): below a pool's panic threshold the
+        # dead-backend share fast-fails through the panic coin below and
+        # the wait law's load scales by the healthy fraction
+        panic_ph = None
+        if self._lb_panic and not sat_conns:
+            lam_pc, panic_pc = lb_mod.panic_split(
+                self._lb_dev, lam_pc, self._lb_alive_pc, self._lb_total_row
+            )
+            panic_ph = panic_pc[:, hop_svc]
+        # per-station wait law: the lb laws where declared (fifo rows
+        # pass through mmk_params untouched); the saturated -qps max
+        # law keeps its own tables (lb runs refuse it at the entries)
+        if self._lb_dev is not None and not sat_conns:
+            qp = lb_mod.wait_params(
+                self._lb, self._lb_dev, lam_pc, self._mu,
+                self._replicas_pc, self._k_max,
+            )
+        else:
+            qp = queueing.mmk_params(
+                lam_pc, self._mu, self._replicas_pc, self._k_max
+            )
         down = None
         phase_idx = None
         if num_phases > 1:
@@ -2265,6 +2330,14 @@ class Simulator:
             wait = queueing.sample_wait_conditional(
                 p_wait_nh, wait_rate_nh, u_wait
             )  # (N, H)
+        panic = None
+        if panic_ph is not None:
+            # the dead-backend share fast-fails at admission: no queue
+            panic = draws.u_panic < (
+                panic_ph[0][None, :] if phase_idx is None
+                else panic_ph[phase_idx]
+            )
+            wait = torch.where(panic, zero, wait)
         utilization, unstable = qp.utilization, qp.unstable
         if self.has_chaos:
             # a fully-down service does no work: zero utilization for
@@ -2273,6 +2346,11 @@ class Simulator:
             unstable = unstable & ~self._svc_down_pc
         svc_time = self._sample_service_time(draws.svc, n)
         err_coin = None if u_err is None else u_err < self._hop_err_rate
+        if panic is not None:
+            # a panicking hop rides the errorRate path exactly: fast 500,
+            # script skipped, nothing sent downstream, and the caller
+            # does not fail
+            err_coin = panic if err_coin is None else err_coin | panic
 
         # ---- upward pass: outcomes + server-side durations ---------------
         # Deepest level first, so every call site sees its callees'

@@ -34,10 +34,11 @@ The fixed point is damped (0.5) and bounded: even when the amplified
 load saturates a station, the clamped wait law keeps P(timeout) <= 1,
 so visits are bounded by the full attempt tree.
 
-A copy of ``isotope_tpu.sim.feedback`` without the retry-budget and
-lb-law inputs: the port's Simulator refuses those features, so the
-fixed point here is the plain M/M/k one (with the mTLS schedule's
-time-averaged tax).
+A copy of ``isotope_tpu.sim.feedback`` without the retry-budget input
+(the protected layers are not ported): the fixed point runs the
+per-service lb laws where the topology declares them
+(``sim/lb.np_wait_stats``), else the plain M/M/k law, with the mTLS
+schedule's time-averaged tax.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from typing import List, Optional
 import numpy as np
 
 from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
+from isotope_tpu_torch.sim import lb as lb_mod
 from isotope_tpu_torch.sim.queueing import _MAX_RHO
 
 
@@ -137,6 +139,7 @@ class RetryFeedback:
         own_combo: np.ndarray,         # (Cc, H) churn-combo hop multipliers
         static_visits_pc: np.ndarray,  # (PC, S)
         mtls=None,                     # Optional[MtlsSchedule]
+        lb=None,                       # (lb.LbTables, profile (S, k))
     ):
         self.compiled = compiled
         self.params = params
@@ -146,6 +149,16 @@ class RetryFeedback:
         self.own = np.asarray(own_combo, np.float64)
         self.static = np.asarray(static_visits_pc, np.float64)
         self.n_combos = self.own.shape[0]
+        # per-service LB wait laws (sim/lb.py): the fixed point's
+        # P(timeout) integrates the same skewed per-backend tails the
+        # engine samples.  Panic routing mirrors the wait-law load
+        # scaling only — the panic share's fast-fail reach truncation
+        # is NOT mirrored (stated approximation: the static estimate
+        # keeps the full subtree load, conservatively overstating it).
+        self.lb = lb
+        self._static_replicas = np.maximum(
+            np.asarray(compiled.services.replicas, np.float64), 1.0
+        )
 
         t = compiled.services
         self._err = t.error_rate.astype(np.float64)
@@ -284,7 +297,22 @@ class RetryFeedback:
 
         for _ in range(iters):
             lam = offered * visits
-            p_wait, wait_rate, _ = np_mmk(lam, self.mu, eff)
+            if self.lb is not None:
+                tables, profile = self.lb
+                if tables.any_panic:
+                    alive = np.where(down, 0.0, eff)
+                    frac = np.clip(
+                        alive / self._static_replicas, 0.0, 1.0
+                    )
+                    panic = (tables.panic_threshold > 0.0) & (
+                        frac < tables.panic_threshold
+                    )
+                    lam = np.where(panic, lam * frac, lam)
+                p_wait, wait_rate = lb_mod.np_wait_stats(
+                    tables, profile, lam, self.mu, eff
+                )
+            else:
+                p_wait, wait_rate, _ = np_mmk(lam, self.mu, eff)
             ew = np.where(down, 0.0, p_wait / wait_rate)
 
             # -- bottom-up: subtree means + per-call failure probabilities

@@ -140,14 +140,14 @@ def test_library_path_is_keyed_by_source():
 def _chip_smoke_shapes():
     """Every census shape ``chip_smoke.py`` holds the kernel at, from
     the same simulators (built here on the CPU), the scenario runs'
-    (svc100k-chaos among them) included."""
+    (svc100k-chaos among them) and the lb runs' included."""
     import sys
     from types import SimpleNamespace
 
     root = pathlib.Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(root))
     import chip_smoke
-    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.compiler import compile_graph, compile_lb
     from isotope_tpu_torch.models.generators import (
         realistic_topology,
         tree_topology,
@@ -163,7 +163,7 @@ def _chip_smoke_shapes():
         bounce_schedule,
     )
 
-    port = SimpleNamespace(compile_graph=compile_graph,
+    port = SimpleNamespace(compile_graph=compile_graph, compile_lb=compile_lb,
                            ServiceGraph=ServiceGraph, LoadModel=LoadModel,
                            Simulator=Simulator,
                            realistic_topology=realistic_topology,
@@ -178,7 +178,8 @@ def _chip_smoke_shapes():
     ))
     runs = chip_smoke.main_path_runs(port, flagship, device="cpu")
     runs += [run[:5] for run in
-             chip_smoke.scenario_runs(port, {}, device="cpu")]
+             chip_smoke.scenario_runs(port, {}, device="cpu")
+             + chip_smoke.lb_runs(port, device="cpu")]
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
     )
@@ -237,6 +238,16 @@ def test_chip_smoke_covers_the_scenario_runs():
     for n in (262_144, 524_288):
         assert (n, 3, 2, True, False) in _SHAPES
         assert (n, 1, 2, True, False) in _SHAPES
+
+
+def test_chip_smoke_covers_the_lb_runs():
+    """The panic run's one call a block carries both a fail step (a
+    chaos run) and error flags (the panic coins), with no errorRate
+    anywhere in its topology; lb-1000svc-lr makes the fifo 1000-svc
+    run's calls."""
+    assert (240_000, 1, 1, True, True) in _SHAPES
+    for b in (216, 36, 6, 1):
+        assert (32_768, b, 1, False, False) in _SHAPES
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

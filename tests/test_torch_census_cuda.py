@@ -164,3 +164,52 @@ def test_tiled_level_on_the_kernel_matches_the_cpu(card, tile_pmax):
         torch.testing.assert_close(getattr(got, name).cpu(),
                                    getattr(want, name), rtol=RTOL,
                                    atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_pmax", [None, 64, 3])
+def test_panic_run_on_the_kernel_matches_the_cpu(card, tile_pmax):
+    """Panic routing under chaos (lb laws): the panic coins reach the
+    kernel as error flags beside the fail step on dense levels (tiles
+    take none), and the run equals the CPU run on the plain version
+    with the same draws (rtol 1e-5)."""
+    from isotope_tpu_torch.compiler import compile_graph, compile_lb
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+    from isotope_tpu_torch.sim import TorchDraws
+    from isotope_tpu_torch.sim.config import ChaosEvent
+
+    graph = ServiceGraph.from_yaml(SKEWED.replace(
+        "- name: hub\n", "- name: hub\n  numReplicas: 4\n"
+    ) + "policies:\n  defaults:\n"
+        "    lb: {policy: least_request, panic_threshold: 50%}\n"
+        "  w1:\n    lb: {policy: ring_hash, hash_skew: 1.2}\n")
+    compiled = compile_graph(graph)
+    params = (
+        SimParams() if tile_pmax is None
+        else SimParams(sparse_level_elems=1, sparse_tile_pmax=tile_pmax)
+    )
+    chaos = (ChaosEvent("hub", 0.02, 0.1, replicas_down=3),)
+
+    def make(device):
+        return Simulator(compiled, params, chaos,
+                         lb=compile_lb(graph, compiled), device=device)
+
+    card_sim = make("cuda")
+    assert any(s[3] and s[4] for s in card_sim.census_shapes(1024))
+    load = LoadModel(kind="open", qps=10_000.0)
+    source = TorchDraws(5, "cuda")
+    before = census_mod.census.launches
+    got = card_sim.run(load, 1024, source)
+    torch.cuda.synchronize()
+    assert census_mod.census.launches - before == len(
+        card_sim.census_shapes(1024)
+    )
+    want = make("cpu").run(load, 1024, source)
+    assert bool(want.hop_error.any())
+    for name in ("hop_sent", "hop_error", "client_error"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    for name in ("client_latency", "hop_latency", "hop_start"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), rtol=RTOL,
+                                   atol=1e-9)

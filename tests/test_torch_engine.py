@@ -233,7 +233,9 @@ def test_default_device_raises_without_gpu():
     "kwargs,item",
     [
         (dict(rollouts=object()), "protected layers"),
-        (dict(lb=object()), "sim/lb.py"),
+        # the lb laws are ported (tests/test_torch_lb.py); the timeline
+        # recorder is not
+        (dict(params=SimParams(timeline=True)), "observability"),
         (dict(policies=object()), "protected layers"),
         (dict(params=SimParams(attribution=True)), "observability"),
         (dict(params=SimParams(ensemble=2)), "fleets"),
@@ -348,6 +350,7 @@ def test_port_imports_no_jax():
     # loop and the check command
     for name in ("sim.engine", "sim.closed", "sim.summary",
                  "models.generators", "metrics.prometheus",
-                 "metrics.query", "metrics.alarms", "cli"):
+                 "metrics.query", "metrics.alarms", "cli",
+                 "sim.lb", "sim.oracle", "native.host"):
         assert f"isotope_tpu_torch.{name}" in names, name
     assert len(names) >= 25

@@ -5,7 +5,7 @@ that rebuilds, from a JAX ``PRNGKey``, exactly the random tensors the
 JAX engine draws for the same block (``isotope_tpu/sim/engine.py``:
 key splits and static coin elimination at 4761-4880, arrivals at 4885,
 service times at 4639-4660, block keys at 4543, pilot keys at 2066,
-ungraceful-kill coins at 6104).
+ungraceful-kill coins at 6104, lb panic coins at 5275-5288).
 Both engines then consume the same numbers, so their outputs can be
 compared element by element.  ``test_torch_engine.py``,
 ``test_torch_summary.py`` and the scenario tests import these helpers
@@ -30,6 +30,7 @@ from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
 from isotope_tpu_torch.sim import config as port_config
 from isotope_tpu_torch.sim.draws import (
     KILL_INDEX_BASE,
+    PANIC_INDEX,
     SVC_EXPONENTIAL,
     SVC_NORMAL,
     Draws,
@@ -123,6 +124,10 @@ class JaxReplayDraws:
                 ))
                 for e in range(spec.kill_events)
             ]))
+        if spec.panic:
+            out = out._replace(u_panic=put(jax.random.uniform(
+                jax.random.fold_in(k, PANIC_INDEX), (n, h)
+            )))
         return out
 
 
@@ -145,6 +150,12 @@ def check_spec(spec, jax_sim) -> None:
         jax_sim._num_retry_groups + 1 if jax_sim._retry_active else 0
     )
     assert spec.kill_events == jax_sim._num_kill_events
+    # the JAX engine draws panic coins when an active lb table has a
+    # panic threshold and chaos can unhealth a pool (no -qps max)
+    assert spec.panic == (
+        jax_sim._lb_dev is not None and jax_sim._lb.any_panic
+        and jax_sim.has_chaos and not spec.saturated
+    )
 
 
 def port_compiled(jax_compiled):
@@ -153,12 +164,13 @@ def port_compiled(jax_compiled):
 
 
 def scenario_pair(jax_compiled, params=None, chaos=(), churn=(),
-                  mtls=None):
+                  mtls=None, lb=(None, None)):
     """(JAX simulator, port simulator on the CPU) of one compiled graph
     under one scenario.  ``params``: a dict of ``SimParams`` fields, or
     a (JAX params, port params) pair; ``chaos`` and ``churn`` are lists
     of ``ChaosEvent`` / ``TrafficSplit`` keyword dicts and ``mtls`` one
-    of ``MtlsSchedule``, each built in both packages."""
+    of ``MtlsSchedule``, each built in both packages; ``lb`` is the
+    (JAX, port) pair of ``compile_lb`` tables."""
     if params is None or isinstance(params, dict):
         jax_params = JaxParams(**(params or {}))
         port_params = SimParams(**(params or {}))
@@ -174,12 +186,12 @@ def scenario_pair(jax_compiled, params=None, chaos=(), churn=(),
     mtls_pair = both("MtlsSchedule", mtls) if mtls else (None, None)
     jax_sim = JaxSimulator(
         jax_compiled, jax_params, tuple(a for a, _ in chaos_pairs),
-        tuple(a for a, _ in churn_pairs), mtls_pair[0],
+        tuple(a for a, _ in churn_pairs), mtls_pair[0], lb=lb[0],
     )
     sim = Simulator(
         port_compiled(jax_compiled), port_params,
         tuple(b for _, b in chaos_pairs), tuple(b for _, b in churn_pairs),
-        mtls_pair[1], device="cpu",
+        mtls_pair[1], lb=lb[1], device="cpu",
     )
     return jax_sim, sim
 
