@@ -102,6 +102,7 @@ with code 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -211,6 +212,84 @@ LB_PANIC_SHARE, LB_PANIC_BAND = 0.6, 0.01
 # lb-1000svc-lr: 1000-svc_2000-end.yaml under least_request at the
 # 1000-svc run's load
 LB_LR_POLICIES = {"defaults": {"lb": "least_request"}}
+
+# the protected runs (phases 3-6).  policies-1000svc-kill:
+# 1000-svc_2000-end.yaml with Envoy's default route timeout (15 s) and
+# Istio's default two retries on every call (the attempts unroll into a
+# tree of 66,196 hops, so its memory-sized block is 506 requests), the
+# reference bench's svc1000_chaosfleet retry
+# budget (25%) on the defaults, plus a breaker at the pending cap of
+# Istio's circuit-breaking task (http1MaxPendingRequests: 1) and an HPA
+# at the Kubernetes defaults (15 s sync period, scale-down
+# stabilization) between 2 and 4 replicas; one of the two replicas of
+# the mid-tier svc-0-2-3 down for the middle third of a 30 s run
+PROTECTED_POLICIES = {"defaults": {
+    "retry_budget": {"budget_percent": "25%"},
+    "breaker": {"max_pending": 1},
+    "autoscaler": {"min_replicas": 2, "max_replicas": 4,
+                   "target_utilization": "60%", "sync_period": "15s",
+                   "stabilization_window": "300s"},
+}}
+POLICY_TIMEOUT, POLICY_RETRIES = "15s", 2
+POLICY_KILL = dict(service="svc-0-2-3", start_s=10.0, end_s=20.0,
+                   replicas_down=1)
+PROTECTED_QPS = 10_000.0
+PROTECTED_S = 30.0
+PROTECTED_WINDOW_S = 1.0
+# phase 4 holds policies-1000svc-kill through a compressed twin: its 593
+# blocks of 506 x 66,196 hops would take most of an hour on the card
+# machine's CPU, so the twin runs 6 blocks (0.3 s) with the kill from
+# 0 s to 0.15 s and 10 ms windows (the breaker trips, sheds and
+# recovers inside it); the other protected runs are held whole
+POLICY_TWIN_S, POLICY_TWIN_KILL_S, POLICY_TWIN_WINDOW_S = 0.3, 0.15, 0.01
+# the phase-4 runs whose breaker must trip, shed at admission and
+# recover (checked from the policy series and the blocks' error flags)
+SHED_CHECKED = ("policies-1000svc-kill", "policies-smoke")
+# rollouts-multitier-1000: the reference bench's rollout50 schedule on
+# services[1] of the 1000-service multitier graph, composed with the
+# svc1000_chaosfleet retry budget; the bad canary 500s a fifth of its
+# hops
+ROLLOUT = {"steps": ["5%", "25%", "100%"], "bake": "2s",
+           "gates": {"min_samples": 50}}
+ROLLOUT_POLICIES = {"defaults": {"retry_budget": {"budget_percent": "25%"}}}
+BAD_CANARY = {"error_rate": "20%"}
+# policies-smoke: the reference's acceptance scenario
+# (tools/policies_smoke.py) at its own size, protected and not
+SMOKE_TOPOLOGY = """
+services:
+- name: entry
+  isEntrypoint: true
+  numReplicas: 4
+  script:
+  - call: {service: worker, timeout: 850us, retries: 2}
+- name: worker
+  numReplicas: 4
+policies:
+  worker:
+    breaker: {max_pending: 6, max_connections: 48}
+    retry_budget: {budget_percent: 20%, min_retries_concurrent: 2}
+    autoscaler:
+      min_replicas: 4
+      max_replicas: 12
+      target_utilization: 50%
+      sync_period: 1s
+      stabilization_window: 10s
+      scale_up_step: 2
+"""
+SMOKE_KILL = dict(service="worker", start_s=3.0, end_s=8.0, replicas_down=3)
+SMOKE_QPS = 0.325 * 4 * 13_000.0
+SMOKE_N, SMOKE_BLOCK = 270_000, 8192
+# in situ, the policy series that are continuous functions of the
+# recorder's float32 occupancy integrals (the breaker's shed) or of its
+# window counts (the budget's retry allow) are held to this relative
+# tolerance, card against CPU; the others are counts, states and steps
+SHED_RTOL = 1e-3
+# in situ, a window-binned count: a hop that starts (or a request that
+# ends) within float32 spacings of a window boundary lands on either
+# side, card against CPU (~0.01 such events a window at these loads),
+# so each (service, window) count is held to WINDOW_COUNT_ATOL events
+# and every total over the windows exactly
+WINDOW_COUNT_ATOL = 2
 
 # the reference's oracle fixtures (tests/test_oracle.py)
 CHAIN3 = """
@@ -413,13 +492,19 @@ def host_us(fn, reps=300):
     return us
 
 
+def census_calls(sim, block):
+    """The census calls of one block of ``sim``: a Simulator carrying
+    policy tables runs protected, its breaker sheds on the error path."""
+    return sim.census_shapes(block, policy=sim._policies is not None)
+
+
 def census_check_shapes(runs, census_only):
     """Every census shape phase 3 checks, in order, without repeats: the
     main path's (with the closed loop's rate pilot), the census-only
     configurations' and the fixtures."""
     shapes = []
     for _, sim, load, _, block in runs:
-        shapes += sim.census_shapes(block)
+        shapes += census_calls(sim, block)
         if load.kind == "closed":
             shapes += sim.census_shapes(
                 SAT_PILOT_N if load.qps is None else PILOT_N
@@ -465,7 +550,7 @@ def kernel_phase(census_mod, runs, census_only):
     per_block = []
     for name, sim, block in blocks + list(census_only):
         ms = plain_ms = bound_ms = 0.0
-        for shape in sim.census_shapes(block):
+        for shape in census_calls(sim, block):
             args = census_inputs(*shape, seed=1)
             k = device_ms(lambda: census_mod.census(*args), flush)
             host = host_us(lambda: census_mod.census(*args))
@@ -482,7 +567,7 @@ def kernel_phase(census_mod, runs, census_only):
             plain_ms += r
             bound_ms += bd
         log(f"kernel time per {name} block "
-            f"({len(sim.census_shapes(block))} calls): device {ms:.4f} ms,"
+            f"({len(census_calls(sim, block))} calls): device {ms:.4f} ms,"
             f" bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of bound; "
             f"plain {plain_ms:.4f} ms")
         per_block.append((name, ms, plain_ms, bound_ms))
@@ -510,7 +595,8 @@ def compare_results(got, want, what, rtol=RESULT_RTOL, atol=RESULT_ATOL):
         a = getattr(got, name).cpu().double()
         b = getattr(want, name).cpu().double()
         torch.testing.assert_close(
-            a, b, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}",
+            a, b, rtol=rtol, atol=atol,
+            msg=lambda m, name=name: f"{what} {name}: {m}",
         )
         worst = max(worst, float(((a - b).abs() / (
             atol + rtol * b.abs())).max()))
@@ -773,6 +859,512 @@ def panic_share(port, sim, load, n, block):
         f" against one replica")
 
 
+def protected_runs(port, device="cuda"):
+    """The protected runs: (name, simulator on ``device``, load,
+    requests, block, window, rollouts, make), ``make(device)`` building
+    the same Simulator on another device; the block is
+    ``runner/run.protected_window_block``'s for 1 s windows, as
+    ``simulate --policies --timeline 1s`` sizes it."""
+    import yaml
+
+    out = []
+
+    def add(name, graph, params, chaos, load, n, roll):
+        compiled = port.compile_graph(graph)
+        pol = port.compile_policies(graph, compiled)
+        ro = port.compile_rollouts(graph, compiled) if roll else None
+
+        def make(device, compiled=compiled, pol=pol, ro=ro):
+            return port.Simulator(compiled, params, chaos, policies=pol,
+                                  rollouts=ro, device=device)
+
+        sim = make(device)
+        window, block = port.protected_window_block(
+            sim, load, sim.default_block_size(), params.timeline_window_s,
+            PROTECTED_WINDOW_S,
+        )
+        out.append((name, sim, load, n, block, window, roll, make))
+
+    doc = port.with_call_policy(
+        yaml.safe_load((TOPOLOGIES / "1000-svc_2000-end.yaml").read_text()),
+        timeout=POLICY_TIMEOUT, retries=POLICY_RETRIES,
+    )
+    doc["policies"] = PROTECTED_POLICIES
+    add("policies-1000svc-kill", port.ServiceGraph.decode(doc),
+        port.SimParams(timeline=True), (port.ChaosEvent(**POLICY_KILL),),
+        port.LoadModel(kind="open", qps=PROTECTED_QPS,
+                       duration_s=PROTECTED_S),
+        int(PROTECTED_QPS * PROTECTED_S), False)
+    for kind, canary in (("clean", {}), ("bad", {"canary": BAD_CANARY})):
+        doc = port.realistic_topology(1000, archetype="multitier", seed=0)
+        doc["rollouts"] = {doc["services"][1]["name"]: {**ROLLOUT, **canary}}
+        doc["policies"] = ROLLOUT_POLICIES
+        graph = port.ServiceGraph.decode(doc)
+        qps = port.Simulator(port.compile_graph(graph),
+                             device=device).capacity_qps() / 2
+        add(f"rollouts-multitier-1000-{kind}", graph,
+            port.SimParams(timeline=True), (),
+            port.LoadModel(kind="open", qps=qps, duration_s=PROTECTED_S),
+            int(qps * PROTECTED_S), True)
+    graph = port.ServiceGraph.from_yaml(SMOKE_TOPOLOGY)
+    smoke_params = port.SimParams(timeline=True, timeline_window_s=1.0)
+    add("policies-smoke", graph, smoke_params,
+        (port.ChaosEvent(**SMOKE_KILL),),
+        port.LoadModel(kind="open", qps=SMOKE_QPS), SMOKE_N, False)
+    # the reference tool's own blocks, not one window's
+    name, sim, load, n, _, window, roll, make = out[-1]
+    out[-1] = (name, sim, load, n, SMOKE_BLOCK, window, roll, make)
+    return out
+
+
+def protected_call(port, sim, load, n, block, window, roll, seed=0):
+    """``run_rollouts`` / ``run_policies`` as ``simulate`` calls them."""
+    fn = sim.run_rollouts if roll else sim.run_policies
+    return fn(load, n, port.TorchDraws(seed, sim.device), block_size=block,
+              trim=True, window_s=window)
+
+
+class _Recording:
+    """A protected run's carry that remembers the effects each block ran
+    under (for the CPU twin of phase 4)."""
+
+    def __init__(self, ctl):
+        self.ctl, self.last = ctl, None
+
+    def effects(self):
+        self.last = self.ctl.effects()
+        return self.last
+
+    def observe(self, res, t_done):
+        self.ctl.observe(res, t_done)
+
+
+class _Mirror:
+    """The CPU twin's carry: its blocks run under the card's effects
+    (so both draw the same coins against the same thresholds), and its
+    own control laws advance from its own observations."""
+
+    def __init__(self, ctl, card, device):
+        self.ctl, self.card, self.device = ctl, card, device
+
+    def effects(self):
+        return tuple(
+            None if fx is None else type(fx)(*(
+                None if x is None else x.to(self.device) for x in fx
+            ))
+            for fx in self.card.last
+        )
+
+    def observe(self, res, t_done):
+        self.ctl.observe(res, t_done)
+
+
+def _same(a, b, what, rtol=0.0, atol=0.0):
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    if rtol == 0.0 and atol == 0.0:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+    else:
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{what}: {m}")
+
+
+def _same_counts(a, b, what):
+    """Window-binned counts: totals exactly, each bin within
+    WINDOW_COUNT_ATOL events (a boundary's float32 spacing)."""
+    _same(a.sum(-1), b.sum(-1), f"{what} totals")
+    _same(a, b, what, atol=WINDOW_COUNT_ATOL)
+
+
+#: the recorder's fixed-point time unit (metrics/timeline.TIME_UNIT)
+TIME_UNIT = 2.0 ** -28
+
+
+def event_time_gap(got, want):
+    """The largest difference, card against CPU, of a sent hop's start,
+    busy start (start + wait) and end (start + latency) in one block,
+    in seconds: the event times the recorder's occupancy integrals sum
+    (float32 differences of nearby float32 values are exact)."""
+    sent = want.hop_sent.cpu()
+    gap = 0.0
+    for t in (lambda r: r.hop_start,
+              lambda r: r.hop_start + r.hop_wait,
+              lambda r: r.hop_start + r.hop_latency):
+        d = (t(got).cpu() - t(want).cpu()).abs()
+        gap = max(gap, float(torch.where(sent, d, 0.0).max()))
+    return gap
+
+
+def occupancy_bound(tl, gap, blocks):
+    """(S, W) float64 bound on the card-against-CPU difference of a
+    recorded run's occupancy integrals, from what can differ: a hop's
+    overlap with a window moves by at most the moves of its two ends,
+    each at most ``gap`` (the run's largest event-time difference,
+    ``event_time_gap``) plus a float32 spacing of the horizon (the
+    window index of an event at a boundary) plus the fixed-point
+    rounding (TIME_UNIT / 2 a time, on each side); only the hops that
+    meet the window move it (those that start in it and those in
+    flight at its start, from ``tl``'s counts, plus WINDOW_COUNT_ATOL
+    that cross a boundary on one side only); and each of ``blocks``
+    float32 partial sums rounds once."""
+    arr = tl.svc_arrivals.detach().cpu().double()
+    net = arr - tl.svc_completions.detach().cpu().double()
+    open_at_start = torch.cumsum(net, dim=1) - net
+    touching = arr + open_at_start + 2 * WINDOW_COUNT_ATOL
+    horizon = tl.num_windows * float(tl.window_s)
+    per_hop = 2.0 * (gap + float(np.spacing(np.float32(horizon)))
+                     + TIME_UNIT)
+    return touching * per_hop, (blocks + 1) * 2.0 ** -23
+
+
+def compare_timelines(got, want, what, lat_max, gap, blocks):
+    """The recorder, card against CPU: the request count exactly, the
+    window-binned counts as ``_same_counts``, the latency sums at the
+    engine's tolerance plus WINDOW_COUNT_ATOL requests of ``lat_max``
+    (a boundary request's latency moves with its count), the occupancy
+    integrals within ``occupancy_bound``.  Returns the largest
+    occupancy difference as a share of its bound, and the median bound
+    as a share of its busy integral (how tight the bound is)."""
+    _same(got.count, want.count, f"{what} count")
+    for name in ("arrivals", "completions", "errors", "latency_hist",
+                 "svc_arrivals", "svc_completions", "svc_errors"):
+        _same_counts(getattr(got, name), getattr(want, name),
+                     f"{what} {name}")
+    _same(got.latency_sum, want.latency_sum, f"{what} latency_sum",
+          rtol=RESULT_RTOL, atol=WINDOW_COUNT_ATOL * lat_max)
+    atol, rtol = occupancy_bound(want, gap, blocks)
+    worst = 0.0
+    for name in ("svc_inflight_s", "svc_busy_s"):
+        a = getattr(got, name).detach().cpu().double()
+        w = getattr(want, name).detach().cpu().double()
+        share = (a - w).abs() / (atol + rtol * w.abs())
+        worst = max(worst, float(share.max()))
+        if worst > 1.0:
+            raise AssertionError(
+                f"{what} {name}: {float((a - w).abs().max()):.3e} s off, "
+                f"{worst:.3f} of its bound (event-time gap {gap:.3e} s)")
+    busy = want.svc_busy_s.detach().cpu().double()
+    tight = float(((atol + rtol * busy) / busy)[busy > 0].median())
+    return worst, tight
+
+
+def shed_path(card_fx, res, hop_service):
+    """The hops one block shed, from the policy effects it ran under:
+    (errored hops at a shedding service that never queued, errored
+    hops elsewhere)."""
+    shedding = (card_fx.shed.cpu() > 0.0)[hop_service]
+    err = res.hop_error & res.hop_sent
+    shed = err & shedding[None, :] & (res.hop_wait == 0.0)
+    return int(shed.sum()), int((err & ~shed).sum())
+
+
+def check_breaker_cycle(pacc, what):
+    """A policy run whose breaker must trip, shed and recover: returns
+    (trips, largest shed, services that recovered)."""
+    trips = float(pacc.trips.sum())
+    shed = float(pacc.shed.max())
+    done = pacc.windows_done.cpu() > 0
+    opened = pacc.breaker_open.cpu()[:, done] > 0
+    # recovered: a window with the breaker closed after one with it open
+    seen = torch.cumsum(opened.int(), dim=1) > 0
+    recovered = int(((seen[:, :-1] & ~opened[:, 1:]).any(1)).sum())
+    if trips < 1 or shed <= 0.0 or recovered < 1:
+        raise AssertionError(
+            f"{what}: the breaker must trip, shed and recover (trips "
+            f"{trips:g}, largest shed {shed:g}, {recovered} recovered)")
+    return trips, shed, recovered
+
+
+def in_situ_twins(port, runs):
+    """The runs phase 4 holds: each protected run whole, except
+    policies-1000svc-kill, held through its compressed twin."""
+    out = []
+    for name, sim, load, n, block, window, roll, make in runs:
+        if name == "policies-1000svc-kill":
+            kill = (port.ChaosEvent(**{**POLICY_KILL, "start_s": 0.0,
+                                       "end_s": POLICY_TWIN_KILL_S}),)
+
+            def make(device, sim=sim, kill=kill):
+                return port.Simulator(sim.compiled, sim.params, kill,
+                                      policies=sim._policies,
+                                      device=device)
+
+            name = f"{name} (twin: {POLICY_TWIN_S:g} s)"
+            n = int(load.qps * POLICY_TWIN_S)
+            n = -(-n // block) * block
+            window = POLICY_TWIN_WINDOW_S
+        out.append((name, sim, load, n, block, window, roll, make))
+    return out
+
+
+def protected_in_situ(port, runs):
+    """Each protected run on the card and on the CPU with the same
+    draws, block by block in lockstep: every CPU block runs under the
+    effects the card's block ran under, so booleans and counts are
+    exact and floats within the engine's tolerance; each side advances
+    its own control laws from its own observations, and their series
+    must agree: states and steps exactly, the breaker's shed and the
+    budget's retry allow (continuous functions of the recorder's
+    integrals and counts) within SHED_RTOL, window-binned counts as
+    ``_same_counts``."""
+    for name, _, load, n, block, window, roll, make in runs:
+        source = port.TorchDraws(11, "cuda")
+        card, cpu = make("cuda"), make("cpu")
+        pol = card._policies is not None
+        rec = _Recording(card._control(load, n, source, block, window,
+                                       pol, roll))
+        mirror = _Mirror(cpu._control(load, n, source, block, window, pol,
+                                      roll), rec, "cpu")
+        worst, blocks, events = 0.0, 0, 0
+        lat_max = hop_max = gap = 0.0
+        shed_hops = other_errors = 0
+        hop_service = torch.as_tensor(card.compiled.hop_service).long()
+        t = time.perf_counter()
+        for b, (got, want) in enumerate(zip(
+            card.run_blocks(load, n, source, block_size=block,
+                            control=rec),
+            cpu.run_blocks(load, n, source, block_size=block,
+                           control=mirror),
+        )):
+            worst = max(worst, compare_results(
+                got, want, f"in situ {name} block {b}"))
+            for field in ("hop_canary", "hop_refused"):
+                a, w = getattr(got, field), getattr(want, field)
+                if (a is None) != (w is None):
+                    raise AssertionError(f"in situ {name}: {field}")
+                if a is not None:
+                    _same(a, w, f"in situ {name} block {b} {field}")
+            blocks += 1
+            events += int(got.hop_events)
+            lat_max = max(lat_max, float(want.client_latency.max()))
+            hop_max = max(hop_max, float(want.hop_latency.max()))
+            gap = max(gap, event_time_gap(got, want))
+            if pol:
+                shed, other = shed_path(rec.last[0], want, hop_service)
+                shed_hops, other_errors = (shed_hops + shed,
+                                           other_errors + other)
+        occ, tight = compare_timelines(
+            rec.ctl.tl_acc, mirror.ctl.tl_acc, f"in situ {name} timeline",
+            lat_max, gap, blocks)
+        log(f"in situ {name}: occupancy integrals within {occ:.4f} of "
+            f"their bound (median bound {tight:.4f} of a busy integral),"
+            f" largest event-time gap {gap:.3e} s")
+        if name.startswith(SHED_CHECKED):
+            trips, shed, recovered = check_breaker_cycle(
+                rec.ctl.pacc, f"in situ {name}")
+            if shed_hops < 1:
+                raise AssertionError(
+                    f"in situ {name}: no errored hop came from a shed")
+            log(f"in situ {name}: breaker trips {trips:g}, largest shed "
+                f"{shed:.4f}, {recovered} service(s) recovered; "
+                f"{shed_hops} errored hops shed at admission (wait 0 at a"
+                f" shedding service), {other_errors} other errored hops")
+        if pol:
+            a, w = rec.ctl.pacc, mirror.ctl.pacc
+            for field in a._fields:
+                tol = ({"rtol": SHED_RTOL, "atol": 1e-6}
+                       if field in ("shed", "retry_allow") else {})
+                _same(getattr(a, field), getattr(w, field),
+                      f"in situ {name} policy {field}", **tol)
+        if roll:
+            a, w = rec.ctl.rollout_summary(), mirror.ctl.rollout_summary()
+            for field in a._fields:
+                what = f"in situ {name} rollout {field}"
+                if field in ("ver_arrivals", "ver_errors"):
+                    _same_counts(getattr(a, field), getattr(w, field), what)
+                elif field == "ver_latency_s":
+                    # a boundary hop's latency moves with its count
+                    _same(a.ver_latency_s.sum(-1), w.ver_latency_s.sum(-1),
+                          f"{what} totals", rtol=RESULT_RTOL, atol=1e-6)
+                    _same(a.ver_latency_s, w.ver_latency_s, what,
+                          rtol=RESULT_RTOL, atol=WINDOW_COUNT_ATOL * hop_max)
+                else:
+                    _same(getattr(a, field), getattr(w, field), what)
+        log(f"in situ ok {name}: card (kernel) == cpu (plain), {blocks} "
+            f"blocks under the same control effects, {events} hop events,"
+            f" largest difference {worst:.3f} of its tolerance; recorder "
+            f"and control series agree (shed and retry allow within rtol "
+            f"{SHED_RTOL:g}, window counts within {WINDOW_COUNT_ATOL})"
+            f" ({time.perf_counter() - t:.1f} s)")
+
+
+def protected_outcome(port, name, sim, out, roll):
+    """Print a protected run's policy and rollout outcomes and check
+    them; returns the documents."""
+    docs = {}
+    rest = list(out[2:])
+    if roll:
+        doc = port.rollout_mod.to_doc(sim.compiled, rest.pop(0),
+                                      sim._rollouts)
+        docs["rollouts"] = doc
+        for svc, r in doc["services"].items():
+            log(f"protected {name}: rollout {svc} state {r['state']}, "
+                f"final weight {r['final_weight']}, weights "
+                f"{r['weight'][:12]}, promotions {r['promotions']:g} at "
+                f"{r['promote_onsets_s']}, holds {r['holds']:g}, rollbacks "
+                f"{r['rollbacks']:g} at {r['rollback_onsets_s']}, canary "
+                f"samples {r['canary_samples']:g}")
+    if sim._policies is not None:
+        doc = port.policies_mod.to_doc(sim.compiled, rest.pop(0),
+                                       sim._policies)
+        docs["policies"] = doc
+        svcs = doc["services"]
+        tripped = {k: v for k, v in svcs.items() if v["breaker_trips"]}
+        scaled = {k: v for k, v in svcs.items() if v["scale_events"]}
+        capped = {k: min(v["retry_allow"]) for k, v in svcs.items()
+                  if v["retry_allow"] and min(v["retry_allow"]) < 1.0}
+        log(f"protected {name}: {doc['windows_done']} of "
+            f"{doc['num_windows']} windows; {len(tripped)} breaker(s) "
+            f"tripped, {len(scaled)} service(s) scaled, {len(capped)} "
+            f"retry budget(s) capped")
+        for svc, v in list(tripped.items())[:4]:
+            log(f"protected {name}: breaker {svc} trips "
+                f"{v['breaker_trips']:g}, onset {v['breaker_trip_onset_s']}"
+                f" s, recovery {v['breaker_recovery_s']} s, shed "
+                f"{[round(x, 3) for x in v['shed']]}")
+        for svc, v in list(scaled.items())[:3]:
+            log(f"protected {name}: autoscaler {svc} first scale "
+                f"{v['first_scale_onset_s']} s, replicas {v['replicas']}")
+        for svc, a in list(capped.items())[:3]:
+            log(f"protected {name}: retry budget {svc} min allow {a:.4f}")
+    return docs
+
+
+def protected_phase(port, runs, census_ms):
+    """Each protected run once after a one-block warm-up: wall per
+    block, hop events per second, census launches (blocks x calls per
+    block) and its outcomes; the policies-1000svc-kill run twice, bit
+    for bit; the smoke's unprotected twin; the recorder's peak memory at
+    the 1000-service run's own block."""
+    for _, sim, load, _, block, window, roll, _ in runs:
+        protected_call(port, sim, load, block, block, window, roll)
+    torch.cuda.synchronize()
+    launches, walls, outs = {}, {}, {}
+    for name, sim, load, n, block, window, roll, _ in runs:
+        torch.cuda.synchronize()
+        port.census.launches = 0
+        t = time.perf_counter()
+        out = protected_call(port, sim, load, n, block, window, roll)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        blocks = max(1, -(-n // block))
+        per_block = len(census_calls(sim, block))
+        launches[name] = port.census.launches
+        if launches[name] != blocks * per_block:
+            raise AssertionError(
+                f"{name}: {launches[name]} census launches, expected "
+                f"{blocks} x {per_block}")
+        summary = out[0]
+        qs = summary.quantiles_s((0.5, 0.99))
+        if not np.all(np.isfinite(qs)) or int(summary.count) != (
+            blocks * block
+        ):
+            raise AssertionError(f"{name}: bad summary")
+        walls[name] = wall / blocks
+        log(f"protected {name}: {int(summary.count)} requests in {blocks} "
+            f"blocks of {block} ({window:g} s windows), offered "
+            f"{load.qps:.6g} qps, {wall / blocks * 1e3:.2f} ms per block, "
+            f"{float(summary.hop_events) / wall:.4e} hop-events/s, p50/p99 "
+            f"{qs[0] * 1e3:.4f}/{qs[1] * 1e3:.4f} ms, "
+            f"{int(summary.error_count)} client errors, census launches "
+            f"{launches[name]} ({per_block} per block), census device "
+            f"{census_ms[name]:.4f} ms per block (phase 3)")
+        outs[name] = (out, protected_outcome(port, name, sim, out, roll))
+    check_protected_outcomes(outs)
+    smoke_twin(port, runs, outs)
+    repeat_bit_for_bit(port, runs, outs)
+    recorder_peak_memory(port)
+    return launches, walls
+
+
+def check_protected_outcomes(outs):
+    """The outcomes the protected runs are built to show."""
+    pol = outs["policies-1000svc-kill"][1]["policies"]["services"]
+    killed = pol[POLICY_KILL["service"]]
+    if not (POLICY_KILL["start_s"] <= (killed["breaker_trip_onset_s"]
+                                       or -1) < POLICY_KILL["end_s"]
+            and killed["breaker_recovery_s"] is not None
+            and any(min(v["retry_allow"]) < 1.0 for v in pol.values())
+            and any(v["scale_events"] >= 1 for v in pol.values())):
+        raise AssertionError(f"policies-1000svc-kill: {killed}")
+    canary = lambda kind: next(iter(  # noqa: E731
+        outs[f"rollouts-multitier-1000-{kind}"][1]["rollouts"][
+            "services"].values()))
+    clean, bad = canary("clean"), canary("bad")
+    if clean["state"] != "done" or clean["final_weight"] != 1.0:
+        raise AssertionError(f"clean canary: {clean}")
+    bake = float(ROLLOUT["bake"][:-1])
+    if not (bad["state"] == "failed" and bad["final_weight"] == 0.0
+            and bad["rollback_onsets_s"][0] <= bake):
+        raise AssertionError(f"bad canary: {bad}")
+    log(f"protected rollouts: the clean canary reached done at weight 1, "
+        f"the bad one rolled back at {bad['rollback_onsets_s'][0]:g} s "
+        f"(bake {bake:g} s) and ended failed at weight 0")
+
+
+def smoke_twin(port, runs, outs):
+    """The policies smoke against its unprotected twin, same draws."""
+    name, sim, load, n, block, window, _, make = [
+        r for r in runs if r[0] == "policies-smoke"][0]
+    s_p, tl_p, pol_p = outs[name][0]
+    twin = port.Simulator(sim.compiled, sim.params, (port.ChaosEvent(
+        **SMOKE_KILL),), device="cuda")
+    s_u, _ = twin.run_timeline(load, n, port.TorchDraws(0, "cuda"),
+                               block_size=block, trim=True, window_s=window)
+    w = outs[name][1]["policies"]["services"]["worker"]
+    share_p = float(s_p.error_count) / float(s_p.count)
+    share_u = float(s_u.error_count) / float(s_u.count)
+    reps = w["replicas"]
+    ok = (float(s_p.hop_events) < float(s_u.hop_events)
+          and share_p < share_u
+          and w["breaker_trip_onset_s"] is not None
+          and SMOKE_KILL["start_s"] <= w["breaker_trip_onset_s"] <= 6.0
+          and w["breaker_recovery_s"] is not None
+          and min(w["retry_allow"]) < 1.0
+          and max(reps) > reps[0] and w["scale_events"] >= 1)
+    log(f"policies-smoke: protected {float(s_p.hop_events):.0f} hop events"
+        f" / {share_p:.4%} client errors, unprotected "
+        f"{float(s_u.hop_events):.0f} / {share_u:.4%}; worker trip "
+        f"{w['breaker_trip_onset_s']} s, recovery {w['breaker_recovery_s']}"
+        f" s, min retry allow {min(w['retry_allow']):.4f}, replicas "
+        f"{reps[0]:g} -> peak {max(reps):g}")
+    if not ok:
+        raise AssertionError("policies-smoke acceptance failed")
+
+
+def repeat_bit_for_bit(port, runs, outs):
+    """The first protected run again on the card: bit for bit."""
+    name, sim, load, n, block, window, roll, _ = runs[0]
+    again = protected_call(port, sim, load, n, block, window, roll)
+    first = outs[name][0]
+    for part_a, part_b in zip(first, again):
+        for field, a in part_a._asdict().items():
+            b = getattr(part_b, field)
+            if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+                raise AssertionError(f"{name} repeat: {field} differs")
+    log(f"protected {name}: repeated on the card, summary, recorder and "
+        f"policy series equal bit for bit")
+
+
+def recorder_peak_memory(port):
+    """``run_timeline`` at the 1000-service run's own block: its wall
+    per block and the card's peak memory."""
+    rec = port.Simulator(port.compile_graph(port.ServiceGraph.from_yaml_file(
+        TOPOLOGIES / "1000-svc_2000-end.yaml")),
+        port.SimParams(timeline=True), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    _, tl = rec.run_timeline(port.LoadModel(kind="open", qps=1e4), 262_144,
+                             port.TorchDraws(0, "cuda"), block_size=32_768,
+                             window_s=PROTECTED_WINDOW_S)
+    torch.cuda.synchronize()
+    log(f"run_timeline 1000-svc_2000-end: 8 blocks of 32,768, "
+        f"{tl.num_windows} windows, {(time.perf_counter() - t) / 8 * 1e3:.2f}"
+        f" ms per block, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
 def census_only_configs(port, device="cuda"):
     """(name, simulator, default block) of the topologies whose census
     calls phase 3 holds and times beside the main path's."""
@@ -1032,6 +1624,219 @@ def cli_lb_phase(devices=("cuda", "cpu")):
             + out.stderr.strip().splitlines()[-1])
 
 
+#: the CLI's protected topology: canonical.yaml with a retry budget and
+#: an autoscaler on the defaults and a canary schedule on b
+CLI_PROTECTED = {
+    "policies": {"defaults": {
+        "retry_budget": {"budget_percent": "25%"},
+        "autoscaler": {"min_replicas": 1, "max_replicas": 2,
+                       "sync_period": "1s"},
+    }},
+    "rollouts": {"b": {"steps": ["10%", "50%", "100%"], "bake": "1s",
+                       "gates": {"min_samples": 20}}},
+}
+#: timeline-document entries derived from the occupancy integrals
+#: (held by ``timeline_doc_close``), and the convoy quotients of them
+#: (not compared: their series are)
+_OCCUPANCY_KEYS = {"utilization", "queue_depth", "in_flight",
+                   "peak_utilization"}
+#: ...and the argmax of a utilization series (its value, peak_utilization,
+#: is compared): two windows within that tolerance may swap
+_CONVOY_FLOATS = {"entry_wait_share", "leaf_busy_share", "correlation",
+                  "peak_window"}
+#: per-window counts of the documents, held as phase 4 holds the
+#: recorder's (WINDOW_COUNT_ATOL: a boundary event lands on either side)
+_WINDOW_COUNT_KEYS = {"arrivals", "completions", "errors", "qps"}
+#: the documents' other floats, card against CPU (rounded to 6-9
+#: digits, and quotients of the window counts)
+DOC_RTOL = 1e-4
+
+
+def docs_close(got, want, path="", window_s=1.0):
+    """Two documents agree: keys, strings, booleans and integers
+    exactly; per-window counts within WINDOW_COUNT_ATOL events, other
+    floats within DOC_RTOL (card against CPU on the same draws); the
+    wall clock's ``StartTime``, the convoy quotients and the
+    occupancy-derived entries (``timeline_doc_close``) skipped."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{path}: keys differ")
+        for k in want:
+            if k not in ("StartTime",) and k not in _CONVOY_FLOATS \
+                    and k not in _OCCUPANCY_KEYS:
+                docs_close(got[k], want[k], f"{path}.{k}", window_s)
+        return
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            docs_close(g, w, f"{path}[{i}]", window_s)
+        return
+    if isinstance(want, float):
+        key = path.split(".")[-1].split("[")[0]
+        if key in _WINDOW_COUNT_KEYS:
+            tol = WINDOW_COUNT_ATOL / (window_s if key == "qps" else 1.0)
+        else:
+            tol = DOC_RTOL * abs(want) + RESULT_ATOL
+        if abs(got - want) > tol:
+            raise AssertionError(f"{path}: {got} != {want}")
+        return
+    if got != want:
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
+
+
+def timeline_doc_close(got, want, compiled, tl, bound, path):
+    """The timeline document's occupancy-derived entries (to_doc's
+    utilization, queue depth and in-flight per service and window, and
+    the peak utilization), card against CPU, within ``bound``
+    (``occupancy_bound`` of the CPU's summary ``tl``) carried through
+    to_doc's formulas, plus 1e-6 for the documents' rounding to 6
+    digits."""
+    atol, rtol = bound
+    dt = float(tl.window_s)
+    names = list(compiled.services.names)
+    reps = np.asarray(compiled.services.replicas, np.float64)
+    busy = tl.svc_busy_s.detach().cpu().double()
+    inflight = tl.svc_inflight_s.detach().cpu().double()
+    for name, w in want["services"].items():
+        s = names.index(name)
+        tb = (atol[s] + rtol * busy[s].abs()).numpy()
+        ti = (atol[s] + rtol * inflight[s].abs()).numpy()
+        util_tol = tb / (dt * max(float(reps[s]), 1.0)) + 1e-6
+        tols = {"utilization": util_tol,
+                "queue_depth": (tb + ti) / dt + 1e-6,
+                "in_flight": ti / dt + 1e-6}
+        g = got["services"][name]
+        for key, tol in tols.items():
+            diff = np.abs(np.subtract(g[key], w[key]))
+            if (diff > tol).any():
+                raise AssertionError(f"{path}.services.{name}.{key}: "
+                                     f"{diff.max():.3g} off")
+        if abs(g["peak_utilization"] - w["peak_utilization"]) > \
+                util_tol.max():
+            raise AssertionError(
+                f"{path}.services.{name}.peak_utilization differs")
+
+
+@contextlib.contextmanager
+def cli_capture(source):
+    """Inside: the CLI's draw source (``TorchDraws``) is ``source``, so
+    the card and the CPU run on the same draws, and every block that a
+    recorded or protected run observes is kept as ``(carry, block)``."""
+    import isotope_tpu_torch.sim as sim_pkg
+    from isotope_tpu_torch.sim import engine
+
+    kept = []
+    observe = engine._BlockControl.observe
+
+    def keep(carry, res, t_done):
+        observe(carry, res, t_done)
+        kept.append((carry, res))
+
+    draws = sim_pkg.TorchDraws
+    sim_pkg.TorchDraws = lambda seed, device: source
+    engine._BlockControl.observe = keep
+    try:
+        yield kept
+    finally:
+        sim_pkg.TorchDraws = draws
+        engine._BlockControl.observe = observe
+
+
+def cli_protected_phase():
+    """``simulate --timeline --timeline-out`` on canonical.yaml, and
+    ``--policies --policies-out --rollouts --rollouts-out --timeline-out``
+    on its protected variant, on the card and with ``--device cpu``,
+    called in this process (``cli.main``) with one draw source on the
+    CPU handed to both (``cli_capture``): the recorders' summaries agree
+    as phase 4 holds them (``compare_timelines``), and so do the
+    documents (``docs_close``, ``timeline_doc_close``)."""
+    import io
+
+    import yaml
+
+    from isotope_tpu_torch import cli as port_cli
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import TorchDraws
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        topo = tmp / "canonical-protected.yaml"
+        topo.write_text((TOPOLOGIES / "canonical.yaml").read_text()
+                        + yaml.safe_dump(CLI_PROTECTED))
+        cases = {
+            "timeline": (TOPOLOGIES / "canonical.yaml",
+                         ["--timeline", "1s"], ("timeline",)),
+            "protected": (topo, ["--policies", "--rollouts"],
+                          ("timeline", "policies", "rollouts")),
+        }
+        for case, (path, flags, outs) in cases.items():
+            docs, kept = {}, {}
+            for device in ("cuda", "cpu"):
+                args = ["simulate", str(path), "--qps", "1000",
+                        "--duration", "10s", "--load-kind", "open",
+                        "--device", device, *flags]
+                for o in outs:
+                    args += [f"--{o}-out", str(tmp / f"{case}-{o}-{device}")]
+                t = time.perf_counter()
+                out = SimpleNamespace(stdout=io.StringIO(),
+                                      stderr=io.StringIO())
+                with contextlib.redirect_stdout(out.stdout), \
+                        contextlib.redirect_stderr(out.stderr), \
+                        cli_capture(TorchDraws(0, "cpu")) as blocks:
+                    rc = port_cli.main(args)
+                if rc != 0:
+                    raise AssertionError(f"simulate {flags} on {device}")
+                kept[device] = blocks
+                out.stdout, out.stderr = (out.stdout.getvalue(),
+                                          out.stderr.getvalue())
+                doc = json.loads(out.stdout)
+                # the Fortio document's histogram and durations move by
+                # a bucket or a nanosecond with the last bits of a
+                # latency: its counts and labels are compared
+                docs[device] = {"fortio": {
+                    k: doc[k] for k in ("Labels", "RequestedQPS",
+                                        "RequestedDuration", "NumThreads",
+                                        "RetCodes")
+                } | {"Count": doc["DurationHistogram"]["Count"]}}
+                for o in outs:
+                    docs[device][o] = json.loads(
+                        (tmp / f"{case}-{o}-{device}").read_text())
+                log(f"cli simulate {' '.join(flags)} on {device}: "
+                    f"{docs[device]['fortio']['Count']}"
+                    f" requests, {time.perf_counter() - t:.1f} s; stderr "
+                    + " | ".join(out.stderr.splitlines()[:3]))
+            card, cpu = kept["cuda"], kept["cpu"]
+            if not cpu or len(card) != len(cpu):
+                raise AssertionError(f"cli {case}: blocks differ")
+            gap = max(event_time_gap(g, w) for (_, g), (_, w)
+                      in zip(card, cpu))
+            lat_max = max(float(w.client_latency.max()) for _, w in cpu)
+            tl = cpu[-1][0].tl_acc
+            occ, tight = compare_timelines(card[-1][0].tl_acc, tl,
+                                           f"cli {case} timeline", lat_max,
+                                           gap, len(cpu))
+            for key, want in docs["cpu"].items():
+                docs_close(docs["cuda"][key], want, f"{case}.{key}",
+                           window_s=want.get("window_s", 1.0))
+            timeline_doc_close(
+                docs["cuda"]["timeline"], docs["cpu"]["timeline"],
+                compile_graph(ServiceGraph.from_yaml_file(str(path))), tl,
+                occupancy_bound(tl, gap, len(cpu)), f"{case}.timeline")
+            extra = ""
+            if "rollouts" in docs["cpu"]:
+                r = docs["cpu"]["rollouts"]["services"]["b"]
+                p = docs["cpu"]["policies"]["services"]
+                extra = (f"; rollout b {r['state']} (promotions "
+                         f"{r['promotions']:g}), scale events "
+                         f"{sum(v['scale_events'] for v in p.values()):g}")
+            log(f"cli {case}: documents {sorted(docs['cpu'])} agree, card "
+                f"against CPU; occupancy within {occ:.4f} of its bound "
+                f"(median bound {tight:.4f} of a busy integral, event-time"
+                f" gap {gap:.3e} s)" + extra)
+
+
 # -- phase 7: the DES oracle ------------------------------------------------------
 
 
@@ -1122,7 +1927,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from isotope_tpu_torch.compiler import compile_graph, compile_lb
+    from isotope_tpu_torch.compiler import (
+        compile_graph,
+        compile_lb,
+        compile_policies,
+        compile_rollouts,
+    )
     from isotope_tpu_torch.models.generators import (
         realistic_topology,
         tree_topology,
@@ -1131,6 +1941,9 @@ def main() -> int:
     from isotope_tpu_torch.models.graph import ServiceGraph
     from isotope_tpu_torch.native import census as census_mod
     from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
+    from isotope_tpu_torch.runner.run import protected_window_block
+    from isotope_tpu_torch.sim import policies as policies_mod
+    from isotope_tpu_torch.sim import rollout as rollout_mod
     from isotope_tpu_torch.sim import (
         LoadModel,
         SimParams,
@@ -1154,6 +1967,9 @@ def main() -> int:
         ChaosEvent=ChaosEvent, TrafficSplit=TrafficSplit,
         MtlsSchedule=MtlsSchedule, bounce_schedule=bounce_schedule,
         DEFAULT_ENVIRONMENTS=DEFAULT_ENVIRONMENTS,
+        compile_policies=compile_policies, compile_rollouts=compile_rollouts,
+        policies_mod=policies_mod, rollout_mod=rollout_mod,
+        protected_window_block=protected_window_block,
     )
 
     # full-precision float32 products everywhere (the copula matmul)
@@ -1177,7 +1993,9 @@ def main() -> int:
     runs = main_path_runs(port, flagship_graph, build_s=build_s)
     scenarios = scenario_runs(port, build_s) + lb_runs(port)
     runs += [run[:5] for run in scenarios]
-    timing = kernel_phase(census_mod, runs, census_only_configs(port))
+    prot = protected_runs(port)
+    timing = kernel_phase(census_mod, runs + [run[:5] for run in prot],
+                          census_only_configs(port))
 
     def plain(graph):
         compiled = compile_graph(graph)
@@ -1215,12 +2033,19 @@ def main() -> int:
         for name, _, load, _, _, make in scenarios
         if name == "lb-1000svc-lr"
     ])
+    protected_in_situ(port, in_situ_twins(port, prot))
 
     by_path = main_path_phase(port, runs, build_s, timing["ms_per_block"])
-    launches = sum(by_path.values())
     panic_share(port, *[run[1:5] for run in runs
                         if run[0] == "lb-10svc-100r-panic"][0])
+    # the protected runs: each its own main path, counts set to 0 just
+    # before and read just after
+    prot_launches, _ = protected_phase(port, prot, timing["ms_per_block"])
+    by_path.update(prot_launches)
+    launches = sum(by_path.values())
+    log(f"census launches on every path: {launches}")
     cli_phase()
+    cli_protected_phase()
     oracle_phase(port)
 
     kernels = [{

@@ -9,6 +9,8 @@ from isotope_tpu_torch.compiler.compile import (
     NoEntrypointError,
     compile_graph,
     compile_lb,
+    compile_policies,
+    compile_rollouts,
 )
 from isotope_tpu_torch.compiler.program import (
     CompiledGraph,
@@ -27,6 +29,8 @@ __all__ = [
     "ServiceTable",
     "compile_graph",
     "compile_lb",
+    "compile_policies",
+    "compile_rollouts",
     "compiled_from_arrays",
     "compiled_to_arrays",
 ]

@@ -292,6 +292,27 @@ def _compile_graph(
     )
 
 
+def compile_policies(graph: ServiceGraph, compiled: CompiledGraph):
+    """Lower a topology's ``policies:`` block to dense per-service
+    tables in COMPILED service order (``sim/policies.PolicyTables``),
+    which the engine's protected block loop consumes.
+
+    Returns ``None`` when the graph declares no policies (the engine's
+    unchanged default path).  Decode errors carry key paths
+    (``policies.worker.breaker.max_pending: ...``).
+    """
+    if not graph.policies:
+        return None
+    from isotope_tpu_torch.sim import policies as policies_mod
+
+    pols = policies_mod.PolicySet.decode(
+        graph.policies, compiled.services.names
+    )
+    if pols.empty:
+        return None
+    return policies_mod.build_tables(pols, compiled.services)
+
+
 def compile_lb(graph: ServiceGraph, compiled: CompiledGraph):
     """Lower a topology's per-service ``lb:`` entries (inside the
     ``policies:`` block) to dense per-service tables in COMPILED
@@ -310,3 +331,24 @@ def compile_lb(graph: ServiceGraph, compiled: CompiledGraph):
     if lbs.empty:
         return None
     return lb_mod.build_tables(lbs, compiled.services)
+
+
+def compile_rollouts(graph: ServiceGraph, compiled: CompiledGraph):
+    """Lower a topology's ``rollouts:`` block to dense per-service
+    tables in COMPILED service order (``sim/rollout.RolloutTables``),
+    which the engine's protected block loop consumes.
+
+    Returns ``None`` when the graph declares no active rollout (the
+    engine's unchanged default path).  Decode errors carry key paths
+    (``rollouts.worker.steps[2]: ...``).
+    """
+    if not getattr(graph, "rollouts", None):
+        return None
+    from isotope_tpu_torch.sim import rollout as rollout_mod
+
+    rset = rollout_mod.RolloutSet.decode(
+        graph.rollouts, compiled.services.names
+    )
+    if rset.empty:
+        return None
+    return rollout_mod.build_tables(rset, compiled.services)

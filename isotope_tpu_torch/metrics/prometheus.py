@@ -74,6 +74,30 @@ def render_labels(labels: Dict[str, str]) -> str:
     return "{" + body + "}"
 
 
+def timestamped_series(
+    out: List[str],
+    name: str,
+    help_text: str,
+    type_: str,
+    rows,
+) -> None:
+    """Append one metric family of TIMESTAMPED samples to ``out``.
+
+    ``rows`` is an iterable of ``(labels: dict, value, timestamp_ms)``
+    — the exposition-format's optional trailing timestamp, which lets
+    one scrape carry a whole time series (each sim-time window renders
+    as the sample a scrape at that instant would have returned).  Rows
+    render in the given order; keep them (labels, then window) sorted
+    so the exposition is deterministic.
+    """
+    out.append(f"# HELP {name} {help_text}")
+    out.append(f"# TYPE {name} {type_}")
+    for labels, value, ts_ms in rows:
+        out.append(
+            f"{name}{render_labels(labels)} {value:.10g} {int(ts_ms)}"
+        )
+
+
 def _np(x) -> np.ndarray:
     """A tensor on any device (or an array) as a host array."""
     if isinstance(x, torch.Tensor):

@@ -16,7 +16,13 @@ tuple of integers folds each in turn.  An ungraceful kill event ``e``
 block's index extended by ``KILL_INDEX_BASE + e`` (engine.py:6104),
 and a run with panic routing under chaos (``sim/lb.py``) its (N, H)
 panic coins from the index extended by ``PANIC_INDEX``
-(engine.py:5275-5288).
+(engine.py:5275-5288).  A protected run (``sim/policies.py``,
+``sim/rollout.py``) draws its breaker-shed and retry-budget coins from
+the two halves of ``split(fold_in(block key, POLICY_INDEX))``
+(engine.py:4775-4800) and its canary version coins from
+``fold_in(block key, CANARY_INDEX)`` (engine.py:4805-4815);
+:class:`TorchDraws` folds ``(POLICY_INDEX, 0)``, ``(POLICY_INDEX, 1)``
+and ``CANARY_INDEX`` into the block's index for them.
 ``source.with_seed(seed)`` is a source of the same kind at another root
 seed: the saturated closed
 loop's fixed-point pilots draw from ``with_seed(SAT_PILOT_SEED)`` at
@@ -54,6 +60,12 @@ KILL_INDEX_BASE = 9_990_000
 #: fold-in of the lb panic-routing coins
 PANIC_INDEX = 660_001
 
+#: fold-in of the policy coins (breaker shed, retry budget)
+POLICY_INDEX = 770_001
+
+#: fold-in of the rollout version coins
+CANARY_INDEX = 880_001
+
 #: root seed of the saturated closed loop's pilot runs (the reference's
 #: ``PRNGKey(20_260_730)``): fixed, so the solved throughput is a
 #: property of the topology, not of the run's seed
@@ -80,8 +92,16 @@ class DrawSpec(NamedTuple):
     saturated: bool = False
     # u_kill: one (N, H) uniform per ungraceful kill event
     kill_events: int = 0
-    # u_panic: the lb panic-routing coins (panic threshold under chaos)
+    # u_panic: the lb panic-routing coins (panic threshold under chaos
+    # or policy ejection)
     panic: bool = False
+    # the block runs under policy effects (sim/policies.py); u_shed: the
+    # breaker-shed coins, u_retry: the retry-budget coins
+    policy: bool = False
+    shed: bool = False
+    retry: bool = False
+    # u_canary: the rollout version coins (sim/rollout.py)
+    canary: bool = False
 
     @property
     def normal_wait(self) -> bool:
@@ -102,6 +122,9 @@ class Draws(NamedTuple):
     arr: Optional[torch.Tensor] = None      # (N,) unit exponentials
     u_kill: Optional[torch.Tensor] = None   # (E, N, H) U[0, 1)
     u_panic: Optional[torch.Tensor] = None  # (N, H) U[0, 1)
+    u_shed: Optional[torch.Tensor] = None   # (N, H) U[0, 1)
+    u_retry: Optional[torch.Tensor] = None  # (N, H) U[0, 1)
+    u_canary: Optional[torch.Tensor] = None  # (N, H) U[0, 1)
 
     def to(self, device) -> "Draws":
         """The same draws as float32 tensors on ``device``."""
@@ -127,6 +150,9 @@ class Draws(NamedTuple):
                 (spec.kill_events, n, h) if spec.kill_events else None
             ),
             "u_panic": (n, h) if spec.panic else None,
+            "u_shed": (n, h) if spec.shed else None,
+            "u_retry": (n, h) if spec.retry else None,
+            "u_canary": (n, h) if spec.canary else None,
         }
         for name, shape in want.items():
             t = getattr(self, name)
@@ -203,10 +229,22 @@ class TorchDraws:
                 self.folded_uniform(index, PANIC_INDEX, n, h)
                 if spec.panic else None
             ),
+            u_shed=(
+                self.folded_uniform(index, (POLICY_INDEX, 0), n, h)
+                if spec.shed else None
+            ),
+            u_retry=(
+                self.folded_uniform(index, (POLICY_INDEX, 1), n, h)
+                if spec.retry else None
+            ),
+            u_canary=(
+                self.folded_uniform(index, CANARY_INDEX, n, h)
+                if spec.canary else None
+            ),
         )
 
-    def folded_uniform(self, index: Index, fold: int, n: int, h: int):
+    def folded_uniform(self, index: Index, fold: Index, n: int, h: int):
         """(n, h) uniforms of index ``index`` extended by ``fold``."""
-        g = self.generator(index_path(index) + (fold,))
+        g = self.generator(index_path(index) + index_path(fold))
         return torch.rand((n, h), generator=g, device=self.device,
                           dtype=torch.float32)

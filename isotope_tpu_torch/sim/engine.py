@@ -32,7 +32,15 @@ requests is one tensor program over a (request x hop) grid:
 - per-service load-balancing laws (``sim/lb.py``: least_request,
   ring_hash, wrr) replace the M/M/k wait law where a topology declares
   them, and panic routing under chaos fast-fails the dead-backend share
-  of a pool below its threshold through the 500 path.
+  of a pool below its threshold through the 500 path;
+- the flight recorder (``metrics/timeline.py``, :meth:`Simulator.
+  run_timeline`) bins every block into per-service sim-time windows,
+  and the protected runs (:meth:`Simulator.run_policies`,
+  :meth:`Simulator.run_rollouts`) carry the control laws of
+  ``sim/policies.py`` (breaker sheds on the 500 path, budgeted retries,
+  autoscaled or ejected capacity) and ``sim/rollout.py`` (a version coin
+  routing each hop to the canary arm's own station) from block to
+  block, observing through the recorder.
 
 Random numbers come from a draw source (``sim/draws.py``), so the same
 draws can drive this engine and the JAX one.  The JAX engine groups
@@ -41,8 +49,7 @@ this port sweeps every level one by one, which computes the same
 values (the JAX package pins buckets against unrolled levels).
 
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): policies, rollouts, attribution, timelines and
-ensembles.
+ROADMAP item): attribution and ensembles.
 """
 from __future__ import annotations
 
@@ -127,6 +134,15 @@ class SimResults(NamedTuple):
     utilization: torch.Tensor     # (S,) rho per service at the offered load
     unstable: torch.Tensor        # (S,) bool — offered load >= capacity
     offered_qps: torch.Tensor     # scalar f32 — the rate the queues saw
+    # per-hop queueing wait, (N, H) f32: only for SimParams.timeline
+    # simulators (the recorder's busy integral starts after it)
+    hop_wait: Optional[torch.Tensor] = None
+    # per-hop version coin of a rollout-actuated block (sim/rollout.py),
+    # (N, H) bool: True where the hop routed to the canary arm
+    hop_canary: Optional[torch.Tensor] = None
+    # would-send hops refused by a chaos-downed target, (N, H) bool:
+    # rollout gates see a killed canary's refused calls as canary errors
+    hop_refused: Optional[torch.Tensor] = None
 
     @property
     def client_end(self) -> torch.Tensor:
@@ -622,6 +638,91 @@ def _sparse_level_sweep(
     return busy, fail_step, off
 
 
+class _BlockControl:
+    """The carry of a recorded or protected block loop
+    (``Simulator.run_timeline`` / ``run_policies`` / ``run_rollouts``):
+    the flight recorder's accumulator and, when armed, the policy state
+    (``sim/policies.py``) with its (S, W) retry observations and series,
+    and the rollout state (``sim/rollout.py``) with its (S, 2, W, 4)
+    per-arm observations and series.  :meth:`effects` is what the next
+    block runs under; :meth:`observe` folds a finished block in and
+    advances the control laws through the windows it completed."""
+
+    def __init__(self, sim: "Simulator", tl_plan: Tuple[int, float],
+                 policies: bool, rollouts: bool):
+        from isotope_tpu_torch.metrics import timeline as timeline_mod
+
+        dev = sim.device
+        self._tl = timeline_mod
+        self.spec = timeline_mod.build_spec(
+            sim.compiled, tl_plan[0], tl_plan[1], dev
+        )
+        self.packed = sim.params.packed_carries
+        self.tl_acc = timeline_mod.zeros_summary(self.spec, self.packed, dev)
+        S, W = sim.compiled.num_services, self.spec.num_windows
+        self.roll = None
+        if rollouts:
+            from isotope_tpu_torch.sim import rollout as rollout_mod
+
+            self.roll = rollout_mod
+            self.rdtab = rollout_mod.device_tables(sim._rollouts, dev)
+            self.rstate = rollout_mod.init_state(self.rdtab)
+            self.racc = rollout_mod.zeros_summary(self.spec, S, dev)
+            self.robs = torch.zeros((S, 2, W, 4), dtype=F32, device=dev)
+        self.pol = None
+        if policies:
+            from isotope_tpu_torch.sim import policies as policies_mod
+
+            self.pol = policies_mod
+            self.pdtab = policies_mod.device_tables(sim._policies, dev)
+            self.pstate = policies_mod.init_state(self.pdtab)
+            self.pacc = policies_mod.zeros_summary(self.spec, S, dev)
+            self.pobs = torch.zeros((S, W), dtype=F32, device=dev)
+            # rollout runs split the canary-first kill delta off the
+            # baseline arm the autoscaler manages
+            self.downed_w = sim._policy_downed_windows(
+                self.spec, base_split=rollouts
+            )
+            self.retry_mask = torch.as_tensor(
+                np.asarray(sim.compiled.hop_attempt) > 0
+            ).to(dev)
+
+    def effects(self):
+        """``(policy_fx, rollout_fx)`` of the next block."""
+        return (
+            self.pol.effects(self.pstate) if self.pol is not None else None,
+            self.roll.effects(self.rstate) if self.roll is not None
+            else None,
+        )
+
+    def observe(self, res: SimResults, t_done: torch.Tensor) -> None:
+        """Fold one block in; ``t_done`` is the sim time every request
+        of the run so far has passed (windows ending before it are
+        final)."""
+        tl = self._tl
+        self.tl_acc = tl.accumulate(
+            self.tl_acc, tl.timeline_block(res, self.spec, self.packed)
+        )
+        if self.roll is not None:
+            self.robs = self.robs + self.roll.observe_block(res, self.spec)
+            self.rstate, rdelta = self.roll.advance(
+                self.rstate, self.rdtab, self.robs, t_done, self.spec
+            )
+            self.racc = self.roll.accumulate_summary(self.racc, rdelta)
+        if self.pol is not None:
+            self.pobs = self.pobs + self.pol.observe_block(
+                res, self.spec, self.retry_mask
+            )
+            self.pstate, pdelta = self.pol.advance(
+                self.pstate, self.pdtab, self.tl_acc, self.pobs, t_done,
+                self.spec, downed_w=self.downed_w,
+            )
+            self.pacc = self.pol.accumulate_summary(self.pacc, pdelta)
+
+    def rollout_summary(self):
+        return self.roll.attach_observations(self.racc, self.robs)
+
+
 class Simulator:
     """Holds a compiled graph's device tables and runs blocks on them."""
 
@@ -638,14 +739,8 @@ class Simulator:
         *,
         device=None,
     ):
-        if policies is not None or rollouts is not None:
-            raise _unsupported(
-                "policies and rollouts", "protected layers"
-            )
-        if params.attribution or params.timeline:
-            raise _unsupported(
-                "attribution and the timeline recorder", "observability"
-            )
+        if params.attribution:
+            raise _unsupported("critical-path attribution", "observability")
         if params.ensemble:
             raise _unsupported("scenario ensembles", "fleets")
         self.device = resolve_device(device)
@@ -655,10 +750,51 @@ class Simulator:
         t = compiled.services
         net = params.network
         self._k_max = int(t.replicas.max())
-        self._mu = 1.0 / params.cpu_time_s
 
         def tensor(x, dtype):
             return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        # -- in-graph resilience policies (sim/policies.py) ------------------
+        # ``None`` (the default) leaves every block's ops unchanged: all
+        # policy effects below gate on it.  The autoscaler can grow a
+        # station past the static replica max, so the Erlang recursion
+        # covers the widest station the dynamic law can reach.
+        self._policies = policies
+        self._has_retries = any(
+            lvl.att_child.shape[0] > 1 for lvl in compiled.levels
+        )
+        if policies is not None:
+            self._k_max = max(self._k_max, policies.k_max)
+        # -- reactive canary rollouts (sim/rollout.py) ------------------------
+        self._rollouts = rollouts
+        if rollouts is not None:
+            if mtls is not None:
+                raise ValueError(
+                    "rollout runs do not support MtlsSchedule yet"
+                )
+            self._k_max = max(self._k_max, rollouts.k_max)
+        self._mu = 1.0 / params.cpu_time_s
+        if rollouts is not None:
+            # canary-arm constants: per-service mu (cpu_time override),
+            # per-hop cpu ratio and error rate (baseline-substituted)
+            can_cpu = np.where(
+                np.isfinite(rollouts.canary_cpu_s),
+                rollouts.canary_cpu_s, params.cpu_time_s,
+            )
+            self._canary_mu = tensor(1.0 / can_cpu, F32)
+            self._canary_cpu_varies = bool(
+                (can_cpu != params.cpu_time_s).any()
+            )
+            hs_np = compiled.hop_service
+            self._canary_cpu_ratio_h = tensor(
+                (can_cpu / params.cpu_time_s)[hs_np], F32
+            )
+            self._canary_err_h = tensor(
+                rollouts.canary_error_rate[hs_np], F32
+            )
+            self._canary_reps_np = rollouts.canary_replicas.astype(
+                np.float64
+            )
 
         # -- auto-mTLS switching --------------------------------------------
         # a time-phased extra one-way latency on every edge, indexed by
@@ -696,6 +832,29 @@ class Simulator:
                     )
         eff = np.maximum(eff, 0)
         svc_down = eff == 0                                   # (P, S)
+        if policies is not None:
+            # chaos kills compose with the autoscaler's dynamic count:
+            # the per-phase DOWN delta subtracts from whatever count the
+            # policy state actuated (floored at one server)
+            self._downed_p_np = t.replicas.astype(np.float64)[None, :] - eff
+        if rollouts is not None:
+            # canary-first kill attribution: a chaos phase's down delta
+            # removes CANARY replicas before baseline ones; a fully-downed
+            # canary arm transport-fails its hops like a down service
+            downed_p = t.replicas.astype(np.float64)[None, :] - eff
+            can_down_p = np.where(
+                rollouts.has_rollout[None, :],
+                np.minimum(downed_p, self._canary_reps_np[None, :]),
+                0.0,
+            )
+            base_down_p = downed_p - can_down_p
+            self._downed_base_p_np = base_down_p            # (P, S)
+            self._base_eff_roll_p_np = (
+                t.replicas.astype(np.float64)[None, :] - base_down_p
+            )
+            self._can_eff_roll_p_np = (
+                self._canary_reps_np[None, :] - can_down_p
+            )
         # the phase starts in float32, as the JAX engine holds them (its
         # drain windows and -qps max warp read them back in float64)
         self._phase_starts = np.asarray(cuts, np.float32)     # (P,)
@@ -748,6 +907,41 @@ class Simulator:
         self._down_pc_np = np.repeat(svc_down, Cc, axis=0)
         self._replicas_pc = tensor(self._eff_pc_np, torch.int32)
         self._svc_down_pc = tensor(self._down_pc_np, torch.bool)
+        if policies is not None:
+            self._downed_pc = tensor(
+                np.repeat(self._downed_p_np, Cc, axis=0), F32
+            )
+        if rollouts is not None:
+            # Cc-repeated canary/baseline phase tables of the chaos split;
+            # without chaos the canary row is the static canary count
+            def rep(a):
+                return np.repeat(a, Cc, axis=0)
+
+            S = compiled.num_services
+            if self.has_chaos:
+                self._eff_base_roll_pc = tensor(
+                    rep(np.maximum(self._base_eff_roll_p_np, 1.0)),
+                    torch.int32,
+                )
+                self._svc_down_base_roll_pc = tensor(
+                    rep(self._base_eff_roll_p_np <= 0), torch.bool
+                )
+                self._can_reps_pc = tensor(
+                    rep(np.maximum(self._can_eff_roll_p_np, 1.0)), F32
+                )
+                self._svc_down_can_pc = tensor(
+                    rep(rollouts.has_rollout[None, :]
+                        & (self._can_eff_roll_p_np <= 0)),
+                    torch.bool,
+                )
+                if policies is not None:
+                    self._downed_base_pc = tensor(
+                        rep(self._downed_base_p_np), F32
+                    )
+            else:
+                self._can_reps_pc = tensor(
+                    np.broadcast_to(self._canary_reps_np, (Cc, S)), F32
+                )
 
         # -- load-balancing laws (sim/lb.py) ----------------------------------
         # ``lb`` (compiler.compile_lb's tables) swaps the wait law per
@@ -762,10 +956,10 @@ class Simulator:
         if lb is not None and lb.active:
             self._lb_profile_np = lb_mod.effective_profile(lb, self._k_max)
             self._lb_dev = lb_mod.device_tables(lb, self._k_max, dev)
-        self._lb_panic = (
-            self._lb_dev is not None and lb.any_panic and self.has_chaos
-        )
-        if self._lb_panic:
+        # panic routing needs something that can unhealth a pool: chaos,
+        # or (in a protected run) the policy state's ejections
+        self._lb_any_panic = self._lb_dev is not None and lb.any_panic
+        if self._lb_any_panic:
             self._lb_alive_pc = tensor(np.repeat(eff, Cc, axis=0), F32)
             self._lb_total_row = tensor(t.replicas, F32)[None, :]
 
@@ -781,6 +975,17 @@ class Simulator:
                 compiled, params, self._mu,
                 self._eff_pc_np, self._down_pc_np, own_combo, visits_pc,
                 mtls=mtls,
+                # retry budgets (sim/policies.py) cap the attempt fan;
+                # the static visit estimates respect the same cap
+                retry_budget=(
+                    (
+                        policies.has_budget,
+                        policies.budget_frac,
+                        policies.budget_min,
+                    )
+                    if policies is not None and policies.any_budget
+                    else None
+                ),
                 # the fixed point sees the same per-station wait laws
                 # (sim/lb.np_wait_stats), or a hot ring-hash arc's retry
                 # storm goes statically unseen
@@ -797,6 +1002,12 @@ class Simulator:
         self._hop_service = torch.tensor(hs, dtype=torch.int64, device=dev)
         # (P*Cc, H) outage flag of each hop's callee per phase row
         self._down_ph = self._svc_down_pc[:, self._hop_service]
+        if rollouts is not None and self.has_chaos:
+            # baseline- and canary-arm outage flags per hop and phase row
+            self._down_base_roll_ph = self._svc_down_base_roll_pc[
+                :, self._hop_service
+            ]
+            self._down_can_ph = self._svc_down_can_pc[:, self._hop_service]
         self._hop_err_rate = torch.tensor(
             t.error_rate[hs], dtype=F32, device=dev
         )
@@ -811,7 +1022,11 @@ class Simulator:
         self._need_send = bool(churn) or bool(
             (compiled.hop_send_prob[1:] < 1.0).any()
         )
-        self._need_err = bool((t.error_rate[hs] > 0.0).any())
+        self._need_err = bool((t.error_rate[hs] > 0.0).any()) or (
+            # a canary arm that can 500 needs the error coins drawn even
+            # when the baseline is error-free (sim/rollout.py)
+            rollouts is not None and rollouts.any_error_override
+        )
 
         levels: List[_Level] = []
         offset = 0
@@ -1284,11 +1499,15 @@ class Simulator:
 
     # -- draws ------------------------------------------------------------
 
-    def draw_spec(self, n: int, kind: str,
-                  saturated: bool = False) -> DrawSpec:
+    def draw_spec(self, n: int, kind: str, saturated: bool = False,
+                  policy: bool = False, canary: bool = False) -> DrawSpec:
         """The random tensors one block of ``n`` requests consumes;
         ``saturated``: under the finite-population law of ``-qps max``,
-        which takes the flat sibling normals (no hierarchical mix)."""
+        which takes the flat sibling normals (no hierarchical mix);
+        ``policy`` / ``canary``: a block of a protected run, under policy
+        effects (breaker-shed and retry-budget coins) / rollout effects
+        (version coins)."""
+        pol = self._policies if policy else None
         copula = self._copula_active or self._retry_active
         kind_svc = self.params.service_time
         if kind_svc == SERVICE_TIME_DETERMINISTIC:
@@ -1319,12 +1538,22 @@ class Simulator:
             arrivals=kind == OPEN_LOOP,
             saturated=saturated,
             kill_events=self._num_kill_events,
-            panic=self._lb_panic and not saturated,
+            panic=(
+                self._lb_any_panic and not saturated
+                and (self.has_chaos or pol is not None)
+            ),
+            policy=pol is not None,
+            shed=pol is not None and pol.any_breaker,
+            retry=(
+                pol is not None and pol.any_budget and self._has_retries
+            ),
+            canary=canary,
         )
 
     def _draws(self, source, index, n: int, kind: str,
-               saturated: bool = False) -> Draws:
-        spec = self.draw_spec(n, kind, saturated)
+               saturated: bool = False, policy: bool = False,
+               canary: bool = False) -> Draws:
+        spec = self.draw_spec(n, kind, saturated, policy, canary)
         draws = source.draws(index, spec).to(self.device)
         draws.check(spec)
         return draws
@@ -1817,7 +2046,9 @@ class Simulator:
         return offered, block, max(1, -(-num_requests // block))
 
     def run_blocks(self, load: LoadModel, num_requests: int, source, *,
-                   block_size: int = 65_536) -> Iterator[SimResults]:
+                   block_size: int = 65_536,
+                   control: Optional["_BlockControl"] = None,
+                   ) -> Iterator[SimResults]:
         """The :class:`SimResults` of each block of a run of >=
         ``num_requests`` (:meth:`_block_plan`).
 
@@ -1827,6 +2058,11 @@ class Simulator:
         churn and mTLS phases) from one block to the next, so the blocks
         form one continuous timeline; block ``b`` draws from index
         ``1_000_000 + b`` of ``source``.
+
+        ``control`` (a recorded or protected run, :meth:`run_timeline`,
+        :meth:`run_policies`, :meth:`run_rollouts`) rides the same loop:
+        each block runs under its current effects, and it observes each
+        block before the next one starts.
         """
         self._check_lb_load(load)
         offered, block, num_blocks = self._block_plan(
@@ -1847,17 +2083,29 @@ class Simulator:
         conn_t0 = torch.zeros(max(conns, 1), dtype=F32, device=self.device)
         per = block // max(conns, 1)
         for b in range(num_blocks):
+            pfx, rfx = (
+                control.effects() if control is not None else (None, None)
+            )
             res, t0, conn_t0 = self._simulate_core(
                 block, load.kind, conns,
                 self._draws(source, BLOCK_INDEX_BASE + b, block, load.kind,
-                            sat),
+                            sat, policy=pfx is not None,
+                            canary=rfx is not None),
                 offered_t, pace_t, offered_t, t0, conn_t0,
                 visits_pc=visits_pc,
                 sat_conns=conns if sat else 0,
                 nominal_gap=nominal_t,
                 req_offset=b * per,
                 phase_windows=windows,
+                policy_fx=pfx,
+                rollout_fx=rfx,
             )
+            if control is not None:
+                # closed loop: a window is final only once the SLOWEST
+                # connection passed it
+                control.observe(
+                    res, conn_t0.min() if load.kind == CLOSED_LOOP else t0
+                )
             yield res
 
     def run_summary(
@@ -1879,6 +2127,11 @@ class Simulator:
         collector's steady-state window (skip 62s, cap 180s) into the
         ``win_*`` fields, placed from the run's expected duration.
         """
+        return self._run_summary(load, num_requests, source, block_size,
+                                 collector, trim)
+
+    def _run_summary(self, load, num_requests, source, block_size,
+                     collector, trim, control=None):
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
@@ -1893,9 +2146,217 @@ class Simulator:
         parts = [
             summary_mod.summarize(res, collector, window=win)
             for res in self.run_blocks(load, num_requests, source,
-                                       block_size=block_size)
+                                       block_size=block_size,
+                                       control=control)
         ]
         return summary_mod.reduce_stacked(summary_mod.stack(parts))
+
+    # -- the flight recorder and the protected runs ------------------------
+
+    def plan_timeline_windows(
+        self, total_requests: int, offered: float,
+        window_s: Optional[float] = None,
+    ) -> Tuple[int, float]:
+        """The static ``(num_windows, window_s)`` grid of a run: the
+        expected sim duration (requests / offered rate) cut into
+        ``timeline_window_s`` windows, clamped (with a warning) by
+        ``timeline_max_windows`` and the recorder's element budget
+        (``metrics/timeline.plan_windows``)."""
+        from isotope_tpu_torch.metrics import timeline as timeline_mod
+
+        dt = (
+            float(window_s)
+            if window_s is not None
+            else self.params.timeline_window_s
+        )
+        expected = total_requests / max(float(offered), 1e-9)
+        w, dt_eff, _ = timeline_mod.plan_windows(
+            expected, dt, self.params.timeline_max_windows,
+            self.compiled.num_services,
+        )
+        return w, dt_eff
+
+    def _control(self, load, num_requests, source, block_size, window_s,
+                 policies: bool, rollouts: bool) -> "_BlockControl":
+        offered, block, num_blocks = self._block_plan(
+            load, num_requests, source, block_size
+        )
+        tl_plan = self.plan_timeline_windows(
+            num_blocks * block, offered, window_s
+        )
+        return _BlockControl(self, tl_plan, policies, rollouts)
+
+    def run_timeline(
+        self,
+        load: LoadModel,
+        num_requests: int,
+        source,
+        *,
+        block_size: int = 65_536,
+        collector=None,
+        trim: bool = False,
+        window_s: Optional[float] = None,
+    ):
+        """Like :meth:`run_summary`, but the block loop ALSO reduces a
+        :class:`~isotope_tpu_torch.metrics.timeline.TimelineSummary`:
+        the flight recorder's per-service x per-window series, binned on
+        the device from each block's absolute sim-time clocks.
+
+        Same draws and blocking as :meth:`run_summary`, so the returned
+        ``RunSummary`` equals an unrecorded run's with the same
+        arguments.  Returns ``(RunSummary, TimelineSummary)``.
+        """
+        if not self.params.timeline:
+            raise ValueError(
+                "timeline runs need SimParams(timeline=True)"
+            )
+        control = self._control(load, num_requests, source, block_size,
+                                window_s, False, False)
+        summary = self._run_summary(load, num_requests, source, block_size,
+                                    collector, trim, control)
+        return summary, control.tl_acc
+
+    def run_policies(
+        self,
+        load: LoadModel,
+        num_requests: int,
+        source,
+        *,
+        block_size: int = 65_536,
+        collector=None,
+        trim: bool = False,
+        window_s: Optional[float] = None,
+    ):
+        """Co-simulate the per-service resilience policies
+        (``sim/policies.py``) in the block loop: the loop carries the
+        policy state next to the flight recorder's accumulator, each
+        block runs under the CURRENT policy effects (breaker sheds,
+        budgeted retries, autoscaled capacity in the wait law), and the
+        control law advances through every window the block completed —
+        observation at window granularity, actuation at block
+        granularity (one block of lag).
+
+        Returns ``(RunSummary, TimelineSummary, PolicySummary)``; the
+        summary and timeline reflect the PROTECTED physics.  Requires
+        policy tables (``Simulator(..., policies=...)``) and
+        ``SimParams.timeline=True`` (the recorder is the observation
+        side of every control loop).  Saturated ``-qps max`` loads are
+        refused: the finite-population tables are host-built from static
+        replica counts the policy state cannot reach.
+        """
+        if self._policies is None:
+            raise ValueError(
+                "policy runs need compiled policy tables "
+                "(Simulator(..., policies=compile_policies(graph, "
+                "compiled)))"
+            )
+        if not self.params.timeline:
+            raise ValueError(
+                "policy runs need SimParams(timeline=True) — the "
+                "flight recorder is the control loop's observation side"
+            )
+        if self._saturated(load):
+            raise ValueError(
+                "policy runs do not support saturated -qps max loads: "
+                "the finite-population wait tables are host-built from "
+                "static replica counts the policy state cannot change; "
+                "use a paced closed loop or open loop"
+            )
+        return self._run_protected(load, num_requests, source, False,
+                                   block_size, collector, trim, window_s)
+
+    def _run_protected(self, load, num_requests, source, roll: bool,
+                       block_size: int, collector, trim: bool,
+                       window_s: Optional[float]):
+        """The shared tail of :meth:`run_policies` and
+        :meth:`run_rollouts`: one block loop whose carry holds the
+        clocks, the recorder's accumulator, the (S, W) retry
+        observations, the policy state and its series (with policy
+        tables), and the rollout observations, state and series (``roll``).
+        Block ``b+1`` runs under the effects taken after block ``b``.
+
+        Returns ``(summary, timeline[, rollout summary][, policy
+        summary])``."""
+        control = self._control(
+            load, num_requests, source, block_size, window_s,
+            self._policies is not None, roll,
+        )
+        summary = self._run_summary(load, num_requests, source, block_size,
+                                    collector, trim, control)
+        out = (summary, control.tl_acc)
+        if roll:
+            out = out + (control.rollout_summary(),)
+        if self._policies is not None:
+            out = out + (control.pacc,)
+        return out
+
+    def _policy_downed_windows(self, spec, base_split: bool = False):
+        """(S, W) chaos-downed replica counts per recorder window (the
+        nominal phase covering each window's END), or None without
+        chaos — the autoscaler's alive-capacity denominator must see the
+        kill, or a dead service reads as idle and scales DOWN.
+        ``base_split`` (rollout runs) reports the BASELINE arm's share of
+        the delta only (the canary-first kill attribution)."""
+        if self._policies is None or not self.has_chaos:
+            return None
+        cuts = self._phase_starts.astype(np.float64)
+        w_end = (
+            np.arange(spec.num_windows, dtype=np.float64) + 1.0
+        ) * spec.window_s
+        p_idx = np.clip(
+            np.searchsorted(cuts, w_end, side="right") - 1,
+            0, len(cuts) - 1,
+        )
+        downed = (
+            self._downed_base_p_np if base_split else self._downed_p_np
+        )
+        return _const(downed[p_idx].T, F32, self.device)
+
+    def run_rollouts(
+        self,
+        load: LoadModel,
+        num_requests: int,
+        source,
+        *,
+        block_size: int = 65_536,
+        collector=None,
+        trim: bool = False,
+        window_s: Optional[float] = None,
+    ):
+        """Co-simulate the progressive-delivery rollout controller
+        (``sim/rollout.py``) in the block loop: each block's hops route
+        to the canary arm with the CURRENT weight (its own station,
+        error rate and cpu time), and the controller advances through
+        every completed window — PROMOTE / HOLD / ROLL BACK.  A
+        Simulator that ALSO has policy tables runs the policy loops in
+        the same carry (a rolled-back canary's load surge flows into the
+        breakers and the autoscaler).
+
+        Returns ``(RunSummary, TimelineSummary, RolloutSummary[,
+        PolicySummary])``.  Requires rollout tables (``Simulator(...,
+        rollouts=...)``) and ``SimParams.timeline=True``; saturated
+        ``-qps max`` loads are refused.
+        """
+        if self._rollouts is None:
+            raise ValueError(
+                "rollout runs need compiled rollout tables "
+                "(Simulator(..., rollouts=compile_rollouts(graph, "
+                "compiled)))"
+            )
+        if not self.params.timeline:
+            raise ValueError(
+                "rollout runs need SimParams(timeline=True) — the "
+                "flight recorder is the control loop's observation side"
+            )
+        if self._saturated(load):
+            raise ValueError(
+                "rollout runs do not support saturated -qps max loads: "
+                "the finite-population wait tables are host-built from "
+                "static replica counts the rollout state cannot split; "
+                "use a paced closed loop or open loop"
+            )
+        return self._run_protected(load, num_requests, source, True,
+                                   block_size, collector, trim, window_s)
 
     def default_block_size(self, budget_elems: int = 33_554_432) -> int:
         """A block size keeping each (block, H) event tensor near
@@ -1903,15 +2364,18 @@ class Simulator:
         h = max(self.compiled.num_hops, 1)
         return int(max(256, min(524_288, budget_elems // h)))
 
-    def census_shapes(self, n: int) -> List[Tuple[int, int, int, bool, bool]]:
+    def census_shapes(self, n: int, policy: bool = False
+                      ) -> List[Tuple[int, int, int, bool, bool]]:
         """``(N, B, P, fail, err)`` of each census call one block of ``n``
         requests makes, in call order: one per dense level with children,
         with a fail step where a call has a finite timeout or under
         chaos (any callee may be down) and error coins where a hop has a
-        nonzero error rate or panic routing can fast-fail it, and one per
+        nonzero error rate, panic routing can fast-fail it or (``policy``:
+        a block under policy effects) a breaker can shed it, and one per
         tile of a tiled level that holds calls, ``(N, T, W)``, with the
         level's fail step and no error coins."""
-        err = self._need_err or self._lb_panic
+        spec = self.draw_spec(n, OPEN_LOOP, policy=policy)
+        err = spec.need_err or spec.panic or spec.shed
         shapes = []
         for lvl in reversed(self._levels):
             if lvl.num_children == 0 or lvl.sparse is not None:
@@ -2162,6 +2626,8 @@ class Simulator:
         nominal_gap: Optional[torch.Tensor] = None,
         req_offset: int = 0,
         phase_windows: Optional[torch.Tensor] = None,
+        policy_fx=None,
+        rollout_fx=None,
     ) -> Tuple[SimResults, torch.Tensor, torch.Tensor]:
         """One block of ``n`` requests; returns ``(results, t_end,
         conn_end)`` for the next block's clocks.
@@ -2179,6 +2645,13 @@ class Simulator:
         closed loop's nominal clock, which places requests into phases;
         ``phase_windows`` is the (2, W) table of :meth:`_windows_arg`
         (default: the identity windows).
+
+        ``policy_fx`` (a ``sim/policies.PolicyFx``) and ``rollout_fx``
+        (a ``sim/rollout.RolloutFx``) are the protected runs' control
+        effects on this block: breaker sheds, budgeted retries and
+        autoscaled or ejected capacity; the canary weight that routes
+        each hop to the canary arm's own station.  ``None`` leaves the
+        block's ops unchanged.
         """
         dev = self.device
         zero = torch.zeros((), dtype=F32, device=dev)
@@ -2186,6 +2659,23 @@ class Simulator:
         H = self.compiled.num_hops
         if nominal_gap is None:
             nominal_gap = pace_gap
+        hop_svc = self._hop_service
+        # -- policy coins (sim/policies.py), from a folded index so every
+        # other stream is the unprotected twin's
+        shed_coin = retry_coin = None
+        if policy_fx is not None:
+            pol = self._policies
+            if pol.any_breaker:
+                shed_coin = draws.u_shed < policy_fx.shed[hop_svc][None, :]
+            if pol.any_budget and self._has_retries:
+                retry_coin = (
+                    draws.u_retry < policy_fx.retry_allow[hop_svc][None, :]
+                )
+        # -- rollout version coin (sim/rollout.py): each hop routes to the
+        # CANARY arm with its service's current weight
+        can_coin = None
+        if rollout_fx is not None:
+            can_coin = draws.u_canary < rollout_fx.weight[hop_svc][None, :]
 
         # ---- wait draws: copulas in normal space, then U(0,1) marginals
         # (the saturated law keeps the normals, and takes the flat
@@ -2265,28 +2755,89 @@ class Simulator:
         if visits_pc is None:
             visits_pc = self._visits_pc
         lam_pc = offered_qps * visits_pc
-        hop_svc = self._hop_service
+        eff_replicas_pc = self._replicas_pc
+        pol_capacity = False
+        if policy_fx is not None:
+            pol = self._policies
+            if pol.any_breaker:
+                # shed requests never enter the queue: the wait law sees
+                # the ADMITTED load
+                lam_pc = lam_pc * (1.0 - policy_fx.shed)[None, :]
+            if pol.any_hpa or pol.any_ejection:
+                # autoscaled/ejected capacity composes with the chaos
+                # phases' down deltas (under a rollout the kill takes
+                # CANARY replicas first); every station keeps >= 1 server
+                pol_capacity = True
+                downed = (
+                    self._downed_base_pc
+                    if rollout_fx is not None and self.has_chaos
+                    else self._downed_pc
+                )
+                eff_replicas_pc = torch.clamp(
+                    policy_fx.replicas[None, :] - downed, min=1.0
+                ).to(torch.int32)
+        lam_can = None
+        svc_down_pc = self._svc_down_pc
+        down_ph = self._down_ph
+        if rollout_fx is not None:
+            # two-version split: the canary arm is its OWN M/M/k station
+            # fed the split-off admitted load; the baseline keeps the rest
+            w_row = rollout_fx.weight[None, :]
+            lam_can = lam_pc * w_row
+            lam_pc = lam_pc * (1.0 - w_row)
+            if self.has_chaos:
+                if not pol_capacity:
+                    eff_replicas_pc = self._eff_base_roll_pc
+                svc_down_pc = self._svc_down_base_roll_pc
+                down_ph = self._down_base_roll_ph
         # panic routing (sim/lb.py): below a pool's panic threshold the
         # dead-backend share fast-fails through the panic coin below and
         # the wait law's load scales by the healthy fraction
         panic_ph = None
-        if self._lb_panic and not sat_conns:
+        if self._lb_any_panic and not sat_conns and (
+            self.has_chaos or policy_fx is not None
+        ):
+            if policy_fx is not None:
+                # the policy state's actuated pool and its healthy part
+                total = policy_fx.total[None, :]
+                alive = policy_fx.alive[None, :]
+                if self.has_chaos:
+                    alive = alive - (
+                        self._downed_base_pc if rollout_fx is not None
+                        else self._downed_pc
+                    )
+                alive = torch.clamp(alive, min=0.0)
+            else:
+                total, alive = self._lb_total_row, self._lb_alive_pc
             lam_pc, panic_pc = lb_mod.panic_split(
-                self._lb_dev, lam_pc, self._lb_alive_pc, self._lb_total_row
+                self._lb_dev, lam_pc, alive, total
             )
             panic_ph = panic_pc[:, hop_svc]
         # per-station wait law: the lb laws where declared (fifo rows
         # pass through mmk_params untouched); the saturated -qps max
-        # law keeps its own tables (lb runs refuse it at the entries)
+        # law keeps its own tables (lb runs refuse it at the entries).
+        # A canary arm hashes its own ring / weight cycle over its own
+        # replicas.
+        qp_can = None
         if self._lb_dev is not None and not sat_conns:
             qp = lb_mod.wait_params(
                 self._lb, self._lb_dev, lam_pc, self._mu,
-                self._replicas_pc, self._k_max,
+                eff_replicas_pc, self._k_max,
             )
+            if rollout_fx is not None:
+                qp_can = lb_mod.wait_params(
+                    self._lb, self._lb_dev, lam_can, self._canary_mu,
+                    self._can_reps_pc, self._k_max,
+                )
         else:
             qp = queueing.mmk_params(
-                lam_pc, self._mu, self._replicas_pc, self._k_max
+                lam_pc, self._mu, eff_replicas_pc, self._k_max
             )
+            if rollout_fx is not None:
+                qp_can = queueing.mmk_params(
+                    lam_can, self._canary_mu, self._can_reps_pc,
+                    self._k_max,
+                )
         down = None
         phase_idx = None
         if num_phases > 1:
@@ -2312,45 +2863,88 @@ class Simulator:
                 else chaos_idx
             )
             if self.has_chaos:
-                down = self._down_ph[phase_idx]
+                down = down_ph[phase_idx]
         elif self.has_chaos:
-            down = self._down_ph[0].expand(n, H)
+            down = down_ph[0].expand(n, H)
+        if can_coin is not None and self.has_chaos:
+            # a canary hop's callee is down when its canary arm is
+            down = torch.where(
+                can_coin,
+                self._down_can_ph[0][None, :] if phase_idx is None
+                else self._down_can_ph[phase_idx],
+                down,
+            )
         if sat_conns:
             wait = self._saturated_wait(
                 z_wait, sat_conns, sat_override,
                 phase_idx if sat_override is None else None,
             )
         else:
-            if phase_idx is None:
-                p_wait_nh = qp.p_wait[0][hop_svc][None, :]
-                wait_rate_nh = qp.wait_rate[0][hop_svc][None, :]
-            else:
-                p_wait_nh = qp.p_wait[:, hop_svc][phase_idx]
-                wait_rate_nh = qp.wait_rate[:, hop_svc][phase_idx]
+            def per_hop(table):
+                if phase_idx is None:
+                    return table[0][hop_svc][None, :]
+                return table[:, hop_svc][phase_idx]
+
+            p_wait_nh = per_hop(qp.p_wait)
+            wait_rate_nh = per_hop(qp.wait_rate)
+            if can_coin is not None:
+                # the canary station's tables, merged per hop by the
+                # version coin
+                p_wait_nh = torch.where(
+                    can_coin, per_hop(qp_can.p_wait), p_wait_nh
+                )
+                wait_rate_nh = torch.where(
+                    can_coin, per_hop(qp_can.wait_rate), wait_rate_nh
+                )
             wait = queueing.sample_wait_conditional(
                 p_wait_nh, wait_rate_nh, u_wait
             )  # (N, H)
-        panic = None
         if panic_ph is not None:
-            # the dead-backend share fast-fails at admission: no queue
+            # the dead-backend share fast-fails at admission like a
+            # breaker shed; a canary-routed hop is exempt (its arm's kill
+            # physics transport-fail it)
             panic = draws.u_panic < (
                 panic_ph[0][None, :] if phase_idx is None
                 else panic_ph[phase_idx]
             )
-            wait = torch.where(panic, zero, wait)
+            if can_coin is not None:
+                panic = panic & ~can_coin
+            shed_coin = panic if shed_coin is None else shed_coin | panic
+        if shed_coin is not None:
+            # a shed request fast-fails at admission: the error path
+            # below, NOT the queue
+            wait = torch.where(shed_coin, zero, wait)
         utilization, unstable = qp.utilization, qp.unstable
         if self.has_chaos:
             # a fully-down service does no work: zero utilization for
             # those phases instead of the clamped-to-1-replica saturation
-            utilization = torch.where(self._svc_down_pc, 0.0, utilization)
-            unstable = unstable & ~self._svc_down_pc
+            utilization = torch.where(svc_down_pc, 0.0, utilization)
+            unstable = unstable & ~svc_down_pc
         svc_time = self._sample_service_time(draws.svc, n)
-        err_coin = None if u_err is None else u_err < self._hop_err_rate
-        if panic is not None:
-            # a panicking hop rides the errorRate path exactly: fast 500,
-            # script skipped, nothing sent downstream, and the caller
-            # does not fail
-            err_coin = panic if err_coin is None else err_coin | panic
+        if can_coin is not None and self._canary_cpu_varies:
+            # canary cpu_time override: a multiplicative rescale keeps
+            # the service-time SHAPE and moves its mean
+            svc_time = torch.where(
+                can_coin, svc_time * self._canary_cpu_ratio_h[None, :],
+                svc_time,
+            )
+        if u_err is None:
+            err_coin = None
+        elif can_coin is not None:
+            # per-arm error rates: a canary hop draws against its own
+            err_coin = u_err < torch.where(
+                can_coin, self._canary_err_h[None, :],
+                self._hop_err_rate[None, :],
+            )
+        else:
+            err_coin = u_err < self._hop_err_rate
+        if shed_coin is not None:
+            # a shed or panicking hop rides the errorRate path exactly:
+            # fast 500, script skipped, nothing sent downstream, and the
+            # caller does not fail
+            err_coin = (
+                shed_coin if err_coin is None else err_coin | shed_coin
+            )
 
         # ---- upward pass: outcomes + server-side durations ---------------
         # Deepest level first, so every call site sees its callees'
@@ -2446,9 +3040,20 @@ class Simulator:
                     used = torch.zeros((n, C + 1), dtype=torch.bool,
                                        device=dev)
                     att_off = torch.zeros((n, C + 1), dtype=F32, device=dev)
+                    # retry-budget gate (sim/policies.py): attempt >= 1
+                    # runs only when its budget coin admits it; a
+                    # suppressed retry surfaces the previous attempt's
+                    # failure to the caller
+                    retry_gate = None
+                    if retry_coin is not None and len(lvl.att_child) > 1:
+                        retry_gate = F.pad(retry_coin[:, csl], (0, 1))
                     used_a = coin
-                    for idx, valid in zip(lvl.att_child, lvl.att_valid):
+                    for a, (idx, valid) in enumerate(
+                        zip(lvl.att_child, lvl.att_valid)
+                    ):
                         use = used_a & valid
+                        if retry_gate is not None and a > 0:
+                            use = use & retry_gate[:, idx]
                         t = rtt_child[idx] + lat_child[:, idx]
                         if tax is not None:
                             t = t + 2.0 * tax[:, None]
@@ -2536,15 +3141,26 @@ class Simulator:
 
         # ---- downward pass: which hops actually execute ------------------
         # a down ENTRY service refuses the client's connection itself
+        # rollout runs also track REFUSED hops (would-send, target down):
+        # the canary gates charge a killed arm's transport failures to it
+        track_refused = rollout_fx is not None
         root_down = None
         if down is not None:
             root_down = down[:, 0]
             sent_cur = ~root_down[:, None]
         else:
             sent_cur = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        if track_refused:
+            refused_cur = (
+                root_down[:, None] if root_down is not None
+                else torch.zeros((n, 1), dtype=torch.bool, device=dev)
+            )
         sent_chunks: List[torch.Tensor] = []
+        refused_chunks: List[torch.Tensor] = []
         for d, lvl in enumerate(self._levels):
             sent_chunks.append(sent_cur)
+            if track_refused:
+                refused_chunks.append(refused_cur)
             if d == L - 1:
                 break
             sl = slice(lvl.offset, lvl.offset + lvl.size)
@@ -2560,7 +3176,12 @@ class Simulator:
                 sent = sent & used_lvls[d]
             if down is not None:
                 nxt = self._levels[d + 1]
-                sent = sent & ~down[:, nxt.offset:nxt.offset + nxt.size]
+                down_nxt = down[:, nxt.offset:nxt.offset + nxt.size]
+                if track_refused:
+                    refused_cur = sent & down_nxt
+                sent = sent & ~down_nxt
+            elif track_refused:
+                refused_cur = torch.zeros_like(sent)
             sent_cur = sent
 
         # ---- closed-loop arrivals (need latencies) -----------------------
@@ -2643,6 +3264,11 @@ class Simulator:
             utilization=utilization.amax(0),
             unstable=unstable.any(0),
             offered_qps=offered_qps,
+            hop_wait=wait if self.params.timeline else None,
+            hop_canary=can_coin,
+            hop_refused=(
+                torch.cat(refused_chunks, dim=1) if track_refused else None
+            ),
         )
         t_end = conn_end.max() if kind == CLOSED_LOOP else arrivals[-1]
         return res, t_end, conn_end

@@ -34,11 +34,11 @@ The fixed point is damped (0.5) and bounded: even when the amplified
 load saturates a station, the clamped wait law keeps P(timeout) <= 1,
 so visits are bounded by the full attempt tree.
 
-A copy of ``isotope_tpu.sim.feedback`` without the retry-budget input
-(the protected layers are not ported): the fixed point runs the
+A copy of ``isotope_tpu.sim.feedback``: the fixed point runs the
 per-service lb laws where the topology declares them
 (``sim/lb.np_wait_stats``), else the plain M/M/k law, with the mTLS
-schedule's time-averaged tax.
+schedule's time-averaged tax, and caps the attempt fan by the retry
+budgets of ``sim/policies.py`` where a protected run declares them.
 """
 from __future__ import annotations
 
@@ -139,6 +139,7 @@ class RetryFeedback:
         own_combo: np.ndarray,         # (Cc, H) churn-combo hop multipliers
         static_visits_pc: np.ndarray,  # (PC, S)
         mtls=None,                     # Optional[MtlsSchedule]
+        retry_budget=None,             # (has (S,), frac (S,), min (S,))
         lb=None,                       # (lb.LbTables, profile (S, k))
     ):
         self.compiled = compiled
@@ -149,6 +150,20 @@ class RetryFeedback:
         self.own = np.asarray(own_combo, np.float64)
         self.static = np.asarray(static_visits_pc, np.float64)
         self.n_combos = self.own.shape[0]
+        # Envoy retry budgets (sim/policies.py): the static visit
+        # estimates must respect the budget cap or the wait tables
+        # overstate storm amplification the in-graph budget truncates.
+        # ``min_retries_concurrent`` enters the rate law as a
+        # per-second floor (stated approximation: the static estimate
+        # has no concurrency axis).
+        self.budget = None
+        if retry_budget is not None:
+            has, frac, floor = retry_budget
+            self.budget = (
+                np.asarray(has, bool),
+                np.asarray(frac, np.float64),
+                np.asarray(floor, np.float64),
+            )
         # per-service LB wait laws (sim/lb.py): the fixed point's
         # P(timeout) integrates the same skewed per-backend tails the
         # engine samples.  Panic routing mirrors the wait-law load
@@ -159,6 +174,7 @@ class RetryFeedback:
         self._static_replicas = np.maximum(
             np.asarray(compiled.services.replicas, np.float64), 1.0
         )
+        self._retry_hop = compiled.hop_attempt > 0
 
         t = compiled.services
         self._err = t.error_rate.astype(np.float64)
@@ -295,6 +311,9 @@ class RetryFeedback:
         if down[compiled.hop_service[0]]:
             return visits  # down entry: nothing flows; the init is exact
 
+        # per-service retry admission probability (the static image of
+        # the engine's budget gate); 1 everywhere without budgets
+        allow = np.ones(S)
         for _ in range(iters):
             lam = offered * visits
             if self.lb is not None:
@@ -348,12 +367,21 @@ class RetryFeedback:
                     # transport-fails; otherwise a 500 (fast) never times
                     # out, so transport == timeout on the non-500 branch
                     p_transport = np.where(down[t], 1.0, (1.0 - pe) * pt)
-                    # attempt n+1 runs iff attempt n failed (q); the
-                    # call truncates its caller when the last attempt
-                    # that runs ends in transport
-                    q = pf
-                    trunc = p_transport * q ** np.maximum(
-                        lc.attempts - 1, 0
+                    # budgeted continuation: attempt n+1 runs iff
+                    # attempt n failed AND the budget admits the retry
+                    # (q = pf * allow); a suppressed retry surfaces the
+                    # prior attempt's transport failure
+                    al = allow[t]
+                    q = pf * al
+                    a_m1 = np.maximum(lc.attempts - 1, 0)
+                    with np.errstate(divide="ignore", invalid="ignore"):
+                        geo_m1 = np.where(
+                            q >= 1.0 - 1e-12,
+                            a_m1.astype(np.float64),
+                            (1.0 - q**a_m1) / (1.0 - q),
+                        )
+                    trunc = p_transport * (
+                        (1.0 - al) * geo_m1 + q**a_m1
                     )
                     send_eff = lc.send_prob * own[lc.first_child]
                     # expected call duration over serial attempts
@@ -382,6 +410,8 @@ class RetryFeedback:
                         ),
                         axis=1,
                     )
+                    # the reach recursion continues attempts at the
+                    # BUDGETED rate q, not raw pf
                     lvl_pf[d] = q
                     lvl_surv[d], lvl_send[d] = surv, send_eff
                     step_dur = np.maximum(
@@ -424,6 +454,25 @@ class RetryFeedback:
             new = np.bincount(
                 compiled.hop_service, weights=reach, minlength=S
             )
+            if self.budget is not None:
+                # close the budget loop: unsuppressed retry demand
+                # (observed / current allow) vs the budgeted headroom
+                # (budget% of active visits + the per-second floor)
+                has, frac, floor = self.budget
+                retry_v = np.bincount(
+                    compiled.hop_service,
+                    weights=reach * self._retry_hop,
+                    minlength=S,
+                )
+                demand = offered * retry_v / np.maximum(allow, 1e-9)
+                headroom = frac * offered * new + floor
+                allow_new = np.where(
+                    has & (demand > headroom),
+                    np.clip(headroom / np.maximum(demand, 1e-9),
+                            0.0, 1.0),
+                    1.0,
+                )
+                allow = 0.5 * allow + 0.5 * allow_new
             delta = np.abs(new - visits).max() / max(new.max(), 1e-12)
             visits = 0.5 * visits + 0.5 * new
             if delta < tol:

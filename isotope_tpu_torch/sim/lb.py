@@ -393,7 +393,7 @@ def wait_params(
     tables: LbTables,
     dlb: DeviceLb,
     arrival_rate: torch.Tensor,  # (..., S)
-    service_rate: float,         # per-server mu
+    service_rate,                # per-server mu: float or (S,)
     replicas: torch.Tensor,      # (..., S) int
     k_max: int,
 ) -> QueueParams:
@@ -408,7 +408,10 @@ def wait_params(
     does).  Float32 in the reference's order of operations."""
     base = queueing.mmk_params(arrival_rate, service_rate, replicas, k_max)
     lam = arrival_rate.to(torch.float32)
-    mu = torch.full_like(lam, service_rate)
+    if isinstance(service_rate, torch.Tensor):
+        mu = service_rate.to(torch.float32).expand_as(lam)
+    else:
+        mu = torch.full_like(lam, service_rate)
     kf = replicas.to(torch.float32)
     p_wait, rate = base.p_wait, base.wait_rate
     unstable = base.unstable
@@ -547,23 +550,38 @@ def np_wait_stats(
 # -- host-side reporting ---------------------------------------------------
 
 
-def to_doc(tables: LbTables, tl=None, pol=None, max_windows: int = 64) -> dict:
-    """The ``lb.json`` artifact (``isotope-lb/v1``): per-service law,
-    its parameters and the static per-backend load-split vector.  The
-    per-window split of the reference (``tl``, a timeline summary, and
-    ``pol``, a policy summary) is not ported."""
-    if tl is not None:
-        raise NotImplementedError(
-            "to_doc(tl=...) is not ported to isotope_tpu_torch yet "
-            "(ROADMAP.md queue 1: item 8, observability)"
-        )
-    if pol is not None:
-        raise NotImplementedError(
-            "to_doc(pol=...) is not ported to isotope_tpu_torch yet "
-            "(ROADMAP.md queue 1: item 7, protected layers)"
-        )
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def to_doc(
+    tables: LbTables,
+    tl=None,        # Optional[TimelineSummary] — per-window arrivals
+    pol=None,       # Optional[PolicySummary] — actuated pool sizes
+    max_windows: int = 64,
+) -> dict:
+    """The ``lb.json`` artifact (``isotope-lb/v1``): per-service law +
+    parameters, the static per-backend load-split vector, and — with a
+    flight-recorder summary — the per-window per-backend load split
+    (window arrivals spread by the share vector over the pool size in
+    effect at that window, the PolicySummary's ``effective`` series
+    when the policy loops ran)."""
     k_max = int(tables.static_replicas.max(initial=1))
+    eff_p = None
+    done = None
+    if pol is not None:
+        eff_p = _np(pol.effective)
+        k_max = max(k_max, int(np.ceil(eff_p.max(initial=1.0))))
+        # protected runs know which windows COMPLETED: series past
+        # pol.windows_done were never advanced (zero-filled on
+        # device) and would read as a pool collapsed to one backend
+        done = _np(pol.windows_done) > 0
     profile = tables.backend_profile(k_max)
+    arr = None
+    if tl is not None:
+        arr = _np(tl.svc_arrivals)                      # (S, W)
     services: Dict[str, dict] = {}
     for s, name in enumerate(tables.names):
         kind = int(tables.kind[s])
@@ -587,6 +605,32 @@ def to_doc(tables: LbTables, tl=None, pol=None, max_windows: int = 64) -> dict:
             doc["weights"] = list(tables.weights[s, :n])
         if panic > 0.0:
             doc["panic_threshold"] = panic
+        if arr is not None:
+            W = arr.shape[1]
+            split = []
+            for wi in range(min(W, max_windows)):
+                if done is not None and not done[wi]:
+                    break
+                k_w = k_s
+                if eff_p is not None:
+                    k_w = max(int(round(eff_p[s, wi])), 1)
+                pw = profile[s, :k_w]
+                sh = pw / max(pw.sum(), 1e-30)
+                split.append(
+                    [round(float(arr[s, wi] * v), 3) for v in sh]
+                )
+            doc["window_split"] = split
+            # totals span THIS service's widest pool across the run
+            # (HPA growth included), not the doc-global k_max
+            k_top = max([len(row) for row in split] + [k_s])
+            doc["backend_hops"] = [
+                round(float(v), 3)
+                for v in np.sum(
+                    [np.pad(row, (0, k_top - len(row)))
+                     for row in split] or [np.zeros(k_top)],
+                    axis=0,
+                )
+            ]
         services[name] = doc
     return {
         "schema": "isotope-lb/v1",

@@ -49,18 +49,23 @@ class QueueParams(NamedTuple):
 
 def mmk_params(
     arrival_rate: torch.Tensor,
-    service_rate: float,
+    service_rate,
     replicas: torch.Tensor,
     k_max: int,
 ) -> QueueParams:
     """Erlang-C sampling parameters for each station.
 
     ``arrival_rate``: lambda per station (float32); ``service_rate``: mu
-    per server; ``replicas``: integer k per station; ``k_max``: the
-    static max k (sets the recursion length).
+    per server (a float, or an (S,) tensor: the canary arms' own rates);
+    ``replicas``: integer k per station; ``k_max``: the static max k
+    (sets the recursion length).
     """
     lam = arrival_rate.to(torch.float32)
-    mu = torch.tensor(service_rate, dtype=torch.float32, device=lam.device)
+    if isinstance(service_rate, torch.Tensor):
+        mu = service_rate.to(torch.float32)
+    else:
+        mu = torch.tensor(service_rate, dtype=torch.float32,
+                          device=lam.device)
     k = replicas.to(torch.int64)
     kf = k.to(torch.float32)
 

@@ -140,14 +140,20 @@ def test_library_path_is_keyed_by_source():
 def _chip_smoke_shapes():
     """Every census shape ``chip_smoke.py`` holds the kernel at, from
     the same simulators (built here on the CPU), the scenario runs'
-    (svc100k-chaos among them) and the lb runs' included."""
+    (svc100k-chaos among them), the lb runs' and the protected runs'
+    included."""
     import sys
     from types import SimpleNamespace
 
     root = pathlib.Path(__file__).resolve().parents[1]
     sys.path.insert(0, str(root))
     import chip_smoke
-    from isotope_tpu_torch.compiler import compile_graph, compile_lb
+    from isotope_tpu_torch.compiler import (
+        compile_graph,
+        compile_lb,
+        compile_policies,
+        compile_rollouts,
+    )
     from isotope_tpu_torch.models.generators import (
         realistic_topology,
         tree_topology,
@@ -155,6 +161,7 @@ def _chip_smoke_shapes():
     )
     from isotope_tpu_torch.models.graph import ServiceGraph
     from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
+    from isotope_tpu_torch.runner.run import protected_window_block
     from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
     from isotope_tpu_torch.sim.config import (
         ChaosEvent,
@@ -172,14 +179,18 @@ def _chip_smoke_shapes():
                            TrafficSplit=TrafficSplit,
                            MtlsSchedule=MtlsSchedule,
                            bounce_schedule=bounce_schedule,
-                           DEFAULT_ENVIRONMENTS=DEFAULT_ENVIRONMENTS)
+                           DEFAULT_ENVIRONMENTS=DEFAULT_ENVIRONMENTS,
+                           compile_policies=compile_policies,
+                           compile_rollouts=compile_rollouts,
+                           protected_window_block=protected_window_block)
     flagship = ServiceGraph.decode(tree_topology(
         num_levels=5, num_branches=3, request_size=1024, response_size=1024,
     ))
     runs = chip_smoke.main_path_runs(port, flagship, device="cpu")
     runs += [run[:5] for run in
              chip_smoke.scenario_runs(port, {}, device="cpu")
-             + chip_smoke.lb_runs(port, device="cpu")]
+             + chip_smoke.lb_runs(port, device="cpu")
+             + chip_smoke.protected_runs(port, device="cpu")]
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
     )
@@ -248,6 +259,19 @@ def test_chip_smoke_covers_the_lb_runs():
     assert (240_000, 1, 1, True, True) in _SHAPES
     for b in (216, 36, 6, 1):
         assert (32_768, b, 1, False, False) in _SHAPES
+
+
+def test_chip_smoke_covers_the_protected_runs():
+    """policies-1000svc-kill's 4 calls a block of 506 requests over its
+    66,196 unrolled hops, each with a fail step (timeouts) and error
+    flags (breaker sheds); the rollout runs' 12 calls of 6,500 requests,
+    with error flags only where the canary can 500; the smoke's one."""
+    for b in (5_832, 324, 18, 1):
+        assert (506, b, 1, True, True) in _SHAPES
+    rollouts = [s for s in _SHAPES if s[0] == 6_500]
+    assert len(rollouts) == 24
+    assert sum(s[4] for s in rollouts) == 12
+    assert (8_192, 1, 1, True, True) in _SHAPES
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

@@ -232,11 +232,10 @@ def test_default_device_raises_without_gpu():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(rollouts=object()), "protected layers"),
-        # the lb laws are ported (tests/test_torch_lb.py); the timeline
-        # recorder is not
-        (dict(params=SimParams(timeline=True)), "observability"),
-        (dict(policies=object()), "protected layers"),
+        # the lb laws, the timeline recorder and the protected layers are
+        # ported (test_torch_lb.py, test_torch_timeline.py,
+        # test_torch_policies.py, test_torch_rollout.py); attribution
+        # and ensembles are not
         (dict(params=SimParams(attribution=True)), "observability"),
         (dict(params=SimParams(ensemble=2)), "fleets"),
     ],
@@ -245,6 +244,50 @@ def test_unported_features_raise(kwargs, item):
     _, pg = _graphs("canonical")
     with pytest.raises(NotImplementedError, match=item):
         Simulator(compile_graph(pg), device="cpu", **kwargs)
+
+
+PROTECTED_YAML = """
+services:
+- name: a
+  isEntrypoint: true
+  script:
+  - call: {service: b, retries: 1}
+- name: b
+  numReplicas: 2
+policies:
+  b:
+    breaker: {max_pending: 4}
+    retry_budget: {budget_percent: 20%}
+rollouts:
+  b:
+    steps: [50%, 100%]
+"""
+
+
+@pytest.mark.parametrize("layer", ["timeline", "policies", "rollouts"])
+def test_ported_layers_build_and_run(layer):
+    """What ``test_unported_features_raise`` refused before the slice
+    that ported it: a timeline Simulator and one carrying policy or
+    rollout tables build and run their recorded or protected loop."""
+    from isotope_tpu_torch.compiler import compile_policies, compile_rollouts
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import TorchDraws
+
+    g = ServiceGraph.from_yaml(PROTECTED_YAML)
+    c = compile_graph(g)
+    kw = {
+        "timeline": {},
+        "policies": dict(policies=compile_policies(g, c)),
+        "rollouts": dict(rollouts=compile_rollouts(g, c)),
+    }[layer]
+    sim = Simulator(c, SimParams(timeline=True), device="cpu", **kw)
+    run = {"timeline": sim.run_timeline, "policies": sim.run_policies,
+           "rollouts": sim.run_rollouts}[layer]
+    out = run(LoadModel(kind="open", qps=2_000.0), 512,
+              TorchDraws(0, "cpu"), block_size=128, window_s=0.05)
+    assert float(out[0].count) == 512
+    assert int(out[1].arrivals.sum()) == 512
+    assert len(out) == (2 if layer == "timeline" else 3)
 
 
 def test_saturated_closed_loop_builds_under_phases():
@@ -347,10 +390,13 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     # among them the modules of the tiled levels, the saturated closed
-    # loop and the check command
+    # loop, the check command, the flight recorder and the protected
+    # layers
     for name in ("sim.engine", "sim.closed", "sim.summary",
                  "models.generators", "metrics.prometheus",
                  "metrics.query", "metrics.alarms", "cli",
-                 "sim.lb", "sim.oracle", "native.host"):
+                 "sim.lb", "sim.oracle", "native.host",
+                 "metrics.timeline", "metrics.attribution",
+                 "sim.policies", "sim.rollout", "runner.run"):
         assert f"isotope_tpu_torch.{name}" in names, name
-    assert len(names) >= 25
+    assert len(names) >= 30

@@ -5,7 +5,9 @@ that rebuilds, from a JAX ``PRNGKey``, exactly the random tensors the
 JAX engine draws for the same block (``isotope_tpu/sim/engine.py``:
 key splits and static coin elimination at 4761-4880, arrivals at 4885,
 service times at 4639-4660, block keys at 4543, pilot keys at 2066,
-ungraceful-kill coins at 6104, lb panic coins at 5275-5288).
+ungraceful-kill coins at 6104, lb panic coins at 5275-5288, the
+protected runs' policy coins at 4775-4800 and version coins at
+4805-4815).
 Both engines then consume the same numbers, so their outputs can be
 compared element by element.  ``test_torch_engine.py``,
 ``test_torch_summary.py`` and the scenario tests import these helpers
@@ -29,8 +31,10 @@ from isotope_tpu_torch.compiler import compiled_from_arrays, compiled_to_arrays
 from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
 from isotope_tpu_torch.sim import config as port_config
 from isotope_tpu_torch.sim.draws import (
+    CANARY_INDEX,
     KILL_INDEX_BASE,
     PANIC_INDEX,
+    POLICY_INDEX,
     SVC_EXPONENTIAL,
     SVC_NORMAL,
     Draws,
@@ -128,6 +132,22 @@ class JaxReplayDraws:
             out = out._replace(u_panic=put(jax.random.uniform(
                 jax.random.fold_in(k, PANIC_INDEX), (n, h)
             )))
+        if spec.policy:
+            k_shed, k_retry = jax.random.split(
+                jax.random.fold_in(k, POLICY_INDEX)
+            )
+            if spec.shed:
+                out = out._replace(
+                    u_shed=put(jax.random.uniform(k_shed, (n, h)))
+                )
+            if spec.retry:
+                out = out._replace(
+                    u_retry=put(jax.random.uniform(k_retry, (n, h)))
+                )
+        if spec.canary:
+            out = out._replace(u_canary=put(jax.random.uniform(
+                jax.random.fold_in(k, CANARY_INDEX), (n, h)
+            )))
         return out
 
 
@@ -151,11 +171,21 @@ def check_spec(spec, jax_sim) -> None:
     )
     assert spec.kill_events == jax_sim._num_kill_events
     # the JAX engine draws panic coins when an active lb table has a
-    # panic threshold and chaos can unhealth a pool (no -qps max)
+    # panic threshold and chaos (or, in a protected block, the policy
+    # state) can unhealth a pool (no -qps max)
     assert spec.panic == (
         jax_sim._lb_dev is not None and jax_sim._lb.any_panic
-        and jax_sim.has_chaos and not spec.saturated
+        and (jax_sim.has_chaos or spec.policy) and not spec.saturated
     )
+    # policy coins only in blocks under policy effects, version coins
+    # only in blocks under rollout effects
+    pol = jax_sim._policies
+    assert not spec.policy or pol is not None
+    assert spec.shed == (spec.policy and pol.any_breaker)
+    assert spec.retry == (
+        spec.policy and pol.any_budget and jax_sim._has_retries
+    )
+    assert not spec.canary or jax_sim._rollouts is not None
 
 
 def port_compiled(jax_compiled):
@@ -164,13 +194,16 @@ def port_compiled(jax_compiled):
 
 
 def scenario_pair(jax_compiled, params=None, chaos=(), churn=(),
-                  mtls=None, lb=(None, None)):
+                  mtls=None, lb=(None, None), policies=(None, None),
+                  rollouts=(None, None)):
     """(JAX simulator, port simulator on the CPU) of one compiled graph
     under one scenario.  ``params``: a dict of ``SimParams`` fields, or
     a (JAX params, port params) pair; ``chaos`` and ``churn`` are lists
     of ``ChaosEvent`` / ``TrafficSplit`` keyword dicts and ``mtls`` one
-    of ``MtlsSchedule``, each built in both packages; ``lb`` is the
-    (JAX, port) pair of ``compile_lb`` tables."""
+    of ``MtlsSchedule``, each built in both packages; ``lb``,
+    ``policies`` and ``rollouts`` are (JAX, port) pairs of
+    ``compile_lb`` / ``compile_policies`` / ``compile_rollouts``
+    tables."""
     if params is None or isinstance(params, dict):
         jax_params = JaxParams(**(params or {}))
         port_params = SimParams(**(params or {}))
@@ -187,11 +220,13 @@ def scenario_pair(jax_compiled, params=None, chaos=(), churn=(),
     jax_sim = JaxSimulator(
         jax_compiled, jax_params, tuple(a for a, _ in chaos_pairs),
         tuple(a for a, _ in churn_pairs), mtls_pair[0], lb=lb[0],
+        policies=policies[0], rollouts=rollouts[0],
     )
     sim = Simulator(
         port_compiled(jax_compiled), port_params,
         tuple(b for _, b in chaos_pairs), tuple(b for _, b in churn_pairs),
-        mtls_pair[1], lb=lb[1], device="cpu",
+        mtls_pair[1], lb=lb[1], policies=policies[1],
+        rollouts=rollouts[1], device="cpu",
     )
     return jax_sim, sim
 

@@ -177,7 +177,8 @@ def test_tiled_level_equals_dense_bitwise(variant):
     a = dense.run(load, N, TorchDraws(3, "cpu"))
     b = tiled.run(load, N, TorchDraws(3, "cpu"))
     for name, x in a._asdict().items():
-        assert torch.equal(x, getattr(b, name)), name
+        y = getattr(b, name)
+        assert (x is None and y is None) or torch.equal(x, y), name
 
 
 def test_summary_through_tiles_matches_reference():

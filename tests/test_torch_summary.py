@@ -14,7 +14,7 @@ import io
 import json
 import pathlib
 import sys
-from contextlib import redirect_stdout
+from contextlib import redirect_stderr, redirect_stdout
 
 import jax
 import jax.numpy as jnp
@@ -292,3 +292,261 @@ def test_module_entry_point_runs(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert "--device" in out.stdout
+
+
+# -- simulate, number for number against the JAX command ---------------------
+
+PROTECTED_TOPOLOGY = """
+services:
+- name: entry
+  isEntrypoint: true
+  numReplicas: 2
+  script:
+  - call: {service: worker, timeout: 2ms, retries: 2}
+- name: worker
+  numReplicas: 2
+policies:
+  defaults:
+    retry_budget: {budget_percent: 25%}
+  entry:
+    lb: {policy: least_request, choices_d: 2}
+  worker:
+    breaker: {max_pending: 4}
+    autoscaler: {min_replicas: 2, max_replicas: 6,
+                 target_utilization: 50%, sync_period: 1s,
+                 stabilization_window: 3s}
+rollouts:
+  worker:
+    steps: [10%, 50%, 100%]
+    bake: 1s
+    gates: {min_samples: 20}
+    canary: {error_rate: 30%}
+"""
+
+#: occupancy-derived entries of the timeline document: the float32
+#: occupancy integrals over a window (and replicas), held to the
+#: integrals' tolerance (test_torch_timeline.py) over the window
+_OCCUPANCY_KEYS = {"utilization", "queue_depth", "in_flight",
+                   "peak_utilization"}
+#: the convoy detector's shares and correlation are quotients of those
+#: integrals, window by window: the series they come from are held in
+#: test_torch_timeline.py, and here only the verdict's counts and flag;
+#: likewise the argmax of a utilization series (two windows within the
+#: tolerance may swap; its value, peak_utilization, is compared)
+_CONVOY_FLOATS = {"entry_wait_share", "leaf_busy_share", "correlation",
+                  "peak_window"}
+
+
+def occupancy_atol(doc):
+    """The integrals' tolerance over one window, for a document."""
+    horizon = doc["num_windows"] * doc["window_s"]
+    events = max([s["requests"] for s in doc["services"].values()] + [1])
+    return 64 * float(np.spacing(np.float32(horizon * events))) / (
+        doc["window_s"]
+    )
+
+
+def assert_doc_close(got, want, path="", occ_atol=None):
+    """Documents equal: keys, strings, booleans and integers exactly;
+    floats at rtol 1e-5 / atol 1e-9 (the engine's), occupancy-derived
+    entries at ``occ_atol``; ``StartTime`` (the wall clock) and the
+    convoy quotients skipped."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), path
+        for k in want:
+            if k == "StartTime" or k in _CONVOY_FLOATS:
+                continue
+            atol = occ_atol if k in _OCCUPANCY_KEYS else None
+            assert_doc_close(got[k], want[k], f"{path}.{k}",
+                             occ_atol if atol is None else atol)
+        return
+    if isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_doc_close(g, w, f"{path}[{i}]", occ_atol)
+        return
+    if isinstance(want, float) and not isinstance(want, bool):
+        if occ_atol is not None and path.split(".")[-1].split("[")[0] in (
+            _OCCUPANCY_KEYS
+        ):
+            assert abs(got - want) <= occ_atol, (path, got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9,
+                                       err_msg=path)
+        return
+    assert got == want, (path, got, want)
+
+
+def _prom_values(text):
+    """{series line without its value: value} of an exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        head, _, rest = line.rpartition(" ")
+        if "{" in line and line.count(" ") >= 2 and rest.isdigit():
+            head, _, value = head.rpartition(" ")
+            out[f"{head} @{rest}"] = float(value)
+        else:
+            out[head] = float(rest)
+    return out
+
+
+def _simulate_both(tmp_path, monkeypatch, topo, flags, seed=0):
+    """The JAX ``simulate`` (``run_experiment``, run key
+    ``fold_in(PRNGKey(seed), 0)``, on one device: ``--mesh 1x1``, as
+    the tests' virtual CPU mesh would shard it) and the port's on the
+    JAX run's draws (its ``TorchDraws`` replaced by ``JaxReplayDraws``);
+    returns ``{name: (port output, JAX output)}`` for stdout and every
+    file flag."""
+    import isotope_tpu_torch.sim
+    from isotope_tpu import cli as jax_cli
+
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 0)
+    monkeypatch.setattr(isotope_tpu_torch.sim, "TorchDraws",
+                        lambda seed, device: JaxReplayDraws(key))
+
+    out = {}
+    for side in ("port", "jax"):
+        d = tmp_path / side
+        d.mkdir()
+        argv = ["simulate", str(topo)] + [
+            str(d / a[5:]) if isinstance(a, str) and a.startswith("FILE:")
+            else a for a in flags
+        ] + ["--seed", str(seed)]
+        buf, err = io.StringIO(), io.StringIO()
+        with redirect_stdout(buf), redirect_stderr(err):
+            if side == "port":
+                rc = cli.main(argv + ["--device", "cpu"])
+            else:
+                rc = jax_cli.main(argv + ["--mesh", "1x1"])
+        assert rc == 0, err.getvalue()
+        out[side] = {"stdout": json.loads(buf.getvalue()),
+                     "stderr": err.getvalue()}
+        for f in d.iterdir():
+            text = f.read_text()
+            out[side][f.name] = (
+                json.loads(text) if f.suffix == ".json" else text
+            )
+    return {k: (out["port"][k], out["jax"][k]) for k in out["jax"]}
+
+
+def test_cli_simulate_flags_match_reference_number_for_number(tmp_path,
+                                                             monkeypatch):
+    """``--cpu-time``, ``--service-time-param``, ``--entry``,
+    ``--labels``, ``--prometheus`` and the ``--timeline`` pass with its
+    documents, against the JAX command on the same draws."""
+    got = _simulate_both(tmp_path, monkeypatch, CANONICAL, [
+        "--qps", "1000", "--duration", "1s", "--load-kind", "open",
+        "--cpu-time", "100us", "--service-time", "lognormal",
+        "--service-time-param", "0.5", "--entry", "a", "--labels", "lbl",
+        "--prometheus", "FILE:run.prom", "--timeline", "250ms",
+        "--timeline-out", "FILE:tl.json",
+        "--timeline-prometheus", "FILE:tl.prom",
+    ])
+    doc, want = got["stdout"]
+    assert doc["Labels"] == "canonical_none_1000qps_64c_lbl"
+    assert_doc_close(doc, want)
+    tl, tl_want = got["tl.json"]
+    assert tl["num_windows"] == 4
+    assert_doc_close(tl, tl_want, occ_atol=occupancy_atol(tl_want))
+    for name in ("run.prom", "tl.prom"):
+        a, b = (_prom_values(t) for t in got[name])
+        assert set(a) == set(b), name
+        for k in b:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=2e-3,
+                                       err_msg=f"{name} {k}")
+    assert "timeline:" in got["stderr"][0]
+
+
+def test_cli_protected_run_matches_reference_number_for_number(tmp_path,
+                                                               monkeypatch):
+    """``--policies --rollouts`` (one composed carry) with
+    ``--policies-out``, ``--rollouts-out``, ``--timeline-out`` and
+    ``--lb-out`` (the per-window split over the policy pools), against
+    the JAX command on the same draws."""
+    topo = tmp_path / "prot.yaml"
+    topo.write_text(PROTECTED_TOPOLOGY)
+    got = _simulate_both(tmp_path, monkeypatch, topo, [
+        "--qps", "2000", "--duration", "8s", "--load-kind", "open",
+        "--policies", "--rollouts", "--policies-out", "FILE:pol.json",
+        "--rollouts-out", "FILE:roll.json", "--timeline-out",
+        "FILE:tl.json", "--lb-out", "FILE:lb.json",
+    ])
+    assert_doc_close(*got["stdout"])
+    for name in ("pol.json", "roll.json", "lb.json"):
+        assert_doc_close(*got[name], path=name)
+    assert_doc_close(*got["tl.json"],
+                     occ_atol=occupancy_atol(got["tl.json"][1]))
+    roll = got["roll.json"][0]["services"]["worker"]
+    assert roll["state"] == "failed" and roll["rollbacks"] >= 1
+    assert got["pol.json"][0]["windows_done"] >= 7
+    for table in ("policies:", "rollouts:", "lb:", "timeline:"):
+        assert table in got["stderr"][0], table
+
+
+@pytest.mark.parametrize("opt,kind,item", cli._REFUSED,
+                         ids=[r[0] for r in cli._REFUSED])
+def test_cli_refused_flags_name_their_item(opt, kind, item):
+    argv = ["simulate", str(CANONICAL), "--device", "cpu", opt]
+    if kind.get("action") != "store_true" and "const" not in kind:
+        argv.append("1")
+    with pytest.raises(NotImplementedError,
+                       match=f"{opt} .*{item.split(',')[0]}"):
+        cli.main(argv)
+
+
+def test_cli_accepts_every_flag_of_the_jax_command():
+    """Every flag of the JAX ``simulate`` parses in the port's parser:
+    it runs, or raises naming its ROADMAP item, never an argparse
+    error."""
+    import argparse
+
+    from isotope_tpu.commands import simulate_cmd
+
+    ref = argparse.ArgumentParser()
+    simulate_cmd.register(ref.add_subparsers())
+    sim_ref = ref._subparsers._group_actions[0].choices["simulate"]
+    port = cli.build_parser()._subparsers._group_actions[0].choices[
+        "simulate"
+    ]
+    want = {o for a in sim_ref._actions for o in a.option_strings}
+    have = {o for a in port._actions for o in a.option_strings}
+    assert want - have == set()
+    assert have - want == {"--device"}
+
+
+def test_cli_compile_cache_is_accepted_and_ignored():
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = cli.main(["simulate", str(CANONICAL), "--qps", "1000",
+                       "--duration", "1s", "--load-kind", "open",
+                       "--compile-cache", "/nonexistent", "--device",
+                       "cpu"])
+    assert rc == 0 and json.loads(out.getvalue())["Labels"]
+    assert "XLA" in err.getvalue()
+
+
+@pytest.mark.parametrize("timeline", [None, 1.0, 0.25])
+@pytest.mark.parametrize("qps,duration", [(1000.0, 240.0), (1e4, 30.0),
+                                          (None, 2.0), (50.0, 0.004)])
+def test_protected_window_block_matches_reference(timeline, qps, duration):
+    """``simulate``'s window and block sizing of the protected runs is
+    the reference's ``_protected_window_block``."""
+    from types import SimpleNamespace
+
+    from isotope_tpu.runner.run import _protected_window_block
+    from isotope_tpu_torch.runner.run import protected_window_block
+
+    jc = jax_compile_graph(JaxGraph.from_yaml_file(str(CANONICAL)))
+    js = JaxSimulator(jc)
+    ps = Simulator(port_compiled(jc), device="cpu")
+    kw = dict(kind="closed", qps=qps, connections=64, duration_s=duration)
+    for block in (65_536, 1_000, 100):
+        want = _protected_window_block(
+            js, JaxLoad(**kw), block, SimpleNamespace(timeline_window_s=10.0),
+            timeline,
+        )
+        got = protected_window_block(ps, LoadModel(**kw), block, 10.0,
+                                     timeline)
+        assert got == want
