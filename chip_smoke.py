@@ -39,7 +39,17 @@ any failure exits non-zero and nothing is caught:
    whole lb-10svc-100r-panic run and one block of 16,384 requests of
    lb-1000svc-lr, with the same draws, on the card (kernel) and on the
    CPU (plain version), compared like the CPU tests compare the port
-   with the JAX package;
+   with the JAX package; then the attribution sweep
+   (``metrics/attribution.py``): each block of the flagship (tail, its
+   cut from the pilot), of the retry/timeout/error topology (mean), of
+   svc100k-chaos (its first two blocks) and of the protected policy
+   twin (tail) is attributed on the card and, moved to the CPU, by the
+   CPU's sweep: counts and blame histograms equal, seconds within rtol
+   1e-5 / atol 1e-9 s, residuals within 16 float32 spacings of the
+   latency sum, exemplars equal; and the flagship's and the
+   retry/timeout topology's whole attributed runs, card against CPU
+   each on its own results (summaries, attributed and tail counts, total
+   blame, crit counts within 1e-4 of their total: winner ties);
 5. main path at full size, after one warm-up block of each run (the
    warm-up also solves and caches the closed loops' rates from the same
    seed, so the timed closed-loop runs skip their pilots and tables): the
@@ -73,6 +83,14 @@ any failure exits non-zero and nothing is caught:
    before each run and must equal its blocks times its census calls per
    block just after; the share of ``svc-0-2``'s hops that fast-fail in
    the kill window is printed and must be 60% (+-1%), and 0 outside;
+   then the attributed runs (``run_attributed``; ``run_policies(
+   attribution=True)``): the flagship (tail, top-K 8),
+   ``1000-svc_2000-end`` (mean), svc100k-chaos (mean) and
+   policies-smoke (tail), each with its wall per block beside its
+   unattributed twin's, its torch ops a block beside the twin's (counted
+   on the card), its peak device memory, its census launches (its blocks
+   and its tail pilot's) and the telescoping check: the charges plus the
+   residual equal the latency sum within rtol 1e-5;
 6. the CLI as a subprocess: ``simulate`` once on the card; ``check`` on
    ``canonical.yaml`` and ``simulate --qps max`` (50,000 requests each),
    on the card and with ``--device cpu``: both ``check`` runs must give
@@ -83,7 +101,13 @@ any failure exits non-zero and nothing is caught:
    return codes) must agree; ``simulate --lb-out`` on the lb topology
    (written to a temporary YAML), on the card and with ``--device cpu``,
    whose draw-independent values and lb documents must agree, and
-   ``simulate --qps max`` on it, which must exit non-zero;
+   ``simulate --qps max`` on it, which must exit non-zero; in this
+   process on one draw source, on the card and with ``--device cpu``:
+   ``simulate --timeline --timeline-perfetto``, ``--policies
+   --rollouts``, ``--attribution tail --blame-out --flamegraph
+   --perfetto-blame --exemplar-trace``, ``--trace`` in both formats and
+   the ``timeline`` command with ``--controlplane 100:10:500 --alarms``,
+   whose documents, exit codes and alarm onsets must agree;
 7. oracle: build the DES oracle (``isotope_tpu_torch/native/
    des_oracle.cpp``) with ``g++`` and hold the engine on the card to
    it: the six exact interpreter-parity cases of the reference's
@@ -93,8 +117,13 @@ any failure exits non-zero and nothing is caught:
    rho 0.3 and 0.7: 200,000 requests on the card, 1,000,000 in the
    oracle, warm-up 0.5 s; p50 and p99 within 5%) and the paced closed
    case (chain3, 64 connections at half capacity, 128,000 / 512,000:
-   p50 and p99 within 5%, throughput within 2%); each relative error is
-   printed.
+   p50 and p99 within 5%, throughput within 2%); then the reference's
+   remaining gates (``oracle_gates``), at its sizes and bands: saturated
+   throughput, fidelity per topology (star9's asymmetric band),
+   probabilistic chain, mixed replicas, chaos phases, heavy tails and
+   fork-join throughput, the retry-storm collapse with its
+   feedback-blind twin, the error-rate and call-probability fractions
+   and the open high-rho envelope; each relative error is printed.
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -103,6 +132,7 @@ with code 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import pathlib
@@ -112,6 +142,7 @@ import sys
 import tempfile
 import time
 from types import SimpleNamespace
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -375,6 +406,312 @@ PARITY_RTOL = 1e-5
 FIDELITY_BAND = 0.05   # p50 and p99, engine against oracle
 THROUGHPUT_BAND = 0.02  # the paced closed loop's solved rate
 ORACLE_WARMUP_S = 0.5
+
+# the reference's remaining fidelity gates (tests/test_oracle.py), at its
+# own sizes and bands: each gate is (name, engine run, oracle run,
+# check), the check returning its line and raising out of band
+SAT_RETRY_STORM = """
+services:
+- name: entry
+  isEntrypoint: true
+  numReplicas: 4
+  script:
+  - call: {service: worker, timeout: 850us, retries: 2}
+- name: worker
+  numReplicas: 4
+"""
+PROB_CHAIN = """
+services:
+- name: a
+  isEntrypoint: true
+  script: [{call: b}]
+- name: b
+  script:
+  - call: {service: c, probability: 50}
+- name: c
+"""
+MIXED_REPLICAS = """
+services:
+- name: a
+  isEntrypoint: true
+  numReplicas: 2
+  script: [{call: b}]
+- name: b
+  numReplicas: 1
+  script: [{call: c}]
+- name: c
+  numReplicas: 2
+"""
+CHAIN3_2R = MIXED_REPLICAS.replace("numReplicas: 1", "numReplicas: 2")
+ERROR_RATES = """
+services:
+- name: entry
+  isEntrypoint: true
+  errorRate: 10%
+  script: [{call: leaf}]
+- name: leaf
+  errorRate: 50%
+"""
+CALL_PROBABILITY = """
+services:
+- name: entry
+  isEntrypoint: true
+  script:
+  - call: {service: maybe, probability: 50}
+- name: maybe
+  script: [{sleep: 20ms}]
+"""
+
+
+class Gate(NamedTuple):
+    """One fidelity gate: ``engine(port, device)`` and ``oracle(port)``
+    return what ``check(engine result, oracle result)`` compares; the
+    check returns the gate's line and raises out of band."""
+
+    name: str
+    engine: Callable
+    oracle: Callable
+    check: Callable
+
+
+def _engine_run(text, load, n, params=None, chaos=(), seed=0,
+                feedback=True):
+    """An engine run as the reference's gates make it, on the host:
+    (start, latency float64, error, offered rate, unstable)."""
+    def run(port, device):
+        p = params(port) if callable(params) else port.SimParams()
+        sim = port.Simulator(
+            port.compile_graph(port.ServiceGraph.from_yaml(text)), p,
+            tuple(port.ChaosEvent(**c) for c in chaos), device=device,
+        )
+        if not feedback:
+            sim._feedback = None
+        res = sim.run(load(port), n, port.TorchDraws(seed, device))
+        return SimpleNamespace(
+            start=res.client_start.double().cpu().numpy(),
+            latency=res.client_latency.double().cpu().numpy(),
+            error=res.client_error.cpu().numpy(),
+            offered=float(res.offered_qps),
+            unstable=res.unstable.cpu().numpy(),
+            has_feedback=sim._feedback is not None,
+        )
+    return run
+
+
+def _oracle_run(text, load, n, params=None, chaos=(), seed=0):
+    def run(port):
+        p = params(port) if callable(params) else port.SimParams()
+        from isotope_tpu_torch.sim.oracle import OracleSimulator
+
+        return OracleSimulator(
+            port.ServiceGraph.from_yaml(text), p,
+            tuple(port.ChaosEvent(**c) for c in chaos),
+        ).run(load(port), n, seed)
+    return run
+
+
+def _band(rel, tol):
+    lo, hi = tol if isinstance(tol, tuple) else (-tol, tol)
+    return lo <= rel <= hi, f"[{lo:+.0%}, {hi:+.0%}]"
+
+
+def _throughput(e, o):
+    return e.offered / (len(o.client_latency) / float(o.client_end.max())) \
+        - 1.0
+
+
+def _quantile_check(name, tol_p50, tol_p99, warmup=ORACLE_WARMUP_S,
+                    thr_band=None, mean_band=None):
+    def check(e, o):
+        lat_o = o.client_latency[o.client_start >= warmup]
+        parts, ok = [], True
+        for q, tol in ((0.5, tol_p50), (0.99, tol_p99)):
+            if tol is None:
+                continue
+            rel = np.quantile(e.latency, q) / np.quantile(lat_o, q) - 1.0
+            good, band = _band(rel, tol)
+            ok &= good
+            parts.append(f"p{int(q * 100)} {rel:+.4%} in {band}")
+        if mean_band is not None:
+            rel = e.latency.mean() / o.client_latency.mean() - 1.0
+            good, band = _band(rel, mean_band)
+            ok &= good
+            parts.append(f"mean {rel:+.4%} in {band}")
+        if thr_band is not None:
+            rel = _throughput(e, o)
+            good, band = _band(rel, thr_band)
+            ok &= good
+            parts.append(f"throughput {rel:+.4%} in {band}")
+        line = f"oracle gate {name}: " + ", ".join(parts)
+        if not ok:
+            raise AssertionError(line)
+        return line
+    return check
+
+
+def _window_check(name, windows, qs):
+    """Quantile bands per arrival window (engine start, oracle start)."""
+    def check(e, o):
+        parts, ok = [], True
+        for lo, hi, tag, tols in windows:
+            m_e = (e.start >= lo) & (e.start <= hi)
+            m_o = (o.client_start >= lo) & (o.client_start <= hi)
+            for q, tol in zip(qs, tols):
+                rel = (np.quantile(e.latency[m_e], q)
+                       / np.quantile(o.client_latency[m_o], q) - 1.0)
+                good, band = _band(rel, tol)
+                ok &= good
+                parts.append(f"{tag} p{int(q * 100)} {rel:+.4%} in {band}")
+        line = f"oracle gate {name}: " + ", ".join(parts)
+        if not ok:
+            raise AssertionError(line)
+        return line
+    return check
+
+
+def oracle_gates():
+    """The gates of ``tests/test_oracle.py`` not in the parity and
+    open-loop cases, at its sizes (engine / oracle requests) and bands:
+    saturated (``-qps max``, 64 connections) throughput, fidelity per
+    topology (star9's asymmetric band, ``ORACLE.md:35``), probabilistic
+    chain, mixed replicas, chaos phases, heavy tails and fork-join
+    throughput; the retry-storm collapse with its feedback-blind twin;
+    the error-rate and call-probability fractions; the open high-rho
+    envelope."""
+    def sat(port):
+        return port.LoadModel(kind="closed", qps=None, connections=64)
+
+    def open_at(rho):
+        return lambda port: port.LoadModel(
+            kind="open", qps=rho / port.SimParams().cpu_time_s)
+
+    def quiet(port):
+        return port.LoadModel(kind="open", qps=0.001, duration_s=1.0)
+
+    def det(port):
+        return port.SimParams(service_time="deterministic")
+
+    gates = []
+
+    def add(name, text, load, n_e, n_o, check, params=None, chaos=(),
+            seed_e=0, seed_o=0):
+        gates.append(Gate(
+            name, _engine_run(text, load, n_e, params, chaos, seed_e),
+            _oracle_run(text, load, n_o, params, chaos, seed_o), check,
+        ))
+
+    add("saturated throughput chain3", CHAIN3, sat, 128_000, 512_000,
+        _quantile_check("saturated throughput chain3", None, None,
+                        thr_band=0.02, mean_band=0.05))
+    for name, text, t50, t99 in (
+        ("chain3", CHAIN3, 0.03, 0.05),
+        ("tree13", TREE13, 0.09, 0.04),
+        ("star9", STAR9, (-0.23, 0.03), (-0.16, 0.03)),
+    ):
+        add(f"saturated fidelity {name}", text, sat, 128_000, 512_000,
+            _quantile_check(f"saturated fidelity {name}", t50, t99))
+    add("saturated probabilistic chain", PROB_CHAIN, sat, 128_000, 512_000,
+        _quantile_check("saturated probabilistic chain", 0.03, 0.08,
+                        thr_band=0.02))
+    add("saturated mixed replicas", MIXED_REPLICAS, sat, 64_000, 256_000,
+        _quantile_check("saturated mixed replicas", 0.03, 0.04,
+                        thr_band=0.02))
+    add("saturated chaos phases", CHAIN3_2R, sat, 128_000, 256_000,
+        _window_check("saturated chaos phases", [
+            (0.2, 1.0, "pre", (0.03, 0.05)),
+            (1.15, 3.0, "chaos", (0.03, 0.05)),
+            (3.3, 1e9, "post", (0.03, 0.05)),
+        ], (0.5, 0.99)),
+        chaos=(dict(service="b", start_s=1.0, end_s=3.0, replicas_down=1),),
+        seed_e=9)
+    for kind, param, t50, t99 in (("lognormal", 1.0, 0.05, 0.08),
+                                  ("pareto", 2.5, 0.06, 0.08),
+                                  ("deterministic", 1.0, 0.03, 0.05)):
+        add(f"saturated heavy tail {kind}", CHAIN3, sat, 64_000, 256_000,
+            _quantile_check(f"saturated heavy tail {kind}", t50, t99),
+            params=lambda port, kind=kind, param=param: port.SimParams(
+                service_time=kind, service_time_param=param))
+    for name, text in (("tree13", TREE13), ("star9", STAR9)):
+        add(f"saturated fork-join throughput {name}", text, sat, 64_000,
+            256_000, _quantile_check(
+                f"saturated fork-join throughput {name}", None, None,
+                thr_band=(-0.03, 0.08)))
+    add("error-rate fidelity", ERROR_RATES, open_at(0.3), 100_000, 200_000,
+        _fraction_check("error-rate fidelity", lambda lat, err: err, 0.10,
+                        0.01))
+    add("call-probability fidelity", CALL_PROBABILITY, quiet, 4000, 4000,
+        _fraction_check("call-probability fidelity",
+                        lambda lat, err: lat > 0.02, 0.5, 0.03),
+        params=det)
+    for name, text, rho, t50, t99 in (
+        ("chain3", CHAIN3, 0.85, 0.03, 0.03),
+        ("chain3", CHAIN3, 0.90, 0.03, 0.03),
+        ("tree13", TREE13, 0.85, 0.04, 0.04),
+        ("tree13", TREE13, 0.90, 0.05, 0.05),
+    ):
+        tag = f"open high-rho {name} rho {rho:g}"
+        add(tag, text, open_at(rho), 300_000, 1_500_000,
+            _quantile_check(tag, t50, t99, warmup=2.0))
+    gates.append(retry_storm_gate())
+    return gates
+
+
+def _fraction_check(name, predicate, target, band):
+    """Both the engine's and the oracle's share of requests meeting
+    ``predicate(latency, error)`` within ``band`` of ``target``."""
+    def check(e, o):
+        f_e = float(np.mean(predicate(e.latency, e.error)))
+        f_o = float(np.mean(predicate(o.client_latency, o.client_error)))
+        line = (f"oracle gate {name}: engine {f_e:.4f}, oracle {f_o:.4f} "
+                f"(target {target:g} +- {band:g})")
+        if abs(f_e - target) > band or abs(f_o - target) > band:
+            raise AssertionError(line)
+        return line
+    return check
+
+
+def retry_storm_gate():
+    """The retry-storm collapse: killing 2 of 4 workers pushes waits past
+    the 850 us timeout; the feedback fixed point finds the storm branch
+    and flags the worker unstable, and the latencies track the oracle
+    before, in and after the kill; the feedback-blind twin misses it
+    (chaos-window p50 under 0.6 of the oracle's, nothing flagged)."""
+    def load(port):
+        return port.LoadModel(kind="open",
+                              qps=0.325 * 4 / port.SimParams().cpu_time_s)
+
+    chaos = (dict(service="worker", start_s=2.0, end_s=15.0,
+                  replicas_down=2),)
+    storm = _engine_run(SAT_RETRY_STORM, load, 400_000, chaos=chaos)
+    blind = _engine_run(SAT_RETRY_STORM, load, 400_000, chaos=chaos,
+                        feedback=False)
+    windows = _window_check("retry-storm collapse", [
+        (0.5, 2.0, "pre", (0.03, 0.03)),
+        (2.2, 15.0, "storm", (0.03, 0.03)),
+        (16.0, 23.0, "post", (0.04, 0.04)),
+    ], (0.5, 0.99))
+
+    def engine(port, device):
+        return storm(port, device), blind(port, device)
+
+    def check(e, o):
+        e, b = e
+        line = windows(e, o)
+        m_b = (b.start >= 2.2) & (b.start <= 15.0)
+        m_o = (o.client_start >= 2.2) & (o.client_start <= 15.0)
+        ratio = (np.quantile(b.latency[m_b], 0.5)
+                 / np.quantile(o.client_latency[m_o], 0.5))
+        line += (f"; worker unstable {bool(e.unstable[1])}; blind twin "
+                 f"storm p50 {ratio:.4f} of the oracle's, unstable "
+                 f"{bool(b.unstable.any())}")
+        if not (e.has_feedback and e.unstable[1] and ratio < 0.6
+                and not b.unstable.any()):
+            raise AssertionError(line)
+        return line
+
+    return Gate("retry-storm collapse", engine,
+                _oracle_run(SAT_RETRY_STORM, load, 600_000, chaos=chaos),
+                check)
 
 
 def log(msg: str) -> None:
@@ -650,7 +987,7 @@ def in_situ_phase(port, cases):
             f"(rtol {rtol:g}, atol {atol:g} s)")
 
 
-# -- phase 5: the main path at full size -----------------------------------------
+# -- phase 5: the main path at full size --------------------------------------
 
 
 def star10k_graph(port):
@@ -750,8 +1087,9 @@ def scenario_runs(port, build_s, device="cuda"):
     pareto = port.SimParams(service_time="pareto", service_time_param=2.5)
     outage = (port.ChaosEvent("mock-7", 5.0, 15.0, replicas_down=None),)
 
-    def make_svc100k(device):
-        return port.Simulator(svc100k, pareto, outage, device=device)
+    def make_svc100k(device, attribution=False):
+        params = dataclasses.replace(pareto, attribution=attribution)
+        return port.Simulator(svc100k, params, outage, device=device)
 
     big = make_svc100k(device)
     build_s.update(svc100k_graph=t_graph - t,
@@ -1085,8 +1423,8 @@ def in_situ_twins(port, runs):
                                        "end_s": POLICY_TWIN_KILL_S}),)
 
             def make(device, sim=sim, kill=kill):
-                return port.Simulator(sim.compiled, sim.params, kill,
-                                      policies=sim._policies,
+                return port.Simulator(sim.compiled, attributed_params(sim),
+                                      kill, policies=sim._policies,
                                       device=device)
 
             name = f"{name} (twin: {POLICY_TWIN_S:g} s)"
@@ -1119,6 +1457,15 @@ def protected_in_situ(port, runs):
         lat_max = hop_max = gap = 0.0
         shed_hops = other_errors = 0
         hop_service = torch.as_tensor(card.compiled.hop_service).long()
+        # the policy twin's blocks also attributed, tail armed at the cut
+        # of an unprotected pilot (as run_policies(attribution=True,
+        # tail=True) takes it)
+        attributed = (
+            AttributedBlocks(port, card, f"attributed {name}",
+                             card.estimate_tail_cut(load, n, source,
+                                                    block_size=block))
+            if name.startswith("policies-1000svc-kill") else None
+        )
         t = time.perf_counter()
         for b, (got, want) in enumerate(zip(
             card.run_blocks(load, n, source, block_size=block,
@@ -1134,6 +1481,8 @@ def protected_in_situ(port, runs):
                     raise AssertionError(f"in situ {name}: {field}")
                 if a is not None:
                     _same(a, w, f"in situ {name} block {b} {field}")
+            if attributed is not None:
+                attributed.block(got)
             blocks += 1
             events += int(got.hop_events)
             lat_max = max(lat_max, float(want.client_latency.max()))
@@ -1143,6 +1492,11 @@ def protected_in_situ(port, runs):
                 shed, other = shed_path(rec.last[0], want, hop_service)
                 shed_hops, other_errors = (shed_hops + shed,
                                            other_errors + other)
+        if attributed is not None:
+            attributed.finish()
+            attributed.same_run(card.run_policies(
+                load, n, source, block_size=block, window_s=window,
+                attribution=True, tail=True, tail_cut=attributed.cut)[-1])
         occ, tight = compare_timelines(
             rec.ctl.tl_acc, mirror.ctl.tl_acc, f"in situ {name} timeline",
             lat_max, gap, blocks)
@@ -1429,10 +1783,11 @@ def main_path_run(port, name, sim, load, n, block, census_ms=None):
     return summary, launches, wall / blocks
 
 
-def main_path_phase(port, runs, build_s, census_ms=None):
+def main_path_phase(port, runs, build_s, census_ms=None, walls=None):
     """Each run once, after one warm-up block of each; returns the census
     launches per run.  ``census_ms``: phase 3's census device time per
-    block of each run, printed when given."""
+    block of each run, printed when given; ``walls`` collects each run's
+    wall per block."""
     # the saturated tables and rate first, timed as host planning (their
     # fork-join pilots run on the card)
     for name, sim, load, n, _ in runs:
@@ -1453,7 +1808,7 @@ def main_path_phase(port, runs, build_s, census_ms=None):
     torch.cuda.synchronize()
 
     launches = {}
-    walls = {}
+    walls = {} if walls is None else walls
     for run in runs:
         summary, launches[run[0]], walls[run[0]] = main_path_run(
             port, *run, None if census_ms is None else census_ms[run[0]]
@@ -1718,6 +2073,45 @@ def timeline_doc_close(got, want, compiled, tl, bound, path):
                 f"{path}.services.{name}.peak_utilization differs")
 
 
+def perfetto_timeline_close(got, want, compiled, tl, bound):
+    """``--timeline-perfetto`` documents, card against CPU: the same
+    tracks at the same times; client qps and errors within
+    WINDOW_COUNT_ATOL requests of a window, each service's utilization
+    and queue depth within ``bound`` carried through their formulas (as
+    ``timeline_doc_close``), plus the documents' rounding."""
+    atol, rtol = bound
+    dt = float(tl.window_s)
+    names = list(compiled.services.names)
+    reps = np.asarray(compiled.services.replicas, np.float64)
+    busy = tl.svc_busy_s.detach().cpu().double()
+    inflight = tl.svc_inflight_s.detach().cpu().double()
+    ev_g, ev_w = got["traceEvents"], want["traceEvents"]
+    if [(e["name"], e.get("ts")) for e in ev_g] != [
+        (e["name"], e.get("ts")) for e in ev_w
+    ]:
+        raise AssertionError("timeline perfetto: tracks differ")
+    worst = 0.0
+    for g, w in zip(ev_g[1:], ev_w[1:]):
+        name = w["name"]
+        (key, v), = w["args"].items()
+        w_idx = int(round(w["ts"] / (dt * 1e6)))
+        if name.startswith("client"):
+            tol = WINDOW_COUNT_ATOL / (dt if key == "qps" else 1.0)
+        else:
+            s = names.index(name.split(" ", 1)[1])
+            tb = float(atol[s, w_idx] + rtol * busy[s, w_idx].abs())
+            ti = float(atol[s, w_idx] + rtol * inflight[s, w_idx].abs())
+            tol = (tb / (dt * max(float(reps[s]), 1.0)) if key ==
+                   "utilization" else (tb + ti) / dt) + 1e-6
+        diff = abs(g["args"][key] - v)
+        worst = max(worst, diff / tol)
+        if diff > tol:
+            raise AssertionError(f"timeline perfetto {name} @{w['ts']}: "
+                                 f"{g['args'][key]} != {v}")
+    log(f"cli timeline perfetto: {len(ev_w)} counter events agree, card "
+        f"against CPU, within {worst:.4f} of their tolerance")
+
+
 @contextlib.contextmanager
 def cli_capture(source):
     """Inside: the CLI's draw source (``TorchDraws``) is ``source``, so
@@ -1779,6 +2173,9 @@ def cli_protected_phase():
                         "--device", device, *flags]
                 for o in outs:
                     args += [f"--{o}-out", str(tmp / f"{case}-{o}-{device}")]
+                if case == "timeline":
+                    args += ["--timeline-perfetto",
+                             str(tmp / f"perfetto-{device}")]
                 t = time.perf_counter()
                 out = SimpleNamespace(stdout=io.StringIO(),
                                       stderr=io.StringIO())
@@ -1820,10 +2217,15 @@ def cli_protected_phase():
             for key, want in docs["cpu"].items():
                 docs_close(docs["cuda"][key], want, f"{case}.{key}",
                            window_s=want.get("window_s", 1.0))
+            compiled = compile_graph(ServiceGraph.from_yaml_file(str(path)))
+            bound = occupancy_bound(tl, gap, len(cpu))
             timeline_doc_close(
                 docs["cuda"]["timeline"], docs["cpu"]["timeline"],
-                compile_graph(ServiceGraph.from_yaml_file(str(path))), tl,
-                occupancy_bound(tl, gap, len(cpu)), f"{case}.timeline")
+                compiled, tl, bound, f"{case}.timeline")
+            if case == "timeline":
+                perfetto_timeline_close(
+                    *(json.loads((tmp / f"perfetto-{d}").read_text())
+                      for d in ("cuda", "cpu")), compiled, tl, bound)
             extra = ""
             if "rollouts" in docs["cpu"]:
                 r = docs["cpu"]["rollouts"]["services"]["b"]
@@ -1837,7 +2239,461 @@ def cli_protected_phase():
                 f" gap {gap:.3e} s)" + extra)
 
 
-# -- phase 7: the DES oracle ------------------------------------------------------
+# -- attribution: phases 4, 5 and 6 -------------------------------------------
+
+#: the telescoping check of an attributed run: the charges plus the
+#: residual sum to the client latency within float32 accumulation
+TELESCOPE_RTOL = 1e-5
+#: float32 spacings of a run's latency sum that the residuals (rounding
+#: noise of each request's sum of up to 2H + 1 charges) may differ by,
+#: card against CPU on the same results
+RESID_ULPS = 16
+#: whole attributed runs, card against CPU (each on its own results): a
+#: winner whose duration ties another's within float32 spacings may
+#: flip, so the crit counts may move by this share of their total
+CRIT_FLIP_SHARE = 1e-4
+
+
+def _cpu(res):
+    """A SimResults (or any tuple of tensors) on the CPU."""
+    return type(res)(*(
+        x.cpu() if isinstance(x, torch.Tensor) else x for x in res
+    ))
+
+
+def compare_attribution(got, want, what, latency_sum):
+    """Two AttributionSummaries of the same results: counts and blame
+    histograms equal, seconds within the engine's tolerance, the
+    residuals within RESID_ULPS spacings of ``latency_sum``.  Returns
+    the largest seconds difference as a share of its tolerance."""
+    for name in ("count", "tail_count", "crit_count", "error_count",
+                 "tail_crit_count", "hist", "tail_hist"):
+        _same(getattr(got, name), getattr(want, name), f"{what} {name}")
+    worst = 0.0
+    for name in ("wait_blame", "self_blame", "net_blame", "timeout_blame",
+                 "tail_wait_blame", "tail_self_blame", "tail_net_blame",
+                 "tail_timeout_blame"):
+        a = getattr(got, name).detach().cpu().double()
+        b = getattr(want, name).detach().cpu().double()
+        _same(a, b, f"{what} {name}", rtol=RESULT_RTOL, atol=RESULT_ATOL)
+        if a.numel():
+            worst = max(worst, float(((a - b).abs() / (
+                RESULT_ATOL + RESULT_RTOL * b.abs())).max()))
+    bound = RESID_ULPS * float(np.spacing(np.float32(latency_sum)))
+    for name in ("residual", "residual_abs"):
+        d = abs(float(getattr(got, name)) - float(getattr(want, name)))
+        if d > bound:
+            raise AssertionError(f"{what} {name}: {d:.3e} s > {bound:.3e}")
+    return worst
+
+
+def compare_exemplars(got, want, what):
+    for name, a in got._asdict().items():
+        _same(a, getattr(want, name), f"{what} exemplars {name}")
+
+
+class AttributedBlocks:
+    """Phase 4's attribution check of one run: each card block attributed
+    on the card and, moved to the CPU, by the CPU's sweep: the same
+    results, so the same answer (``compare_attribution``)."""
+
+    def __init__(self, port, sim, what, tail_cut=None):
+        from isotope_tpu_torch.metrics import attribution
+
+        self.attr = attribution
+        self.what, self.cut = what, tail_cut
+        self.k = sim.params.attribution_top_k
+        self.tables = {
+            dev: attribution.build_tables(sim.compiled, sim.params.network,
+                                          dev)
+            for dev in ("cuda", "cpu")
+        }
+        self.ex = {"cuda": None, "cpu": None}
+        self.blocks, self.worst, self.crit = 0, 0.0, 0
+        self.acc, self.latency_sum = None, 0.0
+
+    def block(self, res):
+        out = {}
+        for dev, r in (("cuda", res), ("cpu", _cpu(res))):
+            out[dev], self.ex[dev] = self.attr.attribute_block(
+                r, self.tables[dev], tail_cut=self.cut, top_k=self.k,
+                ex_state=self.ex[dev],
+            )
+        self.acc = self.attr.accumulate(self.acc, out["cuda"])
+        self.latency_sum += float(res.client_latency.sum())
+        self.worst = max(self.worst, compare_attribution(
+            out["cuda"], out["cpu"], f"{self.what} block {self.blocks}",
+            float(res.client_latency.sum())))
+        self.blocks += 1
+        self.crit += int(out["cpu"].crit_count.sum())
+
+    def finish(self):
+        compare_exemplars(self.ex["cuda"], self.ex["cpu"], self.what)
+        log(f"in situ ok {self.what}: {self.blocks} block(s) attributed on "
+            f"the card and by the CPU's sweep on the card's results: "
+            f"counts and blame histograms equal ({self.crit} crit-path "
+            f"hops), seconds within {self.worst:.3f} of rtol "
+            f"{RESULT_RTOL:g} / atol {RESULT_ATOL:g} s, residuals within "
+            f"{RESID_ULPS} float32 spacings of the latency sum, "
+            f"exemplars equal" + (
+                "" if self.cut is None else f" (tail cut {self.cut:.6g} s)"
+            ))
+
+    def same_run(self, attr):
+        """The run's own AttributionSummary (an entry point's, on the
+        card) equals the card's blocks attributed one by one."""
+        compare_attribution(attr, self.acc, f"{self.what} run",
+                            self.latency_sum)
+        compare_exemplars(attr.exemplars, self.ex["cuda"], self.what)
+        log(f"in situ ok {self.what}: the entry point's attribution equals"
+            f" the card's blocks attributed one by one (tail requests "
+            f"{int(attr.tail_count)} of {int(attr.count)})")
+
+
+def attribution_in_situ(port, cases):
+    """Phase 4 for attributed runs.  ``cases``: (name, make, load,
+    requests, block, tail), ``make(device)`` building the attributed
+    Simulator.  Each block of the card's run is attributed on the card
+    and on the CPU (``AttributedBlocks``); then the whole attributed run
+    on the card is held against the CPU's (each on its own results):
+    the summary's counts exactly and sums at the engine's tolerance, the
+    requests attributed and tail requests exactly, the total blame at
+    TELESCOPE_RTOL, the crit counts within CRIT_FLIP_SHARE."""
+    for name, make, load, n, block, tail in cases:
+        source = port.TorchDraws(11, "cuda")
+        card, cpu = make("cuda"), make("cpu")
+        cut = (card.estimate_tail_cut(load, n, source, block_size=block)
+               if tail else None)
+        check = AttributedBlocks(port, card, f"attributed {name}", cut)
+        for res in card.run_blocks(load, n, source, block_size=block):
+            check.block(res)
+        check.finish()
+        (s_a, a_a), (s_b, a_b) = (
+            sim.run_attributed(load, n, source, block_size=block,
+                               tail=tail, tail_cut=cut)
+            for sim in (card, cpu)
+        )
+        for f in ("count", "error_count", "hop_events"):
+            _same(getattr(s_a, f), getattr(s_b, f), f"{name} summary {f}")
+        _same(s_a.latency_sum, s_b.latency_sum, f"{name} latency_sum",
+              rtol=RESULT_RTOL)
+        _same(a_a.count, a_b.count, f"{name} attributed count")
+        if abs(a_a.total_blame_s / a_b.total_blame_s - 1.0) > (
+            TELESCOPE_RTOL
+        ):
+            raise AssertionError(f"{name}: total blame differs")
+        moved = int((a_a.crit_count.cpu() - a_b.crit_count.cpu()).abs().sum())
+        total = int(a_b.crit_count.sum())
+        if moved > CRIT_FLIP_SHARE * total:
+            raise AssertionError(f"{name}: {moved} crit counts moved")
+        log(f"in situ ok attributed {name}: whole run card against CPU, "
+            f"summaries agree, total blame {a_a.total_blame_s:.6g} / "
+            f"{a_b.total_blame_s:.6g} s, tail requests "
+            f"{int(a_a.tail_count)} / {int(a_b.tail_count)}, {moved} of "
+            f"{total} crit counts moved (winner ties)")
+
+
+def attributed_params(sim, **kw):
+    return dataclasses.replace(sim.params, attribution=True, **kw)
+
+
+def ops_per_block(run, block):
+    """Torch ops (launches, the census's aside) of one block of ``run``
+    (counted with ``tools/torch_op_count.OpLog`` over two blocks after
+    one to fill the caches)."""
+    from tools.torch_op_count import OpLog
+
+    run(block)
+    with OpLog() as ops:
+        run(2 * block)
+    return ops.count / 2
+
+
+def attributed_phase(port, runs, walls, op_block=64):
+    """Phase 5 for attributed runs: each at full size after a warm-up
+    block, with its wall per block beside its unattributed twin's
+    (``walls``, from the same phase), its torch ops a block beside the
+    twin's (counted on the card at blocks of ``op_block``), its peak
+    device memory, its census launches, and the telescoping check (the
+    charges plus the residual equal the latency sum within
+    TELESCOPE_RTOL).  ``runs``: (name, twin name, Simulator, load,
+    requests, block, mode, window) with mode "mean" or "tail" and window
+    the protected run's (None: ``run_attributed``).  Returns the census
+    launches per run."""
+    launches = {}
+    for name, twin, sim, load, n, block, mode, window in runs:
+        tail = mode == "tail"
+        src = port.TorchDraws(0, "cuda")
+        if window is None:
+            def plain(m, b):
+                return sim.run_summary(load, m, src, block_size=b)
+
+            def attributed(m, b, cut, trim=False):
+                return sim.run_attributed(load, m, src, block_size=b,
+                                          trim=trim, tail=tail,
+                                          tail_cut=cut)
+        else:
+            def plain(m, b):
+                return sim.run_policies(load, m, src, block_size=b,
+                                        window_s=1e3)
+
+            def attributed(m, b, cut, trim=False):
+                out = sim.run_policies(load, m, src, block_size=b,
+                                       trim=trim, window_s=window,
+                                       attribution=True, tail=tail,
+                                       tail_cut=cut)
+                return out[0], out[-1]
+        attributed(block, block, None)  # warm-up block, mean only
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        port.census.launches = 0
+        t0 = time.perf_counter()
+        cut = (sim.estimate_tail_cut(load, n, src, block_size=block)
+               if tail else None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        summary, attr = attributed(n, block, cut, trim=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        blocks = max(1, -(-n // block))
+        per_block = len(census_calls(sim, block))
+        pilot_n = min(n, 8_192)
+        pilot = (-(-pilot_n // min(block, pilot_n))
+                 if load.kind == "open" else 1) if tail else 0
+        launches[f"{name} attributed"] = port.census.launches
+        if port.census.launches != (blocks + pilot) * per_block:
+            raise AssertionError(
+                f"{name} attributed: {port.census.launches} census "
+                f"launches, expected ({blocks} + {pilot}) x {per_block}")
+        lat = float(summary.latency_sum)
+        total = attr.total_blame_s + float(attr.residual)
+        if abs(total / lat - 1.0) > TELESCOPE_RTOL:
+            raise AssertionError(
+                f"{name} attributed: charges + residual {total} != "
+                f"latency sum {lat}")
+        if int(attr.count) != int(summary.count) or (
+            int(attr.hist.sum()) != int(attr.crit_count.sum())
+        ):
+            raise AssertionError(f"{name} attributed: counts")
+        plain_ops = ops_per_block(lambda m: plain(m, op_block), op_block)
+        attr_ops = ops_per_block(lambda m: attributed(m, op_block, cut),
+                                 op_block)
+        wall = (t2 - t1) / blocks
+        top = f", top-K {sim.params.attribution_top_k}" if tail else ""
+        log(f"attributed {name} ({mode}{top}): {int(summary.count)} "
+            f"requests in {blocks} blocks of {block}, {wall * 1e3:.2f} ms "
+            f"per block against {walls[twin] * 1e3:.2f} unattributed "
+            f"({wall / walls[twin]:.3f}x)"
+            + (f", tail pilot {(t1 - t0) * 1e3:.1f} ms" if tail else "")
+            + f"; torch ops a block {attr_ops:g} against {plain_ops:g} "
+            f"(+{attr_ops - plain_ops:g}); peak device memory {peak:.3f} "
+            f"GiB; census launches {launches[f'{name} attributed']} "
+            f"(({blocks} + "
+            f"{pilot} pilot) x {per_block}); charges + residual "
+            f"{total:.9g} s against the latency sum {lat:.9g} s "
+            f"({total / lat - 1.0:+.3e}); residual "
+            f"{float(attr.residual_abs) / int(attr.count) * 1e9:.4f} ns a "
+            f"request; crit-path hops {int(attr.crit_count.sum())}"
+            + ("" if not tail else
+               f"; tail cut {float(attr.tail_cut) * 1e3:.4f} ms, "
+               f"{int(attr.tail_count)} requests past it, slowest exemplar"
+               f" {float(attr.exemplars.latency[0]) * 1e3:.4f} ms"))
+    return launches
+
+
+def attr_docs_close(got, want, path=""):
+    """Attribution documents (blame tables, traces, counter tracks),
+    card against CPU, each side from its own results: keys, strings and
+    booleans exactly; integer microseconds within one plus DOC_RTOL; the
+    per-request residuals (float32 rounding noise) within RESULT_ATOL;
+    other floats within DOC_RTOL; a perfetto document's ``blame dist``
+    tracks through ``blame_dist_close``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{path}: keys differ")
+        if "traceEvents" in want and any(
+            str(e.get("name", "")).startswith("blame dist ")
+            for e in want["traceEvents"]
+        ):
+            blame_dist_close(got["traceEvents"], want["traceEvents"], path)
+            got = dict(got, traceEvents=[
+                e for e in got["traceEvents"]
+                if not e["name"].startswith("blame dist ")])
+            want = dict(want, traceEvents=[
+                e for e in want["traceEvents"]
+                if not e["name"].startswith("blame dist ")])
+        for k in want:
+            attr_docs_close(got[k], want[k], f"{path}.{k}")
+        return
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"{path}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            attr_docs_close(g, w, f"{path}[{i}]")
+        return
+    if isinstance(want, bool) or isinstance(want, str) or want is None:
+        if got != want:
+            raise AssertionError(f"{path}: {got!r} != {want!r}")
+        return
+    if isinstance(want, int):
+        if abs(got - want) > 1 + DOC_RTOL * abs(want):
+            raise AssertionError(f"{path}: {got} != {want}")
+        return
+    tol = (RESULT_ATOL if "residual" in path
+           else DOC_RTOL * abs(want) + RESULT_ATOL)
+    if abs(got - want) > tol:
+        raise AssertionError(f"{path}: {got} != {want}")
+
+
+def blame_dist_close(got, want, path):
+    """The per-service blame histograms of two perfetto documents: each
+    service's total equal, counts moved only to an adjacent bucket, at
+    most a thousandth of them (the float32 log of the JAX package aside,
+    the card and the CPU bucket the same float64 log of each side's own
+    contributions: a contribution within its float32 difference of an
+    edge lands one bucket over)."""
+    def hists(events):
+        out = {}
+        for e in events:
+            if e["name"].startswith("blame dist "):
+                out.setdefault(e["name"], {})[e["ts"]] = e["args"][
+                    "requests"]
+        return out
+
+    g, w = hists(got), hists(want)
+    if set(g) != set(w):
+        raise AssertionError(f"{path}: blame dist tracks differ")
+    moved = total = 0.0
+    for name in w:
+        ts = sorted(set(g[name]) | set(w[name]))
+        d = np.array([g[name].get(t, 0.0) - w[name].get(t, 0.0)
+                      for t in ts])
+        emd = float(np.abs(np.cumsum(d)).sum())
+        if abs(d.sum()) > 0 or 2 * emd != float(np.abs(d).sum()):
+            raise AssertionError(f"{path}: {name} moved off its neighbours")
+        moved += emd
+        total += sum(w[name].values())
+    if moved > 1e-3 * max(total, 1.0):
+        raise AssertionError(f"{path}: {moved} of {total} blame counts moved")
+
+
+def _in_process(args, source):
+    """``cli.main(args)`` in this process with ``source`` as its draws:
+    (exit code, stdout, stderr, kept blocks)."""
+    import io
+
+    from isotope_tpu_torch import cli as port_cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            cli_capture(source) as blocks:
+        rc = port_cli.main(args)
+    return rc, out.getvalue(), err.getvalue(), blocks
+
+
+def cli_attribution_phase():
+    """``simulate --attribution tail --blame-out --flamegraph
+    --perfetto-blame --exemplar-trace`` and ``simulate --trace`` in both
+    formats on canonical.yaml, and ``timeline --controlplane 100:10:500
+    --alarms`` on it, each on the card and with ``--device cpu`` in this
+    process on one draw source on the CPU (``cli_capture``; the push's
+    normals drawn on the CPU for both): the documents agree
+    (``attr_docs_close``, ``docs_close``), and so do the exit codes and
+    the alarm onsets."""
+    from isotope_tpu_torch.sim import TorchDraws
+    from isotope_tpu_torch.sim import controlplane
+
+    canonical = str(TOPOLOGIES / "canonical.yaml")
+    base = ["--qps", "1000", "--duration", "10s", "--load-kind", "open"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        cases = {
+            "attribution": (["simulate", canonical, *base, "--attribution",
+                             "tail"],
+                            ("blame-out", "flamegraph", "perfetto-blame",
+                             "exemplar-trace")),
+            "trace chrome": (["simulate", canonical, *base,
+                              "--trace-format", "chrome"], ("trace",)),
+            "trace jaeger": (["simulate", canonical, *base,
+                              "--trace-format", "jaeger"], ("trace",)),
+        }
+        for case, (args, files) in cases.items():
+            docs = {}
+            for device in ("cuda", "cpu"):
+                argv = list(args) + ["--device", device]
+                for f in files:
+                    argv += [f"--{f}", str(tmp / f"{case}-{f}-{device}")]
+                t = time.perf_counter()
+                rc, _, err, _ = _in_process(argv, TorchDraws(0, "cpu"))
+                if rc != 0:
+                    raise AssertionError(f"cli {case} on {device}: {err}")
+                docs[device] = {}
+                for f in files:
+                    text = (tmp / f"{case}-{f}-{device}").read_text()
+                    docs[device][f] = (
+                        text if f == "flamegraph" else json.loads(text))
+                log(f"cli {case} on {device}: {time.perf_counter() - t:.1f}"
+                    f" s; stderr " + " | ".join(err.splitlines()[:4]))
+            for f in files:
+                got, want = docs["cuda"][f], docs["cpu"][f]
+                if f == "flamegraph":
+                    got, want = (
+                        {ln.rpartition(" ")[0]: int(ln.rpartition(" ")[2])
+                         for ln in x.splitlines()} for x in (got, want))
+                attr_docs_close(got, want, f"cli {case} {f}")
+            log(f"cli {case}: documents {list(files)} agree, card against "
+                f"CPU")
+
+        # the timeline command with the control-plane projection and
+        # the per-window alarms
+        normals = controlplane.push_normals
+        controlplane.push_normals = (
+            lambda p, seed, device: normals(p, seed, "cpu").to(device))
+        try:
+            docs = {}
+            for device in ("cuda", "cpu"):
+                sink = tmp / f"sink-{device}.jsonl"
+                argv = ["timeline", canonical, "--qps", "1000",
+                        "--duration", "10s", "--window", "1s",
+                        "--controlplane", "100:10:500", "--alarms",
+                        "--alarm-sink", str(sink), "--json", "--device",
+                        device]
+                t = time.perf_counter()
+                rc, out, err, kept = _in_process(argv, TorchDraws(0, "cpu"))
+                onset = [line for line in err.splitlines()
+                         if line.startswith(("ALARM onset", "alarms:"))]
+                rows = [json.loads(line) for line in
+                        sink.read_text().splitlines()]
+                docs[device] = (rc, json.loads(out), onset, rows)
+                log(f"cli timeline --controlplane --alarms on {device}: exit"
+                    f" {rc}, {time.perf_counter() - t:.1f} s; "
+                    + " | ".join(onset))
+        finally:
+            controlplane.push_normals = normals
+        (rc_a, doc_a, on_a, rows_a), (rc_b, doc_b, on_b, rows_b) = (
+            docs["cuda"], docs["cpu"])
+        cp_a, cp_b = doc_a.pop("controlplane"), doc_b.pop("controlplane")
+        if rc_a != rc_b or [o.split(" = ")[0] for o in on_a] != [
+            o.split(" = ")[0] for o in on_b
+        ] or [(r["monitor"], r["status"], r["window_index"]) for r in rows_a
+              ] != [(r["monitor"], r["status"], r["window_index"])
+                    for r in rows_b]:
+            raise AssertionError(f"cli timeline alarms: {on_a} / {on_b}")
+        if cp_a["proxies"] != 500 or cp_a["converged_window"] != cp_b[
+            "converged_window"
+        ] or max(abs(a - b) for a, b in zip(cp_a["acks"], cp_b["acks"])) > (
+            WINDOW_COUNT_ATOL
+        ):
+            raise AssertionError(f"cli timeline controlplane: {cp_a} {cp_b}")
+        docs_close(doc_a, doc_b, "cli timeline", window_s=1.0)
+        log(f"cli timeline: documents, control-plane projection (push "
+            f"converged in window {cp_a['converged_window']}, acks "
+            f"{cp_a['acks'][:3]}...) and {len(rows_a)} monitor rows agree, "
+            f"card against CPU; exit code {rc_a}")
+
+
+# -- phase 7: the DES oracle --------------------------------------------------
 
 
 def oracle_phase(port, device="cuda", scale=1):
@@ -1920,6 +2776,20 @@ def oracle_phase(port, device="cuda", scale=1):
                 raise AssertionError(f"oracle fidelity {name} out of band")
         log(f"oracle fidelity: {len(cases)} cases in "
             f"{time.perf_counter() - t:.1f} s")
+    run_gates(port, oracle_gates(), device)
+
+
+def run_gates(port, gates, device="cuda"):
+    """Each gate's oracle in a thread on the host while its engine runs
+    on ``device``; a gate out of band raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        futures = [pool.submit(g.oracle, port) for g in gates]
+        for g, fut in zip(gates, futures):
+            log(g.check(g.engine(port, device), fut.result()))
+    log(f"oracle gates: {len(gates)} in {time.perf_counter() - t:.1f} s")
 
 
 def main() -> int:
@@ -2034,18 +2904,64 @@ def main() -> int:
         if name == "lb-1000svc-lr"
     ])
     protected_in_situ(port, in_situ_twins(port, prot))
+    attr = dict(attribution=True)
+    flagship_c = runs[0][1].compiled
+    census_c = compile_graph(ServiceGraph.from_yaml(CENSUS_YAML))
+    make_big = [r[5] for r in scenarios if r[0] == "svc100k-chaos"][0]
+    big_block = [r[4] for r in scenarios if r[0] == "svc100k-chaos"][0]
+    attribution_in_situ(port, [
+        ("flagship", lambda dev: Simulator(flagship_c, SimParams(**attr),
+                                           device=dev),
+         LoadModel(kind="open", qps=1e3), 16_384, 16_384, True),
+        ("census-test", lambda dev: Simulator(census_c, SimParams(**attr),
+                                              device=dev),
+         LoadModel(kind="open", qps=500.0), 16_384, 8_192, False),
+    ])
+    # svc100k-chaos, the widest: its first two blocks, each attributed
+    # on the card and by the CPU's sweep on the card's results
+    big = make_big("cuda", attribution=True)
+    check = AttributedBlocks(port, big, "attributed svc100k-chaos")
+    for res in big.run_blocks(LoadModel(kind="open", qps=SVC100K_QPS),
+                              2 * big_block, port.TorchDraws(11, "cuda"),
+                              block_size=big_block):
+        check.block(res)
+    check.finish()
 
-    by_path = main_path_phase(port, runs, build_s, timing["ms_per_block"])
+    walls = {}
+    by_path = main_path_phase(port, runs, build_s, timing["ms_per_block"],
+                              walls)
     panic_share(port, *[run[1:5] for run in runs
                         if run[0] == "lb-10svc-100r-panic"][0])
     # the protected runs: each its own main path, counts set to 0 just
     # before and read just after
-    prot_launches, _ = protected_phase(port, prot, timing["ms_per_block"])
+    prot_launches, prot_walls = protected_phase(port, prot,
+                                                timing["ms_per_block"])
     by_path.update(prot_launches)
+    walls.update(prot_walls)
+    # the attributed runs: each its own path, counts set to 0 just before
+    smoke = [r for r in prot if r[0] == "policies-smoke"][0]
+    svc1000 = [r for r in runs if r[0] == "1000-svc_2000-end"][0]
+    by_path.update(attributed_phase(port, [
+        ("flagship", "flagship",
+         Simulator(flagship_c, SimParams(**attr), device="cuda"),
+         runs[0][2], runs[0][3], runs[0][4], "tail", None),
+        ("1000-svc_2000-end", "1000-svc_2000-end",
+         Simulator(svc1000[1].compiled, SimParams(**attr), device="cuda"),
+         *svc1000[2:5], "mean", None),
+        ("svc100k-chaos", "svc100k-chaos", big,
+         LoadModel(kind="open", qps=SVC100K_QPS),
+         SVC100K_BLOCKS * big_block, big_block, "mean", None),
+        ("policies-smoke", "policies-smoke",
+         Simulator(smoke[1].compiled, attributed_params(smoke[1]),
+                   (ChaosEvent(**SMOKE_KILL),),
+                   policies=smoke[1]._policies, device="cuda"),
+         *smoke[2:5], "tail", smoke[5]),
+    ], walls))
     launches = sum(by_path.values())
     log(f"census launches on every path: {launches}")
     cli_phase()
     cli_protected_phase()
+    cli_attribution_phase()
     oracle_phase(port)
 
     kernels = [{

@@ -1,4 +1,4 @@
-"""``python -m isotope_tpu_torch simulate|check TOPOLOGY``.
+"""``python -m isotope_tpu_torch simulate|check|timeline TOPOLOGY``.
 
 The port of ``isotope-tpu simulate`` and ``isotope-tpu check`` for the
 main path:
@@ -19,11 +19,24 @@ main path:
   (``sim/policies.py``, ``sim/rollout.py``), its block capped near one
   recorder window (``runner/run.protected_window_block``); each prints
   its table to stderr and ``--timeline-out``, ``--policies-out`` and
-  ``--rollouts-out`` write its document.  The JAX command's other flags
-  raise ``NotImplementedError`` naming their ROADMAP item.
+  ``--rollouts-out`` write its document.  ``--attribution [tail]`` makes
+  the main run the attributed one (``Simulator.run_attributed``, or the
+  protected runs' ``attribution=True``: the same draws and blocking, so
+  the same summary) and prints the critical-path blame table;
+  ``--blame-out``, ``--flamegraph``, ``--perfetto-blame`` and
+  ``--exemplar-trace`` write its documents.  ``--trace`` re-runs a small
+  dense batch and writes its spans (``metrics/trace.py``), and
+  ``--timeline-perfetto`` the recorder's counter tracks.  The JAX
+  command's other flags raise ``NotImplementedError`` naming their
+  ROADMAP item.
 - ``check``: the run's Prometheus series (``MetricsCollector``) are
   queried by the reference's stability alarm suite; every alarm is
   printed to stderr and the exit code is 1 when one fires.
+- ``timeline``: one recorded run reported as windowed series, with the
+  stability alarms per window (``--alarms``: the first breach's
+  sim-time onset, exit code 1) and a config push's convergence projected
+  onto the same windows (``--controlplane N:M:P``,
+  ``sim/controlplane.py``).
 
 ``--device`` picks the device (``cuda`` by default).
 """
@@ -39,20 +52,10 @@ from isotope_tpu_torch.utils import duration as dur
 
 # the JAX command's flags whose layers are not ported: each raises
 # NotImplementedError naming its ROADMAP item
-_OBS, _FLEETS = "item 8, observability", "item 9, fleets"
+_FLEETS = "item 9, fleets"
 _MULTI, _SERVICES = "item 11, multi-GPU", "item 12, framework services"
 _REFUSED = [
     ("--flat", dict(action="store_true"), "item 10, runner and CLI"),
-    ("--trace", dict(metavar="FILE"), _OBS),
-    ("--trace-format", dict(), _OBS),
-    ("--trace-requests", dict(type=int), _OBS),
-    ("--attribution", dict(nargs="?", const="on"), _OBS),
-    ("--blame-out", dict(metavar="FILE"), _OBS),
-    ("--flamegraph", dict(metavar="FILE"), _OBS),
-    ("--perfetto-blame", dict(metavar="FILE"), _OBS),
-    ("--exemplar-trace", dict(metavar="FILE"), _OBS),
-    ("--exemplar-format", dict(), _OBS),
-    ("--timeline-perfetto", dict(metavar="FILE"), _OBS),
     ("--ensemble", dict(type=int), _FLEETS),
     ("--ensemble-jitter", dict(), _FLEETS),
     ("--ensemble-slo", dict(), _FLEETS),
@@ -116,6 +119,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "topologies; default: the first entrypoint)")
     s.add_argument("--prometheus", metavar="FILE",
                    help="also write the Prometheus text exposition here")
+    s.add_argument("--trace", metavar="FILE",
+                   help="write sampled per-request spans here (the "
+                        "reference's OTel->Jaeger tracing, "
+                        "service/main.go:76-109)")
+    s.add_argument("--trace-format", choices=["chrome", "jaeger"],
+                   default="chrome")
+    s.add_argument("--trace-requests", type=int, default=32,
+                   help="how many requests to trace (sampled dense run)")
+    s.add_argument("--attribution", nargs="?", const="on",
+                   choices=("on", "tail"), default=None,
+                   help="critical-path blame attribution: the main run "
+                        "also reduces per-service/per-edge blame on the "
+                        "device and prints the blame table.  'tail' also "
+                        "accumulates conditional-tail blame past an "
+                        "estimated p99 cut and mines top-K slow "
+                        "exemplars")
+    s.add_argument("--blame-out", metavar="FILE", default=None,
+                   help="write the blame tables as JSON (isotope-blame/v1)")
+    s.add_argument("--flamegraph", metavar="FILE", default=None,
+                   help="write the critical-path blame as a "
+                        "collapsed-stack flamegraph file "
+                        "(flamegraph.pl / speedscope input)")
+    s.add_argument("--perfetto-blame", metavar="FILE", default=None,
+                   help="write per-service blame-distribution counter "
+                        "tracks as Perfetto/Chrome trace JSON")
+    s.add_argument("--exemplar-trace", metavar="FILE", default=None,
+                   help="write the mined top-K slowest requests as a "
+                        "distributed trace (tail_rank/tail_cut annotated "
+                        "spans; no dense re-run)")
+    s.add_argument("--exemplar-format", choices=["chrome", "jaeger"],
+                   default="jaeger")
     s.add_argument("--timeline", nargs="?", const="10s", default=None,
                    metavar="WINDOW",
                    help="simulation flight recorder: after the main run, "
@@ -130,6 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--timeline-prometheus", metavar="FILE", default=None,
                    help="write the timestamped Prometheus exposition "
                         "(one sample per window, like a scrape sequence)")
+    s.add_argument("--timeline-perfetto", metavar="FILE", default=None,
+                   help="write the windowed series as Perfetto/Chrome "
+                        "counter tracks over real sim time")
     s.add_argument("--policies", action="store_true",
                    help="co-simulate the topology's `policies:` block "
                         "(circuit breakers, retry budgets, outlier "
@@ -182,7 +219,63 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")
     k.set_defaults(func=run_check)
+    _add_timeline_parser(sub)
     return parser
+
+
+def _add_timeline_parser(sub) -> None:
+    t = sub.add_parser(
+        "timeline",
+        help="record a run as windowed per-service time series",
+    )
+    t.add_argument("topology", help="path to the service graph YAML")
+    t.add_argument("--qps", default="1000",
+                   help='target QPS, or "max" (fortio -qps max)')
+    t.add_argument("--connections", "-c", type=int, default=64)
+    t.add_argument("--duration", "-t", default="240s",
+                   help='run duration, e.g. "240s" or "5m"')
+    t.add_argument("--load-kind", choices=["open", "closed"],
+                   default="open")
+    t.add_argument("--max-requests", type=int, default=200_000)
+    t.add_argument("--window", "-w", default="10s",
+                   help="sim-time window width (the scrape interval)")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--entry", default=None,
+                   help="entrypoint service override")
+    t.add_argument("--out", metavar="FILE", default=None,
+                   help="write the isotope-timeline/v1 JSON artifact")
+    t.add_argument("--perfetto", metavar="FILE", default=None,
+                   help="write Perfetto/Chrome counter tracks over "
+                        "real sim time")
+    t.add_argument("--prometheus", metavar="FILE", default=None,
+                   help="write the timestamped Prometheus exposition "
+                        "(one sample per window)")
+    t.add_argument("--json", action="store_true",
+                   help="print the timeline doc as JSON instead of "
+                        "the table")
+    t.add_argument("--alarms", action="store_true",
+                   help="evaluate the standard stability alarms per "
+                        "window and report the first breach's sim-time "
+                        "onset")
+    t.add_argument("--alarm-sink", metavar="FILE", default=None,
+                   help="append per-window MonitorStatus rows to this "
+                        "JSONL sink (with --alarms)")
+    # the per-window CPU series is the BUSY OCCUPANCY integral (server
+    # time incl. script sleeps and downstream blocking), an upper bound
+    # on CPU burn: the defaults are sized in occupancy terms (one core)
+    t.add_argument("--cpu-limit", type=float, default=1000.0,
+                   help="per-service CPU-OCCUPANCY alarm threshold, "
+                        "milli-cores (busy time incl. sleeps and "
+                        "downstream blocking; default = 1 core)")
+    t.add_argument("--mem-limit", type=float, default=1024.0,
+                   help="per-service working-set alarm threshold, MiB")
+    t.add_argument("--controlplane", metavar="N:M:P", default=None,
+                   help="co-simulate a config push (N entries x M "
+                        "endpoints to P proxies) onto the same window "
+                        "axis")
+    t.add_argument("--device", default=None,
+                   help="torch device (default: cuda; raises without a GPU)")
+    t.set_defaults(func=run_timeline_cmd)
 
 
 def run_simulate(args) -> int:
@@ -234,6 +327,7 @@ def run_simulate(args) -> int:
         service_time_param=stp,
         # the policy/rollout loops observe through the recorder
         timeline=tl_window is not None or args.policies or args.rollouts,
+        attribution=args.attribution is not None,
     ))
     load = _load(args)
     graph = ServiceGraph.from_yaml_file(args.topology)
@@ -248,7 +342,13 @@ def run_simulate(args) -> int:
     n = num_requests(load, sim.capacity_qps(), args.max_requests)
     block = sim.default_block_size()
     source = TorchDraws(args.seed, sim.device)
-    tl = pol = roll = None
+    tl = pol = roll = attr = None
+    # an attributed main run: the same draws, blocking and (protected)
+    # trajectory as the plain one, so the same summary; errors raise
+    attr_kw = dict(
+        attribution=args.attribution is not None,
+        tail=args.attribution == "tail",
+    )
     if pol_t is not None or roll_t is not None:
         # the PROTECTED physics is the measurement: the main run is the
         # co-simulation, its block capped near one recorder window
@@ -257,17 +357,27 @@ def run_simulate(args) -> int:
         )
         runner = sim.run_rollouts if roll_t is not None else sim.run_policies
         out = list(runner(load, n, source, block_size=blk,
-                          collector=collector, trim=True, window_s=win))
+                          collector=collector, trim=True, window_s=win,
+                          **attr_kw))
+        attr = out.pop() if attr_kw["attribution"] else None
         summary, tl = out[0], out[1]
         roll = out.pop(2) if roll_t is not None else None
         pol = out[2] if pol_t is not None else None
     else:
-        summary = sim.run_summary(load, n, source, block_size=block,
-                                  collector=collector, trim=True)
+        if attr_kw["attribution"]:
+            summary, attr = sim.run_attributed(
+                load, n, source, block_size=block, collector=collector,
+                trim=True, tail=attr_kw["tail"],
+            )
+        else:
+            summary = sim.run_summary(load, n, source, block_size=block,
+                                      collector=collector, trim=True)
         if tl_window is not None:
             # the recorder pass: the main run's draws and blocking
             _, tl = sim.run_timeline(load, n, source, block_size=block,
                                      trim=True, window_s=tl_window)
+    if attr is not None:
+        _write_attribution_artifacts(args, compiled, attr)
     if args.policies and pol is not None:
         from isotope_tpu_torch.sim import policies as policies_mod
 
@@ -298,6 +408,15 @@ def run_simulate(args) -> int:
 
         _emit(timeline_mod.to_doc(compiled, tl), timeline_mod.format_table,
               args.timeline_out, "timeline")
+        if args.timeline_perfetto:
+            from isotope_tpu_torch.metrics.export import (
+                write_timeline_perfetto,
+            )
+
+            ev = write_timeline_perfetto(args.timeline_perfetto, compiled,
+                                         tl)
+            print(f"timeline counters ({ev} events) -> "
+                  f"{args.timeline_perfetto}", file=sys.stderr)
         if args.timeline_prometheus:
             with open(args.timeline_prometheus, "w") as f:
                 f.write(timeline_mod.prometheus_text(compiled, tl))
@@ -314,7 +433,49 @@ def run_simulate(args) -> int:
     if args.prometheus:
         with open(args.prometheus, "w") as f:
             f.write(collector.full_text(summary))
+    if args.trace:
+        from isotope_tpu_torch.metrics.trace import write_trace
+
+        # traces are sampled: a small dense batch of the same model (the
+        # reference's plain Simulator: no lb, policy or rollout tables)
+        res = Simulator(compiled, params, device=sim.device).run(
+            load, args.trace_requests, TorchDraws(args.seed, sim.device)
+        )
+        traced = write_trace(args.trace, compiled, res,
+                             fmt=args.trace_format)
+        print(f"traced {traced} requests -> {args.trace}", file=sys.stderr)
     return 0
+
+
+def _write_attribution_artifacts(args, compiled, attr) -> None:
+    """The blame table to stderr and the attributed run's documents."""
+    from isotope_tpu_torch.metrics import attribution as attr_mod
+    from isotope_tpu_torch.metrics.export import (
+        write_flamegraph,
+        write_perfetto_counters,
+    )
+
+    doc = attr_mod.to_doc(compiled, attr)
+    _emit(doc, attr_mod.format_table, args.blame_out, "blame tables")
+    if args.flamegraph:
+        lines = write_flamegraph(args.flamegraph, compiled, attr)
+        print(f"flamegraph ({lines} stacks) -> {args.flamegraph}",
+              file=sys.stderr)
+    if args.perfetto_blame:
+        n = write_perfetto_counters(args.perfetto_blame, compiled, attr)
+        print(f"perfetto counters ({n} events) -> {args.perfetto_blame}",
+              file=sys.stderr)
+    if args.exemplar_trace:
+        if attr.exemplars is None:
+            print("warning: no exemplars mined (attribution_top_k == 0)",
+                  file=sys.stderr)
+            return
+        from isotope_tpu_torch.metrics.trace import write_trace
+
+        traced = write_trace(args.exemplar_trace, compiled,
+                             fmt=args.exemplar_format, exemplars=attr)
+        print(f"traced {traced} tail exemplars -> {args.exemplar_trace}",
+              file=sys.stderr)
 
 
 def _emit(doc: dict, table, path, what: str) -> None:
@@ -374,6 +535,114 @@ def run_check(args) -> int:
         file=sys.stderr,
     )
     return 1 if errors else 0
+
+
+def run_timeline_cmd(args) -> int:
+    import dataclasses
+
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.metrics import timeline as timeline_mod
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import SimParams, Simulator, TorchDraws
+
+    window_s = dur.parse_duration_seconds(args.window)
+    compiled = compile_graph(
+        ServiceGraph.from_yaml_file(args.topology), entry=args.entry
+    )
+    sim = Simulator(
+        compiled,
+        dataclasses.replace(
+            SimParams(), timeline=True, timeline_window_s=window_s
+        ),
+        device=args.device,
+    )
+    load = _load(args)
+    rate = load.qps if load.qps is not None else sim.capacity_qps()
+    n = max(1, min(int(rate * load.duration_s), args.max_requests))
+    _, tl = sim.run_timeline(load, n, TorchDraws(args.seed, sim.device),
+                             block_size=sim.default_block_size())
+
+    controlplane = None
+    if args.controlplane:
+        from isotope_tpu_torch.sim.controlplane import (
+            PilotModel,
+            push_convergence,
+        )
+
+        try:
+            n_e, m_e, p_e = (int(x) for x in args.controlplane.split(":"))
+        except ValueError:
+            raise ValueError(
+                f"--controlplane wants N:M:P integers, got "
+                f"{args.controlplane!r}"
+            )
+        conv = push_convergence(PilotModel(), n_e, m_e, p_e,
+                                seed=args.seed, device=sim.device)
+        controlplane = conv.window_series(float(tl.window_s),
+                                          tl.num_windows)
+
+    doc = timeline_mod.to_doc(compiled, tl, controlplane=controlplane)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=2)
+        print(f"timeline -> {args.out}", file=sys.stderr)
+    if args.perfetto:
+        from isotope_tpu_torch.metrics.export import write_timeline_perfetto
+
+        ev = write_timeline_perfetto(args.perfetto, compiled, tl)
+        print(f"timeline counters ({ev} events) -> {args.perfetto}",
+              file=sys.stderr)
+    if args.prometheus:
+        with open(args.prometheus, "w") as f:
+            f.write(timeline_mod.prometheus_text(compiled, tl))
+        print(f"timestamped exposition -> {args.prometheus}",
+              file=sys.stderr)
+
+    if args.json:
+        json.dump(doc, sys.stdout, indent=2)
+        sys.stdout.write("\n")
+    else:
+        print(timeline_mod.format_table(doc))
+        if controlplane is not None:
+            frac = controlplane["converged_fraction"]
+            print(
+                f"controlplane: push converged in window "
+                f"{controlplane['converged_window']} "
+                f"({controlplane['proxies']} proxies) "
+                f"{timeline_mod.sparkline(frac)}"
+            )
+
+    rc = 0
+    if args.alarms:
+        from isotope_tpu_torch.metrics import monitor
+        from isotope_tpu_torch.metrics.alarms import standard_queries
+
+        label = pathlib.Path(args.topology).stem
+        queries = standard_queries(
+            label, cpu_lim=args.cpu_limit, mem_lim=args.mem_limit
+        )
+        rows = monitor.evaluate_windows(
+            queries, timeline_mod.window_stores(compiled, tl),
+            run_label=label,
+        )
+        if args.alarm_sink:
+            monitor.MonitorSink(args.alarm_sink).write(rows)
+            print(f"{len(rows)} monitor rows -> {args.alarm_sink}",
+                  file=sys.stderr)
+        onset = monitor.first_alarm_onset(rows)
+        n_alarms = sum(1 for r in rows if r.status == monitor.STATUS_ALARM)
+        if onset is not None:
+            print(
+                f"ALARM onset at window {onset.window_index} "
+                f"(t={onset.sim_time_s:g}s): {onset.monitor} = "
+                f"{onset.value:g} ({n_alarms} alarming "
+                f"window-checks total)",
+                file=sys.stderr,
+            )
+            rc = 1
+        else:
+            print("alarms: all windows clean", file=sys.stderr)
+    return rc
 
 
 def main(argv=None) -> int:

@@ -38,8 +38,7 @@ default), as the reference's are; the occupancy integrals and latency
 sums are float32.
 
 Not ported: ``merge_host`` (the sharded runs' host merge, ROADMAP item
-11) and the control-plane projection (``controlplane_windows`` and
-``to_doc(controlplane=...)``, ROADMAP item 8), which raise.
+11).
 """
 from __future__ import annotations
 
@@ -435,13 +434,27 @@ def convoy(compiled: CompiledGraph, tl: TimelineSummary) -> dict:
     }
 
 
-def controlplane_windows(ack_times_s, window_s: float, num_windows: int):
-    """The control-plane convergence projection (``sim/controlplane.py``)
-    is not ported yet."""
-    raise NotImplementedError(
-        "the control-plane projection is not ported to isotope_tpu_torch "
-        "yet (ROADMAP.md queue 1: item 8, observability)"
+def controlplane_windows(
+    ack_times_s: np.ndarray, window_s: float, num_windows: int
+) -> dict:
+    """Project control-plane convergence events (per-proxy push-ACK
+    times, ``sim/controlplane.py``) onto the data-plane window axis, so
+    a config-push timeline composes with the recorder's series."""
+    acks = np.asarray(ack_times_s, np.float64)
+    W = int(num_windows)
+    idx = np.clip(
+        np.floor(acks / float(window_s)).astype(np.int64), 0, W - 1
     )
+    per = np.bincount(idx, minlength=W).astype(np.float64)
+    frac = np.cumsum(per) / max(len(acks), 1)
+    return {
+        "proxies": int(len(acks)),
+        "acks": [int(v) for v in per],
+        "converged_fraction": [round(float(v), 6) for v in frac],
+        "converged_window": (
+            int(np.argmax(frac >= 1.0)) if len(acks) else 0
+        ),
+    }
 
 
 def to_doc(
@@ -452,9 +465,7 @@ def to_doc(
 ) -> dict:
     """The ``timeline.json`` artifact (``isotope-timeline/v1``):
     per-window client rows, the most-active services' series, and the
-    convoy verdict."""
-    if controlplane is not None:
-        controlplane_windows(None, 0.0, 0)
+    convoy verdict, and the control-plane projection when given."""
     W = tl.num_windows
     dt = float(tl.window_s)
     arr = _np(tl.arrivals)
@@ -508,7 +519,7 @@ def to_doc(
             "peak_utilization": round(float(util[peak_w]), 6),
             "peak_window": peak_w,
         }
-    return {
+    doc = {
         "schema": "isotope-timeline/v1",
         "window_s": dt,
         "num_windows": W,
@@ -520,11 +531,14 @@ def to_doc(
         ),
         "convoy": convoy(compiled, tl),
     }
+    if controlplane is not None:
+        doc["controlplane"] = controlplane
+    return doc
 
 
 def format_table(doc: dict, top: int = 24) -> str:
     """Human-readable per-window table with a per-service sparkline
-    block (the ``simulate --timeline`` rendering)."""
+    block (the ``timeline`` CLI / ``simulate --timeline`` rendering)."""
     lines = [
         f"timeline: {doc['num_windows']} windows x "
         f"{doc['window_s']:g}s ({doc['count']:.0f} requests)"

@@ -27,7 +27,11 @@ and ``CANARY_INDEX`` into the block's index for them.
 seed: the saturated closed
 loop's fixed-point pilots draw from ``with_seed(SAT_PILOT_SEED)`` at
 index ``(it, i)`` whatever the run's seed (engine.py:1722-1750,
-1840-1850).  :class:`TorchDraws` draws every index from its own seeded
+1840-1850).  ``RootedSource(source, prefix)`` puts every index under an
+index prefix: an attributed run's tail-cut pilot is a whole run under
+``fold_in(key, TAIL_PILOT_INDEX)`` (engine.py:4283-4287), so its block
+``b`` draws from the path ``(TAIL_PILOT_INDEX, 1_000_000 + b)``.
+:class:`TorchDraws` draws every index from its own seeded
 ``torch.Generator``; tests hand the engine the JAX engine's own draws
 through a source of the same shape, which is how the port is held to
 the reference draw for draw.
@@ -65,6 +69,9 @@ POLICY_INDEX = 770_001
 
 #: fold-in of the rollout version coins
 CANARY_INDEX = 880_001
+
+#: fold-in of an attributed run's tail-cut pilot run
+TAIL_PILOT_INDEX = 777_000
 
 #: root seed of the saturated closed loop's pilot runs (the reference's
 #: ``PRNGKey(20_260_730)``): fixed, so the solved throughput is a
@@ -248,3 +255,20 @@ class TorchDraws:
         g = self.generator(index_path(index) + index_path(fold))
         return torch.rand((n, h), generator=g, device=self.device,
                           dtype=torch.float32)
+
+
+class RootedSource:
+    """A draw source whose index ``i`` is ``source``'s index ``prefix``
+    extended by ``i``: a run under a folded key.  ``with_seed`` drops
+    the prefix, as the saturated pilots' fixed root ignores the run's
+    key."""
+
+    def __init__(self, source, prefix: Index):
+        self.source = source
+        self.prefix = index_path(prefix)
+
+    def with_seed(self, seed: int):
+        return self.source.with_seed(seed)
+
+    def draws(self, index: Index, spec: DrawSpec) -> Draws:
+        return self.source.draws(self.prefix + index_path(index), spec)

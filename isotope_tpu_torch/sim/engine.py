@@ -40,7 +40,11 @@ requests is one tensor program over a (request x hop) grid:
   ``sim/policies.py`` (breaker sheds on the 500 path, budgeted retries,
   autoscaled or ejected capacity) and ``sim/rollout.py`` (a version coin
   routing each hop to the canary arm's own station) from block to
-  block, observing through the recorder.
+  block, observing through the recorder;
+- critical-path attribution (``metrics/attribution.py``,
+  :meth:`Simulator.run_attributed` and the protected runs'
+  ``attribution=True``) reduces every block to per-hop blame vectors,
+  blame histograms and top-K exemplars in the same loop.
 
 Random numbers come from a draw source (``sim/draws.py``), so the same
 draws can drive this engine and the JAX one.  The JAX engine groups
@@ -48,8 +52,8 @@ close-shaped levels into ``lax.scan`` buckets to bound its trace size;
 this port sweeps every level one by one, which computes the same
 values (the JAX package pins buckets against unrolled levels).
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): attribution and ensembles.
+Not in this slice (raises ``NotImplementedError`` naming its ROADMAP
+item): ensembles.
 """
 from __future__ import annotations
 
@@ -134,8 +138,9 @@ class SimResults(NamedTuple):
     utilization: torch.Tensor     # (S,) rho per service at the offered load
     unstable: torch.Tensor        # (S,) bool — offered load >= capacity
     offered_qps: torch.Tensor     # scalar f32 — the rate the queues saw
-    # per-hop queueing wait, (N, H) f32: only for SimParams.timeline
-    # simulators (the recorder's busy integral starts after it)
+    # per-hop queueing wait, (N, H) f32: only for SimParams.timeline or
+    # .attribution simulators (the recorder's busy integral starts after
+    # it, the blame sweep splits it off the self time)
     hop_wait: Optional[torch.Tensor] = None
     # per-hop version coin of a rollout-actuated block (sim/rollout.py),
     # (N, H) bool: True where the hop routed to the canary arm
@@ -739,8 +744,6 @@ class Simulator:
         *,
         device=None,
     ):
-        if params.attribution:
-            raise _unsupported("critical-path attribution", "observability")
         if params.ensemble:
             raise _unsupported("scenario ensembles", "fleets")
         self.device = resolve_device(device)
@@ -801,6 +804,16 @@ class Simulator:
         # the request's nominal arrival time: pure wire tax, so the
         # queueing tables are untouched (config.MtlsSchedule)
         self._mtls = mtls
+        if params.attribution and mtls is not None:
+            # the phased tax is indexed by each request's NOMINAL
+            # arrival, which SimResults does not carry: the blame sweep
+            # could not reproduce the per-edge tax
+            raise ValueError(
+                "SimParams.attribution does not support MtlsSchedule "
+                "runs yet (the per-request tax is not recoverable from "
+                "the assembled results)"
+            )
+        self._attr_tables = None  # built on the first attributed run
         self._mtls_taxes = (
             tensor(mtls.taxes_s, F32) if mtls is not None else None
         )
@@ -2131,10 +2144,20 @@ class Simulator:
                                  collector, trim)
 
     def _run_summary(self, load, num_requests, source, block_size,
-                     collector, trim, control=None):
+                     collector, trim, control=None, attr=False,
+                     tail_cut=None):
+        """The block loop reduced to a RunSummary; with ``attr`` also to
+        an AttributionSummary (its tail accumulators armed at
+        ``tail_cut`` when given): ``(summary, attribution)``."""
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
+        if (attr and control is not None
+                and control.pol is None and control.roll is None):
+            raise ValueError(
+                "one block loop reduces either blame or the timeline, "
+                "not both"
+            )
         self._check_lb_load(load)
         offered, block, num_blocks = self._block_plan(
             load, num_requests, source, block_size
@@ -2143,13 +2166,122 @@ class Simulator:
         if trim:
             lo, hi = trim_window_bounds(num_blocks * block, offered)
             win = (self._scalar(lo), self._scalar(hi))
-        parts = [
-            summary_mod.summarize(res, collector, window=win)
-            for res in self.run_blocks(load, num_requests, source,
-                                       block_size=block_size,
-                                       control=control)
-        ]
-        return summary_mod.reduce_stacked(summary_mod.stack(parts))
+        if attr:
+            from isotope_tpu_torch.metrics import attribution
+
+            tables = self._attribution_tables()
+            top_k = self.params.attribution_top_k
+            k0 = min(top_k, block)
+            ex = (
+                attribution.empty_exemplars(
+                    k0, self.compiled.num_hops, self.device
+                )
+                if k0 > 0 else None
+            )
+            a_acc = None
+        parts = []
+        for res in self.run_blocks(load, num_requests, source,
+                                   block_size=block_size, control=control):
+            parts.append(summary_mod.summarize(res, collector, window=win))
+            if attr:
+                a, ex = attribution.attribute_block(
+                    res, tables, tail_cut=tail_cut, top_k=top_k,
+                    ex_state=ex,
+                )
+                a_acc = attribution.accumulate(a_acc, a)
+        summary = summary_mod.reduce_stacked(summary_mod.stack(parts))
+        if not attr:
+            return summary
+        return summary, a_acc._replace(exemplars=ex)
+
+    # -- critical-path attribution ----------------------------------------
+
+    def _attribution_tables(self):
+        """Blame-sweep index tables (``metrics/attribution.py``), built
+        on first use: a Simulator that never runs attributed pays
+        nothing."""
+        if self._attr_tables is None:
+            from isotope_tpu_torch.metrics import attribution
+
+            self._attr_tables = attribution.build_tables(
+                self.compiled, self.params.network, self.device
+            )
+        return self._attr_tables
+
+    def estimate_tail_cut(
+        self,
+        load: LoadModel,
+        num_requests: int,
+        source,
+        *,
+        block_size: int = 65_536,
+        quantile: Optional[float] = None,
+    ) -> float:
+        """Streaming-threshold tail cut: a pilot run of up to 8,192
+        requests under ``source`` rooted at ``TAIL_PILOT_INDEX`` (the
+        reference's ``fold_in(key, 777_000)``) recovers the requested
+        quantile (``attribution_tail_quantile``, p99 by default) from its
+        latency histogram, so an attributed run fills its tail
+        accumulators in one pass."""
+        from isotope_tpu_torch.metrics.histogram import (
+            quantile_from_histogram,
+        )
+        from isotope_tpu_torch.sim.draws import (
+            TAIL_PILOT_INDEX,
+            RootedSource,
+        )
+
+        q = (
+            quantile
+            if quantile is not None
+            else self.params.attribution_tail_quantile
+        )
+        pilot_n = max(1, min(num_requests, 8_192))
+        pilot = self.run_summary(
+            load, pilot_n, RootedSource(source, TAIL_PILOT_INDEX),
+            block_size=(
+                min(block_size, pilot_n) if load.kind == OPEN_LOOP
+                else block_size
+            ),
+        )
+        return float(quantile_from_histogram(pilot.latency_hist, [q])[0])
+
+    def run_attributed(
+        self,
+        load: LoadModel,
+        num_requests: int,
+        source,
+        *,
+        block_size: int = 65_536,
+        collector=None,
+        trim: bool = False,
+        tail: bool = False,
+        tail_cut: Optional[float] = None,
+    ):
+        """Like :meth:`run_summary`, but the block loop ALSO reduces an
+        :class:`~isotope_tpu_torch.metrics.attribution.
+        AttributionSummary`: per-hop critical-path blame, the
+        wait-vs-service split, blame histograms and top-K tail
+        exemplars, on the device.
+
+        Same draws and blocking as :meth:`run_summary`, so the returned
+        ``RunSummary`` equals an unattributed run's.  ``tail=True`` arms
+        the conditional-tail accumulators at ``tail_cut`` (estimated by
+        :meth:`estimate_tail_cut` when not given).  Returns
+        ``(RunSummary, AttributionSummary)``.
+        """
+        if not self.params.attribution:
+            raise ValueError(
+                "attributed runs need SimParams(attribution=True)"
+            )
+        if tail and tail_cut is None:
+            tail_cut = self.estimate_tail_cut(
+                load, num_requests, source, block_size=block_size
+            )
+        return self._run_summary(
+            load, num_requests, source, block_size, collector, trim,
+            attr=True, tail_cut=tail_cut if tail else None,
+        )
 
     # -- the flight recorder and the protected runs ------------------------
 
@@ -2226,6 +2358,9 @@ class Simulator:
         collector=None,
         trim: bool = False,
         window_s: Optional[float] = None,
+        attribution: bool = False,
+        tail: bool = False,
+        tail_cut: Optional[float] = None,
     ):
         """Co-simulate the per-service resilience policies
         (``sim/policies.py``) in the block loop: the loop carries the
@@ -2243,6 +2378,12 @@ class Simulator:
         side of every control loop).  Saturated ``-qps max`` loads are
         refused: the finite-population tables are host-built from static
         replica counts the policy state cannot reach.
+
+        ``attribution=True`` (needs ``SimParams.attribution``) ALSO
+        reduces the critical-path blame over the protected physics in
+        the same loop and appends an ``AttributionSummary``;
+        ``tail=True`` arms its tail accumulators at ``tail_cut``
+        (estimated from an UNPROTECTED pilot when not given).
         """
         if self._policies is None:
             raise ValueError(
@@ -2262,12 +2403,20 @@ class Simulator:
                 "static replica counts the policy state cannot change; "
                 "use a paced closed loop or open loop"
             )
+        if attribution and not self.params.attribution:
+            raise ValueError(
+                "attributed policy runs need SimParams(attribution="
+                "True) alongside the policy tables"
+            )
         return self._run_protected(load, num_requests, source, False,
-                                   block_size, collector, trim, window_s)
+                                   block_size, collector, trim, window_s,
+                                   attribution, tail, tail_cut)
 
     def _run_protected(self, load, num_requests, source, roll: bool,
                        block_size: int, collector, trim: bool,
-                       window_s: Optional[float]):
+                       window_s: Optional[float], attribution: bool = False,
+                       tail: bool = False,
+                       tail_cut: Optional[float] = None):
         """The shared tail of :meth:`run_policies` and
         :meth:`run_rollouts`: one block loop whose carry holds the
         clocks, the recorder's accumulator, the (S, W) retry
@@ -2276,18 +2425,28 @@ class Simulator:
         Block ``b+1`` runs under the effects taken after block ``b``.
 
         Returns ``(summary, timeline[, rollout summary][, policy
-        summary])``."""
+        summary][, attribution])``."""
+        if attribution and tail and tail_cut is None:
+            tail_cut = self.estimate_tail_cut(
+                load, num_requests, source, block_size=block_size
+            )
         control = self._control(
             load, num_requests, source, block_size, window_s,
             self._policies is not None, roll,
         )
-        summary = self._run_summary(load, num_requests, source, block_size,
-                                    collector, trim, control)
+        summary = self._run_summary(
+            load, num_requests, source, block_size, collector, trim,
+            control, attr=attribution, tail_cut=tail_cut if tail else None,
+        )
+        if attribution:
+            summary, attr = summary
         out = (summary, control.tl_acc)
         if roll:
             out = out + (control.rollout_summary(),)
         if self._policies is not None:
             out = out + (control.pacc,)
+        if attribution:
+            out = out + (attr,)
         return out
 
     def _policy_downed_windows(self, spec, base_split: bool = False):
@@ -2322,6 +2481,9 @@ class Simulator:
         collector=None,
         trim: bool = False,
         window_s: Optional[float] = None,
+        attribution: bool = False,
+        tail: bool = False,
+        tail_cut: Optional[float] = None,
     ):
         """Co-simulate the progressive-delivery rollout controller
         (``sim/rollout.py``) in the block loop: each block's hops route
@@ -2333,7 +2495,9 @@ class Simulator:
         breakers and the autoscaler).
 
         Returns ``(RunSummary, TimelineSummary, RolloutSummary[,
-        PolicySummary])``.  Requires rollout tables (``Simulator(...,
+        PolicySummary][, AttributionSummary])`` (``attribution``, ``tail``
+        and ``tail_cut`` as in :meth:`run_policies`).  Requires rollout
+        tables (``Simulator(...,
         rollouts=...)``) and ``SimParams.timeline=True``; saturated
         ``-qps max`` loads are refused.
         """
@@ -2355,8 +2519,14 @@ class Simulator:
                 "static replica counts the rollout state cannot split; "
                 "use a paced closed loop or open loop"
             )
+        if attribution and not self.params.attribution:
+            raise ValueError(
+                "attributed rollout runs need SimParams(attribution="
+                "True) alongside the rollout tables"
+            )
         return self._run_protected(load, num_requests, source, True,
-                                   block_size, collector, trim, window_s)
+                                   block_size, collector, trim, window_s,
+                                   attribution, tail, tail_cut)
 
     def default_block_size(self, budget_elems: int = 33_554_432) -> int:
         """A block size keeping each (block, H) event tensor near
@@ -3264,7 +3434,11 @@ class Simulator:
             utilization=utilization.amax(0),
             unstable=unstable.any(0),
             offered_qps=offered_qps,
-            hop_wait=wait if self.params.timeline else None,
+            hop_wait=(
+                wait
+                if self.params.attribution or self.params.timeline
+                else None
+            ),
             hop_canary=can_coin,
             hop_refused=(
                 torch.cat(refused_chunks, dim=1) if track_refused else None

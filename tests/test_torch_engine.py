@@ -232,11 +232,11 @@ def test_default_device_raises_without_gpu():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        # the lb laws, the timeline recorder and the protected layers are
-        # ported (test_torch_lb.py, test_torch_timeline.py,
-        # test_torch_policies.py, test_torch_rollout.py); attribution
-        # and ensembles are not
-        (dict(params=SimParams(attribution=True)), "observability"),
+        # the lb laws, the timeline recorder, the protected layers and
+        # attribution are ported (test_torch_lb.py,
+        # test_torch_timeline.py, test_torch_policies.py,
+        # test_torch_rollout.py, test_torch_attribution.py); ensembles
+        # are not
         (dict(params=SimParams(ensemble=2)), "fleets"),
     ],
 )
@@ -397,6 +397,8 @@ def test_port_imports_no_jax():
                  "metrics.query", "metrics.alarms", "cli",
                  "sim.lb", "sim.oracle", "native.host",
                  "metrics.timeline", "metrics.attribution",
-                 "sim.policies", "sim.rollout", "runner.run"):
+                 "sim.policies", "sim.rollout", "runner.run",
+                 "metrics.trace", "metrics.export", "metrics.monitor",
+                 "sim.controlplane"):
         assert f"isotope_tpu_torch.{name}" in names, name
     assert len(names) >= 30

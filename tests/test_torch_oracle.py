@@ -17,6 +17,15 @@ engine against the oracle.
    the engine's own p99 carries a sampling error of ~1.1% (one standard
    error of the 0.99 quantile of an exponential-like tail), so the
    reference's 5% band still holds with margin and is kept.
+5. The reference's remaining fidelity gates (``tests/test_oracle.py``
+   :293-655: saturated throughput and fidelity per topology with star9's
+   asymmetric band, probabilistic chain, mixed replicas, chaos phases,
+   heavy tails, fork-join throughput, the retry-storm collapse with its
+   feedback-blind twin, error-rate and call-probability fractions, the
+   open high-rho envelope), each at the reference's own sizes and bands
+   on the port's engine on the CPU: the same gate table
+   (``chip_smoke.oracle_gates``) that ``chip_smoke.py`` phase 7 runs on
+   the card.
 """
 import pathlib
 
@@ -34,6 +43,8 @@ from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator, TorchDraws
 from isotope_tpu_torch.sim.config import ChaosEvent
 from isotope_tpu_torch.sim.oracle import OracleSimulator, oracle_quantiles
 from test_oracle import CHAIN3, STAR9, TREE13
+
+import chip_smoke
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DET = SimParams(service_time="deterministic")
@@ -212,3 +223,40 @@ def test_open_loop_fidelity_chain3_at_cpu_size():
     for q, o in zip((0.5, 0.99), want):
         rel = np.quantile(lat_e, q) / o - 1.0
         assert abs(rel) <= 0.05, (q, rel)
+
+
+# -- the remaining fidelity gates (tests/test_oracle.py:293-655) --------------
+
+GATES = {g.name: g for g in chip_smoke.oracle_gates()}
+
+
+def _port():
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        compile_graph=compile_graph, ServiceGraph=ServiceGraph,
+        LoadModel=LoadModel, SimParams=SimParams, Simulator=Simulator,
+        TorchDraws=TorchDraws, ChaosEvent=ChaosEvent,
+    )
+
+
+def test_gate_table_covers_the_reference_cases():
+    """Every remaining case of the reference's fidelity axis, with its
+    bands: star9's saturated band stays asymmetric."""
+    assert len(GATES) == 19
+    for name in ("saturated throughput chain3", "saturated fidelity star9",
+                 "saturated chaos phases", "retry-storm collapse",
+                 "error-rate fidelity", "call-probability fidelity",
+                 "open high-rho tree13 rho 0.9",
+                 "saturated fork-join throughput star9"):
+        assert name in GATES, name
+
+
+@pytest.mark.parametrize("name", sorted(GATES))
+def test_fidelity_gate_on_the_cpu(name):
+    """The port's engine, on the CPU, within the reference's band of the
+    oracle (the gate raises out of band)."""
+    gate = GATES[name]
+    port = _port()
+    line = gate.check(gate.engine(port, "cpu"), gate.oracle(port))
+    assert line.startswith(f"oracle gate {name}:")

@@ -382,8 +382,14 @@ def test_host_surfaces_equal_reference(tree13, recorded):
             (x.name, x.labels, x.value) for x in s2.samples
         ]
     assert tm.sparkline([0, 1, 2, 4]) == jax_tm.sparkline([0, 1, 2, 4])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tm.to_doc(ps.compiled, tl, controlplane={"proxies": 1})
+    # the control-plane projection rides the same document
+    acks = np.array([0.05, 0.2, 0.2, 0.9, 2.5, 40.0])
+    cp = tm.controlplane_windows(acks, float(tl.window_s), tl.num_windows)
+    assert cp == jax_tm.controlplane_windows(acks, float(jtl.window_s),
+                                             jtl.num_windows)
+    assert tm.to_doc(ps.compiled, tl, controlplane=cp) == jax_tm.to_doc(
+        tree13, jtl, controlplane=cp
+    )
 
 
 def test_blame_buckets_equal_reference():

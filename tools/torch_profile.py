@@ -1,6 +1,7 @@
 """Where a block's device time goes in the PyTorch port, on one CUDA card.
 
-    python3 tools/torch_profile.py [--config C] [--qps Q] [--out PROFILE.json]
+    python3 tools/torch_profile.py [--config C] [--qps Q]
+        [--attribution {mean,tail}] [--out PROFILE.json]
 
 Runs one configuration open loop through ``Simulator.run_summary``: the
 flagship tree (5 levels x 3 branches, 121 hops, 1 KiB payloads) at
@@ -9,7 +10,10 @@ default), or svc100k-chaos (BASELINE configs[4]: the 100,000-service
 multitier graph, Pareto service times, ``mock-7`` down in [5 s, 15 s))
 at 100 qps in blocks of its default 335 (``--config svc100k-chaos``):
 one warm-up block, then two blocks under ``torch.profiler`` with CPU
-and CUDA activities.  Prints the card's name
+and CUDA activities.  ``--attribution`` runs the same blocks through
+``Simulator.run_attributed`` (``SimParams(attribution=True)``; ``tail``
+arms the tail accumulators at a cut taken from the pilot before the
+profiled blocks), so the blame sweep's share of the block shows.  Prints the card's name
 and power limit, the wall time per block, the summed device time of
 all kernels, the device idle share (1 - device time / wall time) and
 the 15 kernels with the most device time, and with ``--out`` writes the
@@ -35,6 +39,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=None)
     parser.add_argument("--config", choices=("flagship", "svc100k-chaos"),
                         default="flagship")
+    parser.add_argument("--attribution", choices=("mean", "tail"),
+                        default=None)
     parser.add_argument("--qps", type=float, default=None,
                         help="open-loop rate (default: 100k for the "
                              "flagship, 100 for svc100k-chaos)")
@@ -64,30 +70,43 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+    attributed = args.attribution is not None
     if args.config == "flagship":
         sim = Simulator(compile_graph(ServiceGraph.decode(tree_topology(
             num_levels=5, num_branches=3, request_size=1024,
             response_size=1024,
-        ))), device="cuda")
+        ))), SimParams(attribution=attributed), device="cuda")
         block, qps = FLAGSHIP_BLOCK, 1e5
     else:
         sim = Simulator(
             compile_graph(ServiceGraph.decode(realistic_topology(
                 100_000, archetype="multitier", seed=0
             ))),
-            SimParams(service_time="pareto", service_time_param=2.5),
+            SimParams(service_time="pareto", service_time_param=2.5,
+                      attribution=attributed),
             (ChaosEvent("mock-7", 5.0, 15.0),),
             device="cuda",
         )
         block, qps = sim.default_block_size(), 100.0
     load = LoadModel(kind="open", qps=args.qps or qps)
     source = TorchDraws(0, "cuda")
-    sim.run_summary(load, block, source, block_size=block)  # warm-up
+    if attributed:
+        tail = args.attribution == "tail"
+        cut = (sim.estimate_tail_cut(load, 2 * block, source,
+                                     block_size=block) if tail else None)
+
+        def run(n):
+            sim.run_attributed(load, n, source, block_size=block,
+                               tail=tail, tail_cut=cut)
+    else:
+        def run(n):
+            sim.run_summary(load, n, source, block_size=block)
+    run(block)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sim.run_summary(load, 2 * block, source, block_size=block)
+        run(2 * block)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # the kernels themselves (device-side events), so that no time is
@@ -111,6 +130,7 @@ def main(argv=None) -> int:
     doc = {
         "card": card,
         "config": args.config,
+        "attribution": args.attribution,
         "block_requests": block,
         "blocks": 2,
         "qps": load.qps,
@@ -123,6 +143,7 @@ def main(argv=None) -> int:
         print("torch_profile: the profiler recorded no device events",
               file=sys.stderr)
     print(card)
+    print(f"{args.config}, attribution {args.attribution}")
     print(f"wall {doc['wall_ms_per_block']:.3f} ms/block, device "
           f"{doc['device_ms_per_block']:.3f} ms/block, idle share "
           f"{doc['device_idle_share']:.3f} (profiler on)")
