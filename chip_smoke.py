@@ -19,7 +19,10 @@ any failure exits non-zero and nothing is caught:
    and the panic run's call with both a fail step and error flags), at
    the default blocks of
    ``realistic-star-50.yaml`` and ``realistic-star-auxiliary-50.yaml``
-   and at fixture shapes, among them a 4,096-step axis (rtol 1e-5: the
+   and at fixture shapes, among them a 4,096-step axis, and at the
+   fleets' calls (ensembleN folded: one call a level of 32 x 8,192 rows
+   of ``1000-svc_2000-end``; svc1000-chaosfleet's members at 4,096)
+   (rtol 1e-5: the
    plain version's ``cumsum`` may associate differently), and bit for
    bit against ``census_sequential``, the kernel's own order of
    operations in plain torch.  Then, per census call of one block of each
@@ -49,7 +52,17 @@ any failure exits non-zero and nothing is caught:
    latency sum, exemplars equal; and the flagship's and the
    retry/timeout topology's whole attributed runs, card against CPU
    each on its own results (summaries, attributed and tail counts, total
-   blame, crit counts within 1e-4 of their total: winner ties);
+   blame, crit counts within 1e-4 of their total: winner ties); then
+   the fleets (``fleet_in_situ``): a jittered fleet of 4 x 4,096 of the
+   retry/timeout/error topology, open and paced, folded and member by
+   member on the card against the CPU's member by member (counts and
+   hop events exactly, histograms within one bucket for at most 1e-3 of
+   their counts, sums within rtol 1e-5), a chaos fleet (each member's
+   outage jittered) card against CPU, a protected fleet's member under
+   its own jittered kill against the card's solo run of it (bit for
+   bit) and block by block against the CPU's under the card's control
+   effects, and an observed fleet's members' blame, each block
+   attributed on the card and by the CPU's sweep;
 5. main path at full size, after one warm-up block of each run (the
    warm-up also solves and caches the closed loops' rates from the same
    seed, so the timed closed-loop runs skip their pilots and tables): the
@@ -90,7 +103,20 @@ any failure exits non-zero and nothing is caught:
    unattributed twin's, its torch ops a block beside the twin's (counted
    on the card), its peak device memory, its census launches (its blocks
    and its tail pilot's) and the telescoping check: the charges plus the
-   residual equal the latency sum within rtol 1e-5;
+   residual equal the latency sum within rtol 1e-5; then the fleets, at
+   the reference bench's shapes: ensembleN (``1000-svc_2000-end.yaml``
+   open loop at 10,000 qps, 32 seed members x 8,192 requests in blocks
+   of 8,192) folded, member by member and as 32 solo runs on the same
+   member sources (the map members bit-equal to the solos, the folded
+   fleet equal to the map fleet as in phase 4), svc1000-chaosfleet (the
+   same graph with a 25% retry budget, one replica of ``services[1]``
+   down in [0.05 s, 0.25 s) under ``ChaosJitterSpec(time=0.3,
+   magnitude=0.5, seed=0)``: ``run_policies_ensemble``, 8 members x
+   8,192 in blocks of 4,096, 50 ms windows; the worst member's severity)
+   and ensembleN-observed (8 members, mean attribution and the
+   recorder, then ``fleetblame.to_doc``) beside its unobserved twin,
+   each with its wall, aggregate hop-events/s, census launches (set to
+   0 just before, checked just after) and peak device memory;
 6. the CLI as a subprocess: ``simulate`` once on the card; ``check`` on
    ``canonical.yaml`` and ``simulate --qps max`` (50,000 requests each),
    on the card and with ``--device cpu``: both ``check`` runs must give
@@ -107,7 +133,12 @@ any failure exits non-zero and nothing is caught:
    --rollouts``, ``--attribution tail --blame-out --flamegraph
    --perfetto-blame --exemplar-trace``, ``--trace`` in both formats and
    the ``timeline`` command with ``--controlplane 100:10:500 --alarms``,
-   whose documents, exit codes and alarm onsets must agree;
+   whose documents, exit codes and alarm onsets must agree; and
+   ``simulate --ensemble 8 --ensemble-jitter qps=0.1,cpu=0.05,error=0.2
+   --ensemble-slo 250ms --ensemble-out`` and ``--policies --rollouts
+   --ensemble 4 --ensemble-chaos-jitter ...`` the same way (the card
+   folds the plain fleet, the CPU runs it member by member), whose
+   Fortio and ensemble documents must agree;
 7. oracle: build the DES oracle (``isotope_tpu_torch/native/
    des_oracle.cpp``) with ``g++`` and hold the engine on the card to
    it: the six exact interpreter-parity cases of the reference's
@@ -1435,7 +1466,7 @@ def in_situ_twins(port, runs):
     return out
 
 
-def protected_in_situ(port, runs):
+def protected_in_situ(port, runs, source=None):
     """Each protected run on the card and on the CPU with the same
     draws, block by block in lockstep: every CPU block runs under the
     effects the card's block ran under, so booleans and counts are
@@ -1444,9 +1475,11 @@ def protected_in_situ(port, runs):
     must agree: states and steps exactly, the breaker's shed and the
     budget's retry allow (continuous functions of the recorder's
     integrals and counts) within SHED_RTOL, window-binned counts as
-    ``_same_counts``."""
+    ``_same_counts``.  ``source``: the draws (a fleet member's);
+    ``TorchDraws(11)`` by default."""
     for name, _, load, n, block, window, roll, make in runs:
-        source = port.TorchDraws(11, "cuda")
+        if source is None:
+            source = port.TorchDraws(11, "cuda")
         card, cpu = make("cuda"), make("cpu")
         pol = card._policies is not None
         rec = _Recording(card._control(load, n, source, block, window,
@@ -2693,6 +2726,536 @@ def cli_attribution_phase():
             f"card against CPU; exit code {rc_a}")
 
 
+# -- fleets: phases 3, 4, 5 and 6 ---------------------------------------------
+
+#: the reference bench's ensembleN (bench.py:483-556):
+#: 1000-svc_2000-end.yaml open loop at 10,000 qps, 32 seed members of
+#: 8,192 requests, block 8,192; the observed twin at 8 members
+ENS_MEMBERS, ENS_N, ENS_QPS = 32, 8_192, 10_000.0
+ENS_OBSERVED = 8
+#: svc1000-chaosfleet (bench.py:693-745): the same graph with a 25%
+#: retry budget, one replica of services.names[1] down in
+#: [0.05 s, 0.25 s), jittered per member; 8 members x 8,192 requests in
+#: blocks of 4,096, 50 ms windows
+CHAOSFLEET = dict(members=8, n=8_192, block=4_096, window_s=0.05,
+                  qps=10_000.0, kill=(0.05, 0.25),
+                  jitter=dict(time=0.3, magnitude=0.5, seed=0))
+#: a fleet's latency histograms card against CPU (or folded against
+#: member by member on the card, whose float64 clock scans associate
+#: per shape): the share of counts that may move to an adjacent bucket
+HIST_MOVED = 1e-3
+#: phase 4's small fleets (card against CPU)
+FLEET_JITTER = "qps=0.1,cpu=0.05,error=0.2"
+FLEET_SMALL = dict(members=4, n=4_096, block=2_048)
+
+
+def ensemble_sim(runs):
+    """ensembleN's Simulator: the main path's 1000-svc one."""
+    return [r[1] for r in runs if r[0] == "1000-svc_2000-end"][0]
+
+
+def chaosfleet_sim(port, device="cuda"):
+    """svc1000-chaosfleet's Simulator (the reference bench's)."""
+    import yaml
+
+    doc = yaml.safe_load((TOPOLOGIES / "1000-svc_2000-end.yaml").read_text())
+    doc.setdefault("policies", {})["defaults"] = {
+        "retry_budget": {"budget_percent": "25%"},
+    }
+    graph = port.ServiceGraph.decode(doc)
+    compiled = port.compile_graph(graph)
+    lo, hi = CHAOSFLEET["kill"]
+    chaos = (port.ChaosEvent(compiled.services.names[1], lo, hi,
+                             replicas_down=1),)
+    return port.Simulator(compiled, port.SimParams(timeline=True), chaos,
+                          policies=port.compile_policies(graph, compiled),
+                          device=device)
+
+
+def fleet_census_runs(runs, chaos_sim):
+    """The fleets' census calls for phase 3, as runs: ensembleN folded
+    (one call a level of 32 x 8,192 rows) and svc1000-chaosfleet's
+    members (its solo calls at block 4,096, protected)."""
+    open_load = SimpleNamespace(kind="open", qps=ENS_QPS)
+    return [
+        (f"ensembleN ({ENS_MEMBERS} folded)", ensemble_sim(runs),
+         open_load, ENS_MEMBERS * ENS_N, ENS_MEMBERS * ENS_N),
+        ("svc1000-chaosfleet", chaos_sim, open_load, CHAOSFLEET["n"],
+         CHAOSFLEET["block"]),
+    ]
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def hist_band(got, want, what):
+    """Two stacks of latency histograms of the same requests whose
+    latencies agree within float32 rounding: each member's total
+    exactly, and a count moves only to an adjacent bucket (a latency
+    within a spacing of a bucket edge), at most HIST_MOVED of them."""
+    g = _np(got).astype(np.int64)
+    w = _np(want).astype(np.int64)
+    if g.shape != w.shape or not np.array_equal(g.sum(-1), w.sum(-1)):
+        raise AssertionError(f"{what}: totals differ")
+    d = g - w
+    emd = np.abs(np.cumsum(d, axis=-1)).sum()
+    if 2 * emd != np.abs(d).sum() or emd > HIST_MOVED * max(w.sum(), 1):
+        raise AssertionError(f"{what}: {emd} counts moved")
+    return int(emd)
+
+
+def compare_fleets(got, want, what, rtol=RESULT_RTOL, atol=RESULT_ATOL):
+    """Two member-stacked summaries: counts and hop events exactly, the
+    latency histograms within ``hist_band``, float sums within ``rtol``
+    / ``atol``; returns the counts moved a bucket over."""
+    for f in ("count", "error_count", "hop_events", "win_count",
+              "win_error_count", "unstable"):
+        if not np.array_equal(_np(getattr(got, f)), _np(getattr(want, f))):
+            raise AssertionError(f"{what}: {f} differs")
+    moved = hist_band(got.latency_hist, want.latency_hist,
+                      f"{what}: latency_hist")
+    moved += hist_band(got.win_latency_hist, want.win_latency_hist,
+                       f"{what}: win_latency_hist")
+    for f in ("latency_sum", "latency_m2", "latency_min", "latency_max",
+              "end_max", "utilization"):
+        np.testing.assert_allclose(_np(getattr(got, f)),
+                                   _np(getattr(want, f)), rtol=rtol,
+                                   atol=atol, err_msg=f"{what}: {f}")
+    return moved
+
+
+def fleet_in_situ(port):
+    """Phase 4 for the fleets, with the same draws on the card and on the
+    CPU: (a) a small jittered plain fleet, open and paced, folded
+    (``"vmap"``) and member by member (``"map"``) on the card against
+    the CPU's ``"map"`` fleet; (b) a chaos fleet (per-member jittered
+    outage) on the card against the CPU's; (c) a protected fleet's
+    member under its own jittered schedule: on the card it equals the
+    card's solo run of its schedule bit for bit, and that run is held
+    block by block against the CPU's under the card's control effects
+    (``protected_in_situ``); (d) an observed fleet's per-member blame:
+    each member's blocks attributed on the card and by the CPU's sweep
+    on the card's results (``AttributedBlocks``), and the fleet's
+    stacked attribution equal to the card's blocks attributed one by
+    one."""
+    from isotope_tpu_torch.resilience.faults import ChaosJitterSpec
+    from isotope_tpu_torch.sim.draws import RootedSource
+    from isotope_tpu_torch.sim.ensemble import (
+        EnsembleSpec,
+        parse_jitter_spec,
+    )
+
+    graph = port.ServiceGraph.from_yaml(CENSUS_YAML)
+    compiled = port.compile_graph(graph)
+    m, n, block = (FLEET_SMALL[k] for k in ("members", "n", "block"))
+    jitter = parse_jitter_spec(FLEET_JITTER)
+    for load in (port.LoadModel(kind="open", qps=500.0),
+                 port.LoadModel(kind="closed", qps=400.0, connections=16)):
+        card, cpu = (port.Simulator(compiled, device=d)
+                     for d in ("cuda", "cpu"))
+        source = port.TorchDraws(11, "cuda")
+        fleets = {}
+        for side, sim, mode in (("card vmap", card, "vmap"),
+                                ("card map", card, "map"),
+                                ("cpu map", cpu, "map")):
+            spec = EnsembleSpec.from_jitter(m, mode=mode, **jitter)
+            before = port.census.launches
+            fleets[side] = sim.run_ensemble(load, n, source, spec,
+                                            block_size=block, trim=True)
+            torch.cuda.synchronize()
+            if sim is card and port.census.launches == before:
+                raise AssertionError(f"fleet {side}: kernel never launched")
+        calls = len(card.census_shapes(block, members=m))
+        moved = [compare_fleets(fleets[side].summaries,
+                                fleets["cpu map"].summaries,
+                                f"fleet {load.kind} {side} against cpu map")
+                 for side in ("card vmap", "card map")]
+        log(f"in situ ok fleet {load.kind} ({m} jittered members x {n}, "
+            f"block {block}): card vmap (one census call of "
+            f"{m * block} rows a level, {calls} a block) and card map == "
+            f"cpu map: counts and hop events equal, histograms within one "
+            f"bucket ({moved[0]} / {moved[1]} counts moved), float sums "
+            f"within rtol {RESULT_RTOL:g}")
+
+    # (b) a chaos fleet: leaf's outage jittered per member
+    chaos = (port.ChaosEvent("leaf", 0.5, 2.0, replicas_down=None),)
+    spec = EnsembleSpec.of(2)
+    jit = ChaosJitterSpec(time=0.3, seed=5)
+    load = port.LoadModel(kind="open", qps=500.0)
+    source = port.TorchDraws(12, "cuda")
+    card, cpu = (port.Simulator(compiled, chaos=chaos, device=d)
+                 for d in ("cuda", "cpu"))
+    got, want = (sim.run_ensemble(load, n, source, spec, block_size=block,
+                                  member_chaos=jit) for sim in (card, cpu))
+    moved = compare_fleets(got.summaries, want.summaries, "chaos fleet")
+    if got.member_chaos != want.member_chaos or \
+            got.member_chaos[0] == got.member_chaos[1]:
+        raise AssertionError("chaos fleet: member schedules")
+    log(f"in situ ok chaos fleet (leaf down, jittered per member: "
+        f"{[(e.start_s, e.end_s) for ev in got.member_chaos for e in ev]})"
+        f": card == cpu, {int(_np(got.summaries.error_count).sum())} "
+        f"client errors, {moved} histogram counts moved a bucket")
+
+    # (c) a protected fleet's member under its own jittered schedule
+    pgraph = port.ServiceGraph.from_yaml(SMOKE_TOPOLOGY)
+    pcomp = port.compile_graph(pgraph)
+    pol = port.compile_policies(pgraph, pcomp)
+    params = port.SimParams(timeline=True, timeline_window_s=1.0)
+    kill = (port.ChaosEvent(**{**SMOKE_KILL, "start_s": 0.05,
+                               "end_s": 0.15}),)
+    psim = port.Simulator(pcomp, params, kill, policies=pol, device="cuda")
+    pload = port.LoadModel(kind="open", qps=SMOKE_QPS)
+    pn, pblock, pwin = 8_192, 1_024, 0.02
+    source = port.TorchDraws(13, "cuda")
+    fleet = psim.run_policies_ensemble(
+        pload, pn, source, EnsembleSpec.of(2), block_size=pblock,
+        window_s=pwin, member_chaos=ChaosJitterSpec(time=0.3, seed=2),
+    )
+    events = fleet.member_chaos[1]
+
+    def make(device):
+        return port.Simulator(pcomp, params, events, policies=pol,
+                              device=device)
+
+    member_src = RootedSource(source, 1)
+    solo = make("cuda").run_policies(pload, pn, member_src,
+                                     block_size=pblock, window_s=pwin)
+    for f in solo[0]._fields:
+        if f != "metrics":
+            _same(getattr(fleet.member(1), f), getattr(solo[0], f),
+                  f"protected fleet member 1 {f}")
+    for a, b in ((fleet.member_timeline(1), solo[1]),
+                 (fleet.member_policies(1), solo[2])):
+        for f in a._fields:
+            _same(getattr(a, f), getattr(b, f), f"protected member {f}")
+    log("in situ ok protected fleet: member 1 (its own jittered kill "
+        f"{[(e.start_s, e.end_s, e.replicas_down) for e in events]}) == "
+        "the card's solo run_policies of its schedule, bit for bit")
+    protected_in_situ(port, [("protected fleet member 1", None, pload, pn,
+                              pblock, pwin, False, make)],
+                      source=member_src)
+
+    # (d) an observed fleet's per-member blame
+    asim = port.Simulator(compiled, port.SimParams(attribution=True,
+                                                   timeline=True),
+                          device="cuda")
+    source = port.TorchDraws(14, "cuda")
+    obs = asim.run_ensemble(load, n, source, EnsembleSpec.of(2),
+                            block_size=block, attribution=True,
+                            timeline=True, window_s=1.0)
+    for k in range(2):
+        check = AttributedBlocks(port, asim, f"observed fleet member {k}")
+        for res in asim.run_blocks(load, n, RootedSource(source, k),
+                                   block_size=block):
+            check.block(res)
+        check.finish()
+        check.same_run(obs.member_attribution(k))
+
+
+def fleet_wall(port, what, fn, blocks, members):
+    """Time one fleet run: census launches set to 0 just before and read
+    just after, peak device memory; returns (result, wall, launches,
+    peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    port.census.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = port.census.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return out, wall, launches, peak
+
+
+def fleet_phase(port, runs, chaos_sim, census_ms):
+    """Phase 5 for the fleets, at the reference bench's shapes: ensembleN
+    (32 x 8,192 on 1000-svc_2000-end) folded, member by member and as 32
+    solo runs on the same member sources; svc1000-chaosfleet;
+    ensembleN-observed beside its unobserved twin; and a self-throttling
+    paced closed-loop fleet, its members' rate solves timed apart.  Each
+    prints its wall
+    per fleet, aggregate hop-events/s, census launches and device ms
+    (phase 3's time per block) and peak device memory.  Returns the
+    census launches of each run."""
+    sim = ensemble_sim(runs)
+    launches = ensemble_n(port, sim, census_ms)
+    launches.update(chaosfleet_run(port, chaos_sim, census_ms))
+    launches.update(observed_fleet_run(port, sim))
+    launches.update(closed_fleet_run(port, sim))
+    return launches
+
+
+def closed_fleet_run(port, sim):
+    """A self-throttling paced closed-loop fleet on ensembleN's graph
+    (64 connections at 30,000 qps, above what they can issue, so the
+    rate is a bisection over pilots), 8 members with a 10% qps jitter:
+    each member solves its own rate from its own pilots.  That host
+    planning is timed apart from the fleet's block loop, which runs
+    folded; returns its census launches."""
+    from isotope_tpu_torch.compiler.compile import compile_ensemble
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    load = port.LoadModel(kind="closed", qps=30_000.0, connections=64)
+    spec = EnsembleSpec.from_jitter(8, qps_jitter=0.1)
+    source = port.TorchDraws(23, "cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    args = sim._ensemble_args(load, ENS_N, source, spec,
+                              compile_ensemble(spec, sim.device),
+                              block_size=ENS_N)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t
+    fleet, wall, n_launch, peak = fleet_wall(
+        port, "closed", lambda: sim.run_ensemble(
+            load, ENS_N, source, spec, block_size=ENS_N), 1, 8)
+    hops = float(_np(fleet.summaries.hop_events).sum())
+    if not np.array_equal(fleet.offered_qps, args["offered"]):
+        raise AssertionError("closed fleet: rates differ from the plan")
+    log(f"fleet ensembleN-closed (64 connections at 30,000 qps, 8 "
+        f"members, qps jitter 0.1): the members' rate solves "
+        f"{plan_s * 1e3:.1f} ms of host planning (a bisection over "
+        f"pilots of {min(ENS_N, PILOT_N)} requests each; solved rates "
+        + ", ".join(f"{r:.1f}" for r in args["offered"])
+        + f" qps), then the folded fleet {wall * 1e3:.2f} ms "
+        f"({hops / wall:.4e} aggregate hop-events/s, rates cached), "
+        f"census launches {n_launch}, peak {peak:.3f} GiB")
+    return {"ensembleN-closed": n_launch}
+
+
+def ensemble_n(port, sim, census_ms=None):
+    """ensembleN on ``sim`` (the 1000-svc graph): folded, member by
+    member and as 32 solo runs on the same member sources, each after a
+    warm-up fleet; ``census_ms``: phase 3's census device time per
+    block, printed when given.  Returns the census launches of each."""
+    from isotope_tpu_torch.sim.draws import RootedSource
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    load = port.LoadModel(kind="open", qps=ENS_QPS)
+    source = port.TorchDraws(21, "cuda")
+    calls = len(sim.census_shapes(ENS_N))
+    launches = {}
+    out = {}
+    # warm-up: one small fleet of each mode (allocator growth, first
+    # launches); the timed fleets below are the bench's
+    for mode in ("vmap", "map"):
+        sim.run_ensemble(load, ENS_N, source, EnsembleSpec.of(2, mode=mode),
+                         block_size=ENS_N)
+    plan_chunk = sim.ensemble_chunk_size(ENS_MEMBERS, ENS_N)
+    for mode in ("vmap", "map"):
+        spec = EnsembleSpec.of(ENS_MEMBERS, mode=mode)
+        fleet, wall, n_launch, peak = fleet_wall(
+            port, mode, lambda spec=spec: sim.run_ensemble(
+                load, ENS_N, source, spec, block_size=ENS_N),
+            1, ENS_MEMBERS)
+        hops = float(_np(fleet.summaries.hop_events).sum())
+        chunks = -(-ENS_MEMBERS // fleet.chunk) if mode == "vmap" else 0
+        want = chunks * calls if mode == "vmap" else ENS_MEMBERS * calls
+        if n_launch != want:
+            raise AssertionError(f"ensembleN {mode}: {n_launch} census "
+                                 f"launches, expected {want}")
+        census = ""
+        if census_ms is not None and mode == "vmap":
+            folded = census_ms[f"ensembleN ({ENS_MEMBERS} folded)"]
+            census = (f", census device {folded * chunks:.4f} ms per "
+                      f"fleet (phase 3's folded calls)")
+        log(f"fleet ensembleN {mode}: {ENS_MEMBERS} members x {ENS_N} "
+            f"(chunk {fleet.chunk}; auto chunk {plan_chunk}), "
+            f"{wall * 1e3:.2f} ms per fleet, {hops / wall:.4e} aggregate "
+            f"hop-events/s, census launches {n_launch}{census}, peak "
+            f"device memory {peak:.3f} GiB")
+        out[mode] = (fleet, wall)
+        launches[f"ensembleN {mode}"] = n_launch
+    moved = compare_fleets(out["vmap"][0].summaries,
+                           out["map"][0].summaries,
+                           "ensembleN vmap against map")
+    log(f"fleet ensembleN: vmap == map on the card (counts, hop events; "
+        f"{moved} histogram counts a bucket over; sums within rtol "
+        f"{RESULT_RTOL:g})")
+
+    def solos():
+        return [sim.run_summary(load, ENS_N, RootedSource(source, s),
+                                block_size=ENS_N)
+                for s in range(ENS_MEMBERS)]
+
+    solo_out, wall, n_launch, peak = fleet_wall(port, "solos", solos, 1,
+                                                ENS_MEMBERS)
+    hops = sum(float(s.hop_events) for s in solo_out)
+    for k, s in enumerate(solo_out):
+        for f in ("count", "hop_events", "latency_hist", "latency_sum"):
+            _same(getattr(out["map"][0].member(k), f), getattr(s, f),
+                  f"ensembleN map member {k} against its solo run {f}")
+    log(f"fleet ensembleN as {ENS_MEMBERS} solo runs on the same member "
+        f"sources: {wall * 1e3:.2f} ms, {hops / wall:.4e} aggregate "
+        f"hop-events/s, census launches {n_launch}, peak "
+        f"{peak:.3f} GiB; map members == solo runs bit for bit; "
+        f"vmap / map / solos walls {out['vmap'][1] * 1e3:.2f} / "
+        f"{out['map'][1] * 1e3:.2f} / {wall * 1e3:.2f} ms")
+    launches["ensembleN solos"] = n_launch
+    return launches
+
+
+def chaosfleet_run(port, chaos_sim, census_ms):
+    """svc1000-chaosfleet, after one warm-up block; returns its census
+    launches."""
+    from isotope_tpu_torch.resilience.faults import ChaosJitterSpec
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    launches = {}
+    cf = CHAOSFLEET
+    cload = port.LoadModel(kind="open", qps=cf["qps"])
+    jitter = ChaosJitterSpec(**cf["jitter"])
+    chaos_sim.run_policies(cload, cf["block"], port.TorchDraws(0, "cuda"),
+                           block_size=cf["block"], window_s=cf["window_s"])
+    # the members' planner Simulators (host tables of each jittered
+    # schedule), timed apart: the fleet below builds them again
+    t = time.perf_counter()
+    chaos_sim._resolve_member_chaos(jitter, tuple(range(cf["members"])),
+                                    with_pol=True)
+    torch.cuda.synchronize()
+    planners_s = time.perf_counter() - t
+    fleet, wall, n_launch, peak = fleet_wall(
+        port, "chaosfleet", lambda: chaos_sim.run_policies_ensemble(
+            cload, cf["n"], port.TorchDraws(22, "cuda"),
+            EnsembleSpec.of(cf["members"]), block_size=cf["block"],
+            window_s=cf["window_s"], member_chaos=jitter),
+        2, cf["members"])
+    blocks = cf["members"] * -(-cf["n"] // cf["block"])
+    calls_c = len(census_calls(chaos_sim, cf["block"]))
+    if n_launch != blocks * calls_c:
+        raise AssertionError(f"svc1000-chaosfleet: {n_launch} launches, "
+                             f"expected {blocks} x {calls_c}")
+    sev = fleet.severity()
+    worst = int(np.argmax(sev))
+    hops = float(_np(fleet.summaries.hop_events).sum())
+    doc = fleet.to_doc("svc1000-chaosfleet")
+    log(f"fleet svc1000-chaosfleet: {cf['members']} protected members x "
+        f"{cf['n']} (block {cf['block']}, {cf['window_s']:g} s windows), "
+        f"member kills " + ", ".join(
+            f"[{e.start_s:.4f}, {e.end_s:.4f}) x{e.replicas_down}"
+            for ev in fleet.member_chaos for e in ev)
+        + f"; worst member {worst} (seed {doc['worst_member_seed']}) "
+        f"severity {sev[worst]:.6f} (peak window error share), "
+        f"{wall * 1e3:.2f} ms per fleet (of which ~{planners_s * 1e3:.1f} "
+        f"ms build the members' planners, timed apart), "
+        f"{wall / blocks * 1e3:.2f} ms per block with them, "
+        f"{(wall - planners_s) / blocks * 1e3:.2f} without, "
+        f"{hops / wall:.4e} aggregate hop-events/s, census "
+        f"launches {n_launch}, census device "
+        f"{census_ms['svc1000-chaosfleet'] * blocks:.4f} ms (phase 3), "
+        f"peak {peak:.3f} GiB")
+    launches["svc1000-chaosfleet"] = n_launch
+    return launches
+
+
+def observed_fleet_run(port, sim):
+    """ensembleN-observed beside its unobserved twin (both member by
+    member: the folded mode does not serve observed fleets yet), then
+    ``fleetblame.to_doc``; returns its census launches."""
+    from isotope_tpu_torch.metrics import fleetblame
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    launches = {}
+    load = port.LoadModel(kind="open", qps=ENS_QPS)
+    source = port.TorchDraws(21, "cuda")
+    asim = port.Simulator(sim.compiled, port.SimParams(
+        attribution=True, timeline=True), device="cuda")
+    spec = EnsembleSpec.of(ENS_OBSERVED)
+    asim.run_ensemble(load, ENS_N, source, EnsembleSpec.of(1),
+                      block_size=ENS_N, attribution=True, timeline=True)
+    twin, twin_wall, twin_launch, twin_peak = fleet_wall(
+        port, "twin", lambda: sim.run_ensemble(
+            load, ENS_N, source, EnsembleSpec.of(ENS_OBSERVED, mode="map"),
+            block_size=ENS_N), 1, ENS_OBSERVED)
+    obs, wall, n_launch, peak = fleet_wall(
+        port, "observed", lambda: asim.run_ensemble(
+            load, ENS_N, source, spec, block_size=ENS_N, attribution=True,
+            timeline=True, window_s=0.1), 1, ENS_OBSERVED)
+    t = time.perf_counter()
+    doc = fleetblame.to_doc(asim.compiled, obs.attributions, obs.timelines,
+                            seeds=spec.seeds, window_s=0.1)
+    explain_s = time.perf_counter() - t
+    compare_fleets(obs.summaries, twin.summaries, "ensembleN-observed "
+                   "against its twin", rtol=0.0, atol=0.0)
+    worst = doc["member_blame"][doc["ranking"][0]]
+    log(f"fleet ensembleN-observed: {ENS_OBSERVED} members x {ENS_N} "
+        f"(mean attribution + timeline, map), {wall * 1e3:.2f} ms per "
+        f"fleet against its unobserved twin's {twin_wall * 1e3:.2f} ms "
+        f"({wall / twin_wall:.2f}x), census launches {n_launch} / "
+        f"{twin_launch}, peak {peak:.3f} / {twin_peak:.3f} GiB; "
+        f"fleetblame.to_doc {explain_s * 1e3:.1f} ms: member "
+        f"{worst['member']} ranks first, top hop "
+        f"{worst['top_hops'][0]['service'] if worst['top_hops'] else '-'}"
+        f"; summaries equal the twin's")
+    launches["ensembleN-observed"] = n_launch
+    return launches
+
+
+def cli_fleet_phase():
+    """``simulate --ensemble 8 --ensemble-jitter ... --ensemble-slo 250ms
+    --ensemble-out`` on canonical.yaml, and ``--policies --rollouts
+    --ensemble 4 --ensemble-chaos-jitter ... --ensemble-out`` on its
+    protected variant, on the card and with ``--device cpu`` in this
+    process on one draw source (``cli_capture``): the Fortio documents'
+    counts and the ensemble documents agree (``docs_close``); the card
+    runs the plain fleet folded, the CPU member by member."""
+    import io
+
+    import yaml
+
+    from isotope_tpu_torch import cli as port_cli
+    from isotope_tpu_torch.sim import TorchDraws
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        topo = tmp / "canonical-protected.yaml"
+        topo.write_text((TOPOLOGIES / "canonical.yaml").read_text()
+                        + yaml.safe_dump(CLI_PROTECTED))
+        cases = {
+            "plain": (TOPOLOGIES / "canonical.yaml", [
+                "--ensemble", "8", "--ensemble-jitter", FLEET_JITTER,
+                "--ensemble-slo", "250ms"]),
+            "protected": (topo, [
+                "--policies", "--rollouts", "--ensemble", "4",
+                "--ensemble-chaos-jitter", "time=0.3,magnitude=0.5,seed=0",
+                "--ensemble-slo", "250ms"]),
+        }
+        for case, (path, flags) in cases.items():
+            docs = {}
+            for device in ("cuda", "cpu"):
+                out_file = tmp / f"{case}-ens-{device}"
+                args = ["simulate", str(path), "--qps", "1000",
+                        "--duration", "4s", "--load-kind", "open",
+                        "--device", device, *flags,
+                        "--ensemble-out", str(out_file)]
+                t = time.perf_counter()
+                buf, err = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(err), \
+                        cli_capture(TorchDraws(0, "cpu")):
+                    rc = port_cli.main(args)
+                if rc != 0:
+                    raise AssertionError(f"simulate {flags} on {device}")
+                doc = json.loads(buf.getvalue())
+                docs[device] = {
+                    "fortio": {k: doc[k] for k in (
+                        "Labels", "RequestedQPS", "NumThreads", "RetCodes")}
+                    | {"Count": doc["DurationHistogram"]["Count"]},
+                    "ensemble": json.loads(out_file.read_text()),
+                }
+                line = [ln for ln in err.getvalue().splitlines()
+                        if ln.startswith("ensemble:")]
+                log(f"cli simulate {' '.join(flags)} on {device}: "
+                    f"{docs[device]['fortio']['Count']} requests in "
+                    f"{time.perf_counter() - t:.1f} s; {line[0]}")
+            for key, want in docs["cpu"].items():
+                docs_close(docs["cuda"][key], want, f"{case}.{key}")
+            log(f"cli fleet {case}: Fortio and ensemble documents agree, "
+                f"card against CPU")
+
+
 # -- phase 7: the DES oracle --------------------------------------------------
 
 
@@ -2864,7 +3427,9 @@ def main() -> int:
     scenarios = scenario_runs(port, build_s) + lb_runs(port)
     runs += [run[:5] for run in scenarios]
     prot = protected_runs(port)
-    timing = kernel_phase(census_mod, runs + [run[:5] for run in prot],
+    chaos_sim = chaosfleet_sim(port)
+    timing = kernel_phase(census_mod, runs + [run[:5] for run in prot]
+                          + fleet_census_runs(runs, chaos_sim),
                           census_only_configs(port))
 
     def plain(graph):
@@ -2904,6 +3469,7 @@ def main() -> int:
         if name == "lb-1000svc-lr"
     ])
     protected_in_situ(port, in_situ_twins(port, prot))
+    fleet_in_situ(port)
     attr = dict(attribution=True)
     flagship_c = runs[0][1].compiled
     census_c = compile_graph(ServiceGraph.from_yaml(CENSUS_YAML))
@@ -2957,11 +3523,15 @@ def main() -> int:
                    policies=smoke[1]._policies, device="cuda"),
          *smoke[2:5], "tail", smoke[5]),
     ], walls))
+    # the fleets: each its own path, counts set to 0 just before
+    by_path.update(fleet_phase(port, runs, chaos_sim,
+                               timing["ms_per_block"]))
     launches = sum(by_path.values())
     log(f"census launches on every path: {launches}")
     cli_phase()
     cli_protected_phase()
     cli_attribution_phase()
+    cli_fleet_phase()
     oracle_phase(port)
 
     kernels = [{

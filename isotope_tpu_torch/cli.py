@@ -26,9 +26,18 @@ main path:
   ``--blame-out``, ``--flamegraph``, ``--perfetto-blame`` and
   ``--exemplar-trace`` write its documents.  ``--trace`` re-runs a small
   dense batch and writes its spans (``metrics/trace.py``), and
-  ``--timeline-perfetto`` the recorder's counter tracks.  The JAX
-  command's other flags raise ``NotImplementedError`` naming their
-  ROADMAP item.
+  ``--timeline-perfetto`` the recorder's counter tracks.  ``--ensemble
+  N`` serves the case as a Monte Carlo fleet (``sim/ensemble.py``; with
+  ``--policies`` / ``--rollouts`` a protected fleet whose member 0 runs
+  on the run's own draws, with ``--attribution`` / ``--timeline`` an
+  observed one): the document pools the members, the ``ensemble:`` line
+  gives the p99 band and, with ``--ensemble-slo``, the SLO-violation
+  probability, ``--ensemble-out`` writes ``isotope-ensemble/v2``, and
+  the tables and documents of the other flags are the worst member's.
+  ``--ensemble-jitter`` perturbs the members' qps, cpu and error rates;
+  ``--ensemble-chaos-jitter`` is parsed and, with no chaos schedule in
+  ``simulate``, has nothing to jitter.  The JAX command's other flags
+  raise ``NotImplementedError`` naming their ROADMAP item.
 - ``check``: the run's Prometheus series (``MetricsCollector``) are
   queried by the reference's stability alarm suite; every alarm is
   printed to stderr and the exit code is 1 when one fires.
@@ -52,17 +61,12 @@ from isotope_tpu_torch.utils import duration as dur
 
 # the JAX command's flags whose layers are not ported: each raises
 # NotImplementedError naming its ROADMAP item
-_FLEETS = "item 9, fleets"
+_FLEETS = "item 9, fleets: sim/splitting.py"
 _MULTI, _SERVICES = "item 11, multi-GPU", "item 12, framework services"
 _REFUSED = [
     ("--flat", dict(action="store_true"), "item 10, runner and CLI"),
-    ("--ensemble", dict(type=int), _FLEETS),
-    ("--ensemble-jitter", dict(), _FLEETS),
-    ("--ensemble-slo", dict(), _FLEETS),
-    ("--ensemble-chaos-jitter", dict(), _FLEETS),
     ("--ensemble-split", dict(), _FLEETS),
     ("--split-horizon", dict(type=float), _FLEETS),
-    ("--ensemble-out", dict(metavar="FILE"), _FLEETS),
     ("--mesh", dict(), _MULTI),
     ("--overlap", dict(action="store_true"), _MULTI),
     ("--telemetry", dict(nargs="?", const="on"), _SERVICES),
@@ -186,6 +190,35 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--rollouts-out", metavar="FILE", default=None,
                    help="write the rollout trajectory as JSON "
                         "(isotope-rollout/v1)")
+    s.add_argument(
+        "--ensemble", type=int, default=None, metavar="N",
+        help="Monte Carlo fleet: run the case as N members (member k "
+             "draws from the run's source folded by seed k); the "
+             "printed document pools the members, --ensemble-out "
+             "writes per-member quantiles, quantile bands and the "
+             "SLO-violation probability with a Wilson interval "
+             "(isotope-ensemble/v2)")
+    s.add_argument(
+        "--ensemble-jitter", default=None, metavar="SPEC",
+        help="per-member perturbations as axis=sigma pairs, e.g. "
+             "'qps=0.1,cpu=0.05,error=0.2[,seed=K]': mean-preserving "
+             "lognormal factors on the offered qps, per-request CPU "
+             "demand, and per-hop error rates (deterministic per "
+             "seed K)")
+    s.add_argument(
+        "--ensemble-slo", default=None, metavar="LATENCY",
+        help="SLO latency (e.g. '250ms') the ensemble document's "
+             "P(p99 > SLO) estimate targets")
+    s.add_argument(
+        "--ensemble-chaos-jitter", default=None, metavar="SPEC",
+        help="per-member chaos schedules: jitter each member's kill "
+             "timing / target / magnitude as key=value pairs, e.g. "
+             "'time=0.2,magnitude=0.5,target=0.3[,seed=K]' (needs a "
+             "chaos schedule, which simulate has none of: parsed and "
+             "checked, as the JAX command does)")
+    s.add_argument("--ensemble-out", metavar="FILE", default=None,
+                   help="write the ensemble's distributional summary "
+                        "as JSON (isotope-ensemble/v2)")
     for flag, kw, _ in _REFUSED:
         s.add_argument(flag, **kw)
     s.add_argument("--lb-out", metavar="FILE", default=None,
@@ -298,6 +331,7 @@ def run_simulate(args) -> int:
     from isotope_tpu_torch.sim import lb as lb_mod
 
     _refuse_unported(args)
+    fleet = _fleet_args(args)
     if args.compile_cache is not None:
         print("note: --compile-cache configures XLA's compilation cache; "
               "the torch port has none and ignores it", file=sys.stderr)
@@ -342,14 +376,23 @@ def run_simulate(args) -> int:
     n = num_requests(load, sim.capacity_qps(), args.max_requests)
     block = sim.default_block_size()
     source = TorchDraws(args.seed, sim.device)
-    tl = pol = roll = attr = None
+    tl = pol = roll = attr = ens = None
+    stamp = {}
     # an attributed main run: the same draws, blocking and (protected)
     # trajectory as the plain one, so the same summary; errors raise
     attr_kw = dict(
         attribution=args.attribution is not None,
         tail=args.attribution == "tail",
     )
-    if pol_t is not None or roll_t is not None:
+    if fleet is not None:
+        # a Monte Carlo fleet serves the case: the document pools the
+        # members, the worst member's tables are the postmortem
+        ens, summary, tl, pol, roll, attr, stamp = _run_fleet(
+            args, fleet, sim, load, n, block, source, tl_window,
+            pol_t is not None or roll_t is not None, roll_t is not None,
+            attr_kw,
+        )
+    elif pol_t is not None or roll_t is not None:
         # the PROTECTED physics is the measurement: the main run is the
         # co-simulation, its block capped near one recorder window
         win, blk = protected_window_block(
@@ -377,11 +420,11 @@ def run_simulate(args) -> int:
             _, tl = sim.run_timeline(load, n, source, block_size=block,
                                      trim=True, window_s=tl_window)
     if attr is not None:
-        _write_attribution_artifacts(args, compiled, attr)
+        _write_attribution_artifacts(args, compiled, attr, stamp)
     if args.policies and pol is not None:
         from isotope_tpu_torch.sim import policies as policies_mod
 
-        _emit(policies_mod.to_doc(compiled, pol, pol_t),
+        _emit(dict(policies_mod.to_doc(compiled, pol, pol_t), **stamp),
               policies_mod.format_table, args.policies_out, "policies")
     elif args.policies:
         print("warning: --policies set but the topology declares no "
@@ -389,7 +432,7 @@ def run_simulate(args) -> int:
     if args.rollouts and roll is not None:
         from isotope_tpu_torch.sim import rollout as rollout_mod
 
-        _emit(rollout_mod.to_doc(compiled, roll, roll_t),
+        _emit(dict(rollout_mod.to_doc(compiled, roll, roll_t), **stamp),
               rollout_mod.format_table, args.rollouts_out, "rollouts")
     elif args.rollouts:
         print("warning: --rollouts set but the topology declares no "
@@ -406,8 +449,8 @@ def run_simulate(args) -> int:
     if tl is not None:
         from isotope_tpu_torch.metrics import timeline as timeline_mod
 
-        _emit(timeline_mod.to_doc(compiled, tl), timeline_mod.format_table,
-              args.timeline_out, "timeline")
+        _emit(dict(timeline_mod.to_doc(compiled, tl), **stamp),
+              timeline_mod.format_table, args.timeline_out, "timeline")
         if args.timeline_perfetto:
             from isotope_tpu_torch.metrics.export import (
                 write_timeline_perfetto,
@@ -422,12 +465,18 @@ def run_simulate(args) -> int:
                 f.write(timeline_mod.prometheus_text(compiled, tl))
             print(f"timestamped exposition -> {args.timeline_prometheus}",
                   file=sys.stderr)
+    if ens is not None:
+        _emit_fleet(args, ens, fleet, stamp)
     entry = compiled.entry_service
     doc = fortio_result_from_summary(
         summary, load,
         labels=run_label(args.topology, env.name, load, args.labels),
         response_size_bytes=float(compiled.services.response_size[entry]),
     )
+    if ens is not None:
+        # the pooled count spans the members' runs of one duration each:
+        # the rate is per member, as RequestedQPS is (counts stay pooled)
+        doc["ActualQPS"] /= ens.members
     json.dump(doc, sys.stdout, indent=2)
     sys.stdout.write("\n")
     if args.prometheus:
@@ -447,15 +496,156 @@ def run_simulate(args) -> int:
     return 0
 
 
-def _write_attribution_artifacts(args, compiled, attr) -> None:
-    """The blame table to stderr and the attributed run's documents."""
+def _fleet_args(args):
+    """The ``--ensemble*`` flags as ``(EnsembleSpec, slo_s,
+    ChaosJitterSpec)``, or None without ``--ensemble``; the specs are
+    parsed before anything simulates.  ``simulate`` has no chaos
+    schedule, so the chaos jitter is checked and then has nothing to
+    jitter, as in the JAX command."""
+    if not args.ensemble or args.ensemble <= 0:
+        return None
+    from isotope_tpu_torch.resilience.faults import parse_chaos_jitter
+    from isotope_tpu_torch.sim.ensemble import (
+        EnsembleSpec,
+        parse_jitter_spec,
+    )
+
+    j = parse_jitter_spec(args.ensemble_jitter)
+    spec = EnsembleSpec.from_jitter(
+        int(args.ensemble),
+        qps_jitter=j["qps_jitter"],
+        cpu_jitter=j["cpu_jitter"],
+        error_jitter=j["error_jitter"],
+        jitter_seed=j.get("jitter_seed", 0),
+    )
+    parse_chaos_jitter(args.ensemble_chaos_jitter)
+    slo_s = (
+        None if args.ensemble_slo is None
+        else dur.parse_duration_seconds(args.ensemble_slo)
+    )
+    return spec, slo_s
+
+
+def _run_fleet(args, fleet, sim, load, n, block, source, tl_window,
+               protected: bool, roll: bool, attr_kw: dict):
+    """The case as a Monte Carlo fleet, as the JAX runner dispatches
+    it: a plain (or observed) fleet through ``run_ensemble``, members
+    ``RootedSource(source, seed)``; a protected fleet through
+    ``run_policies_ensemble`` / ``run_rollouts_ensemble`` with member 0
+    on the run's own source (the control member).  Each member's qps
+    is the load's times its scale.  Returns ``(fleet, pooled summary,
+    timeline, policies, rollouts, attribution, stamp)``: the worst
+    member's series, and the stamp that names it in their
+    documents."""
+    import numpy as np
+
+    from isotope_tpu_torch.runner.run import protected_window_block
+    from isotope_tpu_torch.sim.draws import RootedSource
+
+    spec, _ = fleet
+    scale = (
+        spec.qps_scale if spec.qps_scale is not None
+        else np.ones(spec.members)
+    )
+    member_qps = (
+        None if load.qps is None else float(load.qps) * scale
+    )
+    if protected:
+        win, blk = protected_window_block(
+            sim, load, block, sim.params.timeline_window_s, tl_window
+        )
+        runner = (
+            sim.run_rollouts_ensemble if roll
+            else sim.run_policies_ensemble
+        )
+        keys = [source] + [RootedSource(source, s) for s in spec.seeds[1:]]
+        ens = runner(load, n, source, spec, block_size=blk, trim=True,
+                     window_s=win, member_keys=keys,
+                     member_qps=member_qps, **attr_kw)
+    else:
+        obs = dict(attr_kw) if attr_kw["attribution"] else {}
+        if tl_window is not None:
+            obs.update(timeline=True, window_s=tl_window)
+        ens = sim.run_ensemble(load, n, source, spec, block_size=block,
+                               trim=True, member_qps=member_qps, **obs)
+    observed = protected or ens.timelines is not None or (
+        ens.attributions is not None
+    )
+    tl = pol = roll_s = attr = None
+    stamp = {}
+    if observed:
+        worst = ens.worst_member()
+        seed = int(spec.seeds[worst])
+        if protected:
+            # the control member rides the run's own source: its
+            # replay recipe is the solo run
+            stamp = {
+                "member": worst,
+                "member_seed": None if worst == 0 else seed,
+                "member_key": (
+                    "run_key" if worst == 0
+                    else "fold_in(run_key, member_seed)"
+                ),
+                "fleet_members": ens.members,
+                "worst_member": True,
+            }
+        else:
+            stamp = {"member": worst, "member_seed": seed,
+                     "fleet_members": ens.members, "worst_member": True}
+        if ens.timelines is not None:
+            tl = ens.member_timeline(worst)
+        if ens.policies is not None:
+            pol = ens.member_policies(worst)
+        if ens.rollouts is not None:
+            roll_s = ens.member_rollouts(worst)
+        if ens.attributions is not None:
+            attr = ens.member_attribution(worst)
+    return ens, ens.pooled(), tl, pol, roll_s, attr, stamp
+
+
+def _emit_fleet(args, ens, fleet, stamp) -> None:
+    """The ``ensemble:`` line to stderr and ``--ensemble-out``."""
+    from isotope_tpu_torch.runner.run import run_label
+
+    _, slo_s = fleet
+    d = ens.to_doc(
+        label=run_label(args.topology, args.environment, _load(args),
+                        args.labels),
+        slo_s=slo_s,
+    )
+    if ens.protected and d.get("worst_member") == 0:
+        d["worst_member_seed"] = None
+    band = d["quantile_band_p99"]
+    line = (
+        f"ensemble: {d['members']} members (chunk {d['chunk']}): "
+        f"p99 band [{band['lo_s'] * 1e3:.2f}, "
+        f"{band['mid_s'] * 1e3:.2f}, {band['hi_s'] * 1e3:.2f}] ms"
+    )
+    if "slo" in d:
+        s = d["slo"]
+        line += (
+            f"; P(p{s['quantile'] * 100:g} > "
+            f"{s['slo_s'] * 1e3:g}ms) = {s['p_violation']:.3f} "
+            f"[{s['ci_lo']:.3f}, {s['ci_hi']:.3f}] "
+            f"@{s['confidence']:.0%}"
+        )
+    print(line, file=sys.stderr)
+    if args.ensemble_out:
+        with open(args.ensemble_out, "w") as f:
+            json.dump(d, f, indent=2)
+        print(f"ensemble -> {args.ensemble_out}", file=sys.stderr)
+
+
+def _write_attribution_artifacts(args, compiled, attr, stamp=None) -> None:
+    """The blame table to stderr and the attributed run's documents
+    (``stamp`` names a fleet's worst member in the blame document)."""
     from isotope_tpu_torch.metrics import attribution as attr_mod
     from isotope_tpu_torch.metrics.export import (
         write_flamegraph,
         write_perfetto_counters,
     )
 
-    doc = attr_mod.to_doc(compiled, attr)
+    doc = dict(attr_mod.to_doc(compiled, attr), **(stamp or {}))
     _emit(doc, attr_mod.format_table, args.blame_out, "blame tables")
     if args.flamegraph:
         lines = write_flamegraph(args.flamegraph, compiled, attr)

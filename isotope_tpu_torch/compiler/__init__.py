@@ -4,9 +4,14 @@ Host-side copies of ``isotope_tpu.compiler``'s lowering, so the port
 imports nothing of the JAX package.
 """
 from isotope_tpu_torch.compiler.compile import (
+    ChaosFx,
     CycleError,
+    EnsembleTables,
     HopBudgetExceededError,
     NoEntrypointError,
+    chaos_fx_layout,
+    compile_chaos_members,
+    compile_ensemble,
     compile_graph,
     compile_lb,
     compile_policies,
@@ -21,12 +26,17 @@ from isotope_tpu_torch.compiler.program import (
 )
 
 __all__ = [
+    "ChaosFx",
     "CompiledGraph",
     "CycleError",
+    "EnsembleTables",
     "HopBudgetExceededError",
     "HopLevel",
     "NoEntrypointError",
     "ServiceTable",
+    "chaos_fx_layout",
+    "compile_chaos_members",
+    "compile_ensemble",
     "compile_graph",
     "compile_lb",
     "compile_policies",

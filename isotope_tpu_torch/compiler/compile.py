@@ -14,14 +14,16 @@ recurse until sockets run out), so rejecting cycles at compile time is
 strictly safer.
 
 This is a copy of ``isotope_tpu.compiler.compile``'s graph lowering
-(``compile_graph`` and its helpers) and of ``compile_lb``, without the
-telemetry calls and without the policy, rollout, ensemble and chaos
-table builders, which later slices of the port bring.
+(``compile_graph`` and its helpers), of ``compile_lb``,
+``compile_policies`` and ``compile_rollouts``, and of the fleet tables
+(``compile_ensemble``, ``rung_bucket``, ``ensemble_take``, ``ChaosFx``,
+``chaos_fx_layout``, ``compile_chaos_members``), without the telemetry
+calls.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -352,3 +354,210 @@ def compile_rollouts(graph: ServiceGraph, compiled: CompiledGraph):
     if rset.empty:
         return None
     return rollout_mod.build_tables(rset, compiled.services)
+
+
+# -- Monte Carlo fleets (sim/ensemble.py) -----------------------------------
+
+
+class EnsembleTables(NamedTuple):
+    """Per-member tables of one Monte Carlo fleet (``sim/ensemble.py``).
+
+    ``qps_scale`` stays on the host (it sets each member's offered rate,
+    visit tables and trim window before the run); ``cpu_scale`` and
+    ``err_scale`` are the members' physics arguments, float32 tensors
+    (all ones when the spec leaves that axis off; ``jittered`` says
+    whether the engine applies them).  ``mode`` is the resolved member
+    axis mode (``"vmap"`` or ``"map"``)."""
+
+    members: int
+    seeds: Tuple[int, ...]
+    qps_scale: np.ndarray        # (N,) float64, all ones when off
+    cpu_scale: "torch.Tensor"    # (N,) float32
+    err_scale: "torch.Tensor"    # (N,) float32
+    jittered: bool
+    mode: str
+
+
+def compile_ensemble(spec, device=None) -> EnsembleTables:
+    """Lower an :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSpec` to
+    the per-member tables the engine's fleets consume; ``device`` (the
+    Simulator's) resolves the automatic mode."""
+    import torch
+
+    n = spec.members
+    ones = np.ones(max(n, 1), np.float64)
+    qps = ones if spec.qps_scale is None else spec.qps_scale
+    cpu = ones if spec.cpu_scale is None else spec.cpu_scale
+    err = ones if spec.error_scale is None else spec.error_scale
+    return EnsembleTables(
+        members=n,
+        seeds=tuple(spec.seeds),
+        qps_scale=np.asarray(qps, np.float64),
+        cpu_scale=torch.as_tensor(np.asarray(cpu, np.float32)),
+        err_scale=torch.as_tensor(np.asarray(err, np.float32)),
+        jittered=spec.jittered,
+        mode=spec.resolved_mode(device),
+    )
+
+
+def rung_bucket(width: int) -> int:
+    """A rung's member width padded up to the next power of two (the
+    search brackets' shape family)."""
+    return 1 << max(int(width) - 1, 0).bit_length()
+
+
+def ensemble_take(stacked, idx):
+    """Gather member rows (a tensor of member indices) from every leaf
+    of member-stacked fleet inputs or outputs: the rung-advancement
+    primitive of the search brackets; the gathered rows are the source
+    rows bit for bit."""
+    from isotope_tpu_torch.sim.ensemble import tree_map
+
+    return tree_map(lambda x: x.index_select(0, idx.to(x.device)), stacked)
+
+
+class ChaosFx(NamedTuple):
+    """Per-member stacked chaos tables of a chaos fleet.
+
+    A Simulator's chaos tables (effective replicas, outage flags, the
+    policy layer's chaos-downed deltas, the rollout canary-first
+    kill-split tables, the lb panic healthy pools, the ungraceful-kill
+    reset rows and the saturated finite-population tables) are
+    constants of one schedule; a fleet whose members survive different
+    bad days has them per member, stacked along a leading member axis.
+    Every field past the first two is optional: ``None`` where the
+    composition arms no such layer (:func:`chaos_fx_layout`).  Shapes
+    align across members because ``resilience/faults.
+    jitter_chaos_events`` keeps the base schedule's cut structure
+    (checked at build time)."""
+
+    eff_replicas_pc: "torch.Tensor"   # (N, P*Cc, S) int32
+    svc_down_pc: "torch.Tensor"       # (N, P*Cc, S) bool
+    downed_pc: "torch.Tensor" = None  # (N, P*Cc, S) f32 (policies)
+    eff_base_roll_pc: "torch.Tensor" = None       # (N, P*Cc, S) int32
+    svc_down_base_roll_pc: "torch.Tensor" = None  # (N, P*Cc, S) bool
+    can_reps_pc: "torch.Tensor" = None            # (N, P*Cc, S) f32
+    svc_down_can_pc: "torch.Tensor" = None        # (N, P*Cc, S) bool
+    downed_base_pc: "torch.Tensor" = None         # (N, P*Cc, S) f32
+    lb_alive_pc: "torch.Tensor" = None            # (N, P*Cc, S) f32
+    kill_t: "torch.Tensor" = None                 # (N, E) f32
+    kill_frac: "torch.Tensor" = None              # (N, E, H) f32
+    sat_p0: "torch.Tensor" = None                 # (N, R, H) f32
+    sat_coef: "torch.Tensor" = None               # (N, R, D+1, H) f32
+    sat_e: "torch.Tensor" = None                  # (N, R, H) f32
+    sat_c: "torch.Tensor" = None                  # (N, R) f32
+    sat_scale: "torch.Tensor" = None              # (N, R, H) f32
+    sat_cuts: "torch.Tensor" = None               # (N, P) f32
+    sat_lam: "torch.Tensor" = None                # (N, P) f32
+    sat_breaks: "torch.Tensor" = None             # (N, P) f32
+
+
+def chaos_fx_layout(sim, with_pol: bool, roll: bool,
+                    sat: bool) -> Tuple[str, ...]:
+    """The armed :class:`ChaosFx` fields of one fleet composition."""
+    fields = ["eff_replicas_pc", "svc_down_pc"]
+    pol = with_pol and sim._policies is not None
+    if pol:
+        fields.append("downed_pc")
+    if roll and sim._rollouts is not None:
+        fields += [
+            "eff_base_roll_pc", "svc_down_base_roll_pc",
+            "can_reps_pc", "svc_down_can_pc",
+        ]
+        if pol:
+            fields.append("downed_base_pc")
+    if sim._lb is not None and sim._lb.any_panic and not sat:
+        fields.append("lb_alive_pc")
+    if sim._num_kill_events:
+        fields += ["kill_t", "kill_frac"]
+    if sat:
+        fields += [
+            "sat_p0", "sat_coef", "sat_e", "sat_c", "sat_scale",
+            "sat_cuts", "sat_lam", "sat_breaks",
+        ]
+    return tuple(fields)
+
+
+def compile_chaos_members(sim, member_events, with_pol: bool = False,
+                          roll: bool = False, sat_conns: int = 0,
+                          source=None):
+    """Each member's planner Simulator (``sim._member_planner``: its own
+    phase reach multipliers, retry-feedback fixed point, drain windows
+    and device tables) plus the stacked :class:`ChaosFx` tables of the
+    composition's layout.  Raises when a member's schedule breaks the
+    shape-aligned contract (another cut count than the base schedule).
+    ``source`` is the draw source whose fixed-seed pilots build the
+    saturated tables (``Simulator._closed_tables``).  Returns
+    ``(planners, ChaosFx)``."""
+    import torch
+
+    planners = [sim._member_planner(evts) for evts in member_events]
+    P = int(np.asarray(sim._phase_starts).shape[0])
+    W = sim._num_windows
+    for m, pl in enumerate(planners):
+        if (int(np.asarray(pl._phase_starts).shape[0]) != P
+                or pl._num_windows != W
+                or pl._num_combos != sim._num_combos):
+            raise ValueError(
+                f"member {m}'s jittered chaos schedule has a "
+                "different phase-cut structure than the base schedule "
+                f"({np.asarray(pl._phase_starts).shape[0]} cuts vs "
+                f"{P}); per-member chaos requires shape-aligned "
+                "schedules (same event count, distinct solo cuts)"
+            )
+    dev = sim.device
+
+    def stack(attr):
+        return torch.stack([getattr(pl, attr) for pl in planners])
+
+    kw: dict = {}
+    pol = with_pol and sim._policies is not None
+    if pol:
+        kw["downed_pc"] = stack("_downed_pc")
+    if roll and sim._rollouts is not None:
+        kw["eff_base_roll_pc"] = stack("_eff_base_roll_pc")
+        kw["svc_down_base_roll_pc"] = stack("_svc_down_base_roll_pc")
+        kw["can_reps_pc"] = stack("_can_reps_pc")
+        kw["svc_down_can_pc"] = stack("_svc_down_can_pc")
+        if pol:
+            kw["downed_base_pc"] = stack("_downed_base_pc")
+    if sim._lb is not None and sim._lb.any_panic and not sat_conns:
+        kw["lb_alive_pc"] = stack("_lb_alive_pc")
+    if sim._num_kill_events:
+        kw["kill_t"] = stack("_kill_t")
+        kw["kill_frac"] = stack("_kill_frac")
+    if sat_conns:
+        rows = [pl._closed_tables(int(sat_conns), source)
+                for pl in planners]
+        kw["sat_p0"] = torch.stack([r[1] for r in rows])
+        kw["sat_coef"] = torch.stack([r[2] for r in rows])
+        kw["sat_e"] = torch.stack([r[3] for r in rows])
+        kw["sat_c"] = torch.as_tensor(
+            np.stack([np.asarray(r[4]) for r in rows]), dtype=torch.float32
+        ).to(dev)
+        kw["sat_scale"] = torch.stack([r[5] for r in rows])
+        # the phased nominal-time warp constants, float64 host math
+        # as in the solo branch, rounded once to float32
+        cuts_l, lam_l, breaks_l = [], [], []
+        for pl, r in zip(planners, rows):
+            lam_p = np.maximum(
+                np.asarray(r[0]).reshape(P, pl._num_combos).mean(1), 1e-9
+            )
+            cuts_np = np.asarray(pl._phase_starts, np.float64)
+            breaks = np.concatenate(
+                [[0.0], np.cumsum(lam_p[:-1] * np.diff(cuts_np))]
+            )
+            cuts_l.append(cuts_np)
+            lam_l.append(lam_p)
+            breaks_l.append(breaks)
+        for name, arr in (("sat_cuts", cuts_l), ("sat_lam", lam_l),
+                          ("sat_breaks", breaks_l)):
+            kw[name] = torch.as_tensor(
+                np.stack(arr), dtype=torch.float32
+            ).to(dev)
+    fx = ChaosFx(
+        eff_replicas_pc=stack("_replicas_pc"),
+        svc_down_pc=stack("_svc_down_pc"),
+        **kw,
+    )
+    return planners, fx

@@ -57,6 +57,13 @@ class ServiceTable:
     def num_services(self) -> int:
         return len(self.names)
 
+    def replicas_by_name(self) -> "dict[str, int]":
+        """``{service name: replica count}``: the host-side view the
+        chaos-schedule jitter clamps magnitudes against."""
+        return {
+            n: int(r) for n, r in zip(self.names, self.replicas)
+        }
+
     @property
     def num_clusters(self) -> int:
         return len(self.cluster_names)

@@ -14,11 +14,11 @@ latency and per-hop proxy CPU — both explicit, overridable knobs.
 A copy of ``isotope_tpu.runner.config``: the environments, the
 ``ExperimentConfig`` fields and ``load_toml`` with its ``[[chaos]]``
 (bounce shorthand, ``drain``), ``[[churn]]``, ``[mtls]`` and environment
-overlays give the reference's values.  The keys that need the fleet and
-search modules (``ensemble_jitter``, ``ensemble_chaos_jitter``,
-``ensemble_split``, ``[search]`` candidates and jitter, and the spec
-constructors of an armed ensemble or search) raise ``NotImplementedError``
-naming their ROADMAP item.
+overlays give the reference's values, and the fleet keys (``ensemble``,
+``ensemble_jitter``, ``ensemble_slo``, ``ensemble_chaos_jitter``) build
+the fleet's specs.  The keys that need the splitting and search modules
+(``ensemble_split`` and its spec, ``[search]`` candidates and jitter)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -258,18 +258,30 @@ class ExperimentConfig:
         )
 
     def ensemble_spec(self):
-        """None when the ensemble axis is off; an armed ensemble raises
-        (the fleets are not ported)."""
+        """The sweep's :class:`~isotope_tpu_torch.sim.ensemble.
+        EnsembleSpec` (None when the ensemble axis is off)."""
         if self.ensemble <= 0:
             return None
-        raise _unported("scenario ensembles (sim/ensemble.py)")
+        from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+        return EnsembleSpec.from_jitter(
+            self.ensemble,
+            qps_jitter=self.ensemble_qps_jitter,
+            cpu_jitter=self.ensemble_cpu_jitter,
+            error_jitter=self.ensemble_error_jitter,
+            jitter_seed=self.ensemble_jitter_seed,
+        )
 
     def chaos_jitter_spec(self):
-        """None when the chaos jitter is off or no chaos schedule
-        exists to jitter; an armed jitter raises (not ported)."""
+        """The sweep's per-member chaos jitter
+        (:class:`~isotope_tpu_torch.resilience.faults.ChaosJitterSpec`),
+        or None when off or no chaos schedule exists to jitter."""
         if not self.ensemble_chaos_jitter or not self.chaos:
             return None
-        raise _unported("chaos jitter (resilience/faults.py)")
+        from isotope_tpu_torch.resilience.faults import parse_chaos_jitter
+
+        with config_path("sim.ensemble_chaos_jitter"):
+            return parse_chaos_jitter(self.ensemble_chaos_jitter)
 
     def split_spec(self):
         """None when importance splitting is off; an armed split
@@ -522,16 +534,26 @@ def _ensemble_kwargs(sim: dict) -> dict:
     the artifact's P(violation) estimate targets)."""
     out: dict = {"ensemble": int(sim.get("ensemble", 0))}
     if "ensemble_jitter" in sim:
+        from isotope_tpu_torch.sim.ensemble import parse_jitter_spec
+
         with config_path("sim.ensemble_jitter"):
-            raise _unported("ensemble jitter specs (sim/ensemble.py)")
+            j = parse_jitter_spec(str(sim["ensemble_jitter"]))
+        out["ensemble_qps_jitter"] = j["qps_jitter"]
+        out["ensemble_cpu_jitter"] = j["cpu_jitter"]
+        out["ensemble_error_jitter"] = j["error_jitter"]
+        out["ensemble_jitter_seed"] = j.get("jitter_seed", 0)
     if "ensemble_slo" in sim:
         with config_path("sim.ensemble_slo"):
             out["ensemble_slo_s"] = dur.parse_duration_seconds(
                 sim["ensemble_slo"]
             )
     if "ensemble_chaos_jitter" in sim:
+        # parse eagerly: a typo'd spec must fail at config load
+        from isotope_tpu_torch.resilience.faults import parse_chaos_jitter
+
         with config_path("sim.ensemble_chaos_jitter"):
-            raise _unported("chaos jitter (resilience/faults.py)")
+            parse_chaos_jitter(str(sim["ensemble_chaos_jitter"]))
+        out["ensemble_chaos_jitter"] = str(sim["ensemble_chaos_jitter"])
     if "ensemble_split" in sim:
         with config_path("sim.ensemble_split"):
             raise _unported("importance splitting (sim/splitting.py)")

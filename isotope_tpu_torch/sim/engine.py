@@ -52,8 +52,12 @@ close-shaped levels into ``lax.scan`` buckets to bound its trace size;
 this port sweeps every level one by one, which computes the same
 values (the JAX package pins buckets against unrolled levels).
 
-Not in this slice (raises ``NotImplementedError`` naming its ROADMAP
-item): ensembles.
+Monte Carlo fleets (``sim/ensemble.py``, :meth:`Simulator.run_ensemble`
+and the protected fleets) run their members one after another through
+the solo block loop (``"map"``), or fold a chunk of M members into one
+block of M x N request rows (``"vmap"``, plain fleets).  Not in this
+slice (raises ``NotImplementedError`` naming its ROADMAP item): the
+fleets' carry export of the search brackets.
 """
 from __future__ import annotations
 
@@ -643,6 +647,17 @@ def _sparse_level_sweep(
     return busy, fail_step, off
 
 
+def _cat_draws(parts: Sequence[Draws]) -> Draws:
+    """Fleet members' block draws stacked along the request axis,
+    member-major (the ungraceful-kill coins, (E, N, H), along their
+    second axis): the draws of a folded block."""
+    return Draws(*(
+        None if ts[0] is None
+        else torch.cat(ts, 1 if name == "u_kill" else 0)
+        for name, ts in zip(Draws._fields, zip(*parts))
+    ))
+
+
 class _BlockControl:
     """The carry of a recorded or protected block loop
     (``Simulator.run_timeline`` / ``run_policies`` / ``run_rollouts``):
@@ -744,8 +759,6 @@ class Simulator:
         *,
         device=None,
     ):
-        if params.ensemble:
-            raise _unsupported("scenario ensembles", "fleets")
         self.device = resolve_device(device)
         dev = self.device
         self.compiled = compiled
@@ -825,6 +838,7 @@ class Simulator:
         self._visits = tensor(compiled.expected_visits(hop_mult), F32)
 
         # -- chaos phases: piecewise-constant effective replica counts -------
+        self._chaos_events = tuple(chaos)
         for ev in chaos:
             if ev.service not in name_to_idx:
                 raise ValueError(f"chaos for unknown service: {ev.service!r}")
@@ -2061,6 +2075,8 @@ class Simulator:
     def run_blocks(self, load: LoadModel, num_requests: int, source, *,
                    block_size: int = 65_536,
                    control: Optional["_BlockControl"] = None,
+                   cpu_scale: Optional[torch.Tensor] = None,
+                   err_scale: Optional[torch.Tensor] = None,
                    ) -> Iterator[SimResults]:
         """The :class:`SimResults` of each block of a run of >=
         ``num_requests`` (:meth:`_block_plan`).
@@ -2075,7 +2091,9 @@ class Simulator:
         ``control`` (a recorded or protected run, :meth:`run_timeline`,
         :meth:`run_policies`, :meth:`run_rollouts`) rides the same loop:
         each block runs under its current effects, and it observes each
-        block before the next one starts.
+        block before the next one starts.  ``cpu_scale`` / ``err_scale``
+        (0-d tensors) are a fleet member's perturbations
+        (:meth:`_simulate_core`).
         """
         self._check_lb_load(load)
         offered, block, num_blocks = self._block_plan(
@@ -2112,6 +2130,8 @@ class Simulator:
                 phase_windows=windows,
                 policy_fx=pfx,
                 rollout_fx=rfx,
+                cpu_scale=cpu_scale,
+                err_scale=err_scale,
             )
             if control is not None:
                 # closed loop: a window is final only once the SLOWEST
@@ -2145,14 +2165,18 @@ class Simulator:
 
     def _run_summary(self, load, num_requests, source, block_size,
                      collector, trim, control=None, attr=False,
-                     tail_cut=None):
+                     tail_cut=None, cpu_scale=None, err_scale=None,
+                     fleet=False):
         """The block loop reduced to a RunSummary; with ``attr`` also to
         an AttributionSummary (its tail accumulators armed at
-        ``tail_cut`` when given): ``(summary, attribution)``."""
+        ``tail_cut`` when given): ``(summary, attribution)``.  A solo
+        loop reduces blame or the recorder's timeline, not both; a fleet
+        member (``fleet``) may reduce both, as the reference's observed
+        fleet members do."""
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
-        if (attr and control is not None
+        if (attr and control is not None and not fleet
                 and control.pol is None and control.roll is None):
             raise ValueError(
                 "one block loop reduces either blame or the timeline, "
@@ -2181,7 +2205,9 @@ class Simulator:
             a_acc = None
         parts = []
         for res in self.run_blocks(load, num_requests, source,
-                                   block_size=block_size, control=control):
+                                   block_size=block_size, control=control,
+                                   cpu_scale=cpu_scale,
+                                   err_scale=err_scale):
             parts.append(summary_mod.summarize(res, collector, window=win))
             if attr:
                 a, ex = attribution.attribute_block(
@@ -2309,13 +2335,18 @@ class Simulator:
         return w, dt_eff
 
     def _control(self, load, num_requests, source, block_size, window_s,
-                 policies: bool, rollouts: bool) -> "_BlockControl":
-        offered, block, num_blocks = self._block_plan(
-            load, num_requests, source, block_size
-        )
-        tl_plan = self.plan_timeline_windows(
-            num_blocks * block, offered, window_s
-        )
+                 policies: bool, rollouts: bool,
+                 tl_plan=None) -> "_BlockControl":
+        """The carry of a recorded or protected loop, its window grid
+        planned from the run's rate unless ``tl_plan`` gives it (a
+        fleet's members share the grid of member 0's rate)."""
+        if tl_plan is None:
+            offered, block, num_blocks = self._block_plan(
+                load, num_requests, source, block_size
+            )
+            tl_plan = self.plan_timeline_windows(
+                num_blocks * block, offered, window_s
+            )
         return _BlockControl(self, tl_plan, policies, rollouts)
 
     def run_timeline(
@@ -2416,7 +2447,8 @@ class Simulator:
                        block_size: int, collector, trim: bool,
                        window_s: Optional[float], attribution: bool = False,
                        tail: bool = False,
-                       tail_cut: Optional[float] = None):
+                       tail_cut: Optional[float] = None,
+                       cpu_scale=None, err_scale=None, tl_plan=None):
         """The shared tail of :meth:`run_policies` and
         :meth:`run_rollouts`: one block loop whose carry holds the
         clocks, the recorder's accumulator, the (S, W) retry
@@ -2425,18 +2457,20 @@ class Simulator:
         Block ``b+1`` runs under the effects taken after block ``b``.
 
         Returns ``(summary, timeline[, rollout summary][, policy
-        summary][, attribution])``."""
+        summary][, attribution])``.  ``cpu_scale`` / ``err_scale`` and
+        ``tl_plan`` are a fleet member's (:meth:`run_policies_ensemble`)."""
         if attribution and tail and tail_cut is None:
             tail_cut = self.estimate_tail_cut(
                 load, num_requests, source, block_size=block_size
             )
         control = self._control(
             load, num_requests, source, block_size, window_s,
-            self._policies is not None, roll,
+            self._policies is not None, roll, tl_plan=tl_plan,
         )
         summary = self._run_summary(
             load, num_requests, source, block_size, collector, trim,
             control, attr=attribution, tail_cut=tail_cut if tail else None,
+            cpu_scale=cpu_scale, err_scale=err_scale,
         )
         if attribution:
             summary, attr = summary
@@ -2528,13 +2562,609 @@ class Simulator:
                                    block_size, collector, trim, window_s,
                                    attribution, tail, tail_cut)
 
+    # -- Monte Carlo fleets (sim/ensemble.py) -------------------------------
+
+    def _member_planner(self, events) -> "Simulator":
+        """A sibling Simulator carrying ONE fleet member's chaos
+        schedule: its phase reach multipliers, retry-feedback fixed
+        point, drain windows, closed-loop rate solves and device tables
+        are exactly the solo run's under that schedule, so a ``"map"``
+        member runs its block loop and equals that solo run.  A member
+        on the base schedule gets this Simulator itself."""
+        events = tuple(events)
+        if events == self._chaos_events:
+            return self
+        return Simulator(
+            self.compiled, self.params, chaos=events,
+            churn=self._churn, mtls=self._mtls,
+            policies=self._policies, rollouts=self._rollouts,
+            lb=self._lb, device=self.device,
+        )
+
+    def _check_member_chaos(self) -> None:
+        """Per-member chaos needs a base schedule to jitter."""
+        if not self.has_chaos:
+            raise ValueError(
+                "per-member chaos needs a base chaos schedule to "
+                "jitter (Simulator(..., chaos=[...]))"
+            )
+
+    def _resolve_member_chaos(self, member_chaos, seeds,
+                              with_pol: bool = False, roll: bool = False,
+                              sat_conns: int = 0, source=None):
+        """Normalize a fleet's ``member_chaos``: a
+        :class:`~isotope_tpu_torch.resilience.faults.ChaosJitterSpec`
+        (each member's schedule jittered from its seed) or an explicit
+        list of per-member ``ChaosEvent`` sequences.  Returns
+        ``(member_events, planners, ChaosFx)``, or three ``None`` when
+        off (``compiler.compile_chaos_members``)."""
+        if member_chaos is None:
+            return None, None, None
+        from isotope_tpu_torch.compiler.compile import compile_chaos_members
+        from isotope_tpu_torch.resilience import faults
+
+        self._check_member_chaos()
+        if isinstance(member_chaos, faults.ChaosJitterSpec):
+            reps = self.compiled.services.replicas_by_name()
+            E = len(self._chaos_events)
+            member_events = [
+                faults.jitter_chaos_events(
+                    self._chaos_events, member_chaos,
+                    faults.member_event_seeds(member_chaos, s, E),
+                    reps,
+                )
+                for s in seeds
+            ]
+        else:
+            member_events = [tuple(evts) for evts in member_chaos]
+            if len(member_events) != len(seeds):
+                raise ValueError(
+                    f"member_chaos has {len(member_events)} schedules "
+                    f"for {len(seeds)} members"
+                )
+        planners, fx = compile_chaos_members(
+            self, member_events, with_pol=with_pol, roll=roll,
+            sat_conns=sat_conns, source=source,
+        )
+        return member_events, planners, fx
+
+    def _ensemble_args(self, load: LoadModel, num_requests: int, source,
+                       spec, tables, member_keys=None,
+                       block_size: int = 65_536, trim: bool = False,
+                       member_qps=None, planners=None) -> dict:
+        """Host planning of a fleet: each member's draw source, load,
+        offered rate, pace, nominal gap, trim window, visit table and
+        phase windows, on one shared ``(block, num_blocks)``.
+
+        Member k draws from ``RootedSource(source, seeds[k])`` (the
+        reference's ``fold_in(key, seed)``), or from ``member_keys[k]``
+        (explicit draw sources).  Closed-loop members solve their rate
+        from their own source (the solo solver's pilots), at the BASE
+        cpu: a cpu jitter moves the wait law and the service draws
+        exactly, the rate solve and the retry-feedback fixed point are
+        base-cpu approximations, as in the reference.  ``member_qps``
+        sets each member's target qps exactly; ``planners`` (chaos
+        fleets) give each member its own host tables."""
+        from isotope_tpu_torch.metrics.fortio import trim_window_bounds
+        from isotope_tpu_torch.sim.draws import RootedSource
+
+        sat = self._saturated(load)
+        if sat and (spec.jittered or spec.qps_scale is not None):
+            raise ValueError(
+                "saturated -qps max ensembles support seed members "
+                "only (the finite-population wait tables are host-side"
+                " constants); pace the closed loop or jitter an "
+                "open-loop run"
+            )
+        if spec.qps_scale is not None and load.qps is None:
+            raise ValueError(
+                "qps jitter needs a finite target qps (load.qps is "
+                "None)"
+            )
+        n_mem = spec.members
+        if member_qps is not None:
+            member_qps = np.asarray(member_qps, np.float64)
+            if member_qps.shape != (n_mem,):
+                raise ValueError(
+                    f"member_qps must have shape ({n_mem},); got "
+                    f"{member_qps.shape}"
+                )
+            if sat:
+                raise ValueError(
+                    "member_qps cannot override a saturated -qps max "
+                    "load"
+                )
+        if planners is not None and len(planners) != n_mem:
+            raise ValueError(
+                f"planners has {len(planners)} entries for {n_mem} "
+                "members"
+            )
+        if member_keys is None:
+            sources = [RootedSource(source, s) for s in spec.seeds]
+        else:
+            sources = list(member_keys)
+            if len(sources) != n_mem:
+                raise ValueError(
+                    f"member_keys has {len(sources)} entries for "
+                    f"{n_mem} members"
+                )
+        if load.kind == OPEN_LOOP:
+            conns = 0
+            block = max(1, min(block_size, num_requests))
+        else:
+            conns = load.connections
+            per = max(1, min(block_size, num_requests) // conns)
+            block = per * conns
+        num_blocks = max(1, -(-num_requests // block))
+        loads, offered, pace, nominal = [], [], [], []
+        win_lo = np.zeros(n_mem, np.float64)
+        win_hi = np.full(n_mem, np.inf, np.float64)
+        visits, windows = [], []
+        for m in range(n_mem):
+            host = self if planners is None else planners[m]
+            scale = float(tables.qps_scale[m])
+            if member_qps is not None:
+                qps_m = float(member_qps[m])
+            elif load.qps is None:
+                qps_m = None
+            else:
+                qps_m = (
+                    float(load.qps) if scale == 1.0
+                    else float(load.qps) * scale
+                )
+            load_m = (
+                load if qps_m == load.qps
+                else dataclasses.replace(load, qps=qps_m)
+            )
+            if load.kind == OPEN_LOOP:
+                off, pc, nom = qps_m, 0.0, 0.0
+            else:
+                off = host.solve_closed_rate(load_m, num_requests,
+                                             sources[m])
+                pc = conns / load_m.qps if load_m.qps is not None else 0.0
+                nom = conns / off
+            loads.append(load_m)
+            offered.append(off)
+            pace.append(pc)
+            nominal.append(nom)
+            visits.append(host._vis_arg(off))
+            windows.append(host._windows_arg(off, sat))
+            if trim:
+                win_lo[m], win_hi[m] = trim_window_bounds(
+                    num_blocks * block, off
+                )
+        return dict(
+            sat=sat, kind=load.kind, conns=conns, block=block,
+            num_blocks=num_blocks, sources=sources, loads=loads,
+            offered=np.asarray(offered, np.float64),
+            pace=np.asarray(pace, np.float64),
+            nominal=np.asarray(nominal, np.float64),
+            win_lo=win_lo, win_hi=win_hi, visits=visits, windows=windows,
+        )
+
+    def ensemble_chunk_size(self, members: int, block: int,
+                            attr: bool = False,
+                            timeline_windows: Optional[int] = None) -> int:
+        """The auto member chunk: how many members fold into one block,
+        from the cost model's plan-only peak bytes a member
+        (``analysis/costmodel.py``) against the device's memory (the
+        CPU reports none: one chunk); ``attr`` / ``timeline_windows``
+        add an observed fleet's reductions a member."""
+        from isotope_tpu_torch.analysis import costmodel
+
+        cap = costmodel.device_capacity_bytes(device=self.device)
+        obs = costmodel.observability_carry_bytes(
+            self, attr=attr, timeline_windows=timeline_windows,
+        )
+        return costmodel.ensemble_chunk(
+            members, costmodel.peak_bytes_at_block(self, block), cap,
+            carry_bytes_per_member=obs,
+        )
+
+    def protected_ensemble_chunk(self, members: int, block: int,
+                                 tl_plan: Tuple[int, float], roll: bool,
+                                 attr: bool = False) -> int:
+        """A protected fleet's auto chunk: the plain split with each
+        member's control carry (and, ``attr``, its blame reductions)."""
+        from isotope_tpu_torch.analysis import costmodel
+
+        cap = costmodel.device_capacity_bytes(device=self.device)
+        carry = costmodel.protected_carry_bytes(self, tl_plan[0], roll=roll)
+        if attr:
+            carry += costmodel.observability_carry_bytes(self, attr=True)
+        return costmodel.ensemble_chunk(
+            members, costmodel.peak_bytes_at_block(self, block), cap,
+            carry_bytes_per_member=carry,
+        )
+
+    @staticmethod
+    def _fleet_mode(tables, spec, served: bool, what: str) -> str:
+        """The member axis mode of a fleet: the spec's (auto: per
+        device), except that fleets the folded block does not serve yet
+        (``served`` False: chaos, protected and observed fleets) plan
+        ``"map"`` and refuse an explicit ``"vmap"``."""
+        if served:
+            return tables.mode
+        if spec.mode == "vmap":
+            raise _unsupported(
+                f"the folded (\"vmap\") member axis of {what}",
+                "item 9, fleets: the folded mode for chaos, protected "
+                "and observed fleets",
+            )
+        return "map"
+
+    @staticmethod
+    def _refuse_carry_export(carry_in, return_carry, block_offset) -> None:
+        if carry_in is not None or return_carry or block_offset != 0:
+            raise _unsupported(
+                "the fleets' carry export (carry_in, return_carry, "
+                "block_offset: the search brackets)",
+                "item 9, fleets: sim/search.py",
+            )
+
+    def _member_scales(self, tables, m: int):
+        """Member ``m``'s ``(cpu_scale, err_scale)`` 0-d tensors, or
+        ``(None, None)`` for a fleet without physics jitter."""
+        if not tables.jittered:
+            return None, None
+        return (tables.cpu_scale[m].to(self.device),
+                tables.err_scale[m].to(self.device))
+
+    def run_ensemble(
+        self,
+        load: LoadModel,
+        num_requests: int,
+        source,
+        spec=None,
+        *,
+        block_size: int = 65_536,
+        trim: bool = False,
+        chunk: Optional[int] = None,
+        member_keys=None,
+        member_qps=None,
+        member_chaos=None,
+        carry_in=None,
+        return_carry: bool = False,
+        block_offset: int = 0,
+        attribution: bool = False,
+        tail: bool = False,
+        tail_cut: Optional[float] = None,
+        timeline: bool = False,
+        window_s: Optional[float] = None,
+    ):
+        """Simulate a Monte Carlo fleet (``sim/ensemble.py``).
+
+        Each member is a full ``run_summary``-shaped run of
+        ``num_requests`` under its own draws (``RootedSource(source,
+        seed)``, or ``member_keys[k]``), its own offered rate
+        (``qps_scale``, or ``member_qps``), cpu and error perturbations
+        and, under ``member_chaos`` (a ``ChaosJitterSpec`` or explicit
+        per-member schedules), its own chaos schedule.  ``spec``
+        defaults to a seeds-only fleet of ``SimParams.ensemble``
+        members.
+
+        The member axis runs in the spec's mode.  ``"map"`` runs the
+        members one after another through the solo block loop, so
+        member k is bit-equal to its solo run on the same source.
+        ``"vmap"`` (the default on CUDA) folds a chunk of M members into
+        one block of M x N rows: one census call of (M*N, B, P) a level,
+        each member's scalars broadcast to its rows; integers equal the
+        ``"map"`` fleet's, float sums agree within float32 summation
+        order.  ``chunk`` (or ``spec.chunk``) caps M; None sizes it
+        from the cost model against the device's memory
+        (:meth:`ensemble_chunk_size`).  The folded mode serves plain
+        fleets (seeds and qps / cpu / error jitter, on open, paced and
+        saturated loads, under the Simulator's own chaos, churn, mTLS
+        and lb laws); chaos and observed fleets plan ``"map"``, and an
+        explicit ``"vmap"`` on them raises naming ROADMAP item 9.
+
+        ``attribution`` (needs ``SimParams.attribution``) reduces each
+        member's critical-path blame and ``timeline`` (needs
+        ``SimParams.timeline``) its recorder series, in the member's
+        own block loop: the result stacks them under
+        ``attributions`` / ``timelines``.  ``tail=True`` arms the tail
+        accumulators at ``tail_cut``, estimated once on the FLEET's
+        source when not given.  The timeline grid is planned from
+        member 0's rate (``window_s`` overrides the width).
+
+        ``carry_in`` / ``return_carry`` / ``block_offset`` (the search
+        brackets) raise ``NotImplementedError``.  Returns an
+        :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary`.
+        """
+        from isotope_tpu_torch.compiler.compile import compile_ensemble
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        if spec is None:
+            if self.params.ensemble <= 0:
+                raise ValueError(
+                    "run_ensemble needs an EnsembleSpec (or "
+                    "SimParams.ensemble > 0 for the seeds-only "
+                    "default fleet)"
+                )
+            spec = ens_mod.EnsembleSpec.of(self.params.ensemble)
+        spec.check(allow_duplicate_seeds=member_keys is not None)
+        self._refuse_carry_export(carry_in, return_carry, block_offset)
+        self._check_lb_load(load)
+        if attribution and not self.params.attribution:
+            raise ValueError(
+                "attributed fleets need SimParams(attribution=True)"
+            )
+        if timeline and not self.params.timeline:
+            raise ValueError(
+                "timeline fleets need SimParams(timeline=True)"
+            )
+        if attribution and tail and tail_cut is None:
+            # ONE pilot, on the fleet's source, serves every member
+            tail_cut = self.estimate_tail_cut(
+                load, num_requests, source, block_size=block_size
+            )
+        tables = compile_ensemble(spec, self.device)
+        sat = self._saturated(load)
+        member_events, planners, _ = self._resolve_member_chaos(
+            member_chaos, spec.seeds,
+            sat_conns=load.connections if sat else 0, source=source,
+        )
+        args = self._ensemble_args(
+            load, num_requests, source, spec, tables,
+            member_keys=member_keys, block_size=block_size, trim=trim,
+            member_qps=member_qps, planners=planners,
+        )
+        observed = attribution or timeline
+        mode = self._fleet_mode(
+            tables, spec, planners is None and not observed,
+            "chaos and observed fleets",
+        )
+        n_mem = spec.members
+        tl_plan = None
+        if timeline:
+            tl_plan = self.plan_timeline_windows(
+                args["num_blocks"] * args["block"],
+                float(args["offered"][0]), window_s,
+            )
+        chunk_sz = chunk if chunk is not None else spec.chunk
+        if chunk_sz is None:
+            chunk_sz = self.ensemble_chunk_size(
+                n_mem, args["block"], attr=attribution,
+                timeline_windows=tl_plan[0] if tl_plan else None,
+            )
+        chunk_sz = max(1, min(int(chunk_sz), n_mem))
+        tl_stack = attr_stack = None
+        if mode == "vmap":
+            summaries = ens_mod.tree_cat([
+                self._folded_fleet(args, tables, range(lo, min(
+                    lo + chunk_sz, n_mem)), trim)
+                for lo in range(0, n_mem, chunk_sz)
+            ])
+        else:
+            outs = []
+            for m in range(n_mem):
+                host = self if planners is None else planners[m]
+                cpu, err = self._member_scales(tables, m)
+                control = (
+                    _BlockControl(host, tl_plan, False, False)
+                    if timeline else None
+                )
+                out = host._run_summary(
+                    args["loads"][m], num_requests, args["sources"][m],
+                    block_size, None, trim, control, attr=attribution,
+                    tail_cut=tail_cut if tail else None, cpu_scale=cpu,
+                    err_scale=err, fleet=True,
+                )
+                summary, attr = out if attribution else (out, None)
+                outs.append((
+                    summary,
+                    control.tl_acc if timeline else None,
+                    attr,
+                ))
+            summaries = ens_mod.tree_stack([o[0] for o in outs])
+            if timeline:
+                tl_stack = ens_mod.tree_stack([o[1] for o in outs])
+            if attribution:
+                attr_stack = ens_mod.tree_stack([o[2] for o in outs])
+        return ens_mod.EnsembleSummary(
+            spec=spec,
+            summaries=summaries,
+            offered_qps=args["offered"],
+            chunk=chunk_sz,
+            member_chaos=member_events,
+            timelines=tl_stack,
+            attributions=attr_stack,
+        )
+
+    def _folded_fleet(self, args: dict, tables, members, trim: bool):
+        """The members ``members`` of a planned fleet (``args`` of
+        :meth:`_ensemble_args`) folded into one block loop: each block
+        draws every member's block (member k's index ``1_000_000 + b``
+        of its own source), runs ONE :meth:`_simulate_core` over the
+        M x N rows, and reduces each member's rows to its own summary.
+        Returns the member-stacked RunSummary."""
+        from isotope_tpu_torch.sim import summary as summary_mod
+
+        dev = self.device
+        idx = list(members)
+        M = len(idx)
+        kind, conns, block = args["kind"], args["conns"], args["block"]
+        sat = args["sat"]
+
+        def per_member(key):
+            return torch.as_tensor(
+                np.asarray(args[key])[idx], dtype=F32
+            ).to(dev)
+
+        offered = per_member("offered")
+        pace = per_member("pace")
+        nominal = per_member("nominal")
+        visits = torch.stack([args["visits"][m] for m in idx])
+        windows = torch.stack([args["windows"][m] for m in idx])
+        cpu = err = None
+        if tables.jittered:
+            cpu = tables.cpu_scale[idx].to(dev)
+            err = tables.err_scale[idx].to(dev)
+        win = (per_member("win_lo"), per_member("win_hi")) if trim else None
+        t0 = torch.zeros(M, dtype=F32, device=dev)
+        conn_t0 = torch.zeros((M, max(conns, 1)), dtype=F32, device=dev)
+        per = block // max(conns, 1)
+        sources = [args["sources"][m] for m in idx]
+        parts = []
+        for b in range(args["num_blocks"]):
+            draws = _cat_draws([
+                self._draws(src, BLOCK_INDEX_BASE + b, block, kind, sat)
+                for src in sources
+            ])
+            res, t0, conn_t0 = self._simulate_core(
+                M * block, kind, conns, draws, offered, pace, offered,
+                t0, conn_t0, visits_pc=visits,
+                sat_conns=conns if sat else 0, nominal_gap=nominal,
+                req_offset=b * per, phase_windows=windows,
+                cpu_scale=cpu, err_scale=err, members=M,
+            )
+            parts.append(summary_mod.summarize_members(res, M, window=win))
+        return summary_mod.reduce_stacked(summary_mod.stack(parts))
+
+    def run_policies_ensemble(self, load: LoadModel, num_requests: int,
+                              source, spec=None, **kw):
+        """A fleet of :meth:`run_policies` runs: each member's policy
+        control loops (breakers, retry budgets, HPA) ride its own block
+        loop and react to its own draws (and, under ``member_chaos``,
+        its own schedule).  Member k with the fleet's source
+        (``member_keys``) or ``RootedSource(source, seed)`` equals the
+        solo ``run_policies`` on that source.  Keywords as in
+        :meth:`run_ensemble` (plus ``window_s``, ``attribution``,
+        ``tail``, ``tail_cut``; no ``timeline``: the recorder always
+        rides).  The members run ``"map"`` (an explicit ``"vmap"``
+        raises naming ROADMAP item 9).  Returns an
+        :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary` with
+        the stacked ``timelines`` and ``policies``."""
+        if self._policies is None:
+            raise ValueError(
+                "policy fleets need compiled policy tables "
+                "(Simulator(..., policies=...))"
+            )
+        if not self.params.timeline:
+            raise ValueError(
+                "policy fleets need SimParams(timeline=True) — the "
+                "flight recorder is the control loop's observation side"
+            )
+        return self._run_protected_ensemble(load, num_requests, source,
+                                            spec, roll=False, **kw)
+
+    def run_rollouts_ensemble(self, load: LoadModel, num_requests: int,
+                              source, spec=None, **kw):
+        """A fleet of :meth:`run_rollouts` runs (with the policy loops
+        in the same carry when policy tables are compiled): as
+        :meth:`run_policies_ensemble`, with the stacked ``rollouts``."""
+        if self._rollouts is None:
+            raise ValueError(
+                "rollout fleets need compiled rollout tables "
+                "(Simulator(..., rollouts=...))"
+            )
+        if not self.params.timeline:
+            raise ValueError(
+                "rollout fleets need SimParams(timeline=True) — the "
+                "flight recorder is the control loop's observation side"
+            )
+        return self._run_protected_ensemble(load, num_requests, source,
+                                            spec, roll=True, **kw)
+
+    def _run_protected_ensemble(self, load, num_requests, source, spec,
+                                *, roll: bool, block_size: int = 65_536,
+                                trim: bool = False,
+                                window_s: Optional[float] = None,
+                                chunk: Optional[int] = None,
+                                member_keys=None, member_qps=None,
+                                member_chaos=None,
+                                attribution: bool = False,
+                                tail: bool = False,
+                                tail_cut: Optional[float] = None,
+                                carry_in=None, return_carry: bool = False,
+                                block_offset: int = 0):
+        """The shared tail of the protected fleets: the fleet planning
+        of :meth:`run_ensemble` over :meth:`_run_protected` members."""
+        from isotope_tpu_torch.compiler.compile import compile_ensemble
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        if attribution and not self.params.attribution:
+            raise ValueError(
+                "attributed fleets need SimParams(attribution=True)"
+            )
+        if attribution and tail and tail_cut is None:
+            tail_cut = self.estimate_tail_cut(
+                load, num_requests, source, block_size=block_size
+            )
+        if spec is None:
+            if self.params.ensemble <= 0:
+                raise ValueError(
+                    "protected fleets need an EnsembleSpec (or "
+                    "SimParams.ensemble > 0 for the seeds-only "
+                    "default fleet)"
+                )
+            spec = ens_mod.EnsembleSpec.of(self.params.ensemble)
+        spec.check(allow_duplicate_seeds=member_keys is not None)
+        self._refuse_carry_export(carry_in, return_carry, block_offset)
+        if self._saturated(load):
+            raise ValueError(
+                "protected fleets do not support saturated -qps max "
+                "loads (static finite-population tables; see "
+                "run_policies)"
+            )
+        self._check_lb_load(load)
+        tables = compile_ensemble(spec, self.device)
+        member_events, planners, _ = self._resolve_member_chaos(
+            member_chaos, spec.seeds, with_pol=True, roll=roll,
+        )
+        args = self._ensemble_args(
+            load, num_requests, source, spec, tables,
+            member_keys=member_keys, block_size=block_size, trim=trim,
+            member_qps=member_qps, planners=planners,
+        )
+        self._fleet_mode(tables, spec, False, "protected fleets")
+        n_mem = spec.members
+        tl_plan = self.plan_timeline_windows(
+            args["num_blocks"] * args["block"],
+            float(args["offered"][0]), window_s,
+        )
+        chunk_sz = chunk if chunk is not None else spec.chunk
+        if chunk_sz is None:
+            chunk_sz = self.protected_ensemble_chunk(
+                n_mem, args["block"], tl_plan, roll, attr=attribution,
+            )
+        chunk_sz = max(1, min(int(chunk_sz), n_mem))
+        outs = []
+        for m in range(n_mem):
+            host = self if planners is None else planners[m]
+            cpu, err = self._member_scales(tables, m)
+            outs.append(host._run_protected(
+                args["loads"][m], num_requests, args["sources"][m], roll,
+                block_size, None, trim, window_s, attribution, tail,
+                tail_cut, cpu_scale=cpu, err_scale=err, tl_plan=tl_plan,
+            ))
+        # (summary, tl[, roll][, pol][, attr]) per member
+        cols = [ens_mod.tree_stack(list(c)) for c in zip(*outs)]
+        summary, tl = cols[0], cols[1]
+        rest = cols[2:]
+        roll_stack = rest.pop(0) if roll else None
+        pol_stack = rest.pop(0) if self._policies is not None else None
+        attr_stack = rest.pop(0) if attribution else None
+        return ens_mod.EnsembleSummary(
+            spec=spec,
+            summaries=summary,
+            offered_qps=args["offered"],
+            chunk=chunk_sz,
+            member_chaos=member_events,
+            timelines=tl,
+            policies=pol_stack,
+            rollouts=roll_stack,
+            attributions=attr_stack,
+        )
+
     def default_block_size(self, budget_elems: int = 33_554_432) -> int:
         """A block size keeping each (block, H) event tensor near
         ``budget_elems`` elements (~128 MiB at f32)."""
         h = max(self.compiled.num_hops, 1)
         return int(max(256, min(524_288, budget_elems // h)))
 
-    def census_shapes(self, n: int, policy: bool = False
+    def census_shapes(self, n: int, policy: bool = False,
+                      members: int = 1
                       ) -> List[Tuple[int, int, int, bool, bool]]:
         """``(N, B, P, fail, err)`` of each census call one block of ``n``
         requests makes, in call order: one per dense level with children,
@@ -2543,8 +3173,11 @@ class Simulator:
         nonzero error rate, panic routing can fast-fail it or (``policy``:
         a block under policy effects) a breaker can shed it, and one per
         tile of a tiled level that holds calls, ``(N, T, W)``, with the
-        level's fail step and no error coins."""
+        level's fail step and no error coins.  ``members``: a folded
+        fleet block of that many members (``"vmap"``), whose calls take
+        ``members * n`` rows."""
         spec = self.draw_spec(n, OPEN_LOOP, policy=policy)
+        n = n * members
         err = spec.need_err or spec.panic or spec.shed
         shapes = []
         for lvl in reversed(self._levels):
@@ -2737,14 +3370,16 @@ class Simulator:
         return torch.where(u_sat < p0_h, 0.0, torch.clamp(w, min=0.0))
 
     def _nominal_arrivals(self, n, connections, sat_conns, nominal_gap,
-                          req_offset):
+                          req_offset, members: int = 0):
         """(n,) nominal closed-loop arrival times, used only to place
         requests into chaos, churn and mTLS phases: request ``k`` of each
         connection's stream at ``(req_offset + k) * nominal_gap``, the
         remainder requests one step later.  Phased ``-qps max`` warps
         nominal time piecewise from each phase's throughput instead: the
         q-th request (globally) fires at R^-1(q), R(t) the cumulative
-        requests under the per-phase rates."""
+        requests under the per-phase rates.  ``members = M > 0``: ``n``
+        requests of each of M folded members, ``nominal_gap`` (M,), the
+        (M * n,) clocks member-major."""
         dev = self.device
         c = max(connections, 1)
         per = n // c
@@ -2774,10 +3409,21 @@ class Simulator:
                 return cuts_f[k_ph] + (q - breaks_f[k_ph]) / lam_f[k_ph]
 
             nominal, rem_nominal = warp(idx), warp(rem_idx)
+        elif members:
+            # each member's clock at its own nominal gap
+            gap = nominal_gap[:, None]
+            nominal = (idx[None, :] * gap)[:, None, :].expand(
+                members, c, per
+            ).reshape(members, -1)
+            return torch.cat(
+                [nominal, rem_idx[None, :] * gap], 1
+            ).reshape(-1)
         else:
             nominal = idx * nominal_gap
             rem_nominal = rem_idx * nominal_gap
-        return torch.cat([nominal.expand(c, per).reshape(-1), rem_nominal])
+        out = torch.cat([nominal.expand(c, per).reshape(-1), rem_nominal])
+        # a saturated warp is the same for every member (seeds only)
+        return out.repeat(members) if members else out
 
     def _simulate_core(
         self,
@@ -2798,6 +3444,9 @@ class Simulator:
         phase_windows: Optional[torch.Tensor] = None,
         policy_fx=None,
         rollout_fx=None,
+        cpu_scale: Optional[torch.Tensor] = None,
+        err_scale: Optional[torch.Tensor] = None,
+        members: int = 0,
     ) -> Tuple[SimResults, torch.Tensor, torch.Tensor]:
         """One block of ``n`` requests; returns ``(results, t_end,
         conn_end)`` for the next block's clocks.
@@ -2822,6 +3471,24 @@ class Simulator:
         autoscaled or ejected capacity; the canary weight that routes
         each hop to the canary arm's own station.  ``None`` leaves the
         block's ops unchanged.
+
+        ``cpu_scale`` / ``err_scale`` are a fleet member's perturbations
+        (``sim/ensemble.py``): the sampled service times scale by
+        ``cpu_scale`` and every station's mu by its inverse in the wait
+        law; the per-hop error rates scale by ``err_scale``, clipped to
+        [0, 1].  ``None`` leaves the block's ops unchanged.
+
+        ``members = M > 0`` folds M fleet members into one block of ``n
+        = M * N`` request rows, member-major (``Simulator.run_ensemble``
+        in ``"vmap"`` mode): ``offered_qps``, ``pace_gap``,
+        ``arrival_qps``, ``nominal_gap`` and ``t0`` are then (M,)
+        tensors, ``conn_t0`` is (M, C), ``visits_pc`` is (M, P*Cc, S),
+        ``phase_windows`` is (M, 2, W), ``cpu_scale`` / ``err_scale``
+        are (M,), and ``t_end`` / ``conn_end`` come back per member.
+        Each member's queue tables are its own rows of one (M*P*Cc, S)
+        table (the Erlang-B recursion runs once over all of them), and
+        each level makes one census call over all M*N rows.  Protected
+        blocks are not folded.
         """
         dev = self.device
         zero = torch.zeros((), dtype=F32, device=dev)
@@ -2830,6 +3497,16 @@ class Simulator:
         if nominal_gap is None:
             nominal_gap = pace_gap
         hop_svc = self._hop_service
+        M = members
+        if M:
+            if policy_fx is not None or rollout_fx is not None:
+                raise ValueError(
+                    "protected blocks are not folded over fleet members"
+                )
+            N = n // M
+            member_row = torch.arange(
+                M, device=dev
+            ).repeat_interleave(N)
         # -- policy coins (sim/policies.py), from a folded index so every
         # other stream is the unprotected twin's
         shed_coin = retry_coin = None
@@ -2883,14 +3560,22 @@ class Simulator:
         phased_clock = num_phases > 1 or self._mtls is not None
         nominal_arrivals = None
         if kind == OPEN_LOOP:
-            gaps = draws.arr / arrival_qps
-            arrivals = t0 + _clock_cumsum(gaps, 0)
+            if M:
+                # each member's Poisson clock runs along its own rows
+                gaps = draws.arr.view(M, N) / arrival_qps[:, None]
+                arrivals = (
+                    t0[:, None] + _clock_cumsum(gaps, 1)
+                ).reshape(-1)
+            else:
+                gaps = draws.arr / arrival_qps
+                arrivals = t0 + _clock_cumsum(gaps, 0)
             nominal_arrivals = arrivals
         else:
             arrivals = None  # closed-loop arrivals derive from latencies
             if phased_clock:
                 nominal_arrivals = self._nominal_arrivals(
-                    n, connections, sat_conns, nominal_gap, req_offset
+                    n // max(M, 1), connections, sat_conns, nominal_gap,
+                    req_offset, members=M,
                 )
 
         # ---- phased mTLS tax at each request's arrival time --------------
@@ -2924,8 +3609,15 @@ class Simulator:
         # ---- queueing parameters, per (chaos x churn) phase -------------
         if visits_pc is None:
             visits_pc = self._visits_pc
-        lam_pc = offered_qps * visits_pc
         eff_replicas_pc = self._replicas_pc
+        if M:
+            # member m's queue tables are rows m*P*Cc .. (m+1)*P*Cc - 1
+            lam_pc = (offered_qps[:, None, None] * visits_pc).reshape(
+                M * num_phases, -1
+            )
+            eff_replicas_pc = eff_replicas_pc.repeat(M, 1)
+        else:
+            lam_pc = offered_qps * visits_pc
         pol_capacity = False
         if policy_fx is not None:
             pol = self._policies
@@ -2979,6 +3671,8 @@ class Simulator:
                 alive = torch.clamp(alive, min=0.0)
             else:
                 total, alive = self._lb_total_row, self._lb_alive_pc
+                if M:
+                    alive = alive.repeat(M, 1)
             lam_pc, panic_pc = lb_mod.panic_split(
                 self._lb_dev, lam_pc, alive, total
             )
@@ -2989,23 +3683,32 @@ class Simulator:
         # A canary arm hashes its own ring / weight cycle over its own
         # replicas.
         qp_can = None
+        # a member's cpu perturbation: demand scales by s, so every
+        # station's service rate scales by 1/s
+        mu, can_mu = self._mu, getattr(self, "_canary_mu", None)
+        if cpu_scale is not None:
+            mu = self._scalar(self._mu) / cpu_scale
+            if M:
+                mu = mu.repeat_interleave(num_phases)[:, None]
+            if rollout_fx is not None:
+                can_mu = self._canary_mu / cpu_scale
         if self._lb_dev is not None and not sat_conns:
             qp = lb_mod.wait_params(
-                self._lb, self._lb_dev, lam_pc, self._mu,
+                self._lb, self._lb_dev, lam_pc, mu,
                 eff_replicas_pc, self._k_max,
             )
             if rollout_fx is not None:
                 qp_can = lb_mod.wait_params(
-                    self._lb, self._lb_dev, lam_can, self._canary_mu,
+                    self._lb, self._lb_dev, lam_can, can_mu,
                     self._can_reps_pc, self._k_max,
                 )
         else:
             qp = queueing.mmk_params(
-                lam_pc, self._mu, eff_replicas_pc, self._k_max
+                lam_pc, mu, eff_replicas_pc, self._k_max
             )
             if rollout_fx is not None:
                 qp_can = queueing.mmk_params(
-                    lam_can, self._canary_mu, self._can_reps_pc,
+                    lam_can, can_mu, self._can_reps_pc,
                     self._k_max,
                 )
         down = None
@@ -3013,7 +3716,17 @@ class Simulator:
         if num_phases > 1:
             # each request's row, gathered (exact, where the JAX engine
             # expands the tables with a one-hot matmul)
-            if P > 1:
+            if P > 1 and M:
+                # each member's own window table over its own rows
+                win_idx = torch.searchsorted(
+                    phase_windows[:, 0].contiguous(),
+                    nominal_arrivals.view(M, N).contiguous(), right=True,
+                ) - 1
+                chaos_idx = torch.gather(
+                    phase_windows[:, 1].to(torch.int64), 1,
+                    torch.clamp(win_idx, 0, self._num_windows - 1),
+                ).reshape(-1)
+            elif P > 1:
                 # phase WINDOWS, not raw cuts: drain windows keep an
                 # overloaded row live past its cut (_windows_arg)
                 if phase_windows is None:
@@ -3050,7 +3763,15 @@ class Simulator:
                 phase_idx if sat_override is None else None,
             )
         else:
+            if M:
+                # a row's queue-table row: its member's block of phases
+                q_idx = member_row * num_phases
+                if phase_idx is not None:
+                    q_idx = q_idx + phase_idx
+
             def per_hop(table):
+                if M:
+                    return table[:, hop_svc][q_idx]
                 if phase_idx is None:
                     return table[0][hop_svc][None, :]
                 return table[:, hop_svc][phase_idx]
@@ -3074,7 +3795,8 @@ class Simulator:
             # breaker shed; a canary-routed hop is exempt (its arm's kill
             # physics transport-fail it)
             panic = draws.u_panic < (
-                panic_ph[0][None, :] if phase_idx is None
+                panic_ph[q_idx] if M
+                else panic_ph[0][None, :] if phase_idx is None
                 else panic_ph[phase_idx]
             )
             if can_coin is not None:
@@ -3088,9 +3810,20 @@ class Simulator:
         if self.has_chaos:
             # a fully-down service does no work: zero utilization for
             # those phases instead of the clamped-to-1-replica saturation
+            if M:
+                svc_down_pc = svc_down_pc.repeat(M, 1)
             utilization = torch.where(svc_down_pc, 0.0, utilization)
             unstable = unstable & ~svc_down_pc
         svc_time = self._sample_service_time(draws.svc, n)
+        if cpu_scale is not None:
+            # a multiplicative rescale keeps the service-time SHAPE and
+            # moves the member's mean CPU demand
+            if M:
+                svc_time = (
+                    svc_time.view(M, N, -1) * cpu_scale[:, None, None]
+                ).view(n, -1)
+            else:
+                svc_time = svc_time * cpu_scale
         if can_coin is not None and self._canary_cpu_varies:
             # canary cpu_time override: a multiplicative rescale keeps
             # the service-time SHAPE and moves its mean
@@ -3098,16 +3831,30 @@ class Simulator:
                 can_coin, svc_time * self._canary_cpu_ratio_h[None, :],
                 svc_time,
             )
+        # a member's err_scale multiplies the per-hop error rates; it
+        # preserves zeros, so the static coin elimination stays sound
+        err_rate_h = self._hop_err_rate
+        if err_scale is not None and not M:
+            err_rate_h = torch.clamp(err_rate_h * err_scale, 0.0, 1.0)
         if u_err is None:
             err_coin = None
         elif can_coin is not None:
             # per-arm error rates: a canary hop draws against its own
+            can_err_h = self._canary_err_h
+            if err_scale is not None:
+                can_err_h = torch.clamp(can_err_h * err_scale, 0.0, 1.0)
             err_coin = u_err < torch.where(
-                can_coin, self._canary_err_h[None, :],
-                self._hop_err_rate[None, :],
+                can_coin, can_err_h[None, :], err_rate_h[None, :],
             )
+        elif err_scale is not None and M:
+            rate_m = torch.clamp(
+                err_rate_h[None, :] * err_scale[:, None], 0.0, 1.0
+            )
+            err_coin = (
+                u_err.view(M, N, -1) < rate_m[:, None, :]
+            ).view(n, -1)
         else:
-            err_coin = u_err < self._hop_err_rate
+            err_coin = u_err < err_rate_h
         if shed_coin is not None:
             # a shed or panicking hop rides the errorRate path exactly:
             # fast 500, script skipped, nothing sent downstream, and the
@@ -3365,7 +4112,11 @@ class Simulator:
             root_lat = torch.where(
                 root_down, 2 * self._entry_one_way, root_lat
             )
-        if kind == CLOSED_LOOP:
+        if kind == CLOSED_LOOP and M:
+            arrivals, conn_end = self._folded_closed_clock(
+                root_lat.view(M, N), connections, pace_gap, conn_t0
+            )
+        elif kind == CLOSED_LOOP:
             c = max(connections, 1)
             per = n // c
             rem = n - c * per
@@ -3431,8 +4182,14 @@ class Simulator:
             hop_error=err_hop & hop_sent,
             hop_latency=hop_lat,
             hop_start=hop_start,
-            utilization=utilization.amax(0),
-            unstable=unstable.any(0),
+            utilization=(
+                utilization.view(M, num_phases, -1).amax(1) if M
+                else utilization.amax(0)
+            ),
+            unstable=(
+                unstable.view(M, num_phases, -1).any(1) if M
+                else unstable.any(0)
+            ),
             offered_qps=offered_qps,
             hop_wait=(
                 wait
@@ -3444,8 +4201,41 @@ class Simulator:
                 torch.cat(refused_chunks, dim=1) if track_refused else None
             ),
         )
-        t_end = conn_end.max() if kind == CLOSED_LOOP else arrivals[-1]
+        if M:
+            t_end = (
+                conn_end.amax(-1) if kind == CLOSED_LOOP
+                else arrivals.view(M, N)[:, -1]
+            )
+        else:
+            t_end = (
+                conn_end.max() if kind == CLOSED_LOOP else arrivals[-1]
+            )
         return res, t_end, conn_end
+
+    @staticmethod
+    def _folded_closed_clock(root_lat, connections, pace_gap, conn_t0):
+        """The closed loop's arrivals and connection clocks of a folded
+        block, per member: ``root_lat`` is (M, N), ``pace_gap`` (M,),
+        ``conn_t0`` (M, C); the solo law of :meth:`_simulate_core` on
+        each member's rows."""
+        M, N = root_lat.shape
+        c = max(connections, 1)
+        per = N // c
+        rem = N - c * per
+        lat_conn = root_lat[:, : c * per].reshape(M, c, per)
+        spent = torch.maximum(lat_conn, pace_gap[:, None, None])
+        starts = conn_t0[:, :, None] + _clock_cumsum(spent, -1) - spent
+        conn_end = conn_t0 + spent.sum(-1)
+        arrivals = starts.reshape(M, -1)
+        if rem:
+            arrivals = torch.cat([arrivals, conn_end[:, :rem]], 1)
+            spent_rem = torch.maximum(
+                root_lat[:, c * per:], pace_gap[:, None]
+            )
+            conn_end = torch.cat(
+                [conn_end[:, :rem] + spent_rem, conn_end[:, rem:]], 1
+            )
+        return arrivals.reshape(-1), conn_end
 
     def _kill_resets(self, u_kill, hop_sent, hop_start, hop_lat, arrivals,
                      root_lat, client_error):

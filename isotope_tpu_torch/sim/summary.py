@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from isotope_tpu_torch.metrics.histogram import (
+    NUM_BUCKETS,
+    bucket_index,
     latency_histogram,
     quantile_from_histogram,
 )
@@ -111,6 +113,72 @@ def summarize(
         win_error_count=win_error_count,
         win_latency_hist=win_hist,
         metrics=collector.collect(res) if collector is not None else None,
+        utilization=res.utilization,
+        unstable=res.unstable,
+    )
+
+
+def summarize_members(res, members: int,
+                      window: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                      = None) -> RunSummary:
+    """Reduce a folded fleet block (``members`` x N request rows,
+    member-major) to each member's RunSummary, stacked along a leading
+    member axis: :func:`summarize` on each member's rows, in row
+    reductions over an (M, N) view.  ``window`` is the members'
+    ``(lo, hi)`` trim bounds, two (M,) tensors.  Counts, extrema and
+    histograms equal the per-member summaries; the float sums may
+    differ in float32 summation order."""
+    M = members
+    lat = res.client_latency.view(M, -1)
+    dev = lat.device
+    n = lat.shape[1]
+    count = torch.full((M,), float(n), dtype=F32, device=dev)
+    err = res.client_error.view(M, -1)
+    error_count = err.sum(1).to(F32)
+    lat_sum = lat.sum(1)
+    mean = lat_sum / float(max(n, 1))
+    m2 = ((lat - mean[:, None]) ** 2).sum(1)
+    offset = (
+        torch.arange(M, device=dev) * NUM_BUCKETS
+    )[:, None]
+
+    def hist(weights):
+        return torch.zeros(
+            M * NUM_BUCKETS, dtype=F32, device=dev
+        ).index_add_(
+            0, (bucket_index(lat) + offset).reshape(-1),
+            weights.reshape(-1).to(F32),
+        ).view(M, NUM_BUCKETS)
+
+    h = hist(torch.ones_like(lat))
+    if window is None:
+        win_lo = torch.zeros(M, dtype=F32, device=dev)
+        win_hi = torch.full((M,), np.inf, dtype=F32, device=dev)
+        win_count, win_error_count, win_hist = count, error_count, h
+    else:
+        win_lo, win_hi = window
+        start = res.client_start.view(M, -1)
+        in_win = (start >= win_lo[:, None]) & (start < win_hi[:, None])
+        win_w = in_win.to(F32)
+        win_count = win_w.sum(1)
+        win_error_count = (err & in_win).sum(1).to(F32)
+        win_hist = hist(win_w)
+    return RunSummary(
+        count=count,
+        error_count=error_count,
+        hop_events=res.hop_sent.view(M, -1).sum(1).to(F32),
+        latency_sum=lat_sum,
+        latency_m2=m2,
+        latency_min=lat.amin(1),
+        latency_max=lat.amax(1),
+        latency_hist=h,
+        end_max=res.client_end.view(M, -1).amax(1),
+        win_lo=win_lo,
+        win_hi=win_hi,
+        win_count=win_count,
+        win_error_count=win_error_count,
+        win_latency_hist=win_hist,
+        metrics=None,
         utilization=res.utilization,
         unstable=res.unstable,
     )

@@ -191,6 +191,8 @@ def _chip_smoke_shapes():
              chip_smoke.scenario_runs(port, {}, device="cpu")
              + chip_smoke.lb_runs(port, device="cpu")
              + chip_smoke.protected_runs(port, device="cpu")]
+    runs += chip_smoke.fleet_census_runs(
+        runs, chip_smoke.chaosfleet_sim(port, device="cpu"))
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
     )
@@ -272,6 +274,20 @@ def test_chip_smoke_covers_the_protected_runs():
     assert len(rollouts) == 24
     assert sum(s[4] for s in rollouts) == 12
     assert (8_192, 1, 1, True, True) in _SHAPES
+
+
+def test_chip_smoke_covers_the_folded_fleet():
+    """ensembleN folded: one census call a level with children of the
+    1000-service graph over 32 x 8,192 rows (no fail step, no error
+    flags), and svc1000-chaosfleet's members at block 4,096 with the
+    retry budget's fail step; each call's plan keeps its int64 row
+    offsets inside the grid (``launch_plan`` at 262,144 rows)."""
+    folded = [(32 * 8_192, b, 1, False, False) for b in (216, 36, 6, 1)]
+    assert set(folded) <= set(_SHAPES)
+    for n, b, p, _, _ in folded:
+        plan = census_mod.launch_plan(n, b, p)
+        assert plan.path == "stream" and plan.blocks >= 1
+    assert any(s[0] == 4_096 and s[3] for s in _SHAPES)
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

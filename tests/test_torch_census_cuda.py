@@ -213,3 +213,38 @@ def test_panic_run_on_the_kernel_matches_the_cpu(card, tile_pmax):
         torch.testing.assert_close(getattr(got, name).cpu(),
                                    getattr(want, name), rtol=RTOL,
                                    atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_folded_fleet_level_on_the_kernel_matches_the_cpu(card):
+    """A folded fleet block (``run_ensemble`` in ``"vmap"`` mode) makes
+    one census call a level over all M x N rows on the card, and the
+    fleet equals the CPU's member-by-member fleet on the same draws:
+    counts and histograms exactly, float sums within rtol 1e-5."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, Simulator, TorchDraws
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    compiled = compile_graph(ServiceGraph.from_yaml(SKEWED))
+    card_sim = Simulator(compiled, device="cuda")
+    load = LoadModel(kind="open", qps=1000.0)
+    source = TorchDraws(5, "cuda")
+    kw = dict(qps_jitter=0.1, cpu_jitter=0.05, error_jitter=0.2)
+    before = census_mod.census.launches
+    got = card_sim.run_ensemble(load, 1024, source, EnsembleSpec.from_jitter(
+        4, mode="vmap", **kw), block_size=512)
+    torch.cuda.synchronize()
+    assert census_mod.census.launches - before == 2 * len(
+        card_sim.census_shapes(512, members=4)
+    )
+    want = Simulator(compiled, device="cpu").run_ensemble(
+        load, 1024, source, EnsembleSpec.from_jitter(4, mode="map", **kw),
+        block_size=512)
+    for name in ("count", "error_count", "hop_events", "latency_hist"):
+        assert torch.equal(getattr(got.summaries, name).cpu(),
+                           getattr(want.summaries, name)), name
+    for name in ("latency_sum", "latency_max", "end_max"):
+        torch.testing.assert_close(getattr(got.summaries, name).cpu(),
+                                   getattr(want.summaries, name),
+                                   rtol=RTOL, atol=1e-9)

@@ -389,9 +389,41 @@ def test_load_toml_matches_reference(tmp_path):
      '[search]\ncandidates = 8\n'],
 )
 def test_load_toml_refuses_fleet_keys(tmp_path, block):
-    """The keys that need the fleet and search modules name their
-    ROADMAP item."""
+    """The keys that need the splitting and search modules name their
+    ROADMAP item; the fleet keys ported with the fleets (the jitter
+    specs) load as the reference's."""
     cfg = tmp_path / "exp.toml"
     cfg.write_text(block)
-    with pytest.raises(NotImplementedError, match="fleets"):
+    if "split" in block or "search" in block:
+        with pytest.raises(NotImplementedError, match="fleets"):
+            port_runner.load_toml(cfg)
+        return
+    got, want = port_runner.load_toml(cfg), jax_runner.load_toml(cfg)
+    for f in ("ensemble", "ensemble_qps_jitter", "ensemble_cpu_jitter",
+              "ensemble_error_jitter", "ensemble_jitter_seed",
+              "ensemble_chaos_jitter"):
+        assert getattr(got, f) == getattr(want, f), f
+
+
+def test_load_toml_fleet_specs_match_reference(tmp_path):
+    """``ensemble_spec()`` and ``chaos_jitter_spec()`` of a fleet sweep
+    build the reference's specs (same seeds and scale tables)."""
+    cfg = tmp_path / "exp.toml"
+    cfg.write_text(
+        '[sim]\nensemble = 5\n'
+        'ensemble_jitter = "qps=0.1,cpu=0.05,error=0.2,seed=4"\n'
+        'ensemble_slo = "250ms"\n'
+        'ensemble_chaos_jitter = "time=0.2,mag=0.5,seed=7"\n'
+        '[[chaos]]\nservice = "b"\nstart = "1s"\nend = "2s"\n'
+    )
+    got, want = port_runner.load_toml(cfg), jax_runner.load_toml(cfg)
+    assert got.ensemble_slo_s == want.ensemble_slo_s == 0.25
+    assert got.ensemble_spec().to_dict() == want.ensemble_spec().to_dict()
+    assert got.chaos_jitter_spec().to_dict() == \
+        want.chaos_jitter_spec().to_dict()
+    cfg.write_text('[sim]\nensemble_chaos_jitter = "tim=1"\n')
+    with pytest.raises(ValueError) as w:
+        jax_runner.load_toml(cfg)
+    with pytest.raises(ValueError) as g:
         port_runner.load_toml(cfg)
+    assert str(g.value) == str(w.value)

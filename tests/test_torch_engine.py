@@ -232,18 +232,24 @@ def test_default_device_raises_without_gpu():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        # the lb laws, the timeline recorder, the protected layers and
-        # attribution are ported (test_torch_lb.py,
+        # the lb laws, the timeline recorder, the protected layers,
+        # attribution and the fleets are ported (test_torch_lb.py,
         # test_torch_timeline.py, test_torch_policies.py,
-        # test_torch_rollout.py, test_torch_attribution.py); ensembles
-        # are not
-        (dict(params=SimParams(ensemble=2)), "fleets"),
+        # test_torch_rollout.py, test_torch_attribution.py,
+        # test_torch_ensemble.py: SimParams(ensemble=N) runs there); the
+        # fleets' carry export of the search brackets is not
+        (dict(return_carry=True), "item 9, fleets: sim/search.py"),
     ],
 )
 def test_unported_features_raise(kwargs, item):
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
     _, pg = _graphs("canonical")
+    sim = Simulator(compile_graph(pg), SimParams(ensemble=2), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        Simulator(compile_graph(pg), device="cpu", **kwargs)
+        sim.run_ensemble(LoadModel(kind="open", qps=100.0), 8,
+                         TorchDraws(0, "cpu"), EnsembleSpec.of(2),
+                         **kwargs)
 
 
 PROTECTED_YAML = """
@@ -399,6 +405,7 @@ def test_port_imports_no_jax():
                  "metrics.timeline", "metrics.attribution",
                  "sim.policies", "sim.rollout", "runner.run",
                  "metrics.trace", "metrics.export", "metrics.monitor",
-                 "sim.controlplane"):
+                 "sim.controlplane", "sim.ensemble", "metrics.fleetblame",
+                 "resilience.faults", "analysis.costmodel"):
         assert f"isotope_tpu_torch.{name}" in names, name
     assert len(names) >= 30

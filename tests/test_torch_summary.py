@@ -550,3 +550,83 @@ def test_protected_window_block_matches_reference(timeline, qps, duration):
         got = protected_window_block(ps, LoadModel(**kw), block, 10.0,
                                      timeline)
         assert got == want
+
+
+def _ensemble_line(stderr):
+    return [ln for ln in stderr.splitlines() if ln.startswith("ensemble:")]
+
+
+def test_cli_ensemble_matches_reference_number_for_number(tmp_path,
+                                                          monkeypatch):
+    """``--ensemble 4 --ensemble-jitter --ensemble-slo --ensemble-out``:
+    the pooled document, the ``ensemble:`` line and the
+    ``isotope-ensemble/v2`` document against the JAX command on the same
+    draws (members ``fold_in(run_key, seed)``)."""
+    got = _simulate_both(tmp_path, monkeypatch, CANONICAL, [
+        "--qps", "1000", "--duration", "1s", "--load-kind", "open",
+        "--ensemble", "4", "--ensemble-jitter",
+        "qps=0.1,cpu=0.05,error=0.2", "--ensemble-slo", "5ms",
+        "--ensemble-out", "FILE:ens.json",
+    ])
+    assert_doc_close(*got["stdout"])
+    doc, want = got["ens.json"]
+    assert doc["schema"] == "isotope-ensemble/v2" and doc["members"] == 4
+    assert_doc_close(doc, want, path="ens.json")
+    port_err, jax_err = got["stderr"]
+    assert len(_ensemble_line(port_err)) == 1
+    assert _ensemble_line(port_err) == _ensemble_line(jax_err)
+
+
+def test_cli_observed_ensemble_matches_reference(tmp_path, monkeypatch):
+    """``--ensemble`` with ``--attribution --timeline``: every member is
+    attributed and recorded, and the worst member's blame and timeline
+    documents (stamped with its member and seed) are the JAX
+    command's."""
+    got = _simulate_both(tmp_path, monkeypatch, CANONICAL, [
+        "--qps", "1000", "--duration", "1s", "--load-kind", "open",
+        "--ensemble", "3", "--attribution", "--timeline", "250ms",
+        "--blame-out", "FILE:blame.json", "--timeline-out", "FILE:tl.json",
+        "--ensemble-out", "FILE:ens.json",
+    ])
+    assert_doc_close(*got["stdout"])
+    assert_doc_close(*got["ens.json"], path="ens.json")
+    tl, tl_want = got["tl.json"]
+    assert tl["worst_member"] is True
+    assert (tl["member"], tl["member_seed"]) == \
+        (tl_want["member"], tl_want["member_seed"])
+    assert_doc_close(tl, tl_want, occ_atol=occupancy_atol(tl_want))
+    blame, blame_want = got["blame.json"]
+    assert blame["member"] == blame_want["member"]
+    assert blame["fleet_members"] == 3
+
+
+def test_cli_protected_ensemble_matches_reference(tmp_path, monkeypatch):
+    """``--policies --rollouts --ensemble 3 --ensemble-chaos-jitter``:
+    a protected fleet whose member 0 rides the run key; the worst
+    member's documents and the fleet document against the JAX
+    command's (``simulate`` has no chaos schedule: the jitter is
+    checked and has nothing to jitter, in both)."""
+    topo = tmp_path / "prot.yaml"
+    topo.write_text(PROTECTED_TOPOLOGY)
+    got = _simulate_both(tmp_path, monkeypatch, topo, [
+        "--qps", "2000", "--duration", "4s", "--load-kind", "open",
+        "--policies", "--rollouts", "--ensemble", "3",
+        "--ensemble-chaos-jitter", "time=0.2,magnitude=0.5,seed=3",
+        "--ensemble-slo", "20ms", "--ensemble-out", "FILE:ens.json",
+        "--policies-out", "FILE:pol.json", "--rollouts-out",
+        "FILE:roll.json",
+    ])
+    assert_doc_close(*got["stdout"])
+    doc, want = got["ens.json"]
+    assert doc["protected"] is True
+    assert_doc_close(doc, want, path="ens.json")
+    for name in ("pol.json", "roll.json"):
+        assert_doc_close(*got[name], path=name)
+    assert got["pol.json"][0]["member_key"] == \
+        got["pol.json"][1]["member_key"]
+
+
+def test_cli_refuses_a_bad_chaos_jitter_like_reference():
+    with pytest.raises(ValueError, match="unknown chaos jitter key"):
+        cli.main(["simulate", str(CANONICAL), "--device", "cpu",
+                  "--ensemble", "2", "--ensemble-chaos-jitter", "tim=1"])

@@ -1,6 +1,6 @@
 """Time the port's main-path runs of ``chip_smoke.py`` phase 5.
 
-    python3 tools/torch_main_path.py [--root DIR]
+    python3 tools/torch_main_path.py [--root DIR] [--ensemble]
 
 Builds the census kernel and runs, on one CUDA card, the flagship,
 ``1000-svc_2000-end``, ``canonical`` paced closed loop,
@@ -9,9 +9,12 @@ under ``-qps max``, and the two lb runs (lb-10svc-100r-panic and
 lb-1000svc-lr) where the imported package has the lb laws, exactly as
 ``chip_smoke.py`` phase 5 does (one warm-up block each, then each run
 timed with its census launches counted), and prints the card's name and
-power limit and one ``main path`` line per run.  ``--root`` imports ``isotope_tpu_torch``
-from another checkout (default: this one), so that two versions can be
-timed in turns on one card within one call.  Needs a CUDA device; exits
+power limit and one ``main path`` line per run.  ``--ensemble`` also
+times ensembleN (``chip_smoke.ensemble_n``: 32 members x 8,192 requests
+of ``1000-svc_2000-end`` folded, member by member and as 32 solo runs)
+where the imported package has the fleets.  ``--root`` imports
+``isotope_tpu_torch`` from another checkout (default: this one), so
+that two versions can be timed in turns on one card within one call.  Needs a CUDA device; exits
 1 without one.
 """
 from __future__ import annotations
@@ -29,6 +32,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--root", default=str(ROOT))
+    parser.add_argument("--ensemble", action="store_true",
+                        help="also time ensembleN (folded, map, solos)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_main_path: no CUDA device", file=sys.stderr)
@@ -72,6 +77,12 @@ def main(argv=None) -> int:
         print("no lb laws in this package: the lb runs are skipped",
               flush=True)
     chip_smoke.main_path_phase(port, runs, build_s)
+    if args.ensemble:
+        if hasattr(Simulator, "run_ensemble"):
+            chip_smoke.ensemble_n(port, chip_smoke.ensemble_sim(runs))
+        else:
+            print("no fleets in this package: ensembleN is skipped",
+                  flush=True)
     return 0
 
 

@@ -9,9 +9,12 @@ prints the ops of one block of the plain run (``run_summary``), of the
 recorded run (``run_timeline``) and of the protected run
 (``run_policies`` / ``run_rollouts``) while no window completes, and the
 ops of the control law per completed window (``advance`` over one
-window).  Every op a block dispatches is one launch on the card.  Ops
-are counted with a ``TorchDispatchMode``; runs on the CPU, needs no
-card.
+window).  Then, for ensembleN's graph (``1000-svc_2000-end.yaml``), the
+ops of one solo block and of one fleet block of 4 and 32 members in each
+member axis mode (``"map"``: the members one after another; ``"vmap"``:
+folded into one block), a block and a member.  Every op a block
+dispatches is one launch on the card.  Ops are counted with a
+``TorchDispatchMode``; runs on the CPU, needs no card.
 """
 from __future__ import annotations
 
@@ -117,7 +120,33 @@ def main() -> int:
               f"plain {plain:g}, recorded {recorded:g}, protected "
               f"{protected:g} (no window completed); "
               + ", ".join(laws), flush=True)
+    ensemble_ops(chip_smoke, ServiceGraph, compile_graph, LoadModel,
+                 Simulator, TorchDraws)
     return 0
+
+
+def ensemble_ops(chip_smoke, ServiceGraph, compile_graph, LoadModel,
+                 Simulator, TorchDraws):
+    """Ops of one block of ensembleN's graph, solo and as fleets."""
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    sim = Simulator(compile_graph(ServiceGraph.from_yaml_file(
+        str(chip_smoke.TOPOLOGIES / "1000-svc_2000-end.yaml"))),
+        device="cpu")
+    load = LoadModel(kind="open", qps=chip_smoke.ENS_QPS)
+    src = TorchDraws(0, "cpu")
+    solo = _per_block(lambda n: sim.run_summary(load, n, src,
+                                                block_size=BLOCK))
+    line = [f"solo {solo:g}"]
+    for members in (4, chip_smoke.ENS_MEMBERS):
+        for mode in ("map", "vmap"):
+            spec = EnsembleSpec.of(members, mode=mode)
+            ops = _per_block(lambda n: sim.run_ensemble(
+                load, n, src, spec, block_size=BLOCK))
+            line.append(f"{members} {mode} {ops:g} ({ops / members:.2f} "
+                        f"a member)")
+    print("ensembleN (1000-svc_2000-end): ops per block: "
+          + ", ".join(line), flush=True)
 
 
 if __name__ == "__main__":
