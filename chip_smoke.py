@@ -21,7 +21,9 @@ any failure exits non-zero and nothing is caught:
    ``realistic-star-50.yaml`` and ``realistic-star-auxiliary-50.yaml``
    and at fixture shapes, among them a 4,096-step axis, and at the
    fleets' calls (ensembleN folded: one call a level of 32 x 8,192 rows
-   of ``1000-svc_2000-end``; svc1000-chaosfleet's members at 4,096)
+   of ``1000-svc_2000-end``; svc1000-chaosfleet's members at 4,096) and
+   the search brackets' folded rungs (search64's 64, 16 and 4 x 4,096
+   rows; the planted bracket's 16 and 4 x 64, with error flags)
    (rtol 1e-5: the
    plain version's ``cumsum`` may associate differently), and bit for
    bit against ``census_sequential``, the kernel's own order of
@@ -62,7 +64,13 @@ any failure exits non-zero and nothing is caught:
    its own jittered kill against the card's solo run of it (bit for
    bit) and block by block against the CPU's under the card's control
    effects, and an observed fleet's members' blame, each block
-   attributed on the card and by the CPU's sweep;
+   attributed on the card and by the CPU's sweep; then the planted
+   bracket (``planted_in_situ``, the reference's ``tools/search_smoke.py``
+   size): its rungs ranked by (severity, tie-break), candidate 5 the
+   least severe of every rung it runs in, rung 0 equal to
+   ``run_ensemble`` at the screening horizon and the winner's carried
+   segments to the unbroken fleet's row (exact fields), the card's
+   folded bracket equal to the CPU's in lineage and counts;
 5. main path at full size, after one warm-up block of each run (the
    warm-up also solves and caches the closed loops' rates from the same
    seed, so the timed closed-loop runs skip their pilots and tables): the
@@ -116,7 +124,17 @@ any failure exits non-zero and nothing is caught:
    and ensembleN-observed (8 members, mean attribution and the
    recorder, then ``fleetblame.to_doc``) beside its unobserved twin,
    each with its wall, aggregate hop-events/s, census launches (set to
-   0 just before, checked just after) and peak device memory;
+   0 just before, checked just after) and peak device memory; then the
+   brackets (``search_phase``): search64 (64 jittered candidates of
+   ``1000-svc_2000-end`` at 10,000 qps, eta 4, growth 2, 3 rungs of 1, 2
+   and 4 blocks of 4,096) beside the sequential sweep of 64 + 16 + 4 solo
+   ``run_summary`` runs it replaces, the protected bracket (16 candidates
+   on svc1000-chaosfleet's Simulator ranked by trips: rung 0 equal to
+   ``run_policies_ensemble`` and the winner's resume to the unbroken
+   fleet's row, bit for bit) and the splitting estimate at
+   svc1000-chaosfleet (3 levels of 8 protected members, err_peak past
+   ``max(2 x worst, 0.2)``), with its compressed twin (1,024 requests)
+   on the card and the CPU, whose documents must be equal;
 6. the CLI as a subprocess: ``simulate`` once on the card; ``check`` on
    ``canonical.yaml`` and ``simulate --qps max`` (50,000 requests each),
    on the card and with ``--device cpu``: both ``check`` runs must give
@@ -138,7 +156,11 @@ any failure exits non-zero and nothing is caught:
    --ensemble-slo 250ms --ensemble-out`` and ``--policies --rollouts
    --ensemble 4 --ensemble-chaos-jitter ...`` the same way (the card
    folds the plain fleet, the CPU runs it member by member), whose
-   Fortio and ensemble documents must agree;
+   Fortio and ensemble documents must agree; and ``search`` (16
+   candidates, ``--json``) and ``simulate --ensemble 8
+   --ensemble-chaos-jitter ... --ensemble-split ... --split-horizon
+   0.5`` the same way, whose search documents (but for their mode) and
+   ensemble documents with their splitting blocks must agree;
 7. oracle: build the DES oracle (``isotope_tpu_torch/native/
    des_oracle.cpp``) with ``g++`` and hold the engine on the card to
    it: the six exact interpreter-parity cases of the reference's
@@ -942,7 +964,8 @@ def kernel_phase(census_mod, runs, census_only):
     _, ms, plain_ms, bound_ms = per_block[0]
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
-                ms_per_block={name: t for name, t, _, _ in per_block})
+                ms_per_block={name: t for name, t, _, _ in per_block},
+                bound_per_block={name: b for name, _, _, b in per_block})
 
 
 # -- phase 4: in situ, card against CPU ---------------------------------------
@@ -3256,6 +3279,446 @@ def cli_fleet_phase():
                 f"card against CPU")
 
 
+# -- the search brackets and importance splitting ------------------------------
+
+#: search64 (the reference bench's accelerator size, bench.py:573-620):
+#: 1000-svc_2000-end open at 10,000 qps, 64 candidates jittered qps 0.2,
+#: cpu 0.1, error 0.3; eta 4, 3 rungs, growth 2, blocks of 4,096 and
+#: 16,384 requests, so the rungs screen at 1, 2 and 4 blocks
+SEARCH64 = dict(members=64, eta=4, rungs=3, growth=2, block=4_096,
+                n=16_384, qps=10_000.0)
+SEARCH_JITTER = dict(qps_jitter=0.2, cpu_jitter=0.1, error_jitter=0.3)
+#: the planted winner (the reference's tools/search_smoke.py, its size
+#: and seed number): the 1000-service graph with its entry at 2% errors,
+#: 16 candidates whose error scales are >= 0.8 but candidate 5's 1e-3
+PLANTED = dict(members=16, best=5, eta=4, rungs=2, n=256, block=64,
+               qps=10_000.0, seed=42)
+#: a protected bracket on svc1000-chaosfleet's Simulator
+PROT_BRACKET = dict(members=16, eta=4, rungs=2, n=8_192, block=4_096,
+                    window_s=0.05, rank="trips")
+#: the splitting estimate at svc1000-chaosfleet (bench.py:700-795) and
+#: its compressed twin, held card against CPU
+SPLIT_TWIN = dict(n=1_024, block=512)
+#: fields a carried segment reproduces exactly
+EXACT_FIELDS = ("count", "error_count", "hop_events", "latency_min",
+                "latency_max", "latency_hist", "end_max")
+
+
+def planted_sim(port, device="cuda"):
+    """The planted-winner bracket's Simulator: 1000-svc_2000-end with
+    its entry at 2% errors."""
+    import yaml
+
+    doc = yaml.safe_load((TOPOLOGIES / "1000-svc_2000-end.yaml").read_text())
+    doc["services"][0]["errorRate"] = "2%"
+    return port.Simulator(port.compile_graph(port.ServiceGraph.decode(doc)),
+                          device=device)
+
+
+def search_census_runs(runs, planted):
+    """The brackets' folded census calls for phase 3, as runs: search64's
+    rungs (64, 16 and 4 survivors x 4,096 rows a level; rung 0 is
+    ensembleN's shape) and the planted bracket's (16 and 4 x 64).  The
+    protected bracket and the splitting members call it at
+    svc1000-chaosfleet's shapes."""
+    sim = ensemble_sim(runs)
+    load = SimpleNamespace(kind="open", qps=SEARCH64["qps"])
+    out = [(f"search64 rung {r} ({m} folded)", sim, load,
+            m * SEARCH64["block"], m * SEARCH64["block"])
+           for r, m in enumerate((64, 16, 4))]
+    out += [(f"planted rung {r} ({m} folded)", planted, load,
+             m * PLANTED["block"], m * PLANTED["block"])
+            for r, m in enumerate((16, 4))]
+    return out
+
+
+def planted_spec(mode=None):
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+    from isotope_tpu_torch.sim.search import SearchSpec
+
+    m, best = PLANTED["members"], PLANTED["best"]
+    err = 0.8 + 0.08 * np.arange(m, dtype=np.float64)
+    err[best] = 1e-3
+    return SearchSpec(candidates=EnsembleSpec(
+        seeds=tuple(range(m)), error_scale=err, mode=mode),
+        eta=PLANTED["eta"], rungs=PLANTED["rungs"])
+
+
+def _lineage_equal(got, want, what):
+    if got.winner != want.winner:
+        raise AssertionError(f"{what}: winners {got.winner} / {want.winner}")
+    for a, b in zip(got.rungs, want.rungs):
+        for f in ("candidates", "order", "survivors", "severity"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"{what} rung {a.rung}: {f} differs")
+
+
+def _rows_equal(got, want, rows, what, fields=EXACT_FIELDS):
+    """Row ``i`` of stack ``got`` against row ``rows[i]`` of ``want``."""
+    for f in fields:
+        a = _np(getattr(got, f))
+        b = _np(getattr(want, f))[np.asarray(rows)]
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def planted_in_situ(port, planted):
+    """Phase 4 for the brackets: the planted winner (16 candidates,
+    eta 4, 2 rungs, 256 requests in blocks of 64) on the card.  Candidate
+    5 (error scale 1e-3 against >= 0.8) has the least severity of every
+    rung it runs in, and every rung ranks by the law (severity, then the
+    tie-break uniform: ``np.lexsort``), so the winner is candidate 5 or a
+    rival tied with it at the least severity that the tie-break puts
+    first (at 64 requests a rung, a rival at 1.6% errors shows none with
+    probability ~0.36; the reference's draws crown candidate 5:
+    ``tests/test_torch_search.py``).  Rung 0 equals ``run_ensemble`` at
+    the screening horizon and the winner's carried segments the unbroken
+    fleet's row, on the exact fields; the card's bracket equals the
+    CPU's on the same draws: the same lineage, counts and hop events
+    exactly, histograms within one bucket, sums within rtol."""
+    from isotope_tpu_torch.sim.search import tiebreak_draws
+
+    load = port.LoadModel(kind="open", qps=PLANTED["qps"])
+    source = port.TorchDraws(PLANTED["seed"], "cuda")
+    n, block, best = PLANTED["n"], PLANTED["block"], PLANTED["best"]
+    spec = planted_spec()
+    before = port.census.launches
+    srch = planted.run_search(load, n, source, spec, block_size=block)
+    torch.cuda.synchronize()
+    if port.census.launches == before or srch.mode != "vmap":
+        raise AssertionError("planted bracket: not folded on the kernel")
+    tb = tiebreak_draws(spec).numpy()
+    for r in srch.rungs:
+        cands = [int(x) for x in r.candidates]
+        if not np.array_equal(r.order, np.lexsort((tb[cands], r.severity))):
+            raise AssertionError(f"planted rung {r.rung}: rank order")
+        if best in cands and \
+                r.severity[cands.index(best)] != r.severity.min():
+            raise AssertionError(f"planted rung {r.rung}: candidate {best}"
+                                 " is not the least severe")
+    cfg = srch.winner_config()
+    err = spec.candidates.error_scale
+    if cfg["error_scale"] != float(err[srch.winner]):
+        raise AssertionError("planted bracket: winner_config")
+    r0 = srch.rungs[0]
+    fleet = planted.run_ensemble(load, r0.cum_requests, source,
+                                 spec.candidates, block_size=block)
+    _rows_equal(r0.summaries, fleet.summaries, r0.candidates,
+                "planted rung 0 against run_ensemble")
+    full = planted.run_ensemble(load, n, source, spec.candidates,
+                                block_size=block)
+    won = srch.winner_summary()
+    for f in EXACT_FIELDS:
+        _same(getattr(won, f), getattr(full.member(srch.winner), f),
+              f"planted winner's segments against the unbroken row {f}")
+    cpu = planted_sim(port, "cpu").run_search(load, n, source,
+                                              planted_spec(),
+                                              block_size=block)
+    _lineage_equal(srch, cpu, "planted bracket card against cpu")
+    moved = [compare_fleets(a.summaries, b.summaries,
+                            f"planted rung {a.rung} card against cpu")
+             for a, b in zip(srch.rungs, cpu.rungs)]
+    log(f"in situ ok planted bracket: winner {srch.winner} (severity "
+        f"{srch.winner_severity:.6f}; candidate {best} "
+        + ("wins" if srch.winner == best else
+           "ties at the least severity and ranks behind by its tie-break")
+        + "; lineage " + " -> ".join(str([int(x) for x in r.survivors])
+                                     for r in srch.rungs)
+        + ", severities " + " / ".join(
+            str(np.round(r.severity, 4).tolist()) for r in srch.rungs)
+        + "); every rung ranked by (severity, tie-break); rung 0 == "
+        f"run_ensemble and the winner's segments == the unbroken row on "
+        f"{len(EXACT_FIELDS)} exact fields; card (vmap) == cpu (map): same"
+        f" lineage, {moved} histogram counts a bucket over")
+
+
+def search_phase(port, runs, chaos_sim, timing):
+    """Phase 5 for the brackets and the splitting estimate, each its own
+    path (census launches set to 0 just before, read just after):
+    search64 with the sequential sweep it replaces, the protected bracket
+    on svc1000-chaosfleet's Simulator and the splitting estimate at
+    svc1000-chaosfleet, then the estimate's compressed twin card against
+    CPU.  Returns the census launches of each."""
+    launches = search64_run(port, ensemble_sim(runs), timing)
+    launches.update(protected_bracket_run(port, chaos_sim, timing))
+    launches.update(splitting_run(port, chaos_sim, timing))
+    return launches
+
+
+def search64_run(port, sim, timing):
+    from isotope_tpu_torch.sim.draws import RootedSource
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+    from isotope_tpu_torch.sim.search import SearchSpec, plan_bracket
+
+    c = SEARCH64
+    spec = SearchSpec(candidates=EnsembleSpec.from_jitter(
+        c["members"], **SEARCH_JITTER), eta=c["eta"], rungs=c["rungs"],
+        growth=c["growth"])
+    load = port.LoadModel(kind="open", qps=c["qps"])
+    block, n = c["block"], c["n"]
+    plan = plan_bracket(spec, n, block)
+    # warm-up: one bracket of the same shape on another seed
+    sim.run_search(load, n, port.TorchDraws(30, "cuda"), spec,
+                   block_size=block)
+    srch, wall, n_launch, peak = fleet_wall(
+        port, "search64", lambda: sim.run_search(
+            load, n, port.TorchDraws(31, "cuda"), spec, block_size=block),
+        0, 0)
+    calls = len(sim.census_shapes(block))
+    want = sum(rp.num_blocks * -(-rp.width // r.chunk)
+               for rp, r in zip(plan, srch.rungs)) * calls
+    if n_launch != want or srch.mode != "vmap":
+        raise AssertionError(f"search64: {n_launch} census launches "
+                             f"({srch.mode}), expected {want}")
+    pooled = srch.pooled()
+    hops = float(pooled.hop_events)
+    names = [f"search64 rung {r} ({m} folded)"
+             for r, m in enumerate((64, 16, 4))]
+    dev_ms = sum(timing["ms_per_block"][nm] * rp.num_blocks
+                 for nm, rp in zip(names, plan))
+    bound = sum(timing["bound_per_block"][nm] * rp.num_blocks
+                for nm, rp in zip(names, plan))
+    log(f"search64: {c['members']} candidates, eta {c['eta']}, growth "
+        f"{c['growth']}, rungs of {[rp.width for rp in plan]} x "
+        f"{[rp.num_blocks for rp in plan]} blocks of {block} (chunks "
+        f"{[r.chunk for r in srch.rungs]}, {srch.mode}): bracket wall "
+        f"{wall * 1e3:.2f} ms, pooled {hops / wall:.4e} hop-events/s "
+        f"({hops:.4e} hop events), census launches {n_launch}, census "
+        f"device {dev_ms:.4f} ms against a bound of {bound:.4f} ms "
+        f"({bound / dev_ms:.1%}; phase 3), peak {peak:.3f} GiB; winner "
+        f"{srch.winner} (severity {srch.winner_severity:.6f})")
+    scales = spec.candidates.qps_scale
+    source = port.TorchDraws(32, "cuda")
+
+    def sweep():
+        live = list(range(c["members"]))
+        total = 0.0
+        for rp in plan:
+            sev = []
+            for m in live:
+                load_m = dataclasses.replace(load,
+                                             qps=load.qps * float(scales[m]))
+                s = sim.run_summary(load_m, rp.num_blocks * block,
+                                    RootedSource(source,
+                                                 rp.rung * 1_000 + m),
+                                    block_size=block)
+                total += float(s.hop_events)
+                sev.append((float(s.error_count) / max(float(s.count), 1.0),
+                            m))
+            sev.sort()
+            keep = plan[rp.rung + 1].width if rp.rung + 1 < len(plan) else 1
+            live = [m for _, m in sev[:keep]]
+        return total
+
+    sweep()  # warm-up
+    sweep_hops, sweep_wall, sweep_launch, sweep_peak = fleet_wall(
+        port, "sweep", sweep, 0, 0)
+    log(f"search64 sequential sweep (the same per-rung budgets as "
+        f"{sum(rp.width for rp in plan)} solo run_summary runs, ranked on "
+        f"the host): {sweep_wall * 1e3:.2f} ms, "
+        f"{sweep_hops / sweep_wall:.4e} hop-events/s, census launches "
+        f"{sweep_launch}, peak {sweep_peak:.3f} GiB; bracket / sweep "
+        f"wall {wall / sweep_wall:.3f}")
+    return {"search64": n_launch, "search64 sweep": sweep_launch}
+
+
+def protected_bracket_run(port, chaos_sim, timing):
+    """The protected bracket (16 candidates, eta 4, 2 rungs, 8,192
+    requests in blocks of 4,096, 50 ms windows, ranked by trips): rung 0
+    equals ``run_policies_ensemble`` at the screening horizon and the
+    winner's resumed segments the unbroken fleet's row."""
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+    from isotope_tpu_torch.sim.search import SearchSpec
+
+    c = PROT_BRACKET
+    spec = SearchSpec(candidates=EnsembleSpec.from_jitter(
+        c["members"], **SEARCH_JITTER), eta=c["eta"], rungs=c["rungs"],
+        rank=c["rank"])
+    load = port.LoadModel(kind="open", qps=CHAOSFLEET["qps"])
+    source = port.TorchDraws(33, "cuda")
+    kw = dict(block_size=c["block"], window_s=c["window_s"])
+    srch, wall, n_launch, peak = fleet_wall(
+        port, "protected bracket", lambda: chaos_sim.run_search_protected(
+            load, c["n"], source, spec, **kw), 0, 0)
+    calls = len(census_calls(chaos_sim, c["block"]))
+    blocks = sum(r.width * r.num_blocks for r in srch.rungs)
+    if n_launch != blocks * calls:
+        raise AssertionError(f"protected bracket: {n_launch} launches, "
+                             f"expected {blocks} x {calls}")
+    r0 = srch.rungs[0]
+    fleet = chaos_sim.run_policies_ensemble(load, r0.cum_requests, source,
+                                            spec.candidates, **kw)
+    for f in fleet.summaries._fields:
+        if f != "metrics":
+            _same(getattr(r0.summaries, f), getattr(fleet.summaries, f),
+                  f"protected rung 0 against run_policies_ensemble {f}")
+    full = chaos_sim.run_policies_ensemble(load, c["n"], source,
+                                           spec.candidates, **kw)
+    for f in EXACT_FIELDS:
+        _same(getattr(srch.winner_summary(), f),
+              getattr(full.member(srch.winner), f),
+              f"protected winner's resumed segments {f}")
+    hops = float(srch.pooled().hop_events)
+    log(f"protected bracket (svc1000-chaosfleet's Simulator, "
+        f"{c['members']} candidates, eta {c['eta']}, rank {c['rank']}, "
+        f"{c['n']} requests in blocks of {c['block']}): wall "
+        f"{wall * 1e3:.2f} ms, {blocks} member blocks, "
+        f"{hops / wall:.4e} pooled hop-events/s, census launches "
+        f"{n_launch} (device ~"
+        f"{timing['ms_per_block']['svc1000-chaosfleet'] * blocks:.4f} ms, "
+        f"phase 3), peak {peak:.3f} GiB; severities rung 0 "
+        f"{np.round(r0.severity, 3).tolist()}, winner {srch.winner}; "
+        "rung 0 == run_policies_ensemble and the winner's resume == the "
+        "unbroken row, bit for bit")
+    return {"protected bracket": n_launch}
+
+
+def _split_estimate(port, chaos_sim, split, n, block, source):
+    """The reference bench's splitting estimate (bench.py:700-795) on
+    ``chaos_sim``: each level one protected fleet of jittered members,
+    member ``w`` on ``RootedSource(source, w)``."""
+    from isotope_tpu_torch.resilience import faults
+    from isotope_tpu_torch.sim import splitting as split_mod
+    from isotope_tpu_torch.sim.draws import RootedSource
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    jitter = faults.ChaosJitterSpec(**CHAOSFLEET["jitter"])
+    chaos = tuple(chaos_sim._chaos_events)
+    reps = chaos_sim.compiled.services.replicas_by_name()
+    load = port.LoadModel(kind="open", qps=CHAOSFLEET["qps"])
+
+    def evaluate(chaos_seeds, work_seeds):
+        mc = [faults.jitter_chaos_events(chaos, jitter, row, reps)
+              for row in np.asarray(chaos_seeds)]
+        fleet = chaos_sim.run_policies_ensemble(
+            load, n, source, EnsembleSpec.of(len(work_seeds)),
+            block_size=block, window_s=CHAOSFLEET["window_s"],
+            member_keys=[RootedSource(source, int(w)) for w in work_seeds],
+            member_chaos=mc)
+        return split_mod.severity_scores(split, fleet.summaries,
+                                         fleet.timelines)
+
+    return split_mod.subset_estimate(evaluate, split,
+                                     chaos_components=len(chaos))
+
+
+def splitting_run(port, chaos_sim, timing):
+    """The splitting estimate at svc1000-chaosfleet: 8 protected members
+    a level, 3 levels, keep 0.25, err_peak past ``max(2 x worst, 0.2)``
+    (the worst of a plain 8-member fleet of the case); then its
+    compressed twin (1,024 requests in blocks of 512) on the card and on
+    the CPU from one draw source: the documents equal."""
+    from isotope_tpu_torch.resilience import faults
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+    from isotope_tpu_torch.sim.splitting import SplitSpec
+
+    cf = CHAOSFLEET
+    load = port.LoadModel(kind="open", qps=cf["qps"])
+    fleet = chaos_sim.run_policies_ensemble(
+        load, cf["n"], port.TorchDraws(34, "cuda"),
+        EnsembleSpec.of(cf["members"]), block_size=cf["block"],
+        window_s=cf["window_s"],
+        member_chaos=faults.ChaosJitterSpec(**cf["jitter"]))
+    worst = float(fleet.severity().max())
+    split = SplitSpec(levels=3, members=cf["members"], keep=0.25,
+                      threshold=max(2.0 * worst, 0.2), severity="err_peak")
+    doc, wall, n_launch, peak = fleet_wall(
+        port, "splitting", lambda: _split_estimate(
+            port, chaos_sim, split, cf["n"], cf["block"],
+            port.TorchDraws(35, "cuda")), 0, 0)
+    blocks = doc["evaluations"] * -(-cf["n"] // cf["block"])
+    calls = len(census_calls(chaos_sim, cf["block"]))
+    if n_launch != blocks * calls:
+        raise AssertionError(f"splitting: {n_launch} launches, expected "
+                             f"{blocks} x {calls}")
+    log(f"splitting at svc1000-chaosfleet (threshold {split.threshold:g}, "
+        f"the fleet's worst {worst:.6f}): p {doc['p']:.6g}, CI "
+        f"[{doc['ci_lo']:.6g}, {doc['ci_hi']:.6g}], "
+        f"{doc['evaluations']} member runs over {len(doc['levels'])} "
+        f"level(s), wall {wall * 1e3:.2f} ms, census launches {n_launch} "
+        f"(device ~{timing['ms_per_block']['svc1000-chaosfleet'] * blocks:.4f}"
+        f" ms, phase 3), peak {peak:.3f} GiB")
+    twin = dataclasses.replace(split, threshold=max(worst, 0.05))
+    source = port.TorchDraws(36, "cuda")
+    docs = {}
+    for device in ("cuda", "cpu"):
+        sim = chaos_sim if device == "cuda" else chaosfleet_sim(port, "cpu")
+        t = time.perf_counter()
+        docs[device] = _split_estimate(port, sim, twin, SPLIT_TWIN["n"],
+                                       SPLIT_TWIN["block"], source)
+        log(f"splitting twin on {device}: {time.perf_counter() - t:.1f} s")
+    if docs["cuda"] != docs["cpu"]:
+        raise AssertionError(f"splitting twin: card {docs['cuda']} != "
+                             f"cpu {docs['cpu']}")
+    log(f"splitting twin ({SPLIT_TWIN['n']} requests in blocks of "
+        f"{SPLIT_TWIN['block']}, threshold {twin.threshold:g}): p "
+        f"{docs['cuda']['p']:.6g} in {docs['cuda']['evaluations']} member "
+        "runs; card == cpu, document for document")
+    return {"splitting": n_launch}
+
+
+def cli_search_phase():
+    """``search`` on canonical.yaml (16 candidates, eta 4, 2 rungs,
+    ``--json``) and ``simulate --ensemble 8 --ensemble-jitter ...
+    --ensemble-chaos-jitter ... --ensemble-split ... --split-horizon
+    0.5`` on it, on the card and with ``--device cpu`` in this process
+    on one draw source (``cli_capture``): the search documents agree but
+    for their mode (the card folds the rungs), the ensemble documents
+    with their splitting blocks agree (``docs_close``)."""
+    import io
+
+    from isotope_tpu_torch import cli as port_cli
+    from isotope_tpu_torch.sim import TorchDraws
+
+    cases = {
+        "search": ["search", str(TOPOLOGIES / "canonical.yaml"), "--qps",
+                   "1000", "--duration", "4s", "--candidates", "16",
+                   "--eta", "4", "--rungs", "2", "--json"],
+        "split": ["simulate", str(TOPOLOGIES / "canonical.yaml"), "--qps",
+                  "1000", "--duration", "4s", "--load-kind", "open",
+                  "--ensemble", "8", "--ensemble-jitter", FLEET_JITTER,
+                  "--ensemble-chaos-jitter", "time=0.3,magnitude=0.5",
+                  "--ensemble-split",
+                  "levels=3,members=8,keep=0.25,threshold=1.0,sev=p99,"
+                  "slo=0.0036", "--split-horizon", "0.5"],
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, argv in cases.items():
+            docs = {}
+            for device in ("cuda", "cpu"):
+                out_file = pathlib.Path(tmp) / f"{case}-{device}.json"
+                extra = (["--ensemble-out", str(out_file)]
+                         if case == "split" else [])
+                buf, err = io.StringIO(), io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf), \
+                        contextlib.redirect_stderr(err), \
+                        cli_capture(TorchDraws(0, "cpu")):
+                    rc = port_cli.main(argv + ["--device", device] + extra)
+                if rc != 0:
+                    raise AssertionError(f"{case} on {device}: rc {rc}")
+                docs[device] = (json.loads(out_file.read_text())
+                                if case == "split"
+                                else json.loads(buf.getvalue()))
+                log(f"cli {' '.join(argv[:1] + argv[2:])} on {device}: "
+                    f"{time.perf_counter() - t:.1f} s")
+            got, want = docs["cuda"], docs["cpu"]
+            if case == "search":
+                if (got.pop("mode"), want.pop("mode")) != ("vmap", "map"):
+                    raise AssertionError("cli search: modes")
+                docs_close(got, want, "search")
+                log(f"cli search: card (vmap) == cpu (map), winner "
+                    f"{got['winner']['candidate']}, lineage "
+                    + " -> ".join(str(r['survivors'])
+                                  for r in got["lineage"]))
+            else:
+                docs_close(got, want, "ensemble")
+                sp = got["splitting"]
+                log(f"cli simulate --ensemble-split: card == cpu, p "
+                    f"{sp['p']:.6g} [{sp['ci_lo']:.6g}, {sp['ci_hi']:.6g}]"
+                    f" in {sp['evaluations']} member runs")
+
+
 # -- phase 7: the DES oracle --------------------------------------------------
 
 
@@ -3428,8 +3891,10 @@ def main() -> int:
     runs += [run[:5] for run in scenarios]
     prot = protected_runs(port)
     chaos_sim = chaosfleet_sim(port)
+    planted = planted_sim(port)
     timing = kernel_phase(census_mod, runs + [run[:5] for run in prot]
-                          + fleet_census_runs(runs, chaos_sim),
+                          + fleet_census_runs(runs, chaos_sim)
+                          + search_census_runs(runs, planted),
                           census_only_configs(port))
 
     def plain(graph):
@@ -3470,6 +3935,7 @@ def main() -> int:
     ])
     protected_in_situ(port, in_situ_twins(port, prot))
     fleet_in_situ(port)
+    planted_in_situ(port, planted)
     attr = dict(attribution=True)
     flagship_c = runs[0][1].compiled
     census_c = compile_graph(ServiceGraph.from_yaml(CENSUS_YAML))
@@ -3526,12 +3992,15 @@ def main() -> int:
     # the fleets: each its own path, counts set to 0 just before
     by_path.update(fleet_phase(port, runs, chaos_sim,
                                timing["ms_per_block"]))
+    # the brackets and the splitting estimate: each its own path
+    by_path.update(search_phase(port, runs, chaos_sim, timing))
     launches = sum(by_path.values())
     log(f"census launches on every path: {launches}")
     cli_phase()
     cli_protected_phase()
     cli_attribution_phase()
     cli_fleet_phase()
+    cli_search_phase()
     oracle_phase(port)
 
     kernels = [{

@@ -113,6 +113,13 @@ def observability_carry_bytes(sim, attr: bool = False,
     return total
 
 
+def search_carry_bytes(connections: int) -> float:
+    """Per-member bytes of a search bracket's carry (``sim/search.py``):
+    the block offset (int32) plus the ``(t0, conn_t0, req_off)`` clocks
+    (float32; ``conn_t0`` holds one slot a closed-loop connection)."""
+    return 4.0 * (3 + max(int(connections), 1))
+
+
 def ensemble_chunk(
     members: int,
     peak_bytes_per_member: float,

@@ -1,4 +1,4 @@
-"""``python -m isotope_tpu_torch simulate|check|timeline TOPOLOGY``.
+"""``python -m isotope_tpu_torch simulate|check|timeline|search TOPOLOGY``.
 
 The port of ``isotope-tpu simulate`` and ``isotope-tpu check`` for the
 main path:
@@ -36,8 +36,11 @@ main path:
   the tables and documents of the other flags are the worst member's.
   ``--ensemble-jitter`` perturbs the members' qps, cpu and error rates;
   ``--ensemble-chaos-jitter`` is parsed and, with no chaos schedule in
-  ``simulate``, has nothing to jitter.  The JAX command's other flags
-  raise ``NotImplementedError`` naming their ROADMAP item.
+  ``simulate``, has nothing to jitter.  ``--ensemble-split SPEC``
+  (``--split-horizon``) adds the importance-splitting estimate of the
+  fleet's rare outage to the ensemble document's ``splitting`` block
+  (``runner/run.splitting_pass``).  The JAX command's other flags raise
+  ``NotImplementedError`` naming their ROADMAP item.
 - ``check``: the run's Prometheus series (``MetricsCollector``) are
   queried by the reference's stability alarm suite; every alarm is
   printed to stderr and the exit code is 1 when one fires.
@@ -46,6 +49,10 @@ main path:
   sim-time onset, exit code 1) and a config push's convergence projected
   onto the same windows (``--controlplane N:M:P``,
   ``sim/controlplane.py``).
+- ``search``: one successive-halving bracket (``sim/search.py``) over a
+  jittered candidate population of the topology; prints the per-rung
+  survivor lineage and the winner's config, ``--out`` writes
+  ``isotope-search/v1``.
 
 ``--device`` picks the device (``cuda`` by default).
 """
@@ -61,12 +68,9 @@ from isotope_tpu_torch.utils import duration as dur
 
 # the JAX command's flags whose layers are not ported: each raises
 # NotImplementedError naming its ROADMAP item
-_FLEETS = "item 9, fleets: sim/splitting.py"
 _MULTI, _SERVICES = "item 11, multi-GPU", "item 12, framework services"
 _REFUSED = [
     ("--flat", dict(action="store_true"), "item 10, runner and CLI"),
-    ("--ensemble-split", dict(), _FLEETS),
-    ("--split-horizon", dict(type=float), _FLEETS),
     ("--mesh", dict(), _MULTI),
     ("--overlap", dict(action="store_true"), _MULTI),
     ("--telemetry", dict(nargs="?", const="on"), _SERVICES),
@@ -219,6 +223,19 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--ensemble-out", metavar="FILE", default=None,
                    help="write the ensemble's distributional summary "
                         "as JSON (isotope-ensemble/v2)")
+    s.add_argument(
+        "--ensemble-split", default=None, metavar="SPEC",
+        help="importance splitting (multilevel) over the fleet: "
+             "estimate a rare outage's probability, e.g. "
+             "'levels=4,members=64,keep=0.25,threshold=0.5,"
+             "sev=err_peak'; the estimate lands in the ensemble "
+             "document's 'splitting' key")
+    s.add_argument(
+        "--split-horizon", default=None, type=float, metavar="FRAC",
+        help="splitting screening-horizon fraction in (0, 1] "
+             "(default 0.25): each splitting level simulates FRAC of "
+             "the case's request count — overrides the 'horizon=' "
+             "key of --ensemble-split")
     for flag, kw, _ in _REFUSED:
         s.add_argument(flag, **kw)
     s.add_argument("--lb-out", metavar="FILE", default=None,
@@ -253,7 +270,153 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: cuda; raises without a GPU)")
     k.set_defaults(func=run_check)
     _add_timeline_parser(sub)
+    _add_search_parser(sub)
     return parser
+
+
+def _add_search_parser(sub) -> None:
+    s = sub.add_parser(
+        "search",
+        help="screen a jittered config population with a "
+             "successive-halving bracket",
+    )
+    s.add_argument("topology", help="path to the service graph YAML")
+    s.add_argument("--qps", default="1000",
+                   help="target QPS (the population's base rate)")
+    s.add_argument("--connections", "-c", type=int, default=64)
+    s.add_argument("--duration", "-t", default="240s",
+                   help='full-horizon duration, e.g. "240s" or "5m"')
+    s.add_argument("--load-kind", choices=["open", "closed"],
+                   default="open")
+    s.add_argument("--max-requests", type=int, default=200_000)
+    s.add_argument("--candidates", "-n", type=int, default=64,
+                   help="population size (the rung-0 width)")
+    s.add_argument("--eta", type=int, default=4,
+                   help="halving rate: each rung keeps the best "
+                        "ceil(width/eta)")
+    s.add_argument("--rungs", type=int, default=3,
+                   help="screening levels incl. the full-horizon rung")
+    s.add_argument("--growth", type=int, default=None,
+                   help="horizon growth between rungs (default: eta)")
+    s.add_argument("--rank", default="err_share",
+                   help="severity channel candidates rank by "
+                        "(err_share | p99 | err_peak)")
+    s.add_argument("--slo", default=None,
+                   help='p99 rank SLO latency, e.g. "250ms" '
+                        "(required for --rank p99)")
+    s.add_argument("--jitter", default=None,
+                   help='population perturbations, e.g. '
+                        '"qps=0.2,cpu=0.1,error=0.3,seed=1"')
+    s.add_argument("--chunk", type=int, default=None,
+                   help="members per rung chunk (default: "
+                        "carry-aware cost model)")
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--entry", default=None,
+                   help="entrypoint service override")
+    s.add_argument("--out", metavar="FILE", default=None,
+                   help="write the isotope-search/v1 JSON artifact")
+    s.add_argument("--json", action="store_true",
+                   help="print the search doc as JSON instead of the "
+                        "lineage table")
+    s.add_argument("--device", default=None,
+                   help="torch device (default: cuda; raises without a GPU)")
+    s.set_defaults(func=run_search_cmd)
+
+
+def run_search_cmd(args) -> int:
+    """The reference's ``search`` command: one bracket, its lineage
+    table and winner line (or ``--json``), ``--out``."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+    from isotope_tpu_torch.sim import TorchDraws
+    from isotope_tpu_torch.sim.ensemble import (
+        EnsembleSpec,
+        parse_jitter_spec,
+    )
+    from isotope_tpu_torch.sim.search import SearchSpec
+
+    sim = Simulator(
+        compile_graph(ServiceGraph.from_yaml_file(args.topology),
+                      entry=args.entry),
+        SimParams(), device=args.device,
+    )
+    jitter = parse_jitter_spec(args.jitter)
+    if not any(jitter.get(k) for k in
+               ("qps_jitter", "cpu_jitter", "error_jitter")):
+        # an unjittered population is N copies of one config: the
+        # bracket would rank noise; default to a broad screen
+        jitter = dict(jitter, qps_jitter=0.2, cpu_jitter=0.1,
+                      error_jitter=0.3)
+        print(
+            "search: no --jitter given; screening the default "
+            "qps=0.2,cpu=0.1,error=0.3 population",
+            file=sys.stderr,
+        )
+    spec = SearchSpec(
+        candidates=EnsembleSpec.from_jitter(args.candidates, **jitter),
+        eta=args.eta,
+        rungs=args.rungs,
+        growth=args.growth,
+        rank=args.rank,
+        slo_s=(
+            dur.parse_duration_seconds(args.slo) if args.slo else None
+        ),
+        seed=args.seed,
+        chunk=args.chunk,
+    )
+    spec.check()
+    load = LoadModel(
+        kind=args.load_kind,
+        qps=float(args.qps),
+        connections=args.connections,
+        duration_s=dur.parse_duration_seconds(args.duration),
+    )
+    n = max(1, min(int(load.qps * load.duration_s), args.max_requests))
+    # the rung schedule needs growth^(rungs-1) blocks to be strictly
+    # increasing: shrink the memory-sized block to fit the bracket
+    need = spec.resolved_growth() ** (spec.rungs - 1)
+    block = max(1, min(sim.default_block_size(), n // need))
+    srch = sim.run_search(load, n, TorchDraws(args.seed, sim.device), spec,
+                          block_size=block)
+    doc = srch.to_doc(pathlib.Path(args.topology).stem)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=2)
+        print(f"search -> {args.out}", file=sys.stderr)
+    if args.json:
+        json.dump(doc, sys.stdout, indent=2)
+        sys.stdout.write("\n")
+        return 0
+    print(
+        f"search: {spec.members} candidates, {spec.rungs} rungs "
+        f"(eta={spec.eta}, growth={spec.resolved_growth()}), "
+        f"rank={doc['rank_effective']}, {srch.traces} engine "
+        f"trace(s), mode={srch.mode}"
+    )
+    for r in srch.rungs:
+        surv = ", ".join(str(int(x)) for x in r.survivors[:8])
+        more = len(r.survivors) - 8
+        print(
+            f"  rung {r.rung}: {r.width} candidate(s) x "
+            f"{r.cum_requests} req (+{r.num_blocks} block(s), "
+            f"chunk {r.chunk}) -> "
+            f"{'winner' if r.rung == spec.rungs - 1 else 'survivors'}"
+            f" [{surv}{f', +{more} more' if more > 0 else ''}]"
+        )
+    win = srch.winner_config()
+    parts = [
+        f"{k}={win[k]:.4f}" for k in
+        ("qps_scale", "cpu_scale", "error_scale")
+        if win[k] is not None
+    ]
+    print(
+        f"winner: candidate {win['candidate']} (seed {win['seed']}) "
+        f"severity={win['severity']:.6f} "
+        f"offered={win['offered_qps']:.1f}qps "
+        + " ".join(parts)
+    )
+    return 0
 
 
 def _add_timeline_parser(sub) -> None:
@@ -387,7 +550,7 @@ def run_simulate(args) -> int:
     if fleet is not None:
         # a Monte Carlo fleet serves the case: the document pools the
         # members, the worst member's tables are the postmortem
-        ens, summary, tl, pol, roll, attr, stamp = _run_fleet(
+        ens, summary, tl, pol, roll, attr, stamp, split_doc = _run_fleet(
             args, fleet, sim, load, n, block, source, tl_window,
             pol_t is not None or roll_t is not None, roll_t is not None,
             attr_kw,
@@ -466,7 +629,7 @@ def run_simulate(args) -> int:
             print(f"timestamped exposition -> {args.timeline_prometheus}",
                   file=sys.stderr)
     if ens is not None:
-        _emit_fleet(args, ens, fleet, stamp)
+        _emit_fleet(args, ens, fleet, stamp, split_doc)
     entry = compiled.entry_service
     doc = fortio_result_from_summary(
         summary, load,
@@ -497,11 +660,23 @@ def run_simulate(args) -> int:
 
 
 def _fleet_args(args):
-    """The ``--ensemble*`` flags as ``(EnsembleSpec, slo_s,
-    ChaosJitterSpec)``, or None without ``--ensemble``; the specs are
-    parsed before anything simulates.  ``simulate`` has no chaos
-    schedule, so the chaos jitter is checked and then has nothing to
-    jitter, as in the JAX command."""
+    """The ``--ensemble*`` flags as ``(EnsembleSpec, slo_s, SplitSpec or
+    None)``, or None without ``--ensemble``; the specs are parsed before
+    anything simulates (``--ensemble-split`` and ``--split-horizon``
+    also without ``--ensemble``, as the JAX command fails fast on
+    them).  ``simulate`` has no chaos schedule, so the chaos jitter is
+    checked and then has nothing to jitter, as in the JAX command."""
+    import dataclasses
+
+    from isotope_tpu_torch.sim.splitting import parse_split_spec
+
+    split = parse_split_spec(args.ensemble_split)
+    if args.split_horizon is not None:
+        h = float(args.split_horizon)
+        if not 0.0 < h <= 1.0:
+            raise SystemExit("--split-horizon must lie in (0, 1]")
+        if split is not None:
+            split = dataclasses.replace(split, horizon=h)
     if not args.ensemble or args.ensemble <= 0:
         return None
     from isotope_tpu_torch.resilience.faults import parse_chaos_jitter
@@ -523,7 +698,7 @@ def _fleet_args(args):
         None if args.ensemble_slo is None
         else dur.parse_duration_seconds(args.ensemble_slo)
     )
-    return spec, slo_s
+    return spec, slo_s, split
 
 
 def _run_fleet(args, fleet, sim, load, n, block, source, tl_window,
@@ -534,15 +709,19 @@ def _run_fleet(args, fleet, sim, load, n, block, source, tl_window,
     ``run_policies_ensemble`` / ``run_rollouts_ensemble`` with member 0
     on the run's own source (the control member).  Each member's qps
     is the load's times its scale.  Returns ``(fleet, pooled summary,
-    timeline, policies, rollouts, attribution, stamp)``: the worst
-    member's series, and the stamp that names it in their
-    documents."""
+    timeline, policies, rollouts, attribution, stamp, splitting)``: the
+    worst member's series, the stamp that names it in their documents,
+    and the ``--ensemble-split`` estimate (``runner/run.splitting_pass``
+    on the run's source), or None."""
     import numpy as np
 
-    from isotope_tpu_torch.runner.run import protected_window_block
+    from isotope_tpu_torch.runner.run import (
+        protected_window_block,
+        splitting_pass,
+    )
     from isotope_tpu_torch.sim.draws import RootedSource
 
-    spec, _ = fleet
+    spec, _, split = fleet
     scale = (
         spec.qps_scale if spec.qps_scale is not None
         else np.ones(spec.members)
@@ -600,18 +779,27 @@ def _run_fleet(args, fleet, sim, load, n, block, source, tl_window,
             roll_s = ens.member_rollouts(worst)
         if ens.attributions is not None:
             attr = ens.member_attribution(worst)
-    return ens, ens.pooled(), tl, pol, roll_s, attr, stamp
+    split_doc = None
+    if split is not None:
+        split_doc = splitting_pass(
+            sim, load, n, source, block, split, protected=protected,
+            roll=roll, timeline_window_s=sim.params.timeline_window_s,
+            timeline=tl_window,
+        )
+    return ens, ens.pooled(), tl, pol, roll_s, attr, stamp, split_doc
 
 
-def _emit_fleet(args, ens, fleet, stamp) -> None:
-    """The ``ensemble:`` line to stderr and ``--ensemble-out``."""
+def _emit_fleet(args, ens, fleet, stamp, split_doc=None) -> None:
+    """The ``ensemble:`` line to stderr and ``--ensemble-out`` (with the
+    splitting block when ``split_doc`` is given)."""
     from isotope_tpu_torch.runner.run import run_label
 
-    _, slo_s = fleet
+    _, slo_s, _ = fleet
     d = ens.to_doc(
         label=run_label(args.topology, args.environment, _load(args),
                         args.labels),
         slo_s=slo_s,
+        splitting=split_doc,
     )
     if ens.protected and d.get("worst_member") == 0:
         d["worst_member_seed"] = None

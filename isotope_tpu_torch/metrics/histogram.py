@@ -66,3 +66,23 @@ def quantile_from_histogram(hist, qs) -> np.ndarray:
     cum = np.cumsum(hist)
     idx = np.searchsorted(cum, np.asarray(qs) * total, side="left")
     return bucket_centers()[np.minimum(idx, NUM_BUCKETS - 1)]
+
+
+def quantile_from_histogram_device(hist: torch.Tensor, q: float) -> torch.Tensor:
+    """On-device twin of :func:`quantile_from_histogram` for ONE quantile
+    over a stack of histograms ``(..., NUM_BUCKETS)``, in the reference's
+    float32 op order: ``searchsorted(cum, q * total, side="left")`` is the
+    count of cumsum entries strictly below the target, a comparison
+    reduction.  Counts are integers below 2**24, so the float32 cumsum is
+    exact and the index is the reference's.  Empty histograms give 0."""
+    hist = hist.to(torch.float32)
+    total = hist.sum(-1, keepdim=True)
+    cum = torch.cumsum(hist, -1)
+    idx = (cum < q * total).to(torch.int32).sum(-1)
+    idx = torch.clamp(idx, max=NUM_BUCKETS - 1).to(torch.int64)
+    centers = torch.as_tensor(bucket_centers().astype(np.float32),
+                              device=hist.device)
+    val = centers[idx]
+    return torch.where(total[..., 0] > 0, val,
+                       torch.zeros((), dtype=torch.float32,
+                                   device=hist.device))

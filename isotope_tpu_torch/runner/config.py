@@ -15,10 +15,10 @@ A copy of ``isotope_tpu.runner.config``: the environments, the
 ``ExperimentConfig`` fields and ``load_toml`` with its ``[[chaos]]``
 (bounce shorthand, ``drain``), ``[[churn]]``, ``[mtls]`` and environment
 overlays give the reference's values, and the fleet keys (``ensemble``,
-``ensemble_jitter``, ``ensemble_slo``, ``ensemble_chaos_jitter``) build
-the fleet's specs.  The keys that need the splitting and search modules
-(``ensemble_split`` and its spec, ``[search]`` candidates and jitter)
-raise ``NotImplementedError`` naming their ROADMAP item.
+``ensemble_jitter``, ``ensemble_slo``, ``ensemble_chaos_jitter``,
+``ensemble_split`` and ``ensemble_split_horizon``) and the ``[search]``
+block build the fleet's, the splitting estimate's and the search
+bracket's specs.
 """
 from __future__ import annotations
 
@@ -41,13 +41,6 @@ from isotope_tpu_torch.sim.config import (
     TrafficSplit,
 )
 from isotope_tpu_torch.utils import duration as dur
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to isotope_tpu_torch yet "
-        "(ROADMAP.md queue 1: fleets)"
-    )
 
 
 # One Envoy traversal, one way — the per-pass tax underlying the
@@ -284,18 +277,49 @@ class ExperimentConfig:
             return parse_chaos_jitter(self.ensemble_chaos_jitter)
 
     def split_spec(self):
-        """None when importance splitting is off; an armed split
-        raises (not ported)."""
+        """The sweep's importance-splitting config
+        (:class:`~isotope_tpu_torch.sim.splitting.SplitSpec`), or None.
+        ``ensemble_split_horizon`` overrides the spec string's
+        ``horizon=`` key; the resolved value lands in the document's
+        splitting block via ``SplitSpec.to_dict``."""
         if not self.ensemble_split:
             return None
-        raise _unported("importance splitting (sim/splitting.py)")
+        from isotope_tpu_torch.sim.splitting import parse_split_spec
+
+        with config_path("sim.ensemble_split"):
+            spec = parse_split_spec(self.ensemble_split)
+        if spec is not None and self.ensemble_split_horizon is not None:
+            with config_path("sim.ensemble_split_horizon"):
+                spec = dataclasses.replace(
+                    spec, horizon=float(self.ensemble_split_horizon)
+                )
+        return spec
 
     def search_spec(self):
-        """None when the search axis is off; an armed search raises
-        (not ported)."""
+        """The sweep's :class:`~isotope_tpu_torch.sim.search.SearchSpec`
+        (None when the search axis is off)."""
         if self.search_candidates <= 0:
             return None
-        raise _unported("config search (sim/search.py)")
+        from isotope_tpu_torch.sim.ensemble import (
+            EnsembleSpec,
+            parse_jitter_spec,
+        )
+        from isotope_tpu_torch.sim.search import SearchSpec
+
+        with config_path("search"):
+            jitter = parse_jitter_spec(self.search_jitter)
+            pop = EnsembleSpec.from_jitter(
+                self.search_candidates, **jitter
+            )
+            return SearchSpec(
+                candidates=pop,
+                eta=self.search_eta,
+                rungs=self.search_rungs,
+                growth=self.search_growth,
+                rank=self.search_rank,
+                slo_s=self.search_slo_s,
+                seed=self.search_seed,
+            )
 
     def load_models(self):
         for conn in self.connections:
@@ -555,8 +579,11 @@ def _ensemble_kwargs(sim: dict) -> dict:
             parse_chaos_jitter(str(sim["ensemble_chaos_jitter"]))
         out["ensemble_chaos_jitter"] = str(sim["ensemble_chaos_jitter"])
     if "ensemble_split" in sim:
+        from isotope_tpu_torch.sim.splitting import parse_split_spec
+
         with config_path("sim.ensemble_split"):
-            raise _unported("importance splitting (sim/splitting.py)")
+            parse_split_spec(str(sim["ensemble_split"]))
+        out["ensemble_split"] = str(sim["ensemble_split"])
     if "ensemble_split_horizon" in sim:
         with config_path("sim.ensemble_split_horizon"):
             h = float(sim["ensemble_split_horizon"])
@@ -602,9 +629,23 @@ def _search_kwargs(search: dict) -> dict:
                 search["slo"]
             )
     if "jitter" in search:
+        from isotope_tpu_torch.sim.ensemble import parse_jitter_spec
+
         with config_path("search.jitter"):
-            raise _unported("search population jitter (sim/ensemble.py)")
+            parse_jitter_spec(str(search["jitter"]))
+        out["search_jitter"] = str(search["jitter"])
     if out["search_candidates"] > 0:
+        from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+        from isotope_tpu_torch.sim.search import SearchSpec
+
         with config_path("search"):
-            raise _unported("config search (sim/search.py)")
+            SearchSpec(
+                candidates=EnsembleSpec.of(out["search_candidates"]),
+                eta=out["search_eta"],
+                rungs=out["search_rungs"],
+                growth=out.get("search_growth"),
+                rank=out["search_rank"],
+                slo_s=out.get("search_slo_s"),
+                seed=out["search_seed"],
+            ).check()
     return out

@@ -1,9 +1,10 @@
 """Run planning of the ``simulate`` command.
 
 A partial port of ``isotope_tpu.runner.run``: the run label, the
-request count a load implies, and the protected runs' window and block
-sizing.  The experiment runner itself (``run_experiment``, sweeps,
-checkpoints, flat rows) is ROADMAP item 10.
+request count a load implies, the protected runs' window and block
+sizing, and a fleet-served case's importance-splitting pass.  The
+experiment runner itself (``run_experiment``, sweeps, checkpoints, flat
+rows) is ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -42,3 +43,69 @@ def protected_window_block(sim, load, block: int,
         win = min(timeline_window_s, max(load.duration_s / 8.0, 1e-3))
     rate = load.qps if load.qps is not None else sim.capacity_qps()
     return win, max(256, min(block, int(max(rate * win, 1.0))))
+
+
+def splitting_pass(sim, load, n: int, source, block: int, split,
+                   protected: bool = False, roll: bool = False,
+                   timeline_window_s: float = 10.0, timeline=None,
+                   chaos_jitter=None) -> dict:
+    """The importance-splitting estimate of one fleet-served case
+    (``sim/splitting.py``, the reference's ``_splitting_pass``): one
+    SHORT-HORIZON fleet a level (``max(256, int(n * split.horizon))``
+    requests a member), members ranked by ``split``'s severity, the
+    worst quantile cloned with redrawn seeds.  The fleets draw from a
+    lane of their own, member ``w`` under ``RootedSource(source,
+    SPLIT_INDEX)`` extended by ``w`` (the reference's ``fold_in(
+    fold_in(run_key, 777_000_001), w)``).  A protected case runs
+    ``run_policies_ensemble`` / ``run_rollouts_ensemble`` (``roll``) on
+    its window and block (:func:`protected_window_block`); under the
+    Simulator's chaos schedule and ``chaos_jitter`` each member's
+    schedule is jittered from its chaos seeds.  Returns the
+    ``isotope-splitting/v1`` document.  Unlike the reference's
+    best-effort pass, a failure raises."""
+    import numpy as np
+
+    from isotope_tpu_torch.sim import splitting as split_mod
+    from isotope_tpu_torch.sim.draws import SPLIT_INDEX, RootedSource
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+
+    n_short = max(256, int(n * split.horizon))
+    chaos = tuple(sim._chaos_events)
+    jitter = chaos_jitter if chaos else None
+    base = RootedSource(source, SPLIT_INDEX)
+    kwargs = {}
+    blk = block
+    if protected:
+        win, blk = protected_window_block(sim, load, block,
+                                          timeline_window_s, timeline)
+        method = (
+            sim.run_rollouts_ensemble if roll
+            else sim.run_policies_ensemble
+        )
+        kwargs["window_s"] = win
+    else:
+        method = sim.run_ensemble
+    if jitter is not None:
+        from isotope_tpu_torch.resilience import faults
+
+        reps = sim.compiled.services.replicas_by_name()
+
+    def evaluate(chaos_seeds, work_seeds):
+        espec = EnsembleSpec.of(len(work_seeds))
+        mkeys = [RootedSource(base, int(w)) for w in work_seeds]
+        mc = None
+        if jitter is not None:
+            mc = [
+                faults.jitter_chaos_events(chaos, jitter, row, reps)
+                for row in np.asarray(chaos_seeds)
+            ]
+        out = method(
+            load, n_short, base, espec, block_size=blk, trim=False,
+            member_keys=mkeys, member_chaos=mc, **kwargs,
+        )
+        return split_mod.severity_scores(split, out.summaries,
+                                         out.timelines)
+
+    return split_mod.subset_estimate(
+        evaluate, split, chaos_components=max(len(chaos), 1),
+    )

@@ -73,6 +73,12 @@ CANARY_INDEX = 880_001
 #: fold-in of an attributed run's tail-cut pilot run
 TAIL_PILOT_INDEX = 777_000
 
+#: fold-in of the importance-splitting fleets (the reference's
+#: ``fold_in(run_key, 777_000_001)``): a lane of their own, so they
+#: never replay the measurement fleet's streams; member ``w`` draws
+#: under ``(SPLIT_INDEX, w)``
+SPLIT_INDEX = 777_000_001
+
 #: root seed of the saturated closed loop's pilot runs (the reference's
 #: ``PRNGKey(20_260_730)``): fixed, so the solved throughput is a
 #: property of the topology, not of the run's seed

@@ -658,6 +658,72 @@ def _cat_draws(parts: Sequence[Draws]) -> Draws:
     ))
 
 
+class _Clock:
+    """The clocks a block loop carries from block to block: the open
+    loop's ``t0``, the connections' ``conn_t0``, the closed loop's
+    request offset ``req_off`` (requests each connection issued in
+    earlier blocks, which places requests into phases) and the index
+    ``block`` of the next block (its draws are index ``1_000_000 +
+    block`` of the source).  A fleet's carry export
+    (``Simulator.run_ensemble(carry_in=, return_carry=,
+    block_offset=)``, the search brackets) starts a loop from one and
+    reads it back after the loop."""
+
+    def __init__(self, t0: torch.Tensor, conn_t0: torch.Tensor,
+                 req_off: int = 0, block: int = 0):
+        self.t0, self.conn_t0 = t0, conn_t0
+        self.req_off, self.block = int(req_off), int(block)
+
+    @classmethod
+    def zero(cls, sim: "Simulator", conns: int) -> "_Clock":
+        """The clocks a loop starts from: t = 0 at block 0."""
+        return cls(sim._scalar(0.0),
+                   torch.zeros(max(conns, 1), dtype=F32, device=sim.device))
+
+    @classmethod
+    def resume(cls, carry, m: int, block: int) -> "_Clock":
+        """Member ``m``'s clock from a member-stacked ``(t0, conn_t0,
+        req_off)`` carry, at block ``block``."""
+        return cls(carry[0][m], carry[1][m], int(carry[2][m]), block)
+
+    def export(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(t0, conn_t0, req_off)``, ``req_off`` a float32 0-d tensor
+        (exact below 2**24 requests a connection), as the reference
+        carries it."""
+        return (self.t0, self.conn_t0,
+                torch.tensor(float(self.req_off), dtype=F32,
+                             device=self.t0.device))
+
+
+class FleetCarry(NamedTuple):
+    """A plain fleet's member-stacked carry: the reference's ``(t0,
+    conn_t0, req_off)`` scan carry, (M,), (M, C) and (M,) float32."""
+
+    t0: torch.Tensor
+    conn_t0: torch.Tensor
+    req_off: torch.Tensor
+
+
+class ProtectedCarry(NamedTuple):
+    """A protected fleet's member-stacked carry: the clocks and the full
+    control state of :class:`_BlockControl` (the recorder's
+    accumulator, the rollout observations, state and series, the (S, W)
+    retry observations, the policy state and series; ``None`` for a
+    layer the Simulator does not arm).  The states' host integer
+    ``last_window`` rides as an int64 tensor."""
+
+    t0: torch.Tensor
+    conn_t0: torch.Tensor
+    req_off: torch.Tensor
+    tl_acc: object
+    robs: Optional[torch.Tensor]
+    rstate: object
+    racc: object
+    pobs: Optional[torch.Tensor]
+    pstate: object
+    pacc: object
+
+
 class _BlockControl:
     """The carry of a recorded or protected block loop
     (``Simulator.run_timeline`` / ``run_policies`` / ``run_rollouts``):
@@ -672,7 +738,7 @@ class _BlockControl:
                  policies: bool, rollouts: bool):
         from isotope_tpu_torch.metrics import timeline as timeline_mod
 
-        dev = sim.device
+        dev = self.device = sim.device
         self._tl = timeline_mod
         self.spec = timeline_mod.build_spec(
             sim.compiled, tl_plan[0], tl_plan[1], dev
@@ -741,6 +807,44 @@ class _BlockControl:
 
     def rollout_summary(self):
         return self.roll.attach_observations(self.racc, self.robs)
+
+    def export(self, clock: _Clock) -> ProtectedCarry:
+        """The loop's full carry after its last block: resuming a
+        fresh control from it (:meth:`resume`) continues the unbroken
+        loop exactly."""
+        def state(st):
+            return st._replace(last_window=torch.tensor(
+                st.last_window, dtype=torch.int64, device=self.device
+            ))
+
+        return ProtectedCarry(
+            *clock.export(),
+            tl_acc=self.tl_acc,
+            robs=self.robs if self.roll is not None else None,
+            rstate=state(self.rstate) if self.roll is not None else None,
+            racc=self.racc if self.roll is not None else None,
+            pobs=self.pobs if self.pol is not None else None,
+            pstate=state(self.pstate) if self.pol is not None else None,
+            pacc=self.pacc if self.pol is not None else None,
+        )
+
+    def resume(self, carry: ProtectedCarry) -> None:
+        """Continue from one member's :class:`ProtectedCarry` (each
+        tensor copied: the loop never writes into the stacked carry)."""
+        from isotope_tpu_torch.sim.ensemble import tree_map
+
+        carry = tree_map(torch.clone, carry)
+        self.tl_acc = carry.tl_acc
+        if self.roll is not None:
+            self.robs, self.racc = carry.robs, carry.racc
+            self.rstate = carry.rstate._replace(
+                last_window=int(carry.rstate.last_window)
+            )
+        if self.pol is not None:
+            self.pobs, self.pacc = carry.pobs, carry.pacc
+            self.pstate = carry.pstate._replace(
+                last_window=int(carry.pstate.last_window)
+            )
 
 
 class Simulator:
@@ -2077,6 +2181,8 @@ class Simulator:
                    control: Optional["_BlockControl"] = None,
                    cpu_scale: Optional[torch.Tensor] = None,
                    err_scale: Optional[torch.Tensor] = None,
+                   clock: Optional[_Clock] = None,
+                   plan: Optional[Tuple[float, int, int]] = None,
                    ) -> Iterator[SimResults]:
         """The :class:`SimResults` of each block of a run of >=
         ``num_requests`` (:meth:`_block_plan`).
@@ -2094,10 +2200,16 @@ class Simulator:
         block before the next one starts.  ``cpu_scale`` / ``err_scale``
         (0-d tensors) are a fleet member's perturbations
         (:meth:`_simulate_core`).
+
+        ``clock`` (a :class:`_Clock`, the fleets' carry export) starts
+        the loop from its clocks at its block index and holds the
+        loop's clocks after each block; ``plan`` gives ``(offered rate,
+        block, number of blocks)`` instead of :meth:`_block_plan` (a
+        fleet's members run its plan).
         """
         self._check_lb_load(load)
-        offered, block, num_blocks = self._block_plan(
-            load, num_requests, source, block_size
+        offered, block, num_blocks = plan if plan is not None else (
+            self._block_plan(load, num_requests, source, block_size)
         )
         sat = self._saturated(load)
         conns = 0 if load.kind == OPEN_LOOP else load.connections
@@ -2110,29 +2222,32 @@ class Simulator:
         offered_t = self._scalar(offered)
         pace_t = self._scalar(pace)
         nominal_t = self._scalar(nominal)
-        t0 = self._scalar(0.0)
-        conn_t0 = torch.zeros(max(conns, 1), dtype=F32, device=self.device)
+        if clock is None:
+            clock = _Clock.zero(self, conns)
         per = block // max(conns, 1)
-        for b in range(num_blocks):
+        for _ in range(num_blocks):
             pfx, rfx = (
                 control.effects() if control is not None else (None, None)
             )
             res, t0, conn_t0 = self._simulate_core(
                 block, load.kind, conns,
-                self._draws(source, BLOCK_INDEX_BASE + b, block, load.kind,
-                            sat, policy=pfx is not None,
+                self._draws(source, BLOCK_INDEX_BASE + clock.block, block,
+                            load.kind, sat, policy=pfx is not None,
                             canary=rfx is not None),
-                offered_t, pace_t, offered_t, t0, conn_t0,
+                offered_t, pace_t, offered_t, clock.t0, clock.conn_t0,
                 visits_pc=visits_pc,
                 sat_conns=conns if sat else 0,
                 nominal_gap=nominal_t,
-                req_offset=b * per,
+                req_offset=clock.req_off,
                 phase_windows=windows,
                 policy_fx=pfx,
                 rollout_fx=rfx,
                 cpu_scale=cpu_scale,
                 err_scale=err_scale,
             )
+            clock.t0, clock.conn_t0 = t0, conn_t0
+            clock.block += 1
+            clock.req_off += per
             if control is not None:
                 # closed loop: a window is final only once the SLOWEST
                 # connection passed it
@@ -2166,7 +2281,7 @@ class Simulator:
     def _run_summary(self, load, num_requests, source, block_size,
                      collector, trim, control=None, attr=False,
                      tail_cut=None, cpu_scale=None, err_scale=None,
-                     fleet=False):
+                     fleet=False, clock=None, plan=None):
         """The block loop reduced to a RunSummary; with ``attr`` also to
         an AttributionSummary (its tail accumulators armed at
         ``tail_cut`` when given): ``(summary, attribution)``.  A solo
@@ -2183,8 +2298,8 @@ class Simulator:
                 "not both"
             )
         self._check_lb_load(load)
-        offered, block, num_blocks = self._block_plan(
-            load, num_requests, source, block_size
+        offered, block, num_blocks = plan if plan is not None else (
+            self._block_plan(load, num_requests, source, block_size)
         )
         win = None
         if trim:
@@ -2207,7 +2322,8 @@ class Simulator:
         for res in self.run_blocks(load, num_requests, source,
                                    block_size=block_size, control=control,
                                    cpu_scale=cpu_scale,
-                                   err_scale=err_scale):
+                                   err_scale=err_scale, clock=clock,
+                                   plan=plan):
             parts.append(summary_mod.summarize(res, collector, window=win))
             if attr:
                 a, ex = attribution.attribute_block(
@@ -2448,7 +2564,8 @@ class Simulator:
                        window_s: Optional[float], attribution: bool = False,
                        tail: bool = False,
                        tail_cut: Optional[float] = None,
-                       cpu_scale=None, err_scale=None, tl_plan=None):
+                       cpu_scale=None, err_scale=None, tl_plan=None,
+                       control=None, clock=None, plan=None):
         """The shared tail of :meth:`run_policies` and
         :meth:`run_rollouts`: one block loop whose carry holds the
         clocks, the recorder's accumulator, the (S, W) retry
@@ -2458,19 +2575,23 @@ class Simulator:
 
         Returns ``(summary, timeline[, rollout summary][, policy
         summary][, attribution])``.  ``cpu_scale`` / ``err_scale`` and
-        ``tl_plan`` are a fleet member's (:meth:`run_policies_ensemble`)."""
+        ``tl_plan`` are a fleet member's (:meth:`run_policies_ensemble`);
+        ``control`` (resumed from a carry), ``clock`` and ``plan`` its
+        carry export's (:meth:`run_blocks`)."""
         if attribution and tail and tail_cut is None:
             tail_cut = self.estimate_tail_cut(
                 load, num_requests, source, block_size=block_size
             )
-        control = self._control(
-            load, num_requests, source, block_size, window_s,
-            self._policies is not None, roll, tl_plan=tl_plan,
-        )
+        if control is None:
+            control = self._control(
+                load, num_requests, source, block_size, window_s,
+                self._policies is not None, roll, tl_plan=tl_plan,
+            )
         summary = self._run_summary(
             load, num_requests, source, block_size, collector, trim,
             control, attr=attribution, tail_cut=tail_cut if tail else None,
-            cpu_scale=cpu_scale, err_scale=err_scale,
+            cpu_scale=cpu_scale, err_scale=err_scale, clock=clock,
+            plan=plan,
         )
         if attribution:
             summary, attr = summary
@@ -2793,14 +2914,31 @@ class Simulator:
             )
         return "map"
 
-    @staticmethod
-    def _refuse_carry_export(carry_in, return_carry, block_offset) -> None:
-        if carry_in is not None or return_carry or block_offset != 0:
-            raise _unsupported(
-                "the fleets' carry export (carry_in, return_carry, "
-                "block_offset: the search brackets)",
-                "item 9, fleets: sim/search.py",
-            )
+    def zero_ensemble_carry(self, n_mem: int, connections: int) -> FleetCarry:
+        """The fresh-start member-stacked ``(t0, conn_t0, req_off)``
+        carry a plain fleet resumes from at t=0 (the zeros the block
+        loop starts from)."""
+        c = max(connections, 1)
+        z = torch.zeros(n_mem, dtype=F32, device=self.device)
+        return FleetCarry(
+            z, torch.zeros((n_mem, c), dtype=F32, device=self.device),
+            z.clone(),
+        )
+
+    def zero_protected_carry(self, n_mem: int, connections: int,
+                             tl_plan: Tuple[int, float],
+                             roll: bool = False) -> ProtectedCarry:
+        """The fresh-start member-stacked carry of a protected fleet
+        (:class:`ProtectedCarry`): zero clocks and the initial control
+        state of ``tl_plan``'s window grid, one row a member.  A
+        protected fleet resuming from exactly these at
+        ``block_offset=0`` equals the unbroken protected fleet."""
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        control = _BlockControl(self, tl_plan, self._policies is not None,
+                                roll)
+        row = control.export(_Clock.zero(self, connections))
+        return ens_mod.tree_stack([row] * n_mem)
 
     def _member_scales(self, tables, m: int):
         """Member ``m``'s ``(cpu_scale, err_scale)`` 0-d tensors, or
@@ -2867,8 +3005,18 @@ class Simulator:
         source when not given.  The timeline grid is planned from
         member 0's rate (``window_s`` overrides the width).
 
-        ``carry_in`` / ``return_carry`` / ``block_offset`` (the search
-        brackets) raise ``NotImplementedError``.  Returns an
+        The carry export (the search brackets, ``sim/search.py``):
+        ``block_offset`` starts every member's block loop at that block
+        index (block b draws from index ``1_000_000 + block_offset + b``
+        of the member's source), ``carry_in`` seeds the member-stacked
+        ``(t0, conn_t0, req_off)`` clocks (:class:`FleetCarry`; None =
+        :meth:`zero_ensemble_carry`), and ``return_carry`` returns
+        ``(summary, carry_out)`` so the next segment continues where
+        this one stopped.  Segments carried so equal the unbroken run
+        on every exact field; a zero carry at offset 0 is the plain
+        fleet bit for bit.  They need ``trim=False``, no
+        ``member_chaos`` and no attribution or timeline, as in the
+        reference.  Returns an
         :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary`.
         """
         from isotope_tpu_torch.compiler.compile import compile_ensemble
@@ -2883,7 +3031,6 @@ class Simulator:
                 )
             spec = ens_mod.EnsembleSpec.of(self.params.ensemble)
         spec.check(allow_duplicate_seeds=member_keys is not None)
-        self._refuse_carry_export(carry_in, return_carry, block_offset)
         self._check_lb_load(load)
         if attribution and not self.params.attribution:
             raise ValueError(
@@ -2909,7 +3056,21 @@ class Simulator:
             member_keys=member_keys, block_size=block_size, trim=trim,
             member_qps=member_qps, planners=planners,
         )
+        carry_run = (
+            carry_in is not None or return_carry or block_offset != 0
+        )
+        if carry_run and (trim or planners is not None):
+            raise ValueError(
+                "the ensemble carry export (carry_in/return_carry/"
+                "block_offset) requires trim=False and no member_chaos"
+            )
         observed = attribution or timeline
+        if carry_run and observed:
+            raise ValueError(
+                "the ensemble carry export does not compose with the "
+                "attribution/timeline reductions (screen first, then "
+                "explain with an observed fleet)"
+            )
         mode = self._fleet_mode(
             tables, spec, planners is None and not observed,
             "chaos and observed fleets",
@@ -2928,13 +3089,17 @@ class Simulator:
                 timeline_windows=tl_plan[0] if tl_plan else None,
             )
         chunk_sz = max(1, min(int(chunk_sz), n_mem))
-        tl_stack = attr_stack = None
-        if mode == "vmap":
-            summaries = ens_mod.tree_cat([
-                self._folded_fleet(args, tables, range(lo, min(
-                    lo + chunk_sz, n_mem)), trim)
-                for lo in range(0, n_mem, chunk_sz)
-            ])
+        tl_stack = attr_stack = carry_out = None
+        if planners is None and not observed:
+            if carry_run and carry_in is None:
+                carry_in = self.zero_ensemble_carry(n_mem, args["conns"])
+            summaries, carry_out = self._plain_fleet(
+                args, tables, range(n_mem),
+                self._ensemble_stacked_args(args, tables)
+                if mode == "vmap" else None,
+                mode, chunk_sz, trim, start_block=int(block_offset),
+                carry=carry_in,
+            )
         else:
             outs = []
             for m in range(n_mem):
@@ -2961,6 +3126,94 @@ class Simulator:
                 tl_stack = ens_mod.tree_stack([o[1] for o in outs])
             if attribution:
                 attr_stack = ens_mod.tree_stack([o[2] for o in outs])
+        ens = ens_mod.EnsembleSummary(
+            spec=spec,
+            summaries=summaries,
+            offered_qps=args["offered"],
+            chunk=chunk_sz,
+            member_chaos=member_events,
+            timelines=tl_stack,
+            attributions=attr_stack,
+        )
+        if return_carry:
+            return ens, carry_out
+        return ens
+
+    def _ensemble_stacked_args(self, args: dict, tables) -> dict:
+        """A planned fleet's per-member inputs (``args`` of
+        :meth:`_ensemble_args`) as member-stacked tensors on the device:
+        the folded block's arguments, and what a search bracket gathers
+        its survivors' rows from (``compiler/compile.ensemble_take``)."""
+        dev = self.device
+
+        def col(key):
+            return torch.as_tensor(
+                np.asarray(args[key]), dtype=F32
+            ).to(dev)
+
+        jit = tables.jittered
+        return dict(
+            offered=col("offered"), pace=col("pace"),
+            nominal=col("nominal"), win_lo=col("win_lo"),
+            win_hi=col("win_hi"),
+            visits=torch.stack(args["visits"]),
+            windows=torch.stack(args["windows"]),
+            cpu_scale=tables.cpu_scale.to(dev) if jit else None,
+            err_scale=tables.err_scale.to(dev) if jit else None,
+        )
+
+    def _plain_fleet(self, args: dict, tables, ids, stacked: dict,
+                     mode: str, chunk_sz: int, trim: bool,
+                     start_block: int = 0,
+                     num_blocks: Optional[int] = None, carry=None):
+        """Members ``ids`` (indices into the plan ``args``) of a plain
+        fleet, ``stacked`` their rows of :meth:`_ensemble_stacked_args`
+        (``"vmap"`` only) and ``carry`` (a :class:`FleetCarry`, or None)
+        their clocks, in ``ids`` order: ``"vmap"`` folds chunks of ``chunk_sz`` members
+        into one block loop (:meth:`_folded_fleet`), ``"map"`` runs each
+        member's solo block loop on the fleet's plan.  Each runs
+        ``num_blocks`` blocks (default: the plan's) from block
+        ``start_block``.  Returns ``(member-stacked RunSummary,
+        FleetCarry)``, the carry None when none was given."""
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        ids = list(ids)
+        block = args["block"]
+        nb = args["num_blocks"] if num_blocks is None else int(num_blocks)
+        if mode == "vmap":
+            parts = []
+            for lo in range(0, len(ids), chunk_sz):
+                hi = min(lo + chunk_sz, len(ids))
+
+                def rows(tree):
+                    return ens_mod.tree_map(lambda x: x[lo:hi], tree)
+
+                parts.append(self._folded_fleet(
+                    args, rows(stacked),
+                    [args["sources"][g] for g in ids[lo:hi]], trim,
+                    start_block, nb, rows(carry),
+                ))
+            return (ens_mod.tree_cat([p[0] for p in parts]),
+                    ens_mod.tree_cat([p[1] for p in parts]))
+        outs, clocks = [], []
+        for row, g in enumerate(ids):
+            cpu, err = self._member_scales(tables, g)
+            clock = (
+                None if carry is None
+                else _Clock.resume(carry, row, start_block)
+            )
+            outs.append(self._run_summary(
+                args["loads"][g], nb * block, args["sources"][g], block,
+                None, trim, cpu_scale=cpu, err_scale=err, fleet=True,
+                clock=clock, plan=(float(args["offered"][g]), block, nb),
+            ))
+            clocks.append(clock)
+        if carry is None:
+            return ens_mod.tree_stack(outs), None
+        return ens_mod.tree_stack(outs), FleetCarry(*(
+            torch.stack(x) for x in zip(*(c.export() for c in clocks))
+        ))
+
         return ens_mod.EnsembleSummary(
             spec=spec,
             summaries=summaries,
@@ -2971,55 +3224,68 @@ class Simulator:
             attributions=attr_stack,
         )
 
-    def _folded_fleet(self, args: dict, tables, members, trim: bool):
-        """The members ``members`` of a planned fleet (``args`` of
-        :meth:`_ensemble_args`) folded into one block loop: each block
-        draws every member's block (member k's index ``1_000_000 + b``
-        of its own source), runs ONE :meth:`_simulate_core` over the
-        M x N rows, and reduces each member's rows to its own summary.
-        Returns the member-stacked RunSummary."""
+    def _folded_fleet(self, args: dict, stacked: dict, sources,
+                      trim: bool, start_block: int = 0,
+                      num_blocks: Optional[int] = None, carry=None):
+        """M members of a planned fleet folded into one block loop
+        (``stacked``: their rows of :meth:`_ensemble_stacked_args`,
+        ``sources`` their draw sources): each block draws every member's
+        block (member k's index ``1_000_000 + b`` of its own source),
+        runs ONE :meth:`_simulate_core` over the M x N rows, and reduces
+        each member's rows to its own summary.  ``carry`` (a
+        :class:`FleetCarry`) starts the members' clocks and
+        ``start_block`` the block index; the members must share the
+        carry's request offset.  Returns ``(member-stacked RunSummary,
+        FleetCarry or None)``."""
         from isotope_tpu_torch.sim import summary as summary_mod
 
         dev = self.device
-        idx = list(members)
-        M = len(idx)
+        M = len(sources)
         kind, conns, block = args["kind"], args["conns"], args["block"]
         sat = args["sat"]
-
-        def per_member(key):
-            return torch.as_tensor(
-                np.asarray(args[key])[idx], dtype=F32
-            ).to(dev)
-
-        offered = per_member("offered")
-        pace = per_member("pace")
-        nominal = per_member("nominal")
-        visits = torch.stack([args["visits"][m] for m in idx])
-        windows = torch.stack([args["windows"][m] for m in idx])
-        cpu = err = None
-        if tables.jittered:
-            cpu = tables.cpu_scale[idx].to(dev)
-            err = tables.err_scale[idx].to(dev)
-        win = (per_member("win_lo"), per_member("win_hi")) if trim else None
-        t0 = torch.zeros(M, dtype=F32, device=dev)
-        conn_t0 = torch.zeros((M, max(conns, 1)), dtype=F32, device=dev)
+        nb = args["num_blocks"] if num_blocks is None else num_blocks
+        win = (stacked["win_lo"], stacked["win_hi"]) if trim else None
+        if carry is None:
+            t0 = torch.zeros(M, dtype=F32, device=dev)
+            conn_t0 = torch.zeros((M, max(conns, 1)), dtype=F32, device=dev)
+            req_off = 0
+        else:
+            t0, conn_t0 = carry.t0, carry.conn_t0
+            offs = {int(x) for x in carry.req_off.tolist()}
+            if len(offs) != 1:
+                raise ValueError(
+                    "folded fleet members must share the carry's request "
+                    f"offset (got {sorted(offs)}); run mode=\"map\""
+                )
+            req_off = offs.pop()
         per = block // max(conns, 1)
-        sources = [args["sources"][m] for m in idx]
         parts = []
-        for b in range(args["num_blocks"]):
+        for b in range(nb):
             draws = _cat_draws([
-                self._draws(src, BLOCK_INDEX_BASE + b, block, kind, sat)
+                self._draws(src, BLOCK_INDEX_BASE + start_block + b, block,
+                            kind, sat)
                 for src in sources
             ])
             res, t0, conn_t0 = self._simulate_core(
-                M * block, kind, conns, draws, offered, pace, offered,
-                t0, conn_t0, visits_pc=visits,
-                sat_conns=conns if sat else 0, nominal_gap=nominal,
-                req_offset=b * per, phase_windows=windows,
-                cpu_scale=cpu, err_scale=err, members=M,
+                M * block, kind, conns, draws, stacked["offered"],
+                stacked["pace"], stacked["offered"], t0, conn_t0,
+                visits_pc=stacked["visits"],
+                sat_conns=conns if sat else 0,
+                nominal_gap=stacked["nominal"],
+                req_offset=req_off + b * per,
+                phase_windows=stacked["windows"],
+                cpu_scale=stacked["cpu_scale"],
+                err_scale=stacked["err_scale"], members=M,
             )
             parts.append(summary_mod.summarize_members(res, M, window=win))
-        return summary_mod.reduce_stacked(summary_mod.stack(parts))
+        summary = summary_mod.reduce_stacked(summary_mod.stack(parts))
+        if carry is None:
+            return summary, None
+        return summary, FleetCarry(
+            t0, conn_t0,
+            torch.full((M,), float(req_off + nb * per), dtype=F32,
+                       device=dev),
+        )
 
     def run_policies_ensemble(self, load: LoadModel, num_requests: int,
                               source, spec=None, **kw):
@@ -3031,8 +3297,10 @@ class Simulator:
         solo ``run_policies`` on that source.  Keywords as in
         :meth:`run_ensemble` (plus ``window_s``, ``attribution``,
         ``tail``, ``tail_cut``; no ``timeline``: the recorder always
-        rides).  The members run ``"map"`` (an explicit ``"vmap"``
-        raises naming ROADMAP item 9).  Returns an
+        rides; ``carry_in`` / ``return_carry`` / ``block_offset`` carry
+        the FULL control state, a :class:`ProtectedCarry`:
+        :meth:`zero_protected_carry`).  The members run ``"map"`` (an
+        explicit ``"vmap"`` raises naming ROADMAP item 9).  Returns an
         :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary` with
         the stacked ``timelines`` and ``policies``."""
         if self._policies is None:
@@ -3100,7 +3368,6 @@ class Simulator:
                 )
             spec = ens_mod.EnsembleSpec.of(self.params.ensemble)
         spec.check(allow_duplicate_seeds=member_keys is not None)
-        self._refuse_carry_export(carry_in, return_carry, block_offset)
         if self._saturated(load):
             raise ValueError(
                 "protected fleets do not support saturated -qps max "
@@ -3117,6 +3384,15 @@ class Simulator:
             member_keys=member_keys, block_size=block_size, trim=trim,
             member_qps=member_qps, planners=planners,
         )
+        carry_run = (
+            carry_in is not None or return_carry or block_offset != 0
+        )
+        if carry_run and (trim or planners is not None or attribution):
+            raise ValueError(
+                "the protected carry export (carry_in/return_carry/"
+                "block_offset) requires trim=False, no member_chaos, "
+                "and no attribution"
+            )
         self._fleet_mode(tables, spec, False, "protected fleets")
         n_mem = spec.members
         tl_plan = self.plan_timeline_windows(
@@ -3129,15 +3405,27 @@ class Simulator:
                 n_mem, args["block"], tl_plan, roll, attr=attribution,
             )
         chunk_sz = max(1, min(int(chunk_sz), n_mem))
-        outs = []
-        for m in range(n_mem):
-            host = self if planners is None else planners[m]
-            cpu, err = self._member_scales(tables, m)
-            outs.append(host._run_protected(
-                args["loads"][m], num_requests, args["sources"][m], roll,
-                block_size, None, trim, window_s, attribution, tail,
-                tail_cut, cpu_scale=cpu, err_scale=err, tl_plan=tl_plan,
-            ))
+        carry_out = None
+        if carry_run:
+            if carry_in is None:
+                carry_in = self.zero_protected_carry(
+                    n_mem, args["conns"], tl_plan, roll=roll,
+                )
+            outs, carry_out = self._protected_fleet(
+                args, tables, range(n_mem), roll, window_s, tl_plan,
+                carry_in, start_block=int(block_offset),
+            )
+        else:
+            outs = []
+            for m in range(n_mem):
+                host = self if planners is None else planners[m]
+                cpu, err = self._member_scales(tables, m)
+                outs.append(host._run_protected(
+                    args["loads"][m], num_requests, args["sources"][m],
+                    roll, block_size, None, trim, window_s, attribution,
+                    tail, tail_cut, cpu_scale=cpu, err_scale=err,
+                    tl_plan=tl_plan,
+                ))
         # (summary, tl[, roll][, pol][, attr]) per member
         cols = [ens_mod.tree_stack(list(c)) for c in zip(*outs)]
         summary, tl = cols[0], cols[1]
@@ -3145,7 +3433,7 @@ class Simulator:
         roll_stack = rest.pop(0) if roll else None
         pol_stack = rest.pop(0) if self._policies is not None else None
         attr_stack = rest.pop(0) if attribution else None
-        return ens_mod.EnsembleSummary(
+        ens = ens_mod.EnsembleSummary(
             spec=spec,
             summaries=summary,
             offered_qps=args["offered"],
@@ -3155,6 +3443,74 @@ class Simulator:
             policies=pol_stack,
             rollouts=roll_stack,
             attributions=attr_stack,
+        )
+        if return_carry:
+            return ens, carry_out
+        return ens
+
+    def _protected_fleet(self, args: dict, tables, ids, roll: bool,
+                         window_s: Optional[float],
+                         tl_plan: Tuple[int, float], carry,
+                         start_block: int = 0,
+                         num_blocks: Optional[int] = None):
+        """Members ``ids`` (indices into the plan ``args``) of a
+        protected fleet resumed from ``carry`` (a member-stacked
+        :class:`ProtectedCarry`, rows in ``ids`` order) at block
+        ``start_block``, each through its own protected block loop for
+        ``num_blocks`` blocks (default: the plan's) on the window grid
+        ``tl_plan``.  Returns ``(per-member outputs of
+        :meth:`_run_protected`, member-stacked ProtectedCarry)``."""
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        block = args["block"]
+        nb = args["num_blocks"] if num_blocks is None else int(num_blocks)
+        outs, rows = [], []
+        for row, g in enumerate(ids):
+            cpu, err = self._member_scales(tables, g)
+            control = _BlockControl(self, tl_plan,
+                                    self._policies is not None, roll)
+            control.resume(ens_mod.member_summary(carry, row))
+            clock = _Clock.resume(carry, row, start_block)
+            outs.append(self._run_protected(
+                args["loads"][g], nb * block, args["sources"][g], roll,
+                block, None, False, window_s, cpu_scale=cpu,
+                err_scale=err, tl_plan=tl_plan, control=control,
+                clock=clock, plan=(float(args["offered"][g]), block, nb),
+            ))
+            rows.append(control.export(clock))
+        return outs, ens_mod.tree_stack(rows)
+
+    # -- config search (sim/search.py) --------------------------------------
+
+    def run_search(self, load: LoadModel, num_requests: int, source, spec,
+                   *, block_size: int = 65_536,
+                   chunk: Optional[int] = None):
+        """Screen a config population by successive halving
+        (``sim/search.py`` :func:`~isotope_tpu_torch.sim.search.
+        run_search`): each rung a plain fleet continuing its survivors'
+        carries."""
+        from isotope_tpu_torch.sim import search as search_mod
+
+        return search_mod.run_search(
+            self, load, num_requests, source, spec,
+            block_size=block_size, chunk=chunk,
+        )
+
+    def run_search_protected(self, load: LoadModel, num_requests: int,
+                             source, spec, *, roll: bool = False,
+                             block_size: int = 65_536,
+                             chunk: Optional[int] = None,
+                             window_s: Optional[float] = None):
+        """Successive halving over a PROTECTED population: each
+        candidate a full policies / rollouts member whose breakers,
+        budgets, HPA and rollout controller carry between rungs
+        (``sim/search.py`` :func:`~isotope_tpu_torch.sim.search.
+        run_search_protected`)."""
+        from isotope_tpu_torch.sim import search as search_mod
+
+        return search_mod.run_search_protected(
+            self, load, num_requests, source, spec, roll=roll,
+            block_size=block_size, chunk=chunk, window_s=window_s,
         )
 
     def default_block_size(self, budget_elems: int = 33_554_432) -> int:

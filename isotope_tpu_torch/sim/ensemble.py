@@ -316,12 +316,16 @@ def norm_ppf(q: float) -> float:
 
 
 def tree_map(fn, tree):
-    """``fn`` over every tensor or array leaf of a (nested) NamedTuple;
-    ``None`` leaves stay ``None``."""
+    """``fn`` over every tensor or array leaf of a (nested) NamedTuple,
+    tuple, list or dict; ``None`` leaves stay ``None``."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 
@@ -355,49 +359,6 @@ def member_summary(stacked, k: int):
     """Member ``k``'s summary sliced out of a stacked one (every leaf
     carries a leading member axis; ``metrics`` is None on fleets)."""
     return tree_map(lambda x: x[k], stacked)
-
-
-#: the severity statistics a fleet can be ranked by
-SEVERITIES = ("err_peak", "err_share", "p99", "trips")
-
-
-def severity_scores(severity: str, summaries, timelines=None,
-                    slo_s: Optional[float] = None) -> np.ndarray:
-    """(N,) per-member severity from a fleet's stacked outputs (the
-    reference's ``sim/splitting.severity_scores``): ``err_peak`` the
-    peak per-window client error share when the recorder rode the
-    fleet, ``err_share`` the run-long client error share (also the
-    fallback of ``err_peak`` without timelines and of ``trips``, which
-    reads policy series a fleet summary does not pass), ``p99`` the
-    member's p99 latency in units of ``slo_s``."""
-    if severity not in SEVERITIES:
-        raise ValueError(
-            f"unknown splitting severity {severity!r} "
-            f"(one of {SEVERITIES})"
-        )
-    if severity == "p99":
-        if slo_s is None or slo_s <= 0:
-            raise ValueError(
-                "p99 splitting severity needs slo= (the latency that "
-                "maps to severity 1.0)"
-            )
-        from isotope_tpu_torch.metrics.histogram import (
-            quantile_from_histogram,
-        )
-
-        hists = _np(summaries.latency_hist).astype(np.float64)
-        p99 = np.asarray([
-            quantile_from_histogram(h, (0.99,))[0] for h in hists
-        ])
-        return p99 / float(slo_s)
-    if severity == "err_peak" and timelines is not None:
-        arr = _np(timelines.arrivals).astype(np.float64)   # (N, W)
-        err = _np(timelines.errors).astype(np.float64)     # (N, W)
-        share = err / np.maximum(arr, 1.0)
-        return share.max(axis=1)
-    counts = _np(summaries.count).astype(np.float64)
-    errs = _np(summaries.error_count).astype(np.float64)
-    return errs / np.maximum(counts, 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -463,12 +424,17 @@ class EnsembleSummary:
 
     def severity(self, mode: str = "err_peak",
                  slo_s: Optional[float] = None) -> np.ndarray:
-        """(N,) per-member severity scores (:func:`severity_scores`): the
+        """(N,) per-member severity scores (``sim/splitting.py``): the
         statistic fleets are ranked by — peak per-window client error
         share when the recorder rode the fleet, run-long error share
         otherwise, or SLO-violation depth (``p99``)."""
-        return severity_scores(mode, self.summaries, self.timelines,
-                               slo_s=slo_s)
+        from isotope_tpu_torch.sim.splitting import (
+            SplitSpec,
+            severity_scores,
+        )
+
+        spec = SplitSpec(severity=mode, slo_s=slo_s)
+        return severity_scores(spec, self.summaries, self.timelines)
 
     def worst_member(self, mode: str = "err_peak",
                      slo_s: Optional[float] = None) -> int:

@@ -197,6 +197,47 @@ def stack(parts: List[RunSummary]) -> RunSummary:
     return RunSummary(*(_stack_leaves(leaves) for leaves in zip(*parts)))
 
 
+def summary_accumulate(acc: RunSummary, part: RunSummary) -> RunSummary:
+    """Streaming two-summary merge (no leading axis): the Chan/Welford
+    pairwise form of :func:`reduce_stacked`, in the reference's op
+    order.  Integer fields, histograms, minima and maxima equal the
+    stacked reduction's; the float sums may differ by reduction order
+    (the search brackets merge a winner's rung segments with it)."""
+    n = acc.count + part.count
+    mean_a = acc.latency_sum / torch.clamp(acc.count, min=1.0)
+    mean_b = part.latency_sum / torch.clamp(part.count, min=1.0)
+    delta = mean_b - mean_a
+    m2 = (
+        acc.latency_m2
+        + part.latency_m2
+        + delta * delta * acc.count * part.count / torch.clamp(n, min=1.0)
+    )
+    metrics = None
+    if acc.metrics is not None:
+        metrics = ServiceMetrics(*(
+            a + b for a, b in zip(acc.metrics, part.metrics)
+        ))
+    return RunSummary(
+        count=n,
+        error_count=acc.error_count + part.error_count,
+        hop_events=acc.hop_events + part.hop_events,
+        latency_sum=acc.latency_sum + part.latency_sum,
+        latency_m2=m2,
+        latency_min=torch.minimum(acc.latency_min, part.latency_min),
+        latency_max=torch.maximum(acc.latency_max, part.latency_max),
+        latency_hist=acc.latency_hist + part.latency_hist,
+        end_max=torch.maximum(acc.end_max, part.end_max),
+        win_lo=torch.maximum(acc.win_lo, part.win_lo),
+        win_hi=torch.maximum(acc.win_hi, part.win_hi),
+        win_count=acc.win_count + part.win_count,
+        win_error_count=acc.win_error_count + part.win_error_count,
+        win_latency_hist=acc.win_latency_hist + part.win_latency_hist,
+        metrics=metrics,
+        utilization=torch.maximum(acc.utilization, part.utilization),
+        unstable=acc.unstable | part.unstable,
+    )
+
+
 def merge_m2(counts, sums, m2s, axis=0):
     """Chan/Welford merge of per-part centered second moments."""
     n_tot = counts.sum(axis)

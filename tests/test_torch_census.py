@@ -193,6 +193,8 @@ def _chip_smoke_shapes():
              + chip_smoke.protected_runs(port, device="cpu")]
     runs += chip_smoke.fleet_census_runs(
         runs, chip_smoke.chaosfleet_sim(port, device="cpu"))
+    runs += chip_smoke.search_census_runs(
+        runs, chip_smoke.planted_sim(port, device="cpu"))
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
     )
@@ -288,6 +290,22 @@ def test_chip_smoke_covers_the_folded_fleet():
         plan = census_mod.launch_plan(n, b, p)
         assert plan.path == "stream" and plan.blocks >= 1
     assert any(s[0] == 4_096 and s[3] for s in _SHAPES)
+
+
+def test_chip_smoke_covers_the_search_rungs():
+    """The brackets' folded calls: search64's rungs of 64, 16 and 4
+    survivors x 4,096 rows a level of the 1000-service graph (rung 0 is
+    ensembleN's 262,144 rows), and the planted winner's rungs of 16 and 4
+    x 64 rows, whose entry level carries error flags (the entry at 2%
+    errors)."""
+    for m in (64, 16, 4):
+        rows = [(m * 4_096, b, 1, False, False) for b in (216, 36, 6, 1)]
+        assert set(rows) <= set(_SHAPES), m
+        for n, b, p, _, _ in rows:
+            assert census_mod.launch_plan(n, b, p).path == "stream"
+    for m in (16, 4):
+        planted = [s for s in _SHAPES if s[0] == m * 64]
+        assert len(planted) >= 4 and any(s[4] for s in planted), m
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

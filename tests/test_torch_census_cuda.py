@@ -248,3 +248,50 @@ def test_folded_fleet_level_on_the_kernel_matches_the_cpu(card):
         torch.testing.assert_close(getattr(got.summaries, name).cpu(),
                                    getattr(want.summaries, name),
                                    rtol=RTOL, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_folded_bracket_rung_on_the_kernel_matches_the_cpu(card):
+    """A search bracket whose rungs fold their survivors into one block
+    (``"vmap"`` on the card: one census call a level over M x N rows)
+    against the same bracket member by member on the CPU, on the same
+    draws and tie-breaks: the same lineage, counts and histograms
+    exactly, float sums within rtol 1e-5."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, Simulator, TorchDraws
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+    from isotope_tpu_torch.sim.search import SearchSpec
+
+    compiled = compile_graph(ServiceGraph.from_yaml(SKEWED))
+    load = LoadModel(kind="open", qps=1000.0)
+    source = TorchDraws(6, "cuda")
+    kw = dict(qps_jitter=0.1, cpu_jitter=0.05, error_jitter=0.5)
+    runs = {}
+    for device, mode in (("cuda", "vmap"), ("cpu", "map")):
+        sim = Simulator(compiled, device=device)
+        spec = SearchSpec(candidates=EnsembleSpec.from_jitter(
+            8, mode=mode, **kw), eta=2, rungs=2)
+        before = census_mod.census.launches
+        runs[device] = sim.run_search(load, 1024, source, spec,
+                                      block_size=512)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            # rung 0: 8 folded members, one block; rung 1: 4, one block
+            assert census_mod.census.launches - before == (
+                len(sim.census_shapes(512, members=8))
+                + len(sim.census_shapes(512, members=4))
+            )
+    got, want = runs["cuda"], runs["cpu"]
+    assert got.mode == "vmap" and want.mode == "map"
+    assert got.winner == want.winner
+    for a, b in zip(got.rungs, want.rungs):
+        np.testing.assert_array_equal(a.candidates, b.candidates)
+        np.testing.assert_array_equal(a.order, b.order)
+        for name in ("count", "error_count", "hop_events", "latency_hist"):
+            assert torch.equal(getattr(a.summaries, name),
+                               getattr(b.summaries, name)), name
+        for name in ("latency_sum", "latency_max", "end_max"):
+            torch.testing.assert_close(getattr(a.summaries, name),
+                                       getattr(b.summaries, name),
+                                       rtol=RTOL, atol=1e-9)

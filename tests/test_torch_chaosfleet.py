@@ -451,9 +451,12 @@ def test_protected_fleet_refusals(psim):
     with pytest.raises(ValueError, match="rollout tables"):
         sim.run_rollouts_ensemble(LoadModel(**OPEN), N, src,
                                   EnsembleSpec.of(2))
-    with pytest.raises(NotImplementedError, match="carry export"):
+    # the carry export runs (tests/test_torch_search.py); with trim it
+    # raises the reference's refusal
+    with pytest.raises(ValueError, match="carry export .*trim=False"):
         sim.run_policies_ensemble(LoadModel(**OPEN), N, src,
-                                  EnsembleSpec.of(2), return_carry=True)
+                                  EnsembleSpec.of(2), return_carry=True,
+                                  trim=True)
     plain = Simulator(sim.compiled, SimParams(), device="cpu")
     with pytest.raises(ValueError, match="policy tables"):
         plain.run_policies_ensemble(LoadModel(**OPEN), N, src,

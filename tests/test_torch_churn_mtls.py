@@ -389,20 +389,22 @@ def test_load_toml_matches_reference(tmp_path):
      '[search]\ncandidates = 8\n'],
 )
 def test_load_toml_refuses_fleet_keys(tmp_path, block):
-    """The keys that need the splitting and search modules name their
-    ROADMAP item; the fleet keys ported with the fleets (the jitter
-    specs) load as the reference's."""
+    """Every fleet key loads as the reference's: the jitter specs
+    (ported with the fleets), ``ensemble_split`` and ``[search]``
+    (ported with the splitting and search modules; the name is kept
+    from when these keys raised)."""
     cfg = tmp_path / "exp.toml"
     cfg.write_text(block)
-    if "split" in block or "search" in block:
-        with pytest.raises(NotImplementedError, match="fleets"):
-            port_runner.load_toml(cfg)
-        return
     got, want = port_runner.load_toml(cfg), jax_runner.load_toml(cfg)
     for f in ("ensemble", "ensemble_qps_jitter", "ensemble_cpu_jitter",
               "ensemble_error_jitter", "ensemble_jitter_seed",
-              "ensemble_chaos_jitter"):
+              "ensemble_chaos_jitter", "ensemble_split",
+              "search_candidates", "search_eta", "search_rungs"):
         assert getattr(got, f) == getattr(want, f), f
+    if "split" in block:
+        assert got.split_spec().to_dict() == want.split_spec().to_dict()
+    if "search" in block:
+        assert got.search_spec().to_dict() == want.search_spec().to_dict()
 
 
 def test_load_toml_fleet_specs_match_reference(tmp_path):

@@ -233,23 +233,25 @@ def test_default_device_raises_without_gpu():
     "kwargs,item",
     [
         # the lb laws, the timeline recorder, the protected layers,
-        # attribution and the fleets are ported (test_torch_lb.py,
-        # test_torch_timeline.py, test_torch_policies.py,
-        # test_torch_rollout.py, test_torch_attribution.py,
-        # test_torch_ensemble.py: SimParams(ensemble=N) runs there); the
-        # fleets' carry export of the search brackets is not
-        (dict(return_carry=True), "item 9, fleets: sim/search.py"),
+        # attribution, the fleets and their carry export are ported
+        # (test_torch_lb.py, test_torch_timeline.py,
+        # test_torch_policies.py, test_torch_rollout.py,
+        # test_torch_attribution.py, test_torch_ensemble.py,
+        # test_torch_search.py); the folded mode of observed fleets is
+        # not
+        (dict(timeline=True), "item 9, fleets: the folded mode"),
     ],
 )
 def test_unported_features_raise(kwargs, item):
     from isotope_tpu_torch.sim.ensemble import EnsembleSpec
 
     _, pg = _graphs("canonical")
-    sim = Simulator(compile_graph(pg), SimParams(ensemble=2), device="cpu")
+    sim = Simulator(compile_graph(pg),
+                    SimParams(ensemble=2, timeline=True), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         sim.run_ensemble(LoadModel(kind="open", qps=100.0), 8,
-                         TorchDraws(0, "cpu"), EnsembleSpec.of(2),
-                         **kwargs)
+                         TorchDraws(0, "cpu"),
+                         EnsembleSpec.of(2, mode="vmap"), **kwargs)
 
 
 PROTECTED_YAML = """
@@ -406,6 +408,7 @@ def test_port_imports_no_jax():
                  "sim.policies", "sim.rollout", "runner.run",
                  "metrics.trace", "metrics.export", "metrics.monitor",
                  "sim.controlplane", "sim.ensemble", "metrics.fleetblame",
-                 "resilience.faults", "analysis.costmodel"):
+                 "resilience.faults", "analysis.costmodel",
+                 "sim.splitting", "sim.search"):
         assert f"isotope_tpu_torch.{name}" in names, name
     assert len(names) >= 30

@@ -400,13 +400,30 @@ def test_run_rejects_bad_specs(pair):
 
 @pytest.mark.parametrize("kw", [dict(return_carry=True),
                                 dict(block_offset=2),
-                                dict(carry_in=())])
+                                dict(carry_in="zero")])
 def test_carry_export_raises_naming_its_item(pair, kw):
-    _, sim = pair
-    with pytest.raises(NotImplementedError, match="item 9.*search"):
+    """The carry export (the search brackets, ported with them:
+    ``tests/test_torch_search.py``) runs; with ``trim`` it raises the
+    reference's ``ValueError``, naming what it requires."""
+    jax_sim, sim = pair
+    pkw, jkw = dict(kw), dict(kw)
+    if kw.get("carry_in") == "zero":
+        pkw["carry_in"] = sim.zero_ensemble_carry(2, 0)
+        jkw["carry_in"] = jax_sim.zero_ensemble_carry(2, 0)
+    out = sim.run_ensemble(LoadModel(**LOADS["open"]), 64,
+                           TorchDraws(0, "cpu"), ens.EnsembleSpec.of(2),
+                           **pkw)
+    fleet = out[0] if kw.get("return_carry") else out
+    assert _np(fleet.summaries.count).tolist() == [64.0, 64.0]
+    with pytest.raises(ValueError) as want:
+        jax_sim.run_ensemble(JaxLoad(**LOADS["open"]), 64, KEY,
+                             jax_ens.EnsembleSpec.of(2), trim=True, **jkw)
+    with pytest.raises(ValueError) as got:
         sim.run_ensemble(LoadModel(**LOADS["open"]), 64,
                          TorchDraws(0, "cpu"), ens.EnsembleSpec.of(2),
-                         **kw)
+                         trim=True, **pkw)
+    assert str(got.value) == str(want.value)
+    assert "requires trim=False" in str(got.value)
 
 
 # -- the documents ----------------------------------------------------------
