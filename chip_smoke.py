@@ -23,7 +23,9 @@ any failure exits non-zero and nothing is caught:
    fleets' calls (ensembleN folded: one call a level of 32 x 8,192 rows
    of ``1000-svc_2000-end``; svc1000-chaosfleet's members at 4,096) and
    the search brackets' folded rungs (search64's 64, 16 and 4 x 4,096
-   rows; the planted bracket's 16 and 4 x 64, with error flags)
+   rows; the planted bracket's 16 and 4 x 64, with error flags) and
+   the runner suite's cases (phase 8: ``canonical.yaml`` at each case's
+   own block, 2,400 to 240,000 rows, and its rate pilot)
    (rtol 1e-5: the
    plain version's ``cumsum`` may associate differently), and bit for
    bit against ``census_sequential``, the kernel's own order of
@@ -177,6 +179,27 @@ any failure exits non-zero and nothing is caught:
    fork-join throughput, the retry-storm collapse with its
    feedback-blind twin, the error-rate and call-probability fractions
    and the open high-rho envelope; each relative error is printed.
+
+8. the experiment runner, through the port's entry points in this
+   process (``cli.main``, the default device ``cuda``): ``suite
+   configs/latency.toml configs/cpu_mem.toml`` at the configs' own sizes
+   (30 + 12 cases, 240,000 requests a latency case) into a temporary
+   publish root: no case failed or degraded, each case's Fortio JSON,
+   ``.prom`` and flat row written, 30 + 12 CSV rows, and exit code 1
+   exactly when the manifest counts alarms; the same suite again (the
+   resume: no Simulator built, no census launch, every CSV byte for
+   byte) and with ``--fresh`` (every CSV equal but for the wall-clock
+   StartTime column); a ``sweep`` of a reduced twin (latency.toml's
+   ``baseline`` and ``both`` x 2 and 64 connections, 24,000 requests)
+   on the card and with ``--device cpu`` on one draw source, rows within
+   phase 4's tolerances with labels, columns and checkpoint keys equal;
+   the supervisor: ``ISOTOPE_FAULT_INJECT=oom:engine.run:1`` on that
+   twin (``python -m isotope_tpu_torch sweep``) serves one case from the
+   ``half-block`` rung, reported ``DEGRADED``, and a ``nan:segment:0``
+   case is recorded FAILED while the sweep goes on.  It prints the
+   suite's wall, the wall per case (median, max), the sum of the cases'
+   ``run_summary`` walls, the runner's host share, the census launches
+   and the peak device memory.
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -3719,6 +3742,306 @@ def cli_search_phase():
                     f" in {sp['evaluations']} member runs")
 
 
+# -- phase 8: the experiment runner -------------------------------------------
+
+#: the suite of phase 8: the reference's benchmark envelopes, unchanged
+RUNNER_CONFIGS = ("configs/latency.toml", "configs/cpu_mem.toml")
+RUNNER_ROWS = {"latency": 30, "cpu_mem": 12}
+#: the card-against-CPU twin: latency.toml's shape at 2 x 2 cases
+RUNNER_TWIN = """
+topology_paths = ["{topo}"]
+environments = ["baseline", "both"]
+
+[client]
+qps = [1000]
+num_concurrent_connections = [2, 64]
+duration = "240s"
+load_kind = "closed"
+
+[sim]
+num_requests = 24000
+seed = 0
+"""
+
+
+def runner_census_runs(device="cuda"):
+    """The suite's census calls for phase 3, as runs: each case of
+    ``RUNNER_CONFIGS`` on the runner's own Simulator at its own request
+    count and block (its closed loop's rate pilot is added by
+    ``census_check_shapes``), one run per distinct set of shapes."""
+    from isotope_tpu_torch.runner.config import load_toml
+    from isotope_tpu_torch.runner.run import (
+        _LazyTopology,
+        num_requests,
+        run_label,
+    )
+    from isotope_tpu_torch.sim.engine import block_rows
+
+    out, seen = [], set()
+    for path in RUNNER_CONFIGS:
+        config = load_toml(ROOT / path)
+        for topo_path in config.topology_paths:
+            topo = _LazyTopology(topo_path, config, device)
+            for env in config.environments:
+                sim = topo.sims(env)
+                for load in config.load_models():
+                    n = num_requests(load, sim.capacity_qps(),
+                                     config.num_requests)
+                    block = block_rows(load, n, sim.default_block_size())
+                    key = (tuple(census_calls(sim, block)), load.kind,
+                           load.qps is None)
+                    if key not in seen:
+                        seen.add(key)
+                        label = run_label(topo_path, env.name, load)
+                        out.append((f"runner {label}", sim, load, n, block))
+    return out
+
+
+def _port_main(args):
+    """``cli.main(args)`` in this process: (exit code, stderr)."""
+    import io
+
+    from isotope_tpu_torch import cli as port_cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = port_cli.main(args)
+    return rc, err.getvalue()
+
+
+def _csv_bytes(pub):
+    return {stem: (pub / stem / "benchmark.csv").read_bytes()
+            for stem in RUNNER_ROWS}
+
+
+def _without_start(csv: bytes):
+    rows = [line.split(",") for line in csv.decode().splitlines()]
+    for row in rows:
+        del row[1]  # StartTime, the wall clock
+    return rows
+
+
+def _rows_close(got, want, what):
+    """Flat rows card against CPU: keys, strings and booleans equal,
+    StartTime skipped, floats within phase 4's tolerances, an integer
+    the row floors from a float within one unit plus that rtol."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: columns differ")
+    for k, w in want.items():
+        g = got[k]
+        if k == "StartTime":
+            continue
+        if isinstance(w, (bool, str)) or w is None:
+            ok = g == w
+        elif isinstance(w, int):
+            ok = abs(g - w) <= 1 + RESULT_RTOL * abs(w)
+        else:
+            ok = abs(g - w) <= RESULT_ATOL + RESULT_RTOL * abs(w)
+        if not ok:
+            raise AssertionError(f"{what}.{k}: card {g} cpu {w}")
+
+
+@contextlib.contextmanager
+def _timed_cases():
+    """Inside: each executed case's wall and each ``run_summary``'s
+    (the card synchronized at its end) are recorded."""
+    from isotope_tpu_torch.runner import run as run_mod
+    from isotope_tpu_torch.sim import engine
+
+    walls = {"case": [], "run_summary": []}
+    run_case, run_summary = run_mod._run_case, engine.Simulator.run_summary
+
+    def timed_case(*a, **kw):
+        t0 = time.perf_counter()
+        out = run_case(*a, **kw)
+        walls["case"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_summary(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = run_summary(self, *a, **kw)
+        torch.cuda.synchronize()
+        walls["run_summary"].append(time.perf_counter() - t0)
+        return out
+
+    run_mod._run_case = timed_case
+    engine.Simulator.run_summary = timed_summary
+    try:
+        yield walls
+    finally:
+        run_mod._run_case = run_case
+        engine.Simulator.run_summary = run_summary
+
+
+def runner_suite(tmp):
+    """The suite at the configs' own sizes, its resume and ``--fresh``;
+    returns the suite's census launches."""
+    from isotope_tpu_torch import telemetry
+    from isotope_tpu_torch.native import census as census_mod
+
+    configs = [str(ROOT / c) for c in RUNNER_CONFIGS]
+    args = ["suite", *configs, "-o", str(tmp / "pub"), "--id", "runner"]
+    pub = tmp / "pub" / "runner"
+    torch.cuda.reset_peak_memory_stats()
+    census_mod.census.launches = 0
+    with _timed_cases() as walls:
+        t0 = time.perf_counter()
+        rc, err = _port_main(args)
+        wall = time.perf_counter() - t0
+    launches = census_mod.census.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    manifest = json.loads((pub / "manifest.json").read_text())
+    log(f"suite: {manifest['total_runs']} runs, {manifest['total_alarms']} "
+        f"alarms, {manifest['total_failed']} failed, "
+        f"{manifest['total_degraded']} degraded, exit {rc}")
+    if (manifest["total_runs"], manifest["total_failed"],
+            manifest["total_degraded"]) != (42, 0, 0):
+        raise AssertionError(f"suite manifest {manifest}:\n{err}")
+    if rc != (1 if manifest["total_alarms"] else 0):
+        raise AssertionError(f"suite exit {rc} against {manifest}")
+    for stem, n_rows in RUNNER_ROWS.items():
+        out = pub / stem
+        rows = [json.loads(ln) for ln in
+                (out / "results.jsonl").read_text().splitlines()]
+        csv = (out / "benchmark.csv").read_text().splitlines()
+        if len(rows) != n_rows or len(csv) != 1 + n_rows:
+            raise AssertionError(f"{stem}: {len(rows)} rows, "
+                                 f"{len(csv) - 1} CSV rows")
+        for row in rows:
+            for suffix in (".json", ".prom"):
+                if not (out / f"{row['Labels']}{suffix}").exists():
+                    raise AssertionError(f"{row['Labels']}{suffix} missing")
+    case_walls = np.asarray(walls["case"])
+    run_walls = float(np.sum(walls["run_summary"]))
+    log(f"suite wall {wall:.3f} s, {len(case_walls)} cases: wall per case "
+        f"median {np.median(case_walls) * 1e3:.2f} ms, max "
+        f"{case_walls.max() * 1e3:.2f} ms; run_summary walls sum "
+        f"{run_walls:.3f} s ({len(walls['run_summary'])} calls); runner "
+        f"host share {1.0 - run_walls / wall:.4f}; census launches "
+        f"{launches}; peak {peak:.3f} GiB")
+    if len(case_walls) != 42 or launches <= 0:
+        raise AssertionError("the suite did not run its 42 cases")
+
+    csvs = _csv_bytes(pub)
+    built = telemetry.counter_get("simulators_built")
+    census_mod.census.launches = 0
+    t0 = time.perf_counter()
+    rc2, err = _port_main(args)
+    resume_s = time.perf_counter() - t0
+    if census_mod.census.launches or \
+            telemetry.counter_get("simulators_built") != built:
+        raise AssertionError("the resumed suite executed a case")
+    if _csv_bytes(pub) != csvs or rc2 != rc:
+        raise AssertionError("the resumed suite's CSVs differ")
+    t0 = time.perf_counter()
+    rc3, err = _port_main(args + ["--fresh"])
+    fresh_s = time.perf_counter() - t0
+    fresh = _csv_bytes(pub)
+    for stem in RUNNER_ROWS:
+        if _without_start(fresh[stem]) != _without_start(csvs[stem]):
+            raise AssertionError(f"--fresh {stem}: the CSV differs")
+    log(f"resume {resume_s:.3f} s (no case run, CSVs byte for byte); "
+        f"--fresh {fresh_s:.3f} s (CSVs bit for bit but StartTime)")
+    return launches
+
+
+def runner_twin(tmp):
+    """The reduced twin swept on the card and the CPU on one draw source
+    (``cli_capture``): rows within phase 4's tolerances, labels,
+    columns and checkpoint keys equal."""
+    from isotope_tpu_torch.sim import TorchDraws
+
+    cfg = tmp / "twin.toml"
+    cfg.write_text(RUNNER_TWIN.format(topo=TOPOLOGIES / "canonical.yaml"))
+    for device in ("cuda", "cpu"):
+        with cli_capture(TorchDraws(0, "cpu")):
+            rc, err = _port_main(["sweep", str(cfg), "-o",
+                                  str(tmp / device), "--device", device])
+        if rc != 0:
+            raise AssertionError(f"twin sweep on {device}: exit {rc}\n{err}")
+    got_csv = (tmp / "cuda" / "benchmark.csv").read_text().splitlines()
+    want_csv = (tmp / "cpu" / "benchmark.csv").read_text().splitlines()
+    if got_csv[0] != want_csv[0]:
+        raise AssertionError("twin: CSV columns differ")
+    got = [json.loads(ln) for ln in
+           (tmp / "cuda" / "results.jsonl").read_text().splitlines()]
+    want = [json.loads(ln) for ln in
+            (tmp / "cpu" / "results.jsonl").read_text().splitlines()]
+    if [r["Labels"] for r in got] != [r["Labels"] for r in want] or \
+            len(got) != 4:
+        raise AssertionError("twin: labels differ")
+    for g, w in zip(got, want):
+        _rows_close(g, w, g["Labels"])
+    keys = [[sorted(json.loads(ln)) for ln in
+             (tmp / d / "checkpoint.jsonl").read_text().splitlines()[1:]]
+            for d in ("cuda", "cpu")]
+    if keys[0] != keys[1]:
+        raise AssertionError("twin: checkpoint keys differ")
+    log(f"twin sweep: 4 cases card == CPU (rtol {RESULT_RTOL}); "
+        f"p99 {[r['p99'] for r in got]} us")
+    return cfg
+
+
+def runner_supervisor(tmp, cfg):
+    """An injected OOM served degraded (the fault plan from the
+    environment, through the module entry), and a poisoned case failed
+    while the sweep goes on."""
+    import os
+
+    from isotope_tpu_torch.resilience import NumericSentinelError, faults
+    from isotope_tpu_torch.runner.config import load_toml
+    from isotope_tpu_torch.runner.run import run_experiment
+
+    out = subprocess.run(
+        [sys.executable, "-m", "isotope_tpu_torch", "sweep", str(cfg),
+         "-o", str(tmp / "oom")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, ISOTOPE_FAULT_INJECT="oom:engine.run:1"),
+    )
+    rows = [json.loads(ln) for ln in
+            (tmp / "oom" / "results.jsonl").read_text().splitlines()]
+    degraded = [r.get("degraded_to") for r in rows]
+    if out.returncode != 0 or degraded != ["half-block", None, None, None] \
+            or "1 run(s) completed DEGRADED" not in out.stderr:
+        raise AssertionError(f"oom sweep: exit {out.returncode}, degraded "
+                             f"{degraded}\n{out.stderr}")
+    poisoned = "canonical_both_1000qps_2c"
+
+    def poison(label):
+        if label == poisoned:
+            faults.install("nan:segment:0")
+        else:
+            faults.clear()
+
+    try:
+        results = run_experiment(load_toml(cfg), out_dir=str(tmp / "nan"),
+                                 progress=poison)
+    finally:
+        faults.clear()
+    failed = [r.label for r in results if r.failed]
+    if failed != [poisoned] or "sentinel" not in results[2].error:
+        raise AssertionError(f"nan sweep: failed {failed}")
+    if not isinstance(results[2].cause, NumericSentinelError):
+        raise AssertionError(f"nan sweep: {results[2].cause!r}")
+    log(f"supervisor: oom:engine.run:1 -> {rows[0]['Labels']} DEGRADED to "
+        f"half-block (sentinels passed); nan:segment:0 -> {poisoned} "
+        "FAILED, the other 3 cases served")
+
+
+def runner_phase():
+    """Phase 8 (see the module docstring); returns the suite's census
+    launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        launches = runner_suite(tmp)
+        cfg = runner_twin(tmp)
+        runner_supervisor(tmp, cfg)
+        log(f"runner phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # -- phase 7: the DES oracle --------------------------------------------------
 
 
@@ -3894,7 +4217,8 @@ def main() -> int:
     planted = planted_sim(port)
     timing = kernel_phase(census_mod, runs + [run[:5] for run in prot]
                           + fleet_census_runs(runs, chaos_sim)
-                          + search_census_runs(runs, planted),
+                          + search_census_runs(runs, planted)
+                          + runner_census_runs(),
                           census_only_configs(port))
 
     def plain(graph):
@@ -3994,6 +4318,8 @@ def main() -> int:
                                timing["ms_per_block"]))
     # the brackets and the splitting estimate: each its own path
     by_path.update(search_phase(port, runs, chaos_sim, timing))
+    # the experiment runner's suite: its own path
+    by_path["runner-suite"] = runner_phase()
     launches = sum(by_path.values())
     log(f"census launches on every path: {launches}")
     cli_phase()

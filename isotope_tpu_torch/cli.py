@@ -1,7 +1,7 @@
-"""``python -m isotope_tpu_torch simulate|check|timeline|search TOPOLOGY``.
+"""``python -m isotope_tpu_torch simulate|check|sweep|timeline|search ...``.
 
-The port of ``isotope-tpu simulate`` and ``isotope-tpu check`` for the
-main path:
+The port of ``isotope-tpu``'s commands (``suite``, ``report`` and
+``telemetry`` live in ``commands/``):
 
 - ``simulate``: the topology is compiled, simulated in blocks on the
   device and summarized, and the Fortio-style result JSON is printed.
@@ -39,8 +39,15 @@ main path:
   ``simulate``, has nothing to jitter.  ``--ensemble-split SPEC``
   (``--split-horizon``) adds the importance-splitting estimate of the
   fleet's rare outage to the ensemble document's ``splitting`` block
-  (``runner/run.splitting_pass``).  The JAX command's other flags raise
-  ``NotImplementedError`` naming their ROADMAP item.
+  (``runner/run.splitting_pass``).  ``simulate`` is a one-case
+  ``runner/run.run_experiment``, under the run supervisor
+  (``--max-retries``, ``--no-degrade``); ``--flat`` prints the flat row
+  and ``--telemetry`` the engine's own series.  ``--mesh``,
+  ``--overlap`` and ``--vet`` raise ``NotImplementedError`` naming
+  their ROADMAP item.
+- ``sweep``: a TOML grid of topology x environment x load through
+  ``run_experiment`` (checkpointed, resumable; ``--fresh``,
+  ``--profile``, ``--export``).
 - ``check``: the run's Prometheus series (``MetricsCollector``) are
   queried by the reference's stability alarm suite; every alarm is
   printed to stderr and the exit code is 1 when one fires.
@@ -63,20 +70,22 @@ import json
 import pathlib
 import sys
 
+from isotope_tpu_torch.commands.common import (
+    add_resilience_args,
+    add_telemetry_arg,
+    arm_telemetry,
+    ignore_compile_cache,
+    resilience_policy,
+)
 from isotope_tpu_torch.utils import duration as dur
 
 
 # the JAX command's flags whose layers are not ported: each raises
 # NotImplementedError naming its ROADMAP item
-_MULTI, _SERVICES = "item 11, multi-GPU", "item 12, framework services"
+_MULTI = "item 11, multi-GPU"
 _REFUSED = [
-    ("--flat", dict(action="store_true"), "item 10, runner and CLI"),
     ("--mesh", dict(), _MULTI),
     ("--overlap", dict(action="store_true"), _MULTI),
-    ("--telemetry", dict(nargs="?", const="on"), _SERVICES),
-    ("--telemetry-out", dict(metavar="FILE"), _SERVICES),
-    ("--max-retries", dict(type=int), _SERVICES),
-    ("--no-degrade", dict(action="store_true"), _SERVICES),
     ("--vet", dict(nargs="?", const="on"), "item 13, static analysis"),
 ]
 
@@ -85,9 +94,53 @@ def _refuse_unported(args) -> None:
     for flag, _, item in _REFUSED:
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             raise NotImplementedError(
-                f"simulate {flag} is not ported to isotope_tpu_torch yet "
-                f"(ROADMAP.md queue 1: {item})"
+                f"{args.command} {flag} is not ported to isotope_tpu_torch "
+                f"yet (ROADMAP.md queue 1: {item})"
             )
+
+
+def _add_ensemble_args(s) -> None:
+    """The scenario-ensemble knobs (sim/ensemble.py, sim/splitting.py),
+    shared by simulate and sweep."""
+    s.add_argument(
+        "--ensemble", type=int, default=None, metavar="N",
+        help="Monte Carlo fleet: run the case as N members (member k "
+             "draws from the run's source folded by seed k); the "
+             "printed document pools the members, --ensemble-out "
+             "writes per-member quantiles, quantile bands and the "
+             "SLO-violation probability with a Wilson interval "
+             "(isotope-ensemble/v2)")
+    s.add_argument(
+        "--ensemble-jitter", default=None, metavar="SPEC",
+        help="per-member perturbations as axis=sigma pairs, e.g. "
+             "'qps=0.1,cpu=0.05,error=0.2[,seed=K]': mean-preserving "
+             "lognormal factors on the offered qps, per-request CPU "
+             "demand, and per-hop error rates (deterministic per "
+             "seed K)")
+    s.add_argument(
+        "--ensemble-slo", default=None, metavar="LATENCY",
+        help="SLO latency (e.g. '250ms') the ensemble document's "
+             "P(p99 > SLO) estimate targets")
+    s.add_argument(
+        "--ensemble-chaos-jitter", default=None, metavar="SPEC",
+        help="per-member chaos schedules: jitter each member's kill "
+             "timing / target / magnitude as key=value pairs, e.g. "
+             "'time=0.2,magnitude=0.5,target=0.3[,seed=K]' (needs a "
+             "TOML [chaos] schedule; simulate has none: there it is "
+             "parsed and checked, as the JAX command does)")
+    s.add_argument(
+        "--ensemble-split", default=None, metavar="SPEC",
+        help="importance splitting (multilevel) over the fleet: "
+             "estimate a rare outage's probability, e.g. "
+             "'levels=4,members=64,keep=0.25,threshold=0.5,"
+             "sev=err_peak'; the estimate lands in the ensemble "
+             "document's 'splitting' key")
+    s.add_argument(
+        "--split-horizon", default=None, type=float, metavar="FRAC",
+        help="splitting screening-horizon fraction in (0, 1] "
+             "(default 0.25): each splitting level simulates FRAC of "
+             "the case's request count — overrides the 'horizon=' "
+             "key of --ensemble-split")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,6 +178,15 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--entry", default=None,
                    help="entrypoint service (for multi-instance "
                         "topologies; default: the first entrypoint)")
+    s.add_argument("--flat", action="store_true",
+                   help="print the flattened single-line record instead "
+                        "of the full Fortio JSON")
+    add_telemetry_arg(s, "appended to --prometheus output, a "
+                          "telemetry.jsonl record, and a summary line on "
+                          "stderr")
+    s.add_argument("--telemetry-out", metavar="FILE",
+                   default="telemetry.jsonl",
+                   help="where --telemetry appends its JSONL record")
     s.add_argument("--prometheus", metavar="FILE",
                    help="also write the Prometheus text exposition here")
     s.add_argument("--trace", metavar="FILE",
@@ -194,48 +256,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--rollouts-out", metavar="FILE", default=None,
                    help="write the rollout trajectory as JSON "
                         "(isotope-rollout/v1)")
-    s.add_argument(
-        "--ensemble", type=int, default=None, metavar="N",
-        help="Monte Carlo fleet: run the case as N members (member k "
-             "draws from the run's source folded by seed k); the "
-             "printed document pools the members, --ensemble-out "
-             "writes per-member quantiles, quantile bands and the "
-             "SLO-violation probability with a Wilson interval "
-             "(isotope-ensemble/v2)")
-    s.add_argument(
-        "--ensemble-jitter", default=None, metavar="SPEC",
-        help="per-member perturbations as axis=sigma pairs, e.g. "
-             "'qps=0.1,cpu=0.05,error=0.2[,seed=K]': mean-preserving "
-             "lognormal factors on the offered qps, per-request CPU "
-             "demand, and per-hop error rates (deterministic per "
-             "seed K)")
-    s.add_argument(
-        "--ensemble-slo", default=None, metavar="LATENCY",
-        help="SLO latency (e.g. '250ms') the ensemble document's "
-             "P(p99 > SLO) estimate targets")
-    s.add_argument(
-        "--ensemble-chaos-jitter", default=None, metavar="SPEC",
-        help="per-member chaos schedules: jitter each member's kill "
-             "timing / target / magnitude as key=value pairs, e.g. "
-             "'time=0.2,magnitude=0.5,target=0.3[,seed=K]' (needs a "
-             "chaos schedule, which simulate has none of: parsed and "
-             "checked, as the JAX command does)")
+    _add_ensemble_args(s)
     s.add_argument("--ensemble-out", metavar="FILE", default=None,
                    help="write the ensemble's distributional summary "
                         "as JSON (isotope-ensemble/v2)")
-    s.add_argument(
-        "--ensemble-split", default=None, metavar="SPEC",
-        help="importance splitting (multilevel) over the fleet: "
-             "estimate a rare outage's probability, e.g. "
-             "'levels=4,members=64,keep=0.25,threshold=0.5,"
-             "sev=err_peak'; the estimate lands in the ensemble "
-             "document's 'splitting' key")
-    s.add_argument(
-        "--split-horizon", default=None, type=float, metavar="FRAC",
-        help="splitting screening-horizon fraction in (0, 1] "
-             "(default 0.25): each splitting level simulates FRAC of "
-             "the case's request count — overrides the 'horizon=' "
-             "key of --ensemble-split")
+    add_resilience_args(s)
     for flag, kw, _ in _REFUSED:
         s.add_argument(flag, **kw)
     s.add_argument("--lb-out", metavar="FILE", default=None,
@@ -269,9 +294,131 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")
     k.set_defaults(func=run_check)
+    _add_sweep_parser(sub)
     _add_timeline_parser(sub)
     _add_search_parser(sub)
+    from isotope_tpu_torch.commands import report_cmd, suite_cmd
+    from isotope_tpu_torch.commands import telemetry_cmd
+
+    suite_cmd.register(sub)
+    report_cmd.register(sub)
+    telemetry_cmd.register(sub)
     return parser
+
+
+def _add_sweep_parser(sub) -> None:
+    w = sub.add_parser("sweep", help="run a TOML-configured experiment")
+    w.add_argument("config",
+                   help="experiment TOML (example-config.toml shape)")
+    w.add_argument("--out", "-o", default="results",
+                   help="output directory (default: ./results)")
+    w.add_argument("--fresh", action="store_true",
+                   help="ignore an existing checkpoint and rerun "
+                        "everything (default: resume a killed sweep)")
+    w.add_argument("--compile-cache", metavar="DIR", default=None,
+                   help="accepted for the JAX command's sake and ignored: "
+                        "it configures XLA's compilation cache")
+    w.add_argument("--profile", metavar="DIR",
+                   help="capture a torch.profiler trace per run into "
+                        "DIR/<label>/trace.json (the reference's per-run "
+                        "flame capture, runner.py:405-417)")
+    w.add_argument("--export", action="append", default=[],
+                   metavar="SPEC",
+                   help="post-run exporter(s), e.g. "
+                        "bigquery:project.dataset.table or "
+                        "gcs:gs://bucket/path (the collector's upload "
+                        "hook, fortio.py:235-242); repeatable")
+    add_telemetry_arg(w, "in each .prom artifact plus "
+                          "<out>/telemetry.jsonl")
+    w.add_argument("--attribution", nargs="?", const="on",
+                   choices=("on", "tail"), default=None,
+                   help="critical-path blame attribution of every case "
+                        "(<label>.blame.json, <label>.flame.txt)")
+    w.add_argument("--timeline", nargs="?", const="10s", default=None,
+                   metavar="WINDOW",
+                   help="flight-recorder pass of every case "
+                        "(<label>.timeline.json); value = window width")
+    w.add_argument("--policies", action="store_true",
+                   help="co-simulate the topologies' `policies:` blocks")
+    w.add_argument("--rollouts", action="store_true",
+                   help="co-simulate the topologies' `rollouts:` blocks")
+    _add_ensemble_args(w)
+    for flag, kw, _ in _REFUSED:
+        w.add_argument(flag, **kw)
+    add_resilience_args(w)
+    w.add_argument("--device", default=None,
+                   help="torch device (default: cuda; raises without a GPU)")
+    w.set_defaults(func=run_sweep)
+
+
+def run_sweep(args) -> int:
+    """The JAX ``sweep``: a TOML grid of topology x environment x load
+    through :func:`~isotope_tpu_torch.runner.run.run_experiment`."""
+    import dataclasses
+
+    from isotope_tpu_torch.runner.config import load_toml
+    from isotope_tpu_torch.runner.run import run_experiment
+
+    _refuse_unported(args)
+    arm_telemetry(args.telemetry)
+    ignore_compile_cache(args)
+    config = load_toml(args.config)
+    if args.attribution and not config.attribution:
+        config = dataclasses.replace(config, attribution=True)
+    if args.policies and not config.policies:
+        config = dataclasses.replace(config, policies=True)
+    if args.rollouts and not config.rollouts:
+        config = dataclasses.replace(config, rollouts=True)
+    ens_kw = _ensemble_config_kwargs(args)
+    if ens_kw:
+        config = dataclasses.replace(config, **ens_kw)
+    tl_window = (
+        None if args.timeline is None
+        else dur.parse_duration_seconds(args.timeline)
+    )
+    if tl_window is None and config.timeline:
+        # [sim] timeline = true in the TOML arms the pass without a flag
+        tl_window = config.timeline_window_s
+    if tl_window is not None and not config.timeline:
+        config = dataclasses.replace(
+            config, timeline=True, timeline_window_s=tl_window
+        )
+    results = run_experiment(
+        config,
+        out_dir=args.out,
+        progress=lambda label: print(f"running {label}", file=sys.stderr),
+        resume=not args.fresh,
+        profile_dir=args.profile,
+        export=args.export,
+        policy=resilience_policy(args),
+        attribution=args.attribution,
+        timeline=tl_window,
+        device=args.device,
+    )
+    discarded = [r.label for r in results if r.window.discarded]
+    failed = [r.label for r in results if r.failed]
+    degraded = [r.label for r in results if r.degraded_to is not None]
+    print(
+        f"{len(results)} runs -> {args.out}/ "
+        f"({len(discarded)} would be discarded by the collector)",
+        file=sys.stderr,
+    )
+    if degraded:
+        print(
+            f"{len(degraded)} run(s) completed DEGRADED: "
+            f"{', '.join(degraded)}",
+            file=sys.stderr,
+        )
+    if failed:
+        # the failed cases are checkpointed: the same invocation
+        # retries exactly them
+        print(
+            f"{len(failed)} run(s) FAILED (recorded in the checkpoint; "
+            f"re-run to retry): {', '.join(failed)}",
+            file=sys.stderr,
+        )
+        return 1
+    return 0
 
 
 def _add_search_parser(sub) -> None:
@@ -475,334 +622,195 @@ def _add_timeline_parser(sub) -> None:
 
 
 def run_simulate(args) -> int:
-    from isotope_tpu_torch.compiler import (
-        compile_graph,
-        compile_lb,
-        compile_policies,
-        compile_rollouts,
+    """One labeled run: a one-case :func:`~isotope_tpu_torch.runner.run.
+    run_experiment`, as the JAX command routes it, then the run's
+    tables and documents."""
+    from isotope_tpu_torch import telemetry
+    from isotope_tpu_torch.runner.config import (
+        DEFAULT_ENVIRONMENTS,
+        ExperimentConfig,
     )
-    from isotope_tpu_torch.metrics.fortio import fortio_result_from_summary
-    from isotope_tpu_torch.metrics.prometheus import MetricsCollector
-    from isotope_tpu_torch.models.graph import ServiceGraph
-    from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
-    from isotope_tpu_torch.runner.run import (
-        num_requests,
-        protected_window_block,
-        run_label,
-    )
-    from isotope_tpu_torch.sim import SimParams, Simulator, TorchDraws
-    from isotope_tpu_torch.sim import lb as lb_mod
+    from isotope_tpu_torch.runner.run import run_experiment
 
     _refuse_unported(args)
-    fleet = _fleet_args(args)
-    if args.compile_cache is not None:
-        print("note: --compile-cache configures XLA's compilation cache; "
-              "the torch port has none and ignores it", file=sys.stderr)
+    ens_kw = _ensemble_config_kwargs(args)
+    arm_telemetry(args.telemetry)
+    ignore_compile_cache(args)
     if args.environment not in DEFAULT_ENVIRONMENTS:
         raise ValueError(
             f"unknown environment {args.environment!r} "
             f"(expected one of {sorted(DEFAULT_ENVIRONMENTS)})"
         )
-    env = DEFAULT_ENVIRONMENTS[args.environment]
-    defaults = SimParams()
+    extra = {}
+    if args.cpu_time is not None:
+        extra["cpu_time_s"] = dur.parse_duration_seconds(args.cpu_time)
     if args.service_time_param is not None:
-        stp = args.service_time_param
+        extra["service_time_param"] = args.service_time_param
     elif args.service_time == "pareto":
-        stp = 1.5  # the reference CLI's heavy-tail default
-    else:
-        stp = defaults.service_time_param
+        extra["service_time_param"] = 1.5  # the reference's heavy tail
     tl_window = (
         None if args.timeline is None
         else dur.parse_duration_seconds(args.timeline)
     )
-    params = env.apply(SimParams(
-        cpu_time_s=(
-            defaults.cpu_time_s if args.cpu_time is None
-            else dur.parse_duration_seconds(args.cpu_time)
-        ),
-        service_time=args.service_time,
-        service_time_param=stp,
-        # the policy/rollout loops observe through the recorder
-        timeline=tl_window is not None or args.policies or args.rollouts,
-        attribution=args.attribution is not None,
-    ))
     load = _load(args)
-    graph = ServiceGraph.from_yaml_file(args.topology)
-    compiled = compile_graph(graph, entry=args.entry)
-    # a declared lb law is the data plane being measured, on every run
-    lb = compile_lb(graph, compiled)
-    pol_t = compile_policies(graph, compiled) if args.policies else None
-    roll_t = compile_rollouts(graph, compiled) if args.rollouts else None
-    sim = Simulator(compiled, params, policies=pol_t, rollouts=roll_t,
-                    lb=lb, device=args.device)
-    collector = MetricsCollector(compiled)
-    n = num_requests(load, sim.capacity_qps(), args.max_requests)
-    block = sim.default_block_size()
-    source = TorchDraws(args.seed, sim.device)
-    tl = pol = roll = attr = ens = None
-    stamp = {}
-    # an attributed main run: the same draws, blocking and (protected)
-    # trajectory as the plain one, so the same summary; errors raise
-    attr_kw = dict(
+    config = ExperimentConfig(
+        topology_paths=(args.topology,),
+        environments=(DEFAULT_ENVIRONMENTS[args.environment],),
+        qps=(load.qps,),
+        connections=(args.connections,),
+        duration_s=load.duration_s,
+        load_kind=args.load_kind,
+        num_requests=args.max_requests,
+        seed=args.seed,
+        labels=args.labels,
+        service_time=args.service_time,
+        entry=args.entry,
         attribution=args.attribution is not None,
-        tail=args.attribution == "tail",
+        timeline=tl_window is not None,
+        policies=args.policies,
+        rollouts=args.rollouts,
+        **ens_kw,
+        **extra,
     )
-    if fleet is not None:
-        # a Monte Carlo fleet serves the case: the document pools the
-        # members, the worst member's tables are the postmortem
-        ens, summary, tl, pol, roll, attr, stamp, split_doc = _run_fleet(
-            args, fleet, sim, load, n, block, source, tl_window,
-            pol_t is not None or roll_t is not None, roll_t is not None,
-            attr_kw,
-        )
-    elif pol_t is not None or roll_t is not None:
-        # the PROTECTED physics is the measurement: the main run is the
-        # co-simulation, its block capped near one recorder window
-        win, blk = protected_window_block(
-            sim, load, block, params.timeline_window_s, tl_window
-        )
-        runner = sim.run_rollouts if roll_t is not None else sim.run_policies
-        out = list(runner(load, n, source, block_size=blk,
-                          collector=collector, trim=True, window_s=win,
-                          **attr_kw))
-        attr = out.pop() if attr_kw["attribution"] else None
-        summary, tl = out[0], out[1]
-        roll = out.pop(2) if roll_t is not None else None
-        pol = out[2] if pol_t is not None else None
-    else:
-        if attr_kw["attribution"]:
-            summary, attr = sim.run_attributed(
-                load, n, source, block_size=block, collector=collector,
-                trim=True, tail=attr_kw["tail"],
-            )
-        else:
-            summary = sim.run_summary(load, n, source, block_size=block,
-                                      collector=collector, trim=True)
-        if tl_window is not None:
-            # the recorder pass: the main run's draws and blocking
-            _, tl = sim.run_timeline(load, n, source, block_size=block,
-                                     trim=True, window_s=tl_window)
-    if attr is not None:
-        _write_attribution_artifacts(args, compiled, attr, stamp)
-    if args.policies and pol is not None:
+    (result,) = run_experiment(config, policy=resilience_policy(args),
+                               attribution=args.attribution,
+                               timeline=tl_window, device=args.device)
+    if result.failed:
+        print(f"error: run failed: {result.error}", file=sys.stderr)
+        # in process the case's own error; through the module entry an
+        # exit code of 1, as the JAX command's
+        raise result.cause
+    if result.blame is not None:
+        _write_attribution_artifacts(args, result.compiled,
+                                     result.attribution, result.blame)
+    if args.policies and result.policies is not None:
         from isotope_tpu_torch.sim import policies as policies_mod
 
-        _emit(dict(policies_mod.to_doc(compiled, pol, pol_t), **stamp),
-              policies_mod.format_table, args.policies_out, "policies")
+        _emit(result.policies, policies_mod.format_table,
+              args.policies_out, "policies")
     elif args.policies:
         print("warning: --policies set but the topology declares no "
               "policies block (unprotected run)", file=sys.stderr)
-    if args.rollouts and roll is not None:
+    if args.rollouts and result.rollouts is not None:
         from isotope_tpu_torch.sim import rollout as rollout_mod
 
-        _emit(dict(rollout_mod.to_doc(compiled, roll, roll_t), **stamp),
-              rollout_mod.format_table, args.rollouts_out, "rollouts")
+        _emit(result.rollouts, rollout_mod.format_table,
+              args.rollouts_out, "rollouts")
     elif args.rollouts:
         print("warning: --rollouts set but the topology declares no "
               "active rollouts block (open-loop run)", file=sys.stderr)
-    if lb is not None and lb.active:
-        _emit(lb_mod.to_doc(lb, tl=tl, pol=pol), lb_mod.format_table,
-              args.lb_out, "lb")
+    if result.ensemble is not None:
+        _emit_fleet(args, result.ensemble)
+    if result.lb is not None:
+        from isotope_tpu_torch.sim import lb as lb_mod
+
+        _emit(result.lb, lb_mod.format_table, args.lb_out, "lb")
     elif args.lb_out:
         print(
             "warning: --lb-out set but the topology declares no "
             "lb entries (fifo everywhere)",
             file=sys.stderr,
         )
-    if tl is not None:
-        from isotope_tpu_torch.metrics import timeline as timeline_mod
-
-        _emit(dict(timeline_mod.to_doc(compiled, tl), **stamp),
-              timeline_mod.format_table, args.timeline_out, "timeline")
-        if args.timeline_perfetto:
-            from isotope_tpu_torch.metrics.export import (
-                write_timeline_perfetto,
-            )
-
-            ev = write_timeline_perfetto(args.timeline_perfetto, compiled,
-                                         tl)
-            print(f"timeline counters ({ev} events) -> "
-                  f"{args.timeline_perfetto}", file=sys.stderr)
-        if args.timeline_prometheus:
-            with open(args.timeline_prometheus, "w") as f:
-                f.write(timeline_mod.prometheus_text(compiled, tl))
-            print(f"timestamped exposition -> {args.timeline_prometheus}",
-                  file=sys.stderr)
-    if ens is not None:
-        _emit_fleet(args, ens, fleet, stamp, split_doc)
-    entry = compiled.entry_service
-    doc = fortio_result_from_summary(
-        summary, load,
-        labels=run_label(args.topology, env.name, load, args.labels),
-        response_size_bytes=float(compiled.services.response_size[entry]),
-    )
-    if ens is not None:
-        # the pooled count spans the members' runs of one duration each:
-        # the rate is per member, as RequestedQPS is (counts stay pooled)
-        doc["ActualQPS"] /= ens.members
-    json.dump(doc, sys.stdout, indent=2)
+    if result.timeline is not None:
+        _write_timeline_artifacts(args, result)
+    doc = result.flat if args.flat else result.fortio_json
+    json.dump(doc, sys.stdout, indent=None if args.flat else 2)
     sys.stdout.write("\n")
     if args.prometheus:
         with open(args.prometheus, "w") as f:
-            f.write(collector.full_text(summary))
+            f.write(result.prometheus_text)
+    if args.telemetry and result.telemetry is not None:
+        rec = telemetry.RunTelemetry.from_dict(result.telemetry)
+        rec.append_jsonl(args.telemetry_out)
+        print(f"{telemetry.summary_line()} -> {args.telemetry_out}",
+              file=sys.stderr)
     if args.trace:
-        from isotope_tpu_torch.metrics.trace import write_trace
-
-        # traces are sampled: a small dense batch of the same model (the
-        # reference's plain Simulator: no lb, policy or rollout tables)
-        res = Simulator(compiled, params, device=sim.device).run(
-            load, args.trace_requests, TorchDraws(args.seed, sim.device)
+        _write_trace(args, config)
+    if result.window.discarded:
+        print(
+            f"warning: run would be discarded by the collector: "
+            f"{result.window.discard_reason}",
+            file=sys.stderr,
         )
-        traced = write_trace(args.trace, compiled, res,
-                             fmt=args.trace_format)
-        print(f"traced {traced} requests -> {args.trace}", file=sys.stderr)
     return 0
 
 
-def _fleet_args(args):
-    """The ``--ensemble*`` flags as ``(EnsembleSpec, slo_s, SplitSpec or
-    None)``, or None without ``--ensemble``; the specs are parsed before
-    anything simulates (``--ensemble-split`` and ``--split-horizon``
-    also without ``--ensemble``, as the JAX command fails fast on
-    them).  ``simulate`` has no chaos schedule, so the chaos jitter is
-    checked and then has nothing to jitter, as in the JAX command."""
-    import dataclasses
+def _write_trace(args, config) -> None:
+    """``--trace``: traces are sampled, a small dense batch of the same
+    model (the reference's plain Simulator: no lb, policy or rollout
+    tables) on ``TorchDraws(seed)``, the reference's ``PRNGKey(seed)``."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.metrics.trace import write_trace
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import Simulator, TorchDraws
 
-    from isotope_tpu_torch.sim.splitting import parse_split_spec
+    compiled = compile_graph(ServiceGraph.from_yaml_file(args.topology),
+                             entry=config.entry)
+    sim = Simulator(compiled,
+                    config.environments[0].apply(config.sim_params()),
+                    config.chaos, config.churn, mtls=config.mtls,
+                    device=args.device)
+    (load,) = config.load_models()
+    res = sim.run(load, args.trace_requests,
+                  TorchDraws(args.seed, sim.device))
+    traced = write_trace(args.trace, compiled, res, fmt=args.trace_format)
+    print(f"traced {traced} requests -> {args.trace}", file=sys.stderr)
 
-    split = parse_split_spec(args.ensemble_split)
+
+def _ensemble_config_kwargs(args) -> dict:
+    """``ExperimentConfig`` overrides from the ``--ensemble*`` flags;
+    each spec is parsed here first, so a bad flag fails before anything
+    simulates (also without ``--ensemble``, as the JAX command does)."""
+    out: dict = {}
+    if args.ensemble is not None:
+        out["ensemble"] = int(args.ensemble)
+    if args.ensemble_jitter is not None:
+        from isotope_tpu_torch.sim.ensemble import parse_jitter_spec
+
+        j = parse_jitter_spec(args.ensemble_jitter)
+        out["ensemble_qps_jitter"] = j["qps_jitter"]
+        out["ensemble_cpu_jitter"] = j["cpu_jitter"]
+        out["ensemble_error_jitter"] = j["error_jitter"]
+        out["ensemble_jitter_seed"] = j.get("jitter_seed", 0)
+    if args.ensemble_slo is not None:
+        out["ensemble_slo_s"] = dur.parse_duration_seconds(
+            args.ensemble_slo
+        )
+    if args.ensemble_chaos_jitter is not None:
+        from isotope_tpu_torch.resilience.faults import parse_chaos_jitter
+
+        parse_chaos_jitter(args.ensemble_chaos_jitter)  # fail fast
+        out["ensemble_chaos_jitter"] = args.ensemble_chaos_jitter
+    if args.ensemble_split is not None:
+        from isotope_tpu_torch.sim.splitting import parse_split_spec
+
+        parse_split_spec(args.ensemble_split)  # fail fast
+        out["ensemble_split"] = args.ensemble_split
     if args.split_horizon is not None:
         h = float(args.split_horizon)
         if not 0.0 < h <= 1.0:
             raise SystemExit("--split-horizon must lie in (0, 1]")
-        if split is not None:
-            split = dataclasses.replace(split, horizon=h)
-    if not args.ensemble or args.ensemble <= 0:
+        out["ensemble_split_horizon"] = h
+    return out
+
+
+def _fleet_args(args):
+    """The fleet the ``--ensemble*`` flags ask for, as ``(EnsembleSpec,
+    slo_s, SplitSpec or None)``, or None without ``--ensemble``: the
+    run config's own specs of :func:`_ensemble_config_kwargs`'s
+    overrides."""
+    from isotope_tpu_torch.runner.config import ExperimentConfig
+
+    config = ExperimentConfig((), (), (), (), 0.0,
+                              **_ensemble_config_kwargs(args))
+    spec = config.ensemble_spec()
+    if spec is None:
         return None
-    from isotope_tpu_torch.resilience.faults import parse_chaos_jitter
-    from isotope_tpu_torch.sim.ensemble import (
-        EnsembleSpec,
-        parse_jitter_spec,
-    )
-
-    j = parse_jitter_spec(args.ensemble_jitter)
-    spec = EnsembleSpec.from_jitter(
-        int(args.ensemble),
-        qps_jitter=j["qps_jitter"],
-        cpu_jitter=j["cpu_jitter"],
-        error_jitter=j["error_jitter"],
-        jitter_seed=j.get("jitter_seed", 0),
-    )
-    parse_chaos_jitter(args.ensemble_chaos_jitter)
-    slo_s = (
-        None if args.ensemble_slo is None
-        else dur.parse_duration_seconds(args.ensemble_slo)
-    )
-    return spec, slo_s, split
+    return spec, config.ensemble_slo_s, config.split_spec()
 
 
-def _run_fleet(args, fleet, sim, load, n, block, source, tl_window,
-               protected: bool, roll: bool, attr_kw: dict):
-    """The case as a Monte Carlo fleet, as the JAX runner dispatches
-    it: a plain (or observed) fleet through ``run_ensemble``, members
-    ``RootedSource(source, seed)``; a protected fleet through
-    ``run_policies_ensemble`` / ``run_rollouts_ensemble`` with member 0
-    on the run's own source (the control member).  Each member's qps
-    is the load's times its scale.  Returns ``(fleet, pooled summary,
-    timeline, policies, rollouts, attribution, stamp, splitting)``: the
-    worst member's series, the stamp that names it in their documents,
-    and the ``--ensemble-split`` estimate (``runner/run.splitting_pass``
-    on the run's source), or None."""
-    import numpy as np
-
-    from isotope_tpu_torch.runner.run import (
-        protected_window_block,
-        splitting_pass,
-    )
-    from isotope_tpu_torch.sim.draws import RootedSource
-
-    spec, _, split = fleet
-    scale = (
-        spec.qps_scale if spec.qps_scale is not None
-        else np.ones(spec.members)
-    )
-    member_qps = (
-        None if load.qps is None else float(load.qps) * scale
-    )
-    if protected:
-        win, blk = protected_window_block(
-            sim, load, block, sim.params.timeline_window_s, tl_window
-        )
-        runner = (
-            sim.run_rollouts_ensemble if roll
-            else sim.run_policies_ensemble
-        )
-        keys = [source] + [RootedSource(source, s) for s in spec.seeds[1:]]
-        ens = runner(load, n, source, spec, block_size=blk, trim=True,
-                     window_s=win, member_keys=keys,
-                     member_qps=member_qps, **attr_kw)
-    else:
-        obs = dict(attr_kw) if attr_kw["attribution"] else {}
-        if tl_window is not None:
-            obs.update(timeline=True, window_s=tl_window)
-        ens = sim.run_ensemble(load, n, source, spec, block_size=block,
-                               trim=True, member_qps=member_qps, **obs)
-    observed = protected or ens.timelines is not None or (
-        ens.attributions is not None
-    )
-    tl = pol = roll_s = attr = None
-    stamp = {}
-    if observed:
-        worst = ens.worst_member()
-        seed = int(spec.seeds[worst])
-        if protected:
-            # the control member rides the run's own source: its
-            # replay recipe is the solo run
-            stamp = {
-                "member": worst,
-                "member_seed": None if worst == 0 else seed,
-                "member_key": (
-                    "run_key" if worst == 0
-                    else "fold_in(run_key, member_seed)"
-                ),
-                "fleet_members": ens.members,
-                "worst_member": True,
-            }
-        else:
-            stamp = {"member": worst, "member_seed": seed,
-                     "fleet_members": ens.members, "worst_member": True}
-        if ens.timelines is not None:
-            tl = ens.member_timeline(worst)
-        if ens.policies is not None:
-            pol = ens.member_policies(worst)
-        if ens.rollouts is not None:
-            roll_s = ens.member_rollouts(worst)
-        if ens.attributions is not None:
-            attr = ens.member_attribution(worst)
-    split_doc = None
-    if split is not None:
-        split_doc = splitting_pass(
-            sim, load, n, source, block, split, protected=protected,
-            roll=roll, timeline_window_s=sim.params.timeline_window_s,
-            timeline=tl_window,
-        )
-    return ens, ens.pooled(), tl, pol, roll_s, attr, stamp, split_doc
-
-
-def _emit_fleet(args, ens, fleet, stamp, split_doc=None) -> None:
-    """The ``ensemble:`` line to stderr and ``--ensemble-out`` (with the
-    splitting block when ``split_doc`` is given)."""
-    from isotope_tpu_torch.runner.run import run_label
-
-    _, slo_s, _ = fleet
-    d = ens.to_doc(
-        label=run_label(args.topology, args.environment, _load(args),
-                        args.labels),
-        slo_s=slo_s,
-        splitting=split_doc,
-    )
-    if ens.protected and d.get("worst_member") == 0:
-        d["worst_member_seed"] = None
+def _emit_fleet(args, d) -> None:
+    """The ``ensemble:`` line to stderr and ``--ensemble-out``."""
     band = d["quantile_band_p99"]
     line = (
         f"ensemble: {d['members']} members (chunk {d['chunk']}): "
@@ -824,16 +832,18 @@ def _emit_fleet(args, ens, fleet, stamp, split_doc=None) -> None:
         print(f"ensemble -> {args.ensemble_out}", file=sys.stderr)
 
 
-def _write_attribution_artifacts(args, compiled, attr, stamp=None) -> None:
+def _write_attribution_artifacts(args, compiled, attr, doc=None) -> None:
     """The blame table to stderr and the attributed run's documents
-    (``stamp`` names a fleet's worst member in the blame document)."""
+    (``doc``: the run's blame document, stamped with a fleet's worst
+    member; by default the attribution's own)."""
     from isotope_tpu_torch.metrics import attribution as attr_mod
     from isotope_tpu_torch.metrics.export import (
         write_flamegraph,
         write_perfetto_counters,
     )
 
-    doc = dict(attr_mod.to_doc(compiled, attr), **(stamp or {}))
+    if doc is None:
+        doc = attr_mod.to_doc(compiled, attr)
     _emit(doc, attr_mod.format_table, args.blame_out, "blame tables")
     if args.flamegraph:
         lines = write_flamegraph(args.flamegraph, compiled, attr)
@@ -853,6 +863,26 @@ def _write_attribution_artifacts(args, compiled, attr, stamp=None) -> None:
         traced = write_trace(args.exemplar_trace, compiled,
                              fmt=args.exemplar_format, exemplars=attr)
         print(f"traced {traced} tail exemplars -> {args.exemplar_trace}",
+              file=sys.stderr)
+
+
+def _write_timeline_artifacts(args, result) -> None:
+    """The flight recorder's table on stderr and its documents."""
+    from isotope_tpu_torch.metrics import timeline as timeline_mod
+
+    compiled, tl = result.compiled, result.timeline_summary
+    _emit(result.timeline, timeline_mod.format_table, args.timeline_out,
+          "timeline")
+    if args.timeline_perfetto:
+        from isotope_tpu_torch.metrics.export import write_timeline_perfetto
+
+        ev = write_timeline_perfetto(args.timeline_perfetto, compiled, tl)
+        print(f"timeline counters ({ev} events) -> "
+              f"{args.timeline_perfetto}", file=sys.stderr)
+    if args.timeline_prometheus:
+        with open(args.timeline_prometheus, "w") as f:
+            f.write(timeline_mod.prometheus_text(compiled, tl))
+        print(f"timestamped exposition -> {args.timeline_prometheus}",
               file=sys.stderr)
 
 

@@ -1,17 +1,284 @@
-"""Per-member chaos schedules of the chaos fleets (``sim/ensemble.py``).
+"""Deterministic engine-level fault injection, and the fleets' chaos jitter.
 
-The chaos-jitter part of ``isotope_tpu.resilience.faults``, copied on the
-host (numpy only) so the port imports nothing of the JAX package:
+The port of ``isotope_tpu.resilience.faults``.  Every recovery path of
+the run supervisor (retry, the degradation ladder, the numeric
+sentinels) must be exercisable on the CPU in tests, not only on a card
+that happens to run out of memory.
+
+Spec syntax (``$ISOTOPE_FAULT_INJECT`` or :func:`install`)::
+
+    ISOTOPE_FAULT_INJECT=oom:engine.run:1,nan:segment:2
+
+comma-separated ``kind:site[:arg]`` entries:
+
+- ``oom:<site>[:count]`` — raise a ``RESOURCE_EXHAUSTED``-shaped fault
+  the first ``count`` times ``check(site)`` runs (default 1);
+- ``transient:<site>[:count]`` — same, ``UNAVAILABLE``-shaped;
+- ``corrupt:<site>[:count]`` — same, shaped like a corrupted cache
+  entry (deterministic);
+- ``nan:segment:<index>`` — poison the output of segment ``<index>`` of
+  the upward sweep with NaN (``arg`` is the segment index, not a count;
+  the port sweeps every level on its own, so segment ``i`` is level
+  ``i``); exercises the numeric sentinels and detail-mode localization.
+
+The wired sites are the engine's: ``engine.build`` (``Simulator``
+construction) and ``engine.run`` (the entry of every run:
+``run``, ``run_summary``, ``run_attributed``, ``run_timeline``,
+``run_policies``, ``run_rollouts``, ``run_ensemble`` and the protected
+fleets).  The reference's other sites (the sharded runner's, the XLA
+cache's, the policy and lb layers' behavioral ``stuck`` / ``lag`` /
+``degrade`` kinds) parse as in the reference and then raise
+``NotImplementedError`` naming the ROADMAP item that wires them, so a
+plan never silently fails to fire.  ``check(site)`` with no plan armed
+is one boolean test: the default path gains no work and no sync point.
+
+The second half is the chaos jitter of the fleets (numpy only):
 :class:`ChaosJitterSpec`, :func:`parse_chaos_jitter`,
 :func:`member_event_seeds` and :func:`jitter_chaos_events` give every
 fleet member its own bad day, bit for bit the reference's schedules.
-The engine fault-injection sites of that module (``check``,
-``nan_segment``, ``stuck_breaker``, ...) are ROADMAP item 12.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import os
+from typing import Dict, List, Optional
+
+from isotope_tpu_torch import telemetry
+from isotope_tpu_torch.resilience.taxonomy import (
+    DETERMINISTIC,
+    RESOURCE_EXHAUSTED,
+    TRANSIENT,
+    InjectedFault,
+)
+
+ENV_FAULT_INJECT = "ISOTOPE_FAULT_INJECT"
+
+KINDS = ("oom", "transient", "corrupt", "nan", "stuck", "lag",
+         "degrade")
+
+#: the reference's instrumented ``check(site)`` sites — the closed
+#: universe a spec may target: a typo'd site raises at parse time with
+#: this list instead of silently never firing.  ``nan`` targets the
+#: pseudo-site ``segment``.
+VALID_SITES = (
+    "engine.build",
+    "engine.run",
+    "sharded.args_put",
+    "sharded.compute",
+    "sharded.dcn_collective",
+    "sharded.gather",
+    "cache.load",
+    "policies.stuck_breaker",
+    "policies.autoscaler_lag",
+    "lb.degraded_backend",
+)
+
+#: the reference's sites whose layer the port has not wired yet, and
+#: the ROADMAP item that wires them
+_UNWIRED = {
+    "sharded.args_put": "item 11, multi-GPU",
+    "sharded.compute": "item 11, multi-GPU",
+    "sharded.dcn_collective": "item 11, multi-GPU",
+    "sharded.gather": "item 11, multi-GPU",
+    "cache.load": "none: the port has no compiled-executable cache",
+    "policies.stuck_breaker": "item 12, framework services",
+    "policies.autoscaler_lag": "item 12, framework services",
+    "lb.degraded_backend": "item 12, framework services",
+}
+
+
+def _refuse_unwired(kind: str, site: str) -> None:
+    item = _UNWIRED.get(site)
+    if item is not None:
+        raise NotImplementedError(
+            f"fault {kind}:{site} is not wired in isotope_tpu_torch "
+            f"(ROADMAP.md: {item})"
+        )
+
+
+#: fault kind -> (message template, taxonomy class).  Messages imitate
+#: the real failure text so the taxonomy classifies injected faults by
+#: the same patterns as real ones (the explicit class is a backstop).
+_SHAPES = {
+    "oom": (
+        "RESOURCE_EXHAUSTED: out of memory while running {site} "
+        "(injected fault)",
+        RESOURCE_EXHAUSTED,
+    ),
+    "transient": (
+        "UNAVAILABLE: injected transient fault at {site}",
+        TRANSIENT,
+    ),
+    "corrupt": (
+        "corrupted persistent-cache entry at {site}: digest mismatch "
+        "(injected fault, unpickling failed)",
+        DETERMINISTIC,
+    ),
+}
+
+
+@dataclasses.dataclass
+class _Entry:
+    kind: str
+    site: str
+    arg: int          # fire count (oom/transient/corrupt) or segment (nan)
+    remaining: int
+
+
+class FaultPlan:
+    """A parsed, mutable injection plan (per-entry fire budgets)."""
+
+    def __init__(self, entries: List[_Entry]):
+        self.entries = entries
+        self._by_site: Dict[str, List[_Entry]] = {}
+        for e in entries:
+            if e.kind not in ("nan", "stuck", "lag", "degrade"):
+                self._by_site.setdefault(e.site, []).append(e)
+
+    @classmethod
+    def parse(cls, spec: str) -> "FaultPlan":
+        entries: List[_Entry] = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            bits = part.split(":")
+            if len(bits) not in (2, 3):
+                raise ValueError(
+                    f"bad fault spec {part!r} (want kind:site[:arg])"
+                )
+            kind, site = bits[0].strip(), bits[1].strip()
+            if kind not in KINDS:
+                raise ValueError(
+                    f"unknown fault kind {kind!r} (one of {KINDS})"
+                )
+            arg = int(bits[2]) if len(bits) == 3 else (
+                0 if kind in ("nan", "degrade") else 1
+            )
+            if kind == "nan" and site != "segment":
+                raise ValueError(
+                    f"nan faults target segments (nan:segment:<idx>), "
+                    f"got site {site!r}"
+                )
+            if kind == "stuck" and site != "policies.stuck_breaker":
+                raise ValueError(
+                    "stuck faults target the breaker "
+                    "(stuck:policies.stuck_breaker), got site "
+                    f"{site!r}"
+                )
+            if kind == "lag" and site != "policies.autoscaler_lag":
+                raise ValueError(
+                    "lag faults target the autoscaler "
+                    "(lag:policies.autoscaler_lag[:N]), got site "
+                    f"{site!r}"
+                )
+            if kind == "degrade" and site != "lb.degraded_backend":
+                raise ValueError(
+                    "degrade faults target the lb layer "
+                    "(degrade:lb.degraded_backend[:B]), got site "
+                    f"{site!r}"
+                )
+            if kind != "nan" and site not in VALID_SITES:
+                raise ValueError(
+                    f"unknown fault site {site!r} — the plan would "
+                    f"never fire (valid sites: "
+                    f"{', '.join(VALID_SITES)})"
+                )
+            _refuse_unwired(kind, site)
+            behavioral = kind in ("nan", "stuck", "lag", "degrade")
+            entries.append(
+                _Entry(kind=kind, site=site, arg=arg,
+                       remaining=0 if behavioral else arg)
+            )
+        return cls(entries)
+
+    def pop(self, site: str) -> Optional[_Entry]:
+        """The first live entry at ``site``, its budget decremented."""
+        for e in self._by_site.get(site, ()):
+            if e.remaining > 0:
+                e.remaining -= 1
+                return e
+        return None
+
+    def nan_segment(self) -> Optional[int]:
+        for e in self.entries:
+            if e.kind == "nan":
+                return e.arg
+        return None
+
+    def signature(self) -> str:
+        """Stable identity of the part of the plan that changes what a
+        run computes (the NaN poisoning; host-side faults only raise)."""
+        seg = self.nan_segment()
+        return "" if seg is None else f"nan:segment:{seg}"
+
+
+_plan: Optional[FaultPlan] = None
+_env_loaded = False
+
+
+def _load_env() -> None:
+    global _plan, _env_loaded
+    _env_loaded = True
+    spec = os.environ.get(ENV_FAULT_INJECT)
+    if spec:
+        _plan = FaultPlan.parse(spec)
+        telemetry.counter_inc("fault_plan_armed", 0.0)  # visibility key
+
+
+def install(spec: str) -> FaultPlan:
+    """Arm a plan programmatically (tests); replaces any existing one."""
+    global _plan, _env_loaded
+    _plan = FaultPlan.parse(spec)
+    _env_loaded = True
+    return _plan
+
+
+def clear() -> None:
+    """Disarm injection (and stop re-reading the environment)."""
+    global _plan, _env_loaded
+    _plan = None
+    _env_loaded = True
+
+
+def active() -> bool:
+    if not _env_loaded:
+        _load_env()
+    return _plan is not None
+
+
+def check(site: str) -> None:
+    """Raise the planned fault for ``site``, if any budget remains.
+
+    Called unconditionally from the instrumented phases; with no plan
+    armed this is one boolean test.
+    """
+    if not _env_loaded:
+        _load_env()
+    if _plan is None:
+        return
+    entry = _plan.pop(site)
+    if entry is None:
+        return
+    telemetry.counter_inc("faults_injected")
+    telemetry.counter_inc(f"faults_injected.{entry.kind}")
+    msg, fault_class = _SHAPES[entry.kind]
+    raise InjectedFault(msg.format(site=site), fault_class)
+
+
+def nan_segment() -> Optional[int]:
+    """The segment index of the upward sweep to poison with NaN, or
+    None (read by ``Simulator._simulate_core``)."""
+    if not _env_loaded:
+        _load_env()
+    return None if _plan is None else _plan.nan_segment()
+
+
+def signature() -> str:
+    """The plan's identity as far as it changes what a run computes."""
+    if not _env_loaded:
+        _load_env()
+    return "" if _plan is None else _plan.signature()
 
 
 # -- per-member chaos schedules (chaos fleets, sim/ensemble.py) ---------------

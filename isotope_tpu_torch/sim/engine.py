@@ -64,6 +64,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import itertools
+import time
 from typing import (
     Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple,
 )
@@ -72,9 +73,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from isotope_tpu_torch import telemetry
 from isotope_tpu_torch.compiler import buckets
 from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
 from isotope_tpu_torch.native.census import census
+from isotope_tpu_torch.resilience import faults
 from isotope_tpu_torch.sim import closed, queueing
 from isotope_tpu_torch.sim import lb as lb_mod
 from isotope_tpu_torch.sim.config import (
@@ -658,6 +661,17 @@ def _cat_draws(parts: Sequence[Draws]) -> Draws:
     ))
 
 
+def block_rows(load: LoadModel, num_requests: int, block_size: int) -> int:
+    """The requests of each block of a blocked run: at most
+    ``block_size`` and ``num_requests``; a closed loop's block is a
+    whole number of requests per connection (it grows to the connection
+    count when that exceeds ``block_size``)."""
+    if load.kind == OPEN_LOOP:
+        return max(1, min(block_size, num_requests))
+    conns = load.connections
+    return max(1, min(block_size, num_requests) // conns) * conns
+
+
 class _Clock:
     """The clocks a block loop carries from block to block: the open
     loop's ``t0``, the connections' ``conn_t0``, the closed loop's
@@ -863,6 +877,10 @@ class Simulator:
         *,
         device=None,
     ):
+        # engine.build covers everything below: the host planning and
+        # the device-constant upload
+        faults.check("engine.build")
+        t_build = time.perf_counter()
         self.device = resolve_device(device)
         dev = self.device
         self.compiled = compiled
@@ -1406,6 +1424,8 @@ class Simulator:
             self._svc_scv = 1.0 / (a * (a - 2.0)) if a > 2.01 else 25.0
         else:
             self._svc_scv = 1.0
+        telemetry.counter_inc("simulators_built")
+        telemetry.phase_add("engine.build", time.perf_counter() - t_build)
 
     # -- scenario tables (host, numpy) --------------------------------------
 
@@ -1804,6 +1824,7 @@ class Simulator:
         (``qps=None``) issues without pacing at the closed network's
         throughput and samples the finite-population wait law.
         """
+        faults.check("engine.run")
         self._check_lb_load(load)
         if load.kind == OPEN_LOOP:
             res, _, _ = self._simulate_core(
@@ -2169,11 +2190,9 @@ class Simulator:
         the connection count when that exceeds ``block_size``)."""
         if load.kind == OPEN_LOOP:
             offered = float(load.qps)
-            block = max(1, min(block_size, num_requests))
         else:
             offered = self.solve_closed_rate(load, num_requests, source)
-            conns = load.connections
-            block = max(1, min(block_size, num_requests) // conns) * conns
+        block = block_rows(load, num_requests, block_size)
         return offered, block, max(1, -(-num_requests // block))
 
     def run_blocks(self, load: LoadModel, num_requests: int, source, *,
@@ -2275,6 +2294,7 @@ class Simulator:
         collector's steady-state window (skip 62s, cap 180s) into the
         ``win_*`` fields, placed from the run's expected duration.
         """
+        faults.check("engine.run")
         return self._run_summary(load, num_requests, source, block_size,
                                  collector, trim)
 
@@ -2301,6 +2321,8 @@ class Simulator:
         offered, block, num_blocks = plan if plan is not None else (
             self._block_plan(load, num_requests, source, block_size)
         )
+        telemetry.gauge_set("engine_block_requests", block)
+        telemetry.gauge_set("engine_num_blocks", num_blocks)
         win = None
         if trim:
             lo, hi = trim_window_bounds(num_blocks * block, offered)
@@ -2416,6 +2438,7 @@ class Simulator:
             raise ValueError(
                 "attributed runs need SimParams(attribution=True)"
             )
+        faults.check("engine.run")
         if tail and tail_cut is None:
             tail_cut = self.estimate_tail_cut(
                 load, num_requests, source, block_size=block_size
@@ -2489,6 +2512,7 @@ class Simulator:
             raise ValueError(
                 "timeline runs need SimParams(timeline=True)"
             )
+        faults.check("engine.run")
         control = self._control(load, num_requests, source, block_size,
                                 window_s, False, False)
         summary = self._run_summary(load, num_requests, source, block_size,
@@ -2555,6 +2579,7 @@ class Simulator:
                 "attributed policy runs need SimParams(attribution="
                 "True) alongside the policy tables"
             )
+        faults.check("engine.run")
         return self._run_protected(load, num_requests, source, False,
                                    block_size, collector, trim, window_s,
                                    attribution, tail, tail_cut)
@@ -2679,6 +2704,7 @@ class Simulator:
                 "attributed rollout runs need SimParams(attribution="
                 "True) alongside the rollout tables"
             )
+        faults.check("engine.run")
         return self._run_protected(load, num_requests, source, True,
                                    block_size, collector, trim, window_s,
                                    attribution, tail, tail_cut)
@@ -3040,6 +3066,7 @@ class Simulator:
             raise ValueError(
                 "timeline fleets need SimParams(timeline=True)"
             )
+        faults.check("engine.run")
         if attribution and tail and tail_cut is None:
             # ONE pilot, on the fleet's source, serves every member
             tail_cut = self.estimate_tail_cut(
@@ -3375,6 +3402,7 @@ class Simulator:
                 "run_policies)"
             )
         self._check_lb_load(load)
+        faults.check("engine.run")
         tables = compile_ensemble(spec, self.device)
         member_events, planners, _ = self._resolve_member_chaos(
             member_chaos, spec.seeds, with_pol=True, roll=roll,
@@ -4232,6 +4260,11 @@ class Simulator:
         fail_lvls: List[Optional[torch.Tensor]] = [None] * L
         used_lvls: List[Optional[torch.Tensor]] = [None] * L
         off_lvls: List[Optional[torch.Tensor]] = [None] * L
+        # engine-level chaos: ISOTOPE_FAULT_INJECT nan:segment:<i> poisons
+        # segment i's output (the port sweeps every level on its own:
+        # segment i is level i) so the numeric sentinels are testable
+        nan_seg = faults.nan_segment()
+        telemetry.fence_reset()
         for d in reversed(range(L)):
             lvl = self._levels[d]
             sl = slice(lvl.offset, lvl.offset + lvl.size)
@@ -4403,6 +4436,9 @@ class Simulator:
                     busy = busy * ~err_lvl
             fail_lvls[d] = fail_step
             lat_lvls[d] = wait[:, sl] + svc_time[:, sl] + busy
+            if nan_seg == d:
+                lat_lvls[d][:, 0] = float("nan")
+            telemetry.segment_fence(f"up.lvl[{d}]", lat_lvls[d])
             # this hop's own response status: 500 iff errorRate coin or a
             # transport-failed step
             if err_lvl is not None and fail_step is not None:
@@ -4499,8 +4535,10 @@ class Simulator:
             entry_wire = entry_wire + tax
         start_cur = (arrivals + entry_wire)[:, None]
         start_chunks: List[torch.Tensor] = []
+        telemetry.fence_reset()
         for d, lvl in enumerate(self._levels):
             start_chunks.append(start_cur)
+            telemetry.segment_fence(f"start.lvl[{d}]", start_cur)
             if d == L - 1:
                 break
             sl = slice(lvl.offset, lvl.offset + lvl.size)

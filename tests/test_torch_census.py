@@ -195,6 +195,7 @@ def _chip_smoke_shapes():
         runs, chip_smoke.chaosfleet_sim(port, device="cpu"))
     runs += chip_smoke.search_census_runs(
         runs, chip_smoke.planted_sim(port, device="cpu"))
+    runs += chip_smoke.runner_census_runs(device="cpu")
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
     )
@@ -306,6 +307,23 @@ def test_chip_smoke_covers_the_search_rungs():
     for m in (16, 4):
         planted = [s for s in _SHAPES if s[0] == m * 64]
         assert len(planted) >= 4 and any(s[4] for s in planted), m
+
+
+def test_chip_smoke_covers_the_runner_suite():
+    """The suite's cases: ``canonical.yaml`` closed loops at 16
+    connections of cpu_mem.toml (2,400 to 192,000 rows a block, 240 s at
+    10 to 800 qps), latency.toml's 240,000 rows and the paced rate
+    pilot's 2,048, every census call of one block of each."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import Simulator
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sim = Simulator(compile_graph(ServiceGraph.from_yaml_file(
+        root / "examples" / "topologies" / "canonical.yaml")), device="cpu")
+    for n in (2_048, 2_400, 24_000, 48_000, 96_000, 192_000, 240_000):
+        shapes = sim.census_shapes(n)
+        assert shapes and set(shapes) <= set(_SHAPES), n
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

@@ -409,6 +409,11 @@ def test_port_imports_no_jax():
                  "metrics.trace", "metrics.export", "metrics.monitor",
                  "sim.controlplane", "sim.ensemble", "metrics.fleetblame",
                  "resilience.faults", "analysis.costmodel",
-                 "sim.splitting", "sim.search"):
+                 "sim.splitting", "sim.search", "resilience.taxonomy",
+                 "resilience.sentinels", "resilience.supervisor",
+                 "telemetry", "telemetry.core", "telemetry.profile",
+                 "commands.common", "commands.suite_cmd",
+                 "commands.report_cmd", "commands.telemetry_cmd",
+                 "runner.suite", "metrics.stability", "report"):
         assert f"isotope_tpu_torch.{name}" in names, name
     assert len(names) >= 30

@@ -40,6 +40,7 @@ from isotope_tpu_torch.models.graph import ServiceGraph
 from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator, TorchDraws
 from isotope_tpu_torch.sim import lb as lb_mod
 from isotope_tpu_torch.sim.config import ChaosEvent
+from isotope_tpu_torch.sim.draws import RootedSource
 from test_sparse_tiles import SKEWED
 from test_torch_replay import (
     JaxReplayDraws,
@@ -156,7 +157,9 @@ def test_cli_simulate_applies_the_lb_laws(tmp_path):
     compiled = compile_graph(graph)
     sim = Simulator(compiled, lb=compile_lb(graph, compiled), device="cpu")
     load = LoadModel(kind="open", qps=20_000.0, duration_s=0.2)
-    summary = sim.run_summary(load, 4000, TorchDraws(0, "cpu"),
+    # the CLI's case 0 draws from RootedSource(TorchDraws(seed), 0)
+    summary = sim.run_summary(load, 4000,
+                              RootedSource(TorchDraws(0, "cpu"), 0),
                               block_size=sim.default_block_size(),
                               trim=True)
     want = fortio.fortio_result_from_summary(

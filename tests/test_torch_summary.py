@@ -395,16 +395,18 @@ def _prom_values(text):
 def _simulate_both(tmp_path, monkeypatch, topo, flags, seed=0):
     """The JAX ``simulate`` (``run_experiment``, run key
     ``fold_in(PRNGKey(seed), 0)``, on one device: ``--mesh 1x1``, as
-    the tests' virtual CPU mesh would shard it) and the port's on the
-    JAX run's draws (its ``TorchDraws`` replaced by ``JaxReplayDraws``);
-    returns ``{name: (port output, JAX output)}`` for stdout and every
-    file flag."""
+    the tests' virtual CPU mesh would shard it) and the port's (its
+    ``run_experiment``, case 0 on ``RootedSource(TorchDraws(seed),
+    0)``) on the JAX run's draws (``TorchDraws(seed)`` replaced by
+    ``JaxReplayDraws(PRNGKey(seed))``); returns ``{name: (port output,
+    JAX output)}`` for stdout and every file flag."""
     import isotope_tpu_torch.sim
     from isotope_tpu import cli as jax_cli
 
-    key = jax.random.fold_in(jax.random.PRNGKey(seed), 0)
-    monkeypatch.setattr(isotope_tpu_torch.sim, "TorchDraws",
-                        lambda seed, device: JaxReplayDraws(key))
+    monkeypatch.setattr(
+        isotope_tpu_torch.sim, "TorchDraws",
+        lambda seed_, device: JaxReplayDraws(jax.random.PRNGKey(seed_)),
+    )
 
     out = {}
     for side in ("port", "jax"):

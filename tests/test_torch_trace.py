@@ -330,20 +330,16 @@ def test_exporters_write_what_the_reference_writes(tmp_path):
 def _simulate_pair(tmp_path, monkeypatch, topo, flags, seed=0):
     """The JAX command (``--mesh 1x1``; run key ``fold_in(PRNGKey(seed),
     0)``, its ``--trace`` batch ``PRNGKey(seed)``) and the port's on the
-    same draws: the port's first ``TorchDraws`` (the main run) replays
-    the run key, a second (the trace batch) the seed's own key."""
+    same draws: the port's ``TorchDraws(seed)`` replays ``PRNGKey(seed)``
+    (its main run draws from ``RootedSource(TorchDraws(seed), 0)``, the
+    run key; its trace batch from ``TorchDraws(seed)``)."""
     import isotope_tpu_torch.sim
     from isotope_tpu import cli as jax_cli
 
-    keys = [jax.random.fold_in(jax.random.PRNGKey(seed), 0),
-            jax.random.PRNGKey(seed)]
-    calls = []
-
-    def draws(seed_, device):
-        calls.append(seed_)
-        return JaxReplayDraws(keys[min(len(calls), 2) - 1])
-
-    monkeypatch.setattr(isotope_tpu_torch.sim, "TorchDraws", draws)
+    monkeypatch.setattr(
+        isotope_tpu_torch.sim, "TorchDraws",
+        lambda seed_, device: JaxReplayDraws(jax.random.PRNGKey(seed_)),
+    )
     out = {}
     for side in ("port", "jax"):
         d = tmp_path / side
