@@ -25,7 +25,11 @@ any failure exits non-zero and nothing is caught:
    the search brackets' folded rungs (search64's 64, 16 and 4 x 4,096
    rows; the planted bracket's 16 and 4 x 64, with error flags) and
    the runner suite's cases (phase 8: ``canonical.yaml`` at each case's
-   own block, 2,400 to 240,000 rows, and its rate pilot)
+   own block, 2,400 to 240,000 rows, and its rate pilot) and the
+   calibration path's (phase 9: ``fidelity``'s 65,536-row blocks and
+   rate pilot, the closure's source and twin, the fitted topology's
+   sweep at its default block, that topology fitted from a CPU
+   recording of 2,048 requests)
    (rtol 1e-5: the
    plain version's ``cumsum`` may associate differently), and bit for
    bit against ``census_sequential``, the kernel's own order of
@@ -200,6 +204,33 @@ any failure exits non-zero and nothing is caught:
    suite's wall, the wall per case (median, max), the sum of the cases'
    ``run_summary`` walls, the runner's host share, the census launches
    and the peak device memory.
+
+9. the calibration path, through the port's entry points in this process
+   (``cli.main``): ``fidelity canonical.yaml --fortio
+   tests/data/fortio_canonical_sample.json --json`` on the card (the
+   vendored artifact: closed loop, 16 connections, 1000 qps, 262,143
+   requests in blocks of 65,536) must exit 0 as a user runs it (its own
+   draws on the card: the timed run whose launches count), the card and
+   ``--device cpu`` on one CPU draw source must give the same
+   percentiles within phase 4's tolerances, and the artifact with every
+   percentile x 1.2 must exit 1 on the card; then the ingest closure at
+   a user's size:
+   ``1000-svc_2000-end.yaml`` open loop at 10,000 qps, 8 x 32,768,
+   recorded on the card by ``run_timeline`` with 1 s windows and a
+   ``MetricsCollector``, its two expositions fitted by ``ingest``
+   (host), the fit held to its source by ``closure_check`` (no service
+   or edge dropped, the degree sequence equal, the verdict PASS: the JAX
+   package's own closure passes on this source), and a 16,384-request
+   twin on the card and the CPU on one CPU draw source whose fitted
+   documents agree within rtol 1e-5 (YAML and TOML line by line up to
+   float formatting); last, a ``sweep`` of the fitted TOML on the card
+   into the fit's directory (no case failed or degraded; its census
+   calls among those phase 3 checked) and ``explain`` on that directory
+   and on the ``.ingest.json``, which must render the ingest section
+   with the closure's verdict.  It prints the fidelity run's wall,
+   launches and relative errors, the recorded run's wall and the host
+   seconds of the one ``ingest`` call, each closure check, and the fitted
+   sweep's wall and launches.
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -2086,37 +2117,45 @@ _WINDOW_COUNT_KEYS = {"arrivals", "completions", "errors", "qps"}
 DOC_RTOL = 1e-4
 
 
-def docs_close(got, want, path="", window_s=1.0):
+#: keys docs_close skips by default: the wall clock's ``StartTime``, the
+#: convoy quotients and the occupancy-derived entries
+_DOC_SKIP = {"StartTime"} | _CONVOY_FLOATS | _OCCUPANCY_KEYS
+
+
+def docs_close(got, want, path="", window_s=1.0, rtol=DOC_RTOL,
+               skip=_DOC_SKIP, counts=_WINDOW_COUNT_KEYS):
     """Two documents agree: keys, strings, booleans and integers
-    exactly; per-window counts within WINDOW_COUNT_ATOL events, other
-    floats within DOC_RTOL (card against CPU on the same draws); the
-    wall clock's ``StartTime``, the convoy quotients and the
-    occupancy-derived entries (``timeline_doc_close``) skipped."""
+    exactly; floats under a key in ``counts`` (per-window counts) within
+    WINDOW_COUNT_ATOL events, other floats within ``rtol`` and
+    RESULT_ATOL (card against CPU on the same draws); keys in ``skip``
+    not compared (by default the wall clock, the convoy quotients and
+    the occupancy-derived entries, which ``timeline_doc_close`` holds).
+    Returns the largest float difference as a share of its tolerance."""
+    def close(g, w, at):
+        return docs_close(g, w, at, window_s, rtol, skip, counts)
+
     if isinstance(want, dict):
         if not isinstance(got, dict) or set(got) != set(want):
             raise AssertionError(f"{path}: keys differ")
-        for k in want:
-            if k not in ("StartTime",) and k not in _CONVOY_FLOATS \
-                    and k not in _OCCUPANCY_KEYS:
-                docs_close(got[k], want[k], f"{path}.{k}", window_s)
-        return
+        return max([close(got[k], want[k], f"{path}.{k}")
+                    for k in want if k not in skip] + [0.0])
     if isinstance(want, list):
         if not isinstance(got, list) or len(got) != len(want):
             raise AssertionError(f"{path}: lengths differ")
-        for i, (g, w) in enumerate(zip(got, want)):
-            docs_close(g, w, f"{path}[{i}]", window_s)
-        return
+        return max([close(g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))] + [0.0])
     if isinstance(want, float):
         key = path.split(".")[-1].split("[")[0]
-        if key in _WINDOW_COUNT_KEYS:
+        if key in counts:
             tol = WINDOW_COUNT_ATOL / (window_s if key == "qps" else 1.0)
         else:
-            tol = DOC_RTOL * abs(want) + RESULT_ATOL
+            tol = rtol * abs(want) + RESULT_ATOL
         if abs(got - want) > tol:
             raise AssertionError(f"{path}: {got} != {want}")
-        return
+        return abs(got - want) / tol
     if got != want:
         raise AssertionError(f"{path}: {got!r} != {want!r}")
+    return 0.0
 
 
 def timeline_doc_close(got, want, compiled, tl, bound, path):
@@ -2660,15 +2699,9 @@ def blame_dist_close(got, want, path):
 def _in_process(args, source):
     """``cli.main(args)`` in this process with ``source`` as its draws:
     (exit code, stdout, stderr, kept blocks)."""
-    import io
-
-    from isotope_tpu_torch import cli as port_cli
-
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
-            cli_capture(source) as blocks:
-        rc = port_cli.main(args)
-    return rc, out.getvalue(), err.getvalue(), blocks
+    with cli_capture(source) as blocks:
+        rc, out, err = _port_out(args)
+    return rc, out, err, blocks
 
 
 def cli_attribution_phase():
@@ -3764,10 +3797,10 @@ seed = 0
 """
 
 
-def runner_census_runs(device="cuda"):
+def runner_census_runs(device="cuda", configs=RUNNER_CONFIGS):
     """The suite's census calls for phase 3, as runs: each case of
-    ``RUNNER_CONFIGS`` on the runner's own Simulator at its own request
-    count and block (its closed loop's rate pilot is added by
+    ``configs`` on the runner's own Simulator at its own request count
+    and block (its closed loop's rate pilot is added by
     ``census_check_shapes``), one run per distinct set of shapes."""
     from isotope_tpu_torch.runner.config import load_toml
     from isotope_tpu_torch.runner.run import (
@@ -3778,7 +3811,7 @@ def runner_census_runs(device="cuda"):
     from isotope_tpu_torch.sim.engine import block_rows
 
     out, seen = [], set()
-    for path in RUNNER_CONFIGS:
+    for path in configs:
         config = load_toml(ROOT / path)
         for topo_path in config.topology_paths:
             topo = _LazyTopology(topo_path, config, device)
@@ -3797,17 +3830,16 @@ def runner_census_runs(device="cuda"):
     return out
 
 
-def _port_main(args):
-    """``cli.main(args)`` in this process: (exit code, stderr)."""
+def _port_out(args):
+    """``cli.main(args)`` in this process: (exit code, stdout, stderr)."""
     import io
 
     from isotope_tpu_torch import cli as port_cli
 
-    err = io.StringIO()
-    with contextlib.redirect_stdout(io.StringIO()), \
-            contextlib.redirect_stderr(err):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = port_cli.main(args)
-    return rc, err.getvalue()
+    return rc, out.getvalue(), err.getvalue()
 
 
 def _csv_bytes(pub):
@@ -3887,7 +3919,7 @@ def runner_suite(tmp):
     census_mod.census.launches = 0
     with _timed_cases() as walls:
         t0 = time.perf_counter()
-        rc, err = _port_main(args)
+        rc, _, err = _port_out(args)
         wall = time.perf_counter() - t0
     launches = census_mod.census.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3927,7 +3959,7 @@ def runner_suite(tmp):
     built = telemetry.counter_get("simulators_built")
     census_mod.census.launches = 0
     t0 = time.perf_counter()
-    rc2, err = _port_main(args)
+    rc2, _, err = _port_out(args)
     resume_s = time.perf_counter() - t0
     if census_mod.census.launches or \
             telemetry.counter_get("simulators_built") != built:
@@ -3935,7 +3967,7 @@ def runner_suite(tmp):
     if _csv_bytes(pub) != csvs or rc2 != rc:
         raise AssertionError("the resumed suite's CSVs differ")
     t0 = time.perf_counter()
-    rc3, err = _port_main(args + ["--fresh"])
+    rc3, _, err = _port_out(args + ["--fresh"])
     fresh_s = time.perf_counter() - t0
     fresh = _csv_bytes(pub)
     for stem in RUNNER_ROWS:
@@ -3956,8 +3988,8 @@ def runner_twin(tmp):
     cfg.write_text(RUNNER_TWIN.format(topo=TOPOLOGIES / "canonical.yaml"))
     for device in ("cuda", "cpu"):
         with cli_capture(TorchDraws(0, "cpu")):
-            rc, err = _port_main(["sweep", str(cfg), "-o",
-                                  str(tmp / device), "--device", device])
+            rc, _, err = _port_out(["sweep", str(cfg), "-o",
+                                    str(tmp / device), "--device", device])
         if rc != 0:
             raise AssertionError(f"twin sweep on {device}: exit {rc}\n{err}")
     got_csv = (tmp / "cuda" / "benchmark.csv").read_text().splitlines()
@@ -4141,6 +4173,371 @@ def run_gates(port, gates, device="cuda"):
     log(f"oracle gates: {len(gates)} in {time.perf_counter() - t:.1f} s")
 
 
+# -- phase 9: the calibration path --------------------------------------------
+
+#: the vendored ``fortio load -json`` artifact (closed loop, 16
+#: connections, 1000 qps) and its topology
+FIDELITY_ARTIFACT = ROOT / "tests" / "data" / "fortio_canonical_sample.json"
+FIDELITY_TOPOLOGY = TOPOLOGIES / "canonical.yaml"
+#: ``check_fidelity``'s block (``run_summary``'s default)
+FIDELITY_BLOCK = 65_536
+#: the perturbed artifact: every percentile x 1.2 (tests/test_fidelity.py)
+FIDELITY_PERTURB = 1.2
+#: the ingest closure's source at a user's size: phase 5's
+#: ``1000-svc_2000-end`` run (open loop, 10,000 qps, 8 x 32,768),
+#: recorded with 1 s windows
+CALIBRATION_TOPOLOGY = TOPOLOGIES / "1000-svc_2000-end.yaml"
+CALIBRATION_QPS = 10_000.0
+CALIBRATION_BLOCK, CALIBRATION_BLOCKS = 32_768, 8
+CALIBRATION_WINDOW_S = 1.0
+#: the card-against-CPU twin of the closure
+CALIBRATION_TWIN_N = 16_384
+#: the CPU recording whose fit gives phase 3 the fitted topology (its
+#: structure, hence its census shapes, does not depend on the size: every
+#: request of the source visits every service)
+CALIBRATION_SHAPE_N = 2_048
+
+
+def fidelity_case(device="cuda"):
+    """``fidelity``'s run as ``check_fidelity`` builds it from the
+    artifact: (Simulator, load, requests, block)."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.metrics.fidelity import load_from_artifact
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import Simulator
+    from isotope_tpu_torch.sim.engine import block_rows
+
+    doc = json.loads(FIDELITY_ARTIFACT.read_text())
+    load, duration_s = load_from_artifact(doc)
+    n = int(min(max(float(doc["ActualQPS"]) * duration_s, 10_000),
+                1_000_000))
+    sim = Simulator(compile_graph(ServiceGraph.from_yaml_file(
+        FIDELITY_TOPOLOGY)), device=device)
+    return sim, load, n, block_rows(load, n, FIDELITY_BLOCK)
+
+
+def calibration_sim(device):
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import SimParams, Simulator
+
+    graph = ServiceGraph.from_yaml_file(CALIBRATION_TOPOLOGY)
+    params = SimParams(timeline=True,
+                       timeline_window_s=CALIBRATION_WINDOW_S)
+    return graph, Simulator(compile_graph(graph), params, device=device)
+
+
+def record_source(device, n, block, source):
+    """The closure's source run through the flight recorder with a
+    ``MetricsCollector``: (graph, Simulator, the two expositions, the
+    run's wall on ``device``)."""
+    from isotope_tpu_torch.metrics import timeline as timeline_mod
+    from isotope_tpu_torch.metrics.prometheus import MetricsCollector
+    from isotope_tpu_torch.sim import LoadModel
+
+    graph, sim = calibration_sim(device)
+    collector = MetricsCollector(sim.compiled)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary, tl = sim.run_timeline(
+        LoadModel(kind="open", qps=CALIBRATION_QPS), n, source,
+        collector=collector, window_s=CALIBRATION_WINDOW_S,
+        block_size=block)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    texts = (collector.full_text(summary),
+             timeline_mod.prometheus_text(sim.compiled, tl))
+    return graph, sim, texts, wall
+
+
+def write_texts(texts, obs_dir):
+    """The two expositions written to ``obs_dir``: their paths."""
+    obs_dir.mkdir(parents=True, exist_ok=True)
+    paths = [obs_dir / "full.prom", obs_dir / "timeline.prom"]
+    for path, text in zip(paths, texts):
+        path.write_text(text)
+    return paths
+
+
+def fit_paths(paths, label="fit"):
+    """The ingest API's fit of the expositions at ``paths``:
+    (Observation, FitResult)."""
+    from isotope_tpu_torch.ingest import FitOptions, fit, read_path
+
+    obs = None
+    for path in paths:
+        obs = read_path(str(path), obs=obs)
+    return obs, fit(obs, FitOptions(label=label))
+
+
+def fit_texts(texts, obs_dir, label="fit"):
+    """The ingest API's fit of the two expositions (written to
+    ``obs_dir``): (paths, Observation, FitResult)."""
+    paths = write_texts(texts, obs_dir)
+    return (paths, *fit_paths(paths, label))
+
+
+def calibration_census_runs(device="cuda"):
+    """Phase 9's census calls for phase 3, as runs: ``fidelity``'s
+    paced closed loop (its rate pilot added by ``census_check_shapes``),
+    the closure's source (phase 5's run) and its twin, and the fitted
+    configuration's sweep at its default block, the fitted topology
+    taken from a CPU recording of ``CALIBRATION_SHAPE_N`` requests (phase
+    9 checks that the sweep it runs makes no other call)."""
+    from isotope_tpu_torch.runner.config import load_toml
+    from isotope_tpu_torch.runner.run import _LazyTopology
+    from isotope_tpu_torch.sim import LoadModel, TorchDraws
+
+    sim, load, n, block = fidelity_case(device)
+    runs = [("fidelity canonical", sim, load, n, block)]
+    _, src = calibration_sim(device)
+    open_load = LoadModel(kind="open", qps=CALIBRATION_QPS)
+    runs += [("calibration source", src, open_load,
+              CALIBRATION_BLOCKS * CALIBRATION_BLOCK, CALIBRATION_BLOCK),
+             ("calibration twin", src, open_load, CALIBRATION_TWIN_N,
+              CALIBRATION_TWIN_N)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        _, _, texts, _ = record_source("cpu", CALIBRATION_SHAPE_N,
+                                       CALIBRATION_SHAPE_N,
+                                       TorchDraws(0, "cpu"))
+        _, _, fr = fit_texts(texts, tmp)
+        (tmp / "fit.yaml").write_text(fr.graph.to_yaml())
+        (tmp / "fit.toml").write_text(fr.toml_text)
+        config = load_toml(tmp / "fit.toml")
+        topo = _LazyTopology(config.topology_paths[0], config, device)
+        fitted = topo.sims(config.environments[0])
+    block = fitted.default_block_size()
+    runs.append(("calibration fitted sweep", fitted,
+                 next(iter(config.load_models())), CALIBRATION_BLOCKS * block,
+                 block))
+    return runs
+
+
+def _fidelity_cli(args, source):
+    rc, out, err, _ = _in_process(["fidelity", str(FIDELITY_TOPOLOGY),
+                                   "--json", *args], source)
+    return rc, json.loads(out) if out.strip() else None, err
+
+
+def fidelity_step(tmp, census_mod):
+    """``fidelity`` on the vendored artifact on the card as a user runs
+    it (its own draws, on the card: timed, its census launches counted),
+    then the card and the CPU on one CPU draw source (the percentiles
+    within RESULT_RTOL), and the perturbed artifact on the card; returns
+    the user's run's census launches."""
+    from isotope_tpu_torch.sim import TorchDraws
+
+    artifact = ["--fortio", str(FIDELITY_ARTIFACT)]
+    command = ["fidelity", str(FIDELITY_TOPOLOGY), "--json"]
+    census_mod.census.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, out, err = _port_out(command + artifact)
+    wall = time.perf_counter() - t0
+    launches = census_mod.census.launches
+    card = json.loads(out) if out.strip() else None
+    if rc != 0 or not card or not card["ok"]:
+        raise AssertionError(f"fidelity on the card: exit {rc}\n{err}")
+    _, load, n, block = fidelity_case("cpu")
+    rels = ", ".join(f"p{d['percentile']:g} {d['rel_err']:+.4%}"
+                     for d in card["percentiles"])
+    log(f"fidelity canonical.yaml (closed, {load.connections} connections, "
+        f"{load.qps:g} qps, {n} requests in blocks of {block}): exit {rc}, "
+        f"wall {wall:.3f} s on the card (its own draws), census launches "
+        f"{launches}; {rels}; sim qps {card['actual_qps']['sim']:.3f} "
+        f"against {card['actual_qps']['fortio']:.3f}")
+    source = TorchDraws(0, "cpu")
+    rc, card, err = _fidelity_cli(artifact, source)
+    if rc != 0 or not card or not card["ok"]:
+        raise AssertionError(f"fidelity on the card, CPU draws: exit {rc}"
+                             f"\n{err}")
+    rc_cpu, cpu, err = _fidelity_cli(artifact + ["--device", "cpu"], source)
+    if rc_cpu != rc or not cpu or [d["percentile"] for d in
+                                   cpu["percentiles"]] != [
+            d["percentile"] for d in card["percentiles"]]:
+        raise AssertionError(f"fidelity on the CPU: exit {rc_cpu}\n{err}")
+    worst = 0.0
+    for g, w in zip(card["percentiles"], cpu["percentiles"]):
+        diff = abs(g["sim_s"] - w["sim_s"])
+        worst = max(worst, diff / (RESULT_ATOL + RESULT_RTOL
+                                   * abs(w["sim_s"])))
+        if diff > RESULT_ATOL + RESULT_RTOL * abs(w["sim_s"]):
+            raise AssertionError(f"fidelity p{g['percentile']}: card "
+                                 f"{g['sim_s']} cpu {w['sim_s']}")
+    log(f"fidelity card == CPU (rtol {RESULT_RTOL}, atol {RESULT_ATOL}: "
+        f"largest difference {worst:.3f} of its tolerance)")
+    doc = json.loads(FIDELITY_ARTIFACT.read_text())
+    for p in doc["DurationHistogram"]["Percentiles"]:
+        p["Value"] *= FIDELITY_PERTURB
+    perturbed = tmp / "perturbed.json"
+    perturbed.write_text(json.dumps(doc))
+    rc, out, err = _port_out(command + ["--fortio", str(perturbed)])
+    bad = json.loads(out) if out.strip() else None
+    if rc != 1 or not bad or bad["ok"]:
+        raise AssertionError(f"fidelity, perturbed artifact: exit {rc}")
+    log(f"fidelity, every artifact percentile x {FIDELITY_PERTURB}: exit "
+        f"{rc} on the card (" + ", ".join(
+            f"p{d['percentile']:g} {d['rel_err']:+.2%}"
+            for d in bad["percentiles"]) + ")")
+    return launches
+
+
+def _unfloat(text):
+    return re.sub(r"\d+(\.\d+)?(e[-+]?\d+)?", "#", text)
+
+
+def ingest_step(tmp, graph, texts, label="fit"):
+    """``ingest`` over the two expositions (in process, the port's
+    CLI; its host seconds are this call's alone), then the API's fit of
+    the same files, which must equal the CLI's, and its closure against
+    the source, stamped into the report: (fit dir, Observation,
+    FitResult, closure, host seconds)."""
+    from isotope_tpu_torch.ingest import closure_check, report
+    from isotope_tpu_torch.sim import SimParams
+
+    fit_dir = tmp / label
+    paths = write_texts(texts, tmp / f"{label}-obs")
+    t0 = time.perf_counter()
+    rc, _, err = _port_out(["ingest", *map(str, paths), "--label", label,
+                            "-o", str(fit_dir)])
+    host_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"ingest: exit {rc}\n{err}")
+    import yaml
+
+    obs, fr = fit_paths(paths, label)
+    if (fit_dir / f"{label}.toml").read_text() != fr.toml_text or \
+            (fit_dir / f"{label}.yaml").read_text() != yaml.safe_dump(
+                fr.topology_doc, default_flow_style=False, sort_keys=False):
+        raise AssertionError("ingest: the CLI's fit is not the API's")
+    closure = closure_check(graph, SimParams().cpu_time_s,
+                            [CALIBRATION_QPS], fr)
+    doc_path = fit_dir / f"{label}.ingest.json"
+    doc = report.load_doc(str(doc_path))
+    doc["closure"] = closure
+    report.save_doc(doc, str(doc_path))
+    return fit_dir, obs, fr, closure, host_s
+
+
+def closure_verdict(graph, fr, closure):
+    """Log the closure's verdict and every check; the fit must keep every
+    service and edge and the source's degree sequence."""
+    by = {c["check"]: c for c in closure["checks"]}
+    log(f"closure: {'PASS' if closure['ok'] else 'FAIL'}; " + "; ".join(
+        f"{c['check']} {'ok' if c['ok'] else 'OUT'} ("
+        + ", ".join(f"{k} {v}" for k, v in c.items()
+                    if k not in ("check", "ok") and not isinstance(v, list))
+        + ")" for c in closure["checks"]))
+    if fr.dropped["services"] or fr.dropped["edges"]:
+        raise AssertionError(f"closure: the fit dropped {fr.dropped}")
+    deg = by["degree_sequence"]
+    if not deg["ok"] or deg["source"] != deg["fitted"] or \
+            len(fr.graph.services) != len(graph.services):
+        raise AssertionError("closure: the degree sequence differs")
+    # the JAX package's own closure passes on this source (checked on the
+    # CPU at 131,072 requests), so the port's must too
+    if not closure["ok"]:
+        raise AssertionError("closure: the fit fails its self-closure")
+
+
+def closure_twin(tmp):
+    """The closure at ``CALIBRATION_TWIN_N`` requests on the card and the
+    CPU on one CPU draw source: fitted documents within rtol 1e-5, the
+    YAML and TOML line by line up to float formatting."""
+    from isotope_tpu_torch.ingest import report
+    from isotope_tpu_torch.sim import TorchDraws
+
+    fits = {}
+    for device in ("cuda", "cpu"):
+        _, _, texts, _ = record_source(device, CALIBRATION_TWIN_N,
+                                       CALIBRATION_TWIN_N,
+                                       TorchDraws(0, "cpu"))
+        _, obs, fr = fit_texts(texts, tmp / f"twin-{device}")
+        fits[device] = (report.to_doc(fr, obs)["fit"], fr)
+    (got, gfr), (want, wfr) = fits["cuda"], fits["cpu"]
+    worst = docs_close(got, want, "twin fit", rtol=RESULT_RTOL,
+                       skip=(), counts=())
+    for a, b in ((gfr.graph.to_yaml(), wfr.graph.to_yaml()),
+                 (gfr.toml_text, wfr.toml_text)):
+        if a.count("\n") != b.count("\n") or _unfloat(a) != _unfloat(b):
+            raise AssertionError("twin: the fitted YAML or TOML differs")
+    log(f"closure twin ({CALIBRATION_TWIN_N} requests): fitted documents "
+        f"card == CPU (rtol {RESULT_RTOL}: largest difference "
+        f"{worst:.3f} of its tolerance), YAML and TOML line by line")
+
+
+def fitted_sweep(fit_dir, closure, checked, census_mod, label="fit"):
+    """``sweep`` of the fitted configuration on the card into the fit's
+    directory, then ``explain`` on it and on the report; returns the
+    sweep's census launches."""
+    toml = fit_dir / f"{label}.toml"
+    shapes = census_check_shapes(runner_census_runs(configs=(toml,)), [])
+    missing = set(shapes) - set(checked)
+    if missing:
+        raise AssertionError(f"phase 3 did not check {sorted(missing)}")
+    census_mod.census.launches = 0
+    t0 = time.perf_counter()
+    rc, _, err = _port_out(["sweep", str(toml), "-o", str(fit_dir)])
+    wall = time.perf_counter() - t0
+    launches = census_mod.census.launches
+    rows = [json.loads(ln) for ln in
+            (fit_dir / "results.jsonl").read_text().splitlines()]
+    bad = [r["Labels"] for r in rows
+           if r.get("failed") or r.get("degraded_to")]
+    if rc != 0 or not rows or bad or any(
+            r.get("_ingest") != label for r in rows):
+        raise AssertionError(f"fitted sweep: exit {rc}, {len(rows)} "
+                             f"cases, failed or degraded {bad}\n{err}")
+    log(f"fitted sweep: {len(rows)} case(s) ({rows[0]['Labels']}, "
+        f"{rows[0]['RequestedQPS']} qps), wall {wall:.3f} s on the card, "
+        f"census launches {launches}; p50 {rows[0]['p50']} us, p99 "
+        f"{rows[0]['p99']} us")
+    want = "self-closure: PASS" if closure["ok"] else "self-closure: FAIL"
+    for path in (fit_dir, fit_dir / f"{label}.ingest.json"):
+        rc, out, err = _port_out(["explain", str(path)])
+        if rc != 0 or f"ingest '{label}'" not in out or want not in out:
+            raise AssertionError(f"explain {path.name}: exit {rc}\n{out}")
+    log(f"explain: the fit's directory and report render the ingest "
+        f"section ({want})")
+    return launches
+
+
+def calibration_phase(census_mod, checked):
+    """Phase 9 (see the module docstring): ``fidelity``, the ingest
+    closure and the fitted sweep, each its own path, counts set to 0
+    just before and read just after; ``checked`` holds the census shapes
+    phase 3 checked."""
+    from isotope_tpu_torch.sim import TorchDraws
+
+    by_path = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        by_path["fidelity"] = fidelity_step(tmp, census_mod)
+        census_mod.census.launches = 0
+        graph, _, texts, wall = record_source(
+            "cuda", CALIBRATION_BLOCKS * CALIBRATION_BLOCK,
+            CALIBRATION_BLOCK, TorchDraws(0, "cuda"))
+        by_path["ingest-closure"] = census_mod.census.launches
+        fit_dir, _, fr, closure, host_s = ingest_step(tmp, graph, texts)
+        log(f"closure source {CALIBRATION_TOPOLOGY.name} (open "
+            f"{CALIBRATION_QPS:g} qps, {CALIBRATION_BLOCKS} x "
+            f"{CALIBRATION_BLOCK}, {CALIBRATION_WINDOW_S:g} s windows): "
+            f"recorded run {wall:.3f} s on the card, census launches "
+            f"{by_path['ingest-closure']}; ingest {host_s:.3f} s on the "
+            f"host ({len(fr.graph.services)} services, qps mean "
+            f"{fr.qps_mean:.1f})")
+        closure_verdict(graph, fr, closure)
+        closure_twin(tmp)
+        by_path["fitted-sweep"] = fitted_sweep(fit_dir, closure, checked,
+                                               census_mod)
+    log(f"calibration phase {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4215,11 +4612,13 @@ def main() -> int:
     prot = protected_runs(port)
     chaos_sim = chaosfleet_sim(port)
     planted = planted_sim(port)
-    timing = kernel_phase(census_mod, runs + [run[:5] for run in prot]
-                          + fleet_census_runs(runs, chaos_sim)
-                          + search_census_runs(runs, planted)
-                          + runner_census_runs(),
-                          census_only_configs(port))
+    census_runs = (runs + [run[:5] for run in prot]
+                   + fleet_census_runs(runs, chaos_sim)
+                   + search_census_runs(runs, planted)
+                   + runner_census_runs() + calibration_census_runs())
+    census_only = census_only_configs(port)
+    timing = kernel_phase(census_mod, census_runs, census_only)
+    checked = census_check_shapes(census_runs, census_only)
 
     def plain(graph):
         compiled = compile_graph(graph)
@@ -4320,14 +4719,17 @@ def main() -> int:
     by_path.update(search_phase(port, runs, chaos_sim, timing))
     # the experiment runner's suite: its own path
     by_path["runner-suite"] = runner_phase()
-    launches = sum(by_path.values())
-    log(f"census launches on every path: {launches}")
     cli_phase()
     cli_protected_phase()
     cli_attribution_phase()
     cli_fleet_phase()
     cli_search_phase()
     oracle_phase(port)
+    # the calibration path: fidelity, the ingest closure and the fitted
+    # sweep, each its own path
+    by_path.update(calibration_phase(census_mod, checked))
+    launches = sum(by_path.values())
+    log(f"census launches on every path: {launches}")
 
     kernels = [{
         "name": "census",

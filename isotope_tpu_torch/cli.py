@@ -1,7 +1,9 @@
 """``python -m isotope_tpu_torch simulate|check|sweep|timeline|search ...``.
 
-The port of ``isotope-tpu``'s commands (``suite``, ``report`` and
-``telemetry`` live in ``commands/``):
+The port of ``isotope-tpu``'s commands but ``vet`` (``suite``,
+``report``, ``telemetry``, ``fidelity``, ``ingest``, ``explain``,
+``kubernetes``, ``graphviz``, ``security-policies``, ``generate``,
+``pilot-load`` and ``plot`` live in ``commands/``):
 
 - ``simulate``: the topology is compiled, simulated in blocks on the
   device and summarized, and the Fortio-style result JSON is printed.
@@ -86,7 +88,8 @@ _MULTI = "item 11, multi-GPU"
 _REFUSED = [
     ("--mesh", dict(), _MULTI),
     ("--overlap", dict(action="store_true"), _MULTI),
-    ("--vet", dict(nargs="?", const="on"), "item 13, static analysis"),
+    ("--vet", dict(nargs="?", const="on", choices=("on", "strict")),
+     "item 13, static analysis"),
 ]
 
 
@@ -297,12 +300,28 @@ def build_parser() -> argparse.ArgumentParser:
     _add_sweep_parser(sub)
     _add_timeline_parser(sub)
     _add_search_parser(sub)
-    from isotope_tpu_torch.commands import report_cmd, suite_cmd
-    from isotope_tpu_torch.commands import telemetry_cmd
+    from isotope_tpu_torch.commands import (
+        convert_cmd,
+        explain_cmd,
+        fidelity_cmd,
+        generate_cmd,
+        ingest_cmd,
+        plot_cmd,
+        report_cmd,
+        suite_cmd,
+        telemetry_cmd,
+    )
 
     suite_cmd.register(sub)
     report_cmd.register(sub)
     telemetry_cmd.register(sub)
+    fidelity_cmd.register(sub)
+    ingest_cmd.register(sub)
+    explain_cmd.register(sub)
+    convert_cmd.register(sub)
+    generate_cmd.register(sub)
+    generate_cmd.register_pilot(sub)
+    plot_cmd.register(sub)
     return parser
 
 

@@ -46,6 +46,7 @@ def register(sub) -> None:
                               "telemetry.jsonl per config")
     add_resilience_args(s)
     s.add_argument("--vet", nargs="?", const="on", default=None,
+                   choices=("on", "strict"),
                    help="not ported (ROADMAP.md queue 1: item 13)")
     s.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")

@@ -55,9 +55,9 @@ values (the JAX package pins buckets against unrolled levels).
 Monte Carlo fleets (``sim/ensemble.py``, :meth:`Simulator.run_ensemble`
 and the protected fleets) run their members one after another through
 the solo block loop (``"map"``), or fold a chunk of M members into one
-block of M x N request rows (``"vmap"``, plain fleets).  Not in this
-slice (raises ``NotImplementedError`` naming its ROADMAP item): the
-fleets' carry export of the search brackets.
+block of M x N request rows (``"vmap"``, plain fleets).  A fleet can
+export its carry (``FleetCarry``, ``ProtectedCarry``) and resume from
+it, so the search brackets' rungs continue one unbroken block loop.
 """
 from __future__ import annotations
 

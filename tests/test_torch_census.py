@@ -196,6 +196,7 @@ def _chip_smoke_shapes():
     runs += chip_smoke.search_census_runs(
         runs, chip_smoke.planted_sim(port, device="cpu"))
     runs += chip_smoke.runner_census_runs(device="cpu")
+    runs += chip_smoke.calibration_census_runs(device="cpu")
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
     )
@@ -324,6 +325,43 @@ def test_chip_smoke_covers_the_runner_suite():
     for n in (2_048, 2_400, 24_000, 48_000, 96_000, 192_000, 240_000):
         shapes = sim.census_shapes(n)
         assert shapes and set(shapes) <= set(_SHAPES), n
+
+
+def test_chip_smoke_covers_the_calibration_path(tmp_path):
+    """Phase 9's census calls: ``fidelity``'s paced closed loop on
+    ``canonical.yaml`` as the vendored artifact gives it (16 connections,
+    262,143 requests in blocks of 65,536, and its 2,048-request rate
+    pilot), the closure's source ``1000-svc_2000-end.yaml`` recorded at 8
+    x 32,768 and its 16,384-request twin, and the fitted configuration's
+    sweep at its default block: the fitted topology's structure, hence
+    its census shapes, is the same whatever the recording's size, so a
+    fit of another recording (4,096 requests, another seed) makes the
+    calls phase 3 checks."""
+    import chip_smoke
+    from isotope_tpu_torch.runner.config import load_toml
+    from isotope_tpu_torch.sim import TorchDraws
+
+    sim, load, n, block = chip_smoke.fidelity_case("cpu")
+    assert (load.kind, load.connections, n, block) == (
+        "closed", 16, 262_143, 65_536)
+    _, src = chip_smoke.calibration_sim("cpu")
+    for sim_, rows in ((sim, block), (sim, 2_048), (src, 32_768),
+                       (src, 16_384)):
+        shapes = sim_.census_shapes(rows)
+        assert shapes and set(shapes) <= set(_SHAPES), rows
+    _, _, texts, _ = chip_smoke.record_source("cpu", 4_096, 4_096,
+                                              TorchDraws(7, "cpu"))
+    _, _, fr = chip_smoke.fit_texts(texts, tmp_path / "obs")
+    (tmp_path / "fit.yaml").write_text(fr.graph.to_yaml())
+    (tmp_path / "fit.toml").write_text(fr.toml_text)
+    config = load_toml(tmp_path / "fit.toml")
+    fitted = chip_smoke.runner_census_runs(
+        device="cpu", configs=(tmp_path / "fit.toml",))
+    (run,) = fitted
+    default = run[1].default_block_size()
+    shapes = run[1].census_shapes(default)
+    assert config.load_kind == "open" and shapes
+    assert set(shapes) <= set(_SHAPES)
 
 
 @pytest.mark.parametrize("shape", _SHAPES, ids=lambda s: "x".join(

@@ -414,6 +414,14 @@ def test_port_imports_no_jax():
                  "telemetry", "telemetry.core", "telemetry.profile",
                  "commands.common", "commands.suite_cmd",
                  "commands.report_cmd", "commands.telemetry_cmd",
-                 "runner.suite", "metrics.stability", "report"):
+                 "runner.suite", "metrics.stability", "report",
+                 "metrics.fidelity", "commands.fidelity_cmd",
+                 "compiler.buckets", "analysis.findings",
+                 "analysis.topo_lint", "ingest", "ingest.readers",
+                 "ingest.fitters", "ingest.report", "commands.ingest_cmd",
+                 "commands.explain_cmd", "convert.graphviz",
+                 "convert.kubernetes", "convert.security",
+                 "commands.convert_cmd", "commands.generate_cmd",
+                 "commands.plot_cmd", "plotting"):
         assert f"isotope_tpu_torch.{name}" in names, name
     assert len(names) >= 30
