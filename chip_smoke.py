@@ -29,7 +29,9 @@ any failure exits non-zero and nothing is caught:
    calibration path's (phase 9: ``fidelity``'s 65,536-row blocks and
    rate pilot, the closure's source and twin, the fitted topology's
    sweep at its default block, that topology fitted from a CPU
-   recording of 2,048 requests)
+   recording of 2,048 requests) and phase 10's (each pilot block, each
+   vetted run's block, the flagship's half-block rung, and
+   ``canonical.yaml``'s pilot and 2,000-request block)
    (rtol 1e-5: the
    plain version's ``cumsum`` may associate differently), and bit for
    bit against ``census_sequential``, the kernel's own order of
@@ -231,6 +233,43 @@ any failure exits non-zero and nothing is caught:
    launches and relative errors, the recorded run's wall and the host
    seconds of the one ``ingest`` call, each closure check, and the fitted
    sweep's wall and launches.
+
+10. ``vet`` on the card (``vet_phase``): ``vet_simulator`` of phase 5's
+   own Simulators of flagship, ``1000-svc_2000-end``, star-10k-timeouts,
+   svc100k-chaos, lb-10svc-100r-panic and policies-1000svc-kill at
+   their blocks, with the card's own capacity: the topology lint, one
+   pilot block of 8 requests recorded op by op (``analysis/oplog.py``)
+   and audited, the cost model; each beside a CPU twin of the same
+   compiled graph vetted at the card's capacity (findings, estimate,
+   flops, critical path and census calls equal), with its wall split
+   into lint, pilot and cost model; ``vet --grad`` of the flagship and
+   ``canonical-errors.yaml``, whose ``isotope-gradaudit/v1`` documents
+   must equal the CPU's; the pilots' census launches (path ``vet``,
+   each at a shape phase 3 holds).  Then ``run_experiment(vet="on")``
+   of each of the six (one of phase 5's blocks; four of the protected
+   run's) after ``torch.cuda.reset_peak_memory_stats()``, over the
+   Simulators phase 5 built, beside the same case un-vetted: the
+   gate's estimate, the measured ``max_memory_allocated``, the
+   ``vet_peak_bytes_measured_ratio`` gauge and the case's own peak
+   (less what was resident at the reset) against the estimate, a vet
+   miss where the estimate lies below that peak over
+   ``CAPACITY_FILL``; the summaries must be equal; the flagship with
+   ``ISOTOPE_VET_DEVICE_BYTES`` between one and two budgets must get
+   VET-M002 and be served on ``half-block``, recorded degraded, and
+   with 65,536 bytes VET-M001 must block it before a block runs (path
+   ``vet-gate``: the vetted runs' launches).  Last the policy and lb
+   fault sites: the smoke topology's protected run under
+   ``stuck:policies.stuck_breaker`` block by block against its CPU
+   twin under the card's control effects (as phase 4), and
+   lb-10svc-100r-panic under ``degrade:lb.degraded_backend:0`` card
+   against CPU (as phase 4) beside its clean run.  Then the user's vet
+   entry points in this process (``cli.main``; path ``vet-cli``):
+   ``vet canonical.yaml --grad --json`` with the card's capacity beside
+   its ``--device cpu`` twin at that capacity (the documents equal but
+   for their timings), ``simulate canonical.yaml --vet`` (open 1,000
+   qps for 2 s), its document equal to the un-vetted run's, and the
+   same under ``ISOTOPE_VET_DEVICE_BYTES=65536``, which must exit 1
+   with ``error: vet found`` (VET-M001) before a block runs.
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -942,10 +981,11 @@ def census_calls(sim, block):
     return sim.census_shapes(block, policy=sim._policies is not None)
 
 
-def census_check_shapes(runs, census_only):
+def census_check_shapes(runs, census_only, extra=()):
     """Every census shape phase 3 checks, in order, without repeats: the
     main path's (with the closed loop's rate pilot), the census-only
-    configurations' and the fixtures."""
+    configurations', ``extra`` (shapes checked but not timed: phase
+    10's) and the fixtures."""
     shapes = []
     for _, sim, load, _, block in runs:
         shapes += census_calls(sim, block)
@@ -955,18 +995,20 @@ def census_check_shapes(runs, census_only):
             )
     for _, sim, block in census_only:
         shapes += sim.census_shapes(block)
+    shapes += list(extra)
     shapes += [(n, b, p, f, e) for (n, b, p), f, e in FIXTURE_SHAPES]
     return list(dict.fromkeys(shapes))
 
 
-def kernel_phase(census_mod, runs, census_only):
-    """Check the kernel at every census shape of ``runs`` and
-    ``census_only`` and at the fixtures; time it per call and per block
-    of each.  Returns the largest error, the times per flagship block
-    (the first run) and the device ms per block of each."""
+def kernel_phase(census_mod, runs, census_only, extra=()):
+    """Check the kernel at every census shape of ``runs``,
+    ``census_only`` and ``extra`` and at the fixtures; time it per call
+    and per block of ``runs`` and ``census_only``.  Returns the largest
+    error, the times per flagship block (the first run) and the device
+    ms per block of each."""
     max_err = 0.0
     for n, b, p, with_fail, with_err in census_check_shapes(
-        runs, census_only
+        runs, census_only, extra
     ):
         args = census_inputs(n, b, p, with_fail, with_err)
         busy, excl = census_mod.census(*args)
@@ -1199,6 +1241,8 @@ def scenario_runs(port, build_s, device="cuda"):
         params = dataclasses.replace(pareto, attribution=attribution)
         return port.Simulator(svc100k, params, outage, device=device)
 
+    make_svc100k.graph = graph  # phase 10's topology lint
+
     big = make_svc100k(device)
     build_s.update(svc100k_graph=t_graph - t,
                    svc100k_compile=t_compile - t_graph,
@@ -1264,6 +1308,7 @@ def lb_runs(port, device="cuda"):
             return port.Simulator(compiled, chaos=chaos, lb=tables,
                                   device=device)
 
+        make.graph = graph  # phase 10's topology lint
         sim = make(device)
         block = block or min(sim.default_block_size(), n)
         out.append((name, sim, port.LoadModel(kind="open", qps=qps), n,
@@ -1324,6 +1369,7 @@ def protected_runs(port, device="cuda"):
             return port.Simulator(compiled, params, chaos, policies=pol,
                                   rollouts=ro, device=device)
 
+        make.graph = graph  # phase 10's topology lint
         sim = make(device)
         window, block = port.protected_window_block(
             sim, load, sim.default_block_size(), params.timeline_window_s,
@@ -4538,6 +4584,545 @@ def calibration_phase(census_mod, checked):
     return by_path
 
 
+# -- phase 10: vet on the card -------------------------------------------------
+
+#: phase 10's full-size topologies (phase 5's Simulators) and the
+#: gradient audit's
+VET_TOPOLOGIES = ("flagship", "1000-svc_2000-end", "star-10k-timeouts",
+                  "svc100k-chaos", "lb-10svc-100r-panic",
+                  "policies-1000svc-kill")
+VET_GRAD = ("flagship", "canonical-errors")
+#: the gate's protected run: a few of its 1 s-window blocks
+VET_PROTECTED_BLOCKS = 4
+#: the fault-site twins: the smoke's first blocks (the kill starts at
+#: 3 s), and one block of the panic topology
+VET_STUCK_BLOCKS = 12
+VET_DEGRADE_N = 16_384
+#: the command-line runs: canonical.yaml, open 1,000 qps for 2 s
+VET_CLI_TOPOLOGY = TOPOLOGIES / "canonical.yaml"
+VET_CLI_LOAD = ["--qps", "1000", "--duration", "2s", "--load-kind", "open"]
+VET_CLI_N = 2_000
+
+
+class VetCase(NamedTuple):
+    name: str
+    sim: object          # on the card, built in phase 5
+    load: object
+    block: int           # phase 5's block
+    make: Callable       # the same Simulator on another device
+    graph: object        # the ServiceGraph, for the topology lint
+    window: float = 0.0  # a protected run's window (0: unprotected)
+
+
+def vet_cases(port, flagship_graph, runs, scenarios, prot):
+    """Phase 10's six topologies, from phase 5's runs."""
+    def rebuild(sim):
+        return lambda device: port.Simulator(sim.compiled, sim.params,
+                                             device=device)
+
+    by_name = {r[0]: r for r in runs}
+    graphs = {
+        "flagship": flagship_graph,
+        "1000-svc_2000-end": port.ServiceGraph.from_yaml_file(
+            TOPOLOGIES / "1000-svc_2000-end.yaml"),
+        "star-10k-timeouts": star10k_graph(port),
+    }
+    out = []
+    for name in VET_TOPOLOGIES[:3]:
+        _, sim, load, _, block = by_name[name]
+        out.append(VetCase(name, sim, load, block, rebuild(sim),
+                           graphs[name]))
+    for name, sim, load, _, block, make in scenarios:
+        if name in VET_TOPOLOGIES:
+            out.append(VetCase(name, sim, load, block, make, make.graph))
+    for name, sim, load, _, block, window, _, make in prot:
+        if name in VET_TOPOLOGIES:
+            out.append(VetCase(name, sim, load, block, make, make.graph,
+                               window))
+    assert [c.name for c in out] == list(VET_TOPOLOGIES), out
+    return out
+
+
+def vet_grad_sims(port, cases, device="cuda"):
+    """``(name, simulator)`` of the gradient audit's topologies."""
+    flagship = cases[0]
+    errors = port.compile_graph(port.ServiceGraph.from_yaml_file(
+        TOPOLOGIES / "canonical-errors.yaml"))
+    return [
+        ("flagship", flagship.sim if device == "cuda"
+         else flagship.make(device)),
+        ("canonical-errors", port.Simulator(errors, device=device)),
+    ]
+
+
+def _gate_n(case):
+    """The gate run's requests: one of phase 5's blocks (a few blocks of
+    a protected run's)."""
+    if case.window:
+        return VET_PROTECTED_BLOCKS * case.block
+    return case.block
+
+
+def vet_census_shapes(cases, grad_sims):
+    """Every census shape phase 10 launches, for phase 3 to hold: each
+    pilot block's (8 requests, unprotected), each gate run's block at
+    the runner's default block capped by its requests, and the flagship
+    at its half-block rung."""
+    from isotope_tpu_torch.analysis.oplog import pilot_size
+    from isotope_tpu_torch.resilience.supervisor import rung_blocks
+    from isotope_tpu_torch.sim.engine import block_rows
+
+    shapes = []
+    for case in cases:
+        shapes += case.sim.census_shapes(pilot_size(case.load))
+        n = _gate_n(case)
+        if case.window:
+            shapes += census_calls(case.sim, case.block)
+            continue
+        for _, rung in rung_blocks(case.sim.default_block_size()):
+            shapes += case.sim.census_shapes(block_rows(case.load, n,
+                                                        rung))
+            if case.name != "flagship":
+                break  # only the flagship's half-block rung serves
+    for _, sim in grad_sims:
+        shapes += sim.census_shapes(8)
+    return list(dict.fromkeys(shapes))
+
+
+def vet_cli_shapes(port):
+    """``(pilot, run)``: the census shapes of the command-line runs'
+    pilot block (8 requests of ``canonical.yaml``) and of the simulate
+    run's one block (its 2,000 requests)."""
+    from isotope_tpu_torch.analysis.oplog import pilot_size
+    from isotope_tpu_torch.sim.engine import block_rows
+
+    sim = port.Simulator(port.compile_graph(
+        port.ServiceGraph.from_yaml_file(VET_CLI_TOPOLOGY)), device="cuda")
+    load = port.LoadModel(kind="open", qps=1000.0)
+    return (sim.census_shapes(pilot_size(load)),
+            sim.census_shapes(block_rows(load, VET_CLI_N,
+                                         sim.default_block_size())))
+
+
+def _findings(report):
+    return [(f.rule, f.severity, f.path, f.message) for f in report.findings]
+
+
+def _cost(report):
+    cost = report.meta["cost"]
+    return {k: cost.get(k) for k in ("peak_bytes_at_block", "flops_at_block",
+                                     "critical_path", "census_calls",
+                                     "trace_requests", "oplog")}
+
+
+def vet_audits(port, cases, grad_sims, device="cuda"):
+    """``vet`` of each case on the card (its Simulator from phase 5, the
+    card's own capacity), then on a CPU twin of the same compiled graph
+    at the card's capacity: findings and cost model equal; ``--grad`` on
+    the gradient audit's topologies, card against CPU.  Returns the
+    census launches of the card's pilots and the reports."""
+    from isotope_tpu_torch.analysis import audit_grad, vet_simulator
+    from isotope_tpu_torch.analysis.costmodel import device_capacity_bytes
+
+    launches0 = port.census.launches
+    expected = 0
+    reports = {}
+    for case in cases:
+        t = time.perf_counter()
+        rep = vet_simulator(case.sim, case.load, block_requests=case.block,
+                            graph=case.graph)
+        sync(device)
+        wall = time.perf_counter() - t
+        reports[case.name] = rep
+        cost = rep.meta["cost"]
+        expected += cost["census_calls"]
+        timings = rep.meta["timings_s"]
+        cap = device_capacity_bytes(device=case.sim.device)
+        rules = sorted({f.rule for f in rep.findings})
+        rung, names = rep.meta["start_rung"], rep.meta["rung_names"]
+        log(f"vet {case.name} on {device}: {wall:.3f} s (lint "
+            f"{timings['lint']:.3f}, pilot {timings['pilot']:.3f}, cost "
+            f"model {timings['cost']:.3f}); {len(rep.findings)} finding(s) "
+            f"{rules}, {len(rep.errors)} error(s); pilot "
+            f"{cost['trace_requests']} requests, {cost['census_calls']} "
+            f"census calls; estimate {cost['peak_bytes_at_block']:.6e}"
+            f" B at a block of {cost['block_requests']} (tables "
+            f"{cost['oplog']['external_bytes']:.6e} B, pilot high-water "
+            f"{cost['oplog']['peak_bytes']:.6e} B), capacity "
+            f"{cap if cap is None else f'{cap:.6e}'} B, start rung "
+            f"{names[rung] if rung < len(names) else 'none (blocked)'}")
+        if rep.errors:
+            raise AssertionError(f"vet {case.name}: {rep.errors}")
+        t = time.perf_counter()
+        twin = case.make("cpu")
+        t_build = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu_rep = vet_simulator(twin, case.load, block_requests=case.block,
+                                graph=case.graph, device_bytes=cap)
+        if _findings(cpu_rep) != _findings(rep):
+            raise AssertionError(
+                f"vet {case.name}: card findings {_findings(rep)} != CPU "
+                f"{_findings(cpu_rep)}")
+        if _cost(cpu_rep) != _cost(rep):
+            raise AssertionError(
+                f"vet {case.name}: card cost {_cost(rep)} != CPU "
+                f"{_cost(cpu_rep)}")
+        log(f"vet {case.name}: card == cpu (findings, estimate, flops, "
+            f"critical path, census calls); CPU twin built in {t_build:.3f}"
+            f" s, vetted in {time.perf_counter() - t:.3f} s")
+        del twin
+    for (name, sim), (_, cpu_sim) in zip(grad_sims,
+                                         vet_grad_sims(port, cases, "cpu")):
+        t = time.perf_counter()
+        _, doc = audit_grad(sim, port.LoadModel(kind="open", qps=1000.0))
+        sync(device)
+        wall = time.perf_counter() - t
+        expected += len(sim.census_shapes(doc["traced_requests"]))
+        _, cpu_doc = audit_grad(cpu_sim,
+                                port.LoadModel(kind="open", qps=1000.0))
+        if doc != cpu_doc:
+            raise AssertionError(f"vet --grad {name}: card != CPU")
+        dead = {k["name"]: k["kills"][:1] for k in doc["knobs"]
+                if k["class"] == "gradient-dead"}
+        log(f"vet --grad {name} on {device}: {wall:.3f} s, {doc['eqns_walked']}"
+            f" ops; classes {doc['classes']}; vacuous "
+            f"{doc['vacuous_objectives']}; dead knobs' first kills {dead};"
+            f" card == cpu (the whole isotope-gradaudit/v1 document)")
+    launches = port.census.launches - launches0
+    if device == "cuda" and launches != expected:
+        raise AssertionError(
+            f"vet: {launches} census launches, the pilots make {expected}")
+    log(f"vet: the pilots' census launches {launches}")
+    return launches, reports
+
+
+class _BuiltTopology:
+    """A runner topology (``runner/run._LazyTopology``) over a Simulator
+    phase 5 built: the gate runs ``run_experiment`` as a user calls it,
+    without rebuilding svc100k-chaos or star-10k."""
+
+    def __init__(self, case):
+        from isotope_tpu_torch.metrics.prometheus import MetricsCollector
+
+        self.path = case.name
+        self.graph = case.graph
+        self.compiled = case.sim.compiled
+        self.collector = MetricsCollector(self.compiled)
+        self.entry_response_size = float(
+            self.compiled.services.response_size[self.compiled.entry_service]
+        )
+        self.policy_tables = case.sim._policies
+        self.rollout_tables = case.sim._rollouts
+        self.lb_tables = case.sim._lb
+        self._sim = case.sim
+
+    def sims(self, env):
+        return self._sim
+
+
+@contextlib.contextmanager
+def built_topologies(cases):
+    from isotope_tpu_torch.runner import run as run_mod
+
+    built = {c.name: _BuiltTopology(c) for c in cases}
+    lazy = run_mod._LazyTopology
+    run_mod._LazyTopology = lambda path, config, device=None: built[path]
+    try:
+        yield
+    finally:
+        run_mod._LazyTopology = lazy
+
+
+def gate_config(port, case, **kw):
+    """One case of ``case`` as a sweep grid: its load, its requests."""
+    from isotope_tpu_torch.runner.config import (
+        DEFAULT_ENVIRONMENTS,
+        ExperimentConfig,
+    )
+
+    n = _gate_n(case)
+    protected = bool(case.window)
+    # long enough that the requests cap the run: its blocks are phase
+    # 5's (a protected run's window and block need the run's duration)
+    rate = min(case.load.qps, case.sim.capacity_qps())
+    duration = case.load.duration_s if protected else 10.0 * n / rate
+    return ExperimentConfig(
+        topology_paths=(case.name,),
+        environments=(DEFAULT_ENVIRONMENTS["NONE"],),
+        qps=(case.load.qps,), connections=(case.load.connections,),
+        duration_s=duration,
+        load_kind=case.load.kind, num_requests=n,
+        policies=protected, timeline=protected,
+        timeline_window_s=case.window or 1.0, **kw,
+    )
+
+
+def _gate_run(port, case, vet, device="cuda"):
+    """``run_experiment`` of one case after a peak reset: ``(result,
+    launches, wall, gauges, resident bytes at the reset)``."""
+    from isotope_tpu_torch import telemetry
+    from isotope_tpu_torch.runner.run import run_experiment
+
+    sync(device)
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    launches0 = port.census.launches
+    t = time.perf_counter()
+    (res,) = run_experiment(gate_config(port, case), vet=vet,
+                            device=device)
+    sync(device)
+    wall = time.perf_counter() - t
+    gauges = {k: telemetry.gauge_get(k) for k in (
+        "vet_peak_bytes_estimate", "device_memory_peak_bytes_max",
+        "vet_peak_bytes_measured_ratio")}
+    return res, port.census.launches - launches0, wall, gauges, base
+
+
+def _same_case(a, b, what):
+    for key in ("DurationHistogram", "ActualQPS", "ErrorsDurationHistogram",
+                "RetCodes"):
+        if a.fortio_json.get(key) != b.fortio_json.get(key):
+            raise AssertionError(f"{what}: {key} differs")
+    fa, fb = dict(a.flat, StartTime=None), dict(b.flat, StartTime=None)
+    if fa != fb:
+        diff = {k: (fa.get(k), fb.get(k)) for k in fa
+                if fa.get(k) != fb.get(k)}
+        raise AssertionError(f"{what}: flat rows differ {diff}")
+
+
+def vet_gate(port, cases, reports, device="cuda"):
+    """``run_experiment(vet="on")`` of each case after a peak reset,
+    beside the same case un-vetted: the estimate, the measured peak and
+    the ratio gauge, the summaries equal; then a case whose capacity
+    puts the estimate between one and two budgets (VET-M002: served on
+    ``half-block``, recorded degraded) and one that does not fit at
+    half a block (VET-M001: blocked, never run).  Returns the vetted
+    runs' census launches."""
+    import os
+
+    from isotope_tpu_torch import telemetry
+    from isotope_tpu_torch.analysis import VetError
+    from isotope_tpu_torch.analysis.costmodel import CAPACITY_FILL
+    from isotope_tpu_torch.analysis.oplog import pilot_size
+
+    launches = 0
+    misses = []
+    gate_est = {}
+    telemetry.enable()
+    try:
+        with built_topologies(cases):
+            for case in cases:
+                res, n_l, wall, g, base = _gate_run(port, case, "on", device)
+                if res.failed or res.degraded_to is not None:
+                    raise AssertionError(
+                        f"vet gate {case.name}: {res.error or res.degraded_to}")
+                launches += n_l
+                plain, *_ = _gate_run(port, case, None, device)
+                _same_case(res, plain, f"vet gate {case.name}")
+                est = gate_est[case.name] = g["vet_peak_bytes_estimate"]
+                peak = g["device_memory_peak_bytes_max"] or 0.0
+                ext = reports[case.name].meta["cost"]["oplog"][
+                    "external_bytes"]
+                own = peak - base + ext
+                miss = est < own / CAPACITY_FILL
+                if miss:
+                    misses.append(case.name)
+                log(f"vet gate {case.name}: {res.label} in {wall:.3f} s, "
+                    f"census launches {n_l} (pilot "
+                    f"{len(case.sim.census_shapes(pilot_size(case.load)))}); "
+                    f"estimate {est:.6e} B, measured peak {peak:.6e} B "
+                    f"(max_memory_allocated since the reset; {base:.6e} B "
+                    f"resident at the reset), ratio gauge "
+                    f"{g['vet_peak_bytes_measured_ratio']}, the case's own "
+                    f"peak (peak - resident + the pilot's tables) {own:.6e}"
+                    f" B = {own / est:.4f} of the estimate"
+                    f"{' VET MISS: estimate below own peak / CAPACITY_FILL' if miss else ''}"
+                    f"; summary == the un-vetted run's")
+            flagship = cases[0]
+            est = gate_est["flagship"]
+            os.environ["ISOTOPE_VET_DEVICE_BYTES"] = str(
+                est * 0.7 / CAPACITY_FILL)
+            try:
+                res, n_l, wall, _, _ = _gate_run(port, flagship, "on",
+                                                 device)
+            finally:
+                del os.environ["ISOTOPE_VET_DEVICE_BYTES"]
+            if res.failed or res.degraded_to != "half-block":
+                raise AssertionError(
+                    f"vet gate M002: {res.error} {res.degraded_to}")
+            launches += n_l
+            log(f"vet gate VET-M002 flagship (capacity {est * 0.7 / CAPACITY_FILL:.6e}"
+                f" B): started and served on half-block, recorded degraded "
+                f"({res.degraded_to}), {n_l} census launches, {wall:.3f} s")
+            os.environ["ISOTOPE_VET_DEVICE_BYTES"] = "65536"
+            try:
+                res, n_l, wall, _, _ = _gate_run(port, flagship, "on",
+                                                 device)
+            finally:
+                del os.environ["ISOTOPE_VET_DEVICE_BYTES"]
+            pilot = len(flagship.sim.census_shapes(
+                pilot_size(flagship.load)))
+            if not (res.failed and isinstance(res.cause, VetError)
+                    and "VET-M001" in res.error) or n_l != pilot:
+                raise AssertionError(f"vet gate M001: {res.error} {n_l}")
+            launches += n_l
+            log(f"vet gate VET-M001 flagship (capacity 65536 B): blocked, "
+                f"not run ({n_l} census launches: the pilot's); {res.error}")
+    finally:
+        telemetry.disable()
+    log(f"vet gate: vet misses {misses or 'none'}")
+    return launches
+
+
+def vet_fault_sites(port, prot, scenarios):
+    """The policy and lb layers' behavioral fault sites on the card
+    against their CPU twins: a protected run of the smoke topology with
+    ``stuck:policies.stuck_breaker`` (block by block under the card's
+    control effects, as phase 4) and the panic topology with
+    ``degrade:lb.degraded_backend:0`` (as phase 4), beside its clean
+    run."""
+    from isotope_tpu_torch.resilience import faults
+
+    smoke = [r for r in prot if r[0] == "policies-smoke"][0]
+    _, sim, load, _, block, window, roll, make = smoke
+    try:
+        faults.install("stuck:policies.stuck_breaker")
+        protected_in_situ(port, [("smoke-stuck-breaker", sim, load,
+                                  VET_STUCK_BLOCKS * block, block, window,
+                                  roll, make)])
+    finally:
+        faults.clear()
+    panic = [r for r in scenarios if r[0] == "lb-10svc-100r-panic"][0]
+    name, _, load, _, _, make = panic
+    source = port.TorchDraws(11, "cuda")
+    clean = make("cuda").run(load, VET_DEGRADE_N, source)
+    try:
+        faults.install("degrade:lb.degraded_backend:0")
+        in_situ_phase(port, [(f"{name} degraded backend 0", make, load,
+                              VET_DEGRADE_N, None, RESULT_RTOL,
+                              RESULT_ATOL)])
+        degraded = make("cuda").run(load, VET_DEGRADE_N, source)
+    finally:
+        faults.clear()
+    torch.cuda.synchronize()
+    log(f"fault site degrade:lb.degraded_backend:0 on {name}: mean client "
+        f"latency {float(degraded.client_latency.mean()) * 1e3:.4f} ms "
+        f"against {float(clean.client_latency.mean()) * 1e3:.4f} ms clean")
+
+
+def _vet_doc(out):
+    """A ``vet --json`` document without its timings."""
+    doc = json.loads(out)
+    for meta in doc["meta"].values():
+        meta.pop("timings_s", None)
+    return doc
+
+
+def _fortio(out):
+    doc = json.loads(out)
+    doc.pop("StartTime", None)
+    return doc
+
+
+def vet_cli(port, checked):
+    """The user's vet entry points on the card through ``cli.main`` in
+    this process: ``vet --grad --json`` (the card's capacity) beside its
+    ``--device cpu`` twin at that capacity; ``simulate --vet`` beside
+    the un-vetted run; ``simulate --vet`` blocked by a 64 KiB budget.
+    Returns the card's vetted runs' census launches (counts set to 0
+    after the un-vetted run, read at the end)."""
+    import os
+
+    from isotope_tpu_torch.analysis.costmodel import device_capacity_bytes
+
+    pilot, run = vet_cli_shapes(port)
+    missing = set(pilot + run) - set(checked)
+    if missing:
+        raise AssertionError(f"phase 3 did not check {sorted(missing)}")
+    topo = str(VET_CLI_TOPOLOGY)
+    simulate = ["simulate", topo, *VET_CLI_LOAD]
+    rc, plain, err = _port_out(simulate)
+    if rc != 0:
+        raise AssertionError(f"simulate on the card: exit {rc}\n{err}")
+    port.census.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rc, card, err = _port_out(["vet", topo, "--grad", "--json"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    cap = device_capacity_bytes(device="cuda")
+    t = time.perf_counter()
+    rc_cpu, cpu, err_cpu = _port_out(["vet", topo, "--grad", "--json",
+                                      "--device", "cpu", "--device-bytes",
+                                      str(cap)])
+    wall_cpu = time.perf_counter() - t
+    if rc != 0 or rc_cpu != rc:
+        raise AssertionError(f"vet: exit {rc} on the card, {rc_cpu} on the "
+                             f"CPU\n{err}\n{err_cpu}")
+    card, cpu = _vet_doc(card), _vet_doc(cpu)
+    meta = card["meta"][topo]
+    if meta["cost"]["capacity_bytes"] != cap:
+        raise AssertionError(f"vet: capacity {meta['cost']['capacity_bytes']}"
+                             f" != the card's {cap}")
+    if card != cpu:
+        raise AssertionError("vet --grad --json: card != CPU")
+    log(f"cli vet canonical.yaml --grad --json: exit {rc}, {wall:.3f} s on "
+        f"the card, {wall_cpu:.3f} s on the CPU; {card['summary']}; "
+        f"capacity {cap:.6e} B; grad classes {meta['grad']['classes']}; "
+        f"card == cpu (the document but its timings)")
+    rc, vetted, err = _port_out(simulate + ["--vet"])
+    if rc != 0 or _fortio(vetted) != _fortio(plain):
+        raise AssertionError(f"simulate --vet: exit {rc}, document "
+                             f"differs from the un-vetted run's\n{err}")
+    log("cli simulate --vet canonical.yaml: exit 0, document == the "
+        "un-vetted run's (but StartTime)")
+    os.environ["ISOTOPE_VET_DEVICE_BYTES"] = "65536"
+    try:
+        rc, out, err = _port_out(simulate + ["--vet"])
+    finally:
+        del os.environ["ISOTOPE_VET_DEVICE_BYTES"]
+    if rc != 1 or out.strip() or "error: vet found 1 blocking finding(s): " \
+            "VET-M001" not in err:
+        raise AssertionError(f"simulate --vet, 64 KiB: exit {rc}\n{err}")
+    log("cli simulate --vet canonical.yaml, ISOTOPE_VET_DEVICE_BYTES=65536:"
+        " exit 1, " + err.strip().splitlines()[-1])
+    torch.cuda.synchronize()
+    launches = port.census.launches
+    # vet and its grad audit: a pilot each; simulate --vet: the pilot
+    # and the run's block; the blocked run: its pilot only
+    expected = 4 * len(pilot) + len(run)
+    if launches != expected:
+        raise AssertionError(f"vet cli: {launches} census launches, "
+                             f"expected {expected}")
+    log(f"vet cli: census launches {launches}")
+    return launches
+
+
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def vet_phase(port, cases, grad_sims, prot, scenarios, checked):
+    """Phase 10: ``vet`` on the card.  Returns the census launches by
+    path: ``vet`` (the pilots), ``vet-gate`` (the vetted runs) and
+    ``vet-cli`` (the command-line runs); ``checked`` holds the census
+    shapes phase 3 checked."""
+    t = time.perf_counter()
+    port.census.launches = 0
+    launches, reports = vet_audits(port, cases, grad_sims)
+    out = {"vet": launches}
+    if launches <= 0:
+        raise AssertionError("vet: the pilots launched no census")
+    port.census.launches = 0
+    out["vet-gate"] = vet_gate(port, cases, reports)
+    vet_fault_sites(port, prot, scenarios)
+    out["vet-cli"] = vet_cli(port, checked)
+    log(f"vet phase {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4617,8 +5202,12 @@ def main() -> int:
                    + search_census_runs(runs, planted)
                    + runner_census_runs() + calibration_census_runs())
     census_only = census_only_configs(port)
-    timing = kernel_phase(census_mod, census_runs, census_only)
-    checked = census_check_shapes(census_runs, census_only)
+    vet = vet_cases(port, flagship_graph, runs, scenarios, prot)
+    grad_sims = vet_grad_sims(port, vet)
+    vet_shapes = vet_census_shapes(vet, grad_sims) + sum(
+        vet_cli_shapes(port), [])
+    timing = kernel_phase(census_mod, census_runs, census_only, vet_shapes)
+    checked = census_check_shapes(census_runs, census_only, vet_shapes)
 
     def plain(graph):
         compiled = compile_graph(graph)
@@ -4728,6 +5317,9 @@ def main() -> int:
     # the calibration path: fidelity, the ingest closure and the fitted
     # sweep, each its own path
     by_path.update(calibration_phase(census_mod, checked))
+    # vet on the card: the pilots' path and the vetted runs' path
+    by_path.update(vet_phase(port, vet, grad_sims, prot, scenarios,
+                             checked))
     launches = sum(by_path.values())
     log(f"census launches on every path: {launches}")
 

@@ -1,33 +1,103 @@
-"""The cost model's plan-only memory estimate and the fleet auto chunk.
+"""Pre-flight cost model: flops, peak bytes, critical path.
 
-The part of ``isotope_tpu.analysis.costmodel`` that a Monte Carlo fleet
-needs to size its member chunk (``Simulator.ensemble_chunk_size``):
-the plan-only peak bytes of one member's block (``estimate_run``
-without a traced program: ten float32 (block, H) event tensors plus the
-flight recorder's carries), the protected and observed fleets' carry
-bytes per member, the device's memory, and the balanced split
-:func:`ensemble_chunk`.  Copied on the host, numbers for numbers; the
-traced-program parts are ROADMAP item 13.  A chunk never changes a
-result: chunked and unchunked fleets are equal.
+The port of ``isotope_tpu.analysis.costmodel``.  Two estimators compose:
+
+- **Op-log walker** (:func:`oplog_cost`): op-level flop counts by the
+  reference's rules, the live bytes' high-water the pilot block's
+  dispatch mode measured (``analysis/oplog.py``), and the longest
+  op-dependency chain.  Runs on the pilot the op auditor already
+  recorded.
+- **Plan table** (:func:`segment_table`): one row per level the port
+  sweeps (``tiled``, ``sparse``, ``leaf`` or ``unrolled``: the port has
+  no scan buckets), its element counts scaled by the request block.
+
+The headline product is the **memory verdict**: the estimated peak
+device bytes of a run at its block size against the device's capacity
+selects the ladder rung the run starts on (``runner/run.py``).  The
+port's ladder has two rungs, ``scan`` and ``half-block``, both on the
+Simulator's device (no ``cpu-eager``): when even half a block does not
+fit, VET-M001 blocks.
+
+The pilot's high-water splits in two: the storages it read but did not
+allocate (the Simulator's tables, ``external_bytes``) are counted once,
+and the ones it allocated scale with the block (``block / n``), where
+the reference scales its whole trace.
+
+A fleet sizes its member chunk from the plan-only peak
+(:func:`peak_bytes_at_block`, ``Simulator.ensemble_chunk_size``); a
+chunk never changes a result.  The reference's collective cost rows
+(``comm_table``, its ICI/DCN constants) are TPU numbers and are not
+copied: they come with multi-GPU (ROADMAP item 11).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
+
+from isotope_tpu_torch.analysis.findings import (
+    SEV_ERROR,
+    SEV_INFO,
+    SEV_WARN,
+    Finding,
+)
 
 #: env override of the per-device memory (bytes), as in the reference
 ENV_DEVICE_BYTES = "ISOTOPE_VET_DEVICE_BYTES"
 
-#: share of the device's memory a fleet chunk may fill
+#: share of device capacity the timeline recorder's O(S x W) carries
+#: may take before VET-M003 reports them (informational: the window
+#: planner clamps instead of running out of memory)
+ENV_TIMELINE_SHARE = "ISOTOPE_VET_TIMELINE_SHARE"
+DEFAULT_TIMELINE_SHARE = 0.10
+
+#: share of the device's memory an estimate may fill: the caching
+#: allocator never packs perfectly
 CAPACITY_FILL = 0.85
+
+#: the port's ladder (``resilience/supervisor.rung_blocks``)
+RUNG_NAMES = ("scan", "half-block")
+
+#: ops costed at zero flops: data movement, not arithmetic
+_FREE_OPS = frozenset({
+    "aten.view", "aten._unsafe_view", "aten.reshape", "aten.squeeze",
+    "aten.unsqueeze", "aten.permute", "aten.t", "aten.transpose",
+    "aten.expand", "aten.slice", "aten.select", "aten.as_strided",
+    "aten.alias", "aten.detach", "aten.clone", "aten.copy_",
+    "aten._to_copy", "aten.cat", "aten.stack", "aten.index",
+    "aten.index_select", "aten.gather", "aten.take",
+    "aten.constant_pad_nd", "aten.zeros", "aten.ones", "aten.empty",
+    "aten.full", "aten.arange", "aten.fill_", "aten.zero_",
+    "aten.lift_fresh", "aten.zeros_like", "aten.ones_like",
+    "aten.empty_like", "aten.full_like", "aten.new_zeros",
+    "aten.new_ones", "aten.new_empty", "aten.new_full",
+    "aten.empty_strided", "aten.repeat", "aten.repeat_interleave",
+    "aten.flip", "aten.roll", "aten.split", "aten.split_with_sizes",
+    "aten.unbind", "aten.diagonal", "aten._reshape_alias",
+})
+
+#: reductions, scatters, scans and sorts: input plus output elements
+_REDUCE_PREFIXES = (
+    "aten.scatter", "aten.index_add", "aten.index_put", "aten.sum",
+    "aten.amax", "aten.amin", "aten.max", "aten.min", "aten.mean",
+    "aten.prod", "aten.cum", "aten.sort", "aten.argsort", "aten.topk",
+    "aten.any", "aten.all", "aten.logsumexp", "aten.bincount",
+    "aten.argmax", "aten.argmin", "aten._index_put_impl_", "census",
+)
+
+#: matrix products: 2 * output elements * the contracted extent
+_DOT_OPS = frozenset({"aten.mm", "aten.bmm", "aten.matmul",
+                      "aten.addmm", "aten.baddbmm"})
 
 
 def device_capacity_bytes(override: Optional[float] = None,
                           device=None) -> Optional[float]:
     """Per-device memory in bytes, or None when unknown: the explicit
-    override, then ``ISOTOPE_VET_DEVICE_BYTES``, then the CUDA device's
-    total memory.  The CPU reports nothing, so a fleet on the CPU runs
-    as one chunk, as in the reference."""
+    override (``--device-bytes``), then ``ISOTOPE_VET_DEVICE_BYTES``,
+    then the CUDA device's total memory.  The CPU reports nothing (host
+    RAM is the allocator's problem, not the gate's), so a fleet on the
+    CPU runs as one chunk and the memory verdict stays silent, as in
+    the reference."""
     if override is not None:
         return float(override)
     env = os.environ.get(ENV_DEVICE_BYTES, "").strip()
@@ -69,11 +139,127 @@ def timeline_bytes(sim, num_windows: Optional[int] = None) -> float:
 
 
 def peak_bytes_at_block(sim, block_requests: int) -> float:
-    """The plan-only peak of ``estimate_run``: the live working set is
-    a few event tensors wide (ten float32 (block, H) tensors), plus the
-    recorder's carries."""
+    """The plan-only peak of :func:`estimate_run`: the live working set
+    is a few event tensors wide (ten float32 (block, H) tensors), plus
+    the recorder's carries."""
     h = max(sim.compiled.num_hops, 1)
     return 10.0 * 4.0 * block_requests * h + timeline_bytes(sim)
+
+
+@dataclasses.dataclass(frozen=True)
+class OpLogCost:
+    """Static costs of one recorded pilot block."""
+
+    flops: float
+    peak_bytes: float          # high-water of the storages it allocated
+    external_bytes: float      # storages it read but did not allocate
+    critical_path: int         # longest op-dependency chain
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _numel(shape) -> float:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return float(n)
+
+
+def _op_flops(op) -> float:
+    out = sum(_numel(s) for s in op.out_shapes)
+    name = op.packet
+    if name in _DOT_OPS:
+        contract = op.in_shapes[0][-1] if op.in_shapes and \
+            op.in_shapes[0] else 1
+        return 2.0 * out * float(contract)
+    if name in _FREE_OPS:
+        return 0.0
+    if name.startswith(_REDUCE_PREFIXES):
+        return out + sum(_numel(s) for s in op.in_shapes)
+    return out
+
+
+def oplog_cost(log) -> OpLogCost:
+    """Static cost of one op log (``analysis/oplog.py``): flops by the
+    reference's rules (``jaxpr_cost``), the measured high-water, and
+    the longest chain of ops each reading a value the previous wrote
+    (an ``alias`` join adds no step)."""
+    from isotope_tpu_torch.analysis.oplog import ALIAS
+
+    flops = 0.0
+    depth_of = {}
+    max_depth = 0
+    for op in log.ops:
+        d_in = max((depth_of.get(v, 0) for v in op.ins), default=0)
+        if op.name == ALIAS:
+            d_out = d_in
+        else:
+            flops += _op_flops(op)
+            d_out = d_in + 1
+        for v in op.outs:
+            depth_of[v] = d_out
+        max_depth = max(max_depth, d_out)
+    return OpLogCost(
+        flops=flops,
+        peak_bytes=float(log.peak_bytes),
+        external_bytes=float(log.external_bytes),
+        critical_path=int(max_depth),
+    )
+
+
+def segment_table(sim, block_requests: int) -> List[dict]:
+    """Per-level static costs at ``block_requests`` requests: one row
+    per level the port sweeps (it has no scan buckets), with the step
+    footprint of the level's encoding (the tiles' grids plus residual
+    slots, the sparse slots, the leaf busy vector, or the dense grid)
+    plus three per-hop columns and two per call attempt, multiplied by
+    the request axis."""
+    rows: List[dict] = []
+    n = int(block_requests)
+    for i, lvl in enumerate(sim._levels):
+        if lvl.tiled is not None:
+            kind = "tiled"
+            step_elems = sum(
+                len(t.hops) * t.width for t in lvl.tiled.tiles
+            ) + (
+                lvl.tiled.residual.n_slots
+                if lvl.tiled.residual is not None else 0
+            )
+        elif lvl.sparse is not None:
+            kind = "sparse"
+            step_elems = lvl.sparse.n_slots
+        elif lvl.leaf_busy is not None:
+            kind = "leaf"
+            step_elems = lvl.size
+        else:
+            kind = "unrolled"
+            step_elems = lvl.size * lvl.pmax
+        elems = n * (
+            step_elems + 3 * lvl.size
+            + 2 * lvl.num_calls * len(lvl.att_child)
+        )
+        rows.append({
+            "segment": i,
+            "kind": kind,
+            "levels": 1,
+            "elems": elems,
+            "bytes_f32": 4.0 * elems,
+        })
+    return rows
+
+
+def schedule_rows(sim) -> List[dict]:
+    """The ``bucket_schedule`` block of ``vet --json``: the REFERENCE
+    executor's scan-bucket schedule, ranked by each segment's
+    critical-path cost (``compiler/buckets.schedule_table`` over
+    ``topo_lint.reference_plan``).  The port does not execute it: it
+    sweeps every level one by one (``topo_lint.T008_NOTE``)."""
+    from isotope_tpu_torch.analysis.topo_lint import reference_plan
+    from isotope_tpu_torch.compiler import buckets
+
+    shapes, plan = reference_plan(sim.compiled, sim.params)
+    return buckets.schedule_table(shapes, plan)
 
 
 def protected_carry_bytes(sim, num_windows: int,
@@ -149,3 +335,258 @@ def ensemble_chunk(
     per_dispatch = max(per_dispatch, 1)
     num_chunks = -(-members // per_dispatch)
     return -(-members // num_chunks)
+
+
+@dataclasses.dataclass(frozen=True)
+class CostEstimate:
+    """The pre-flight verdict for one planned run."""
+
+    block_requests: int
+    trace_requests: int
+    oplog: Optional[OpLogCost]      # costs of the pilot (small-n) block
+    peak_bytes_at_block: float      # extrapolated to the real block
+    flops_at_block: float
+    critical_path: int
+    segments: List[dict]
+    capacity_bytes: Optional[float]
+    # flight-recorder carry bytes (0 when SimParams.timeline is off);
+    # already included in peak_bytes_at_block
+    timeline_bytes: float = 0.0
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        if self.oplog is not None:
+            d["oplog"] = self.oplog.to_dict()
+        return d
+
+
+def estimate_run(
+    sim,
+    block_requests: int,
+    log=None,
+    trace_requests: int = 8,
+    capacity_override: Optional[float] = None,
+) -> CostEstimate:
+    """Estimate one run's per-block cost at ``block_requests``.
+
+    When the op auditor recorded a pilot, its ``log`` (at
+    ``trace_requests`` requests) seeds the estimate: the storages the
+    pilot allocated and its flops scale by ``block / trace_requests``,
+    the tables it read count once.  Without a pilot the plan table
+    alone gives the (coarser) estimate of the reference, to the byte."""
+    segments = segment_table(sim, block_requests)
+    plan_bytes = sum(r["bytes_f32"] for r in segments)
+    oc = None
+    if log is not None:
+        oc = oplog_cost(log)
+        scale = block_requests / max(trace_requests, 1)
+        peak = oc.external_bytes + oc.peak_bytes * scale
+        flops = oc.flops * scale
+        depth = oc.critical_path
+    else:
+        # plan-only fallback: the live working set is a few event
+        # tensors wide, not the sum over all levels
+        h = max(sim.compiled.num_hops, 1)
+        peak = 10.0 * 4.0 * block_requests * h
+        flops = plan_bytes / 4.0  # ~1 flop per touched element
+        depth = len(segments)
+    # the flight recorder's O(S x W) carries ride next to the event
+    # tensors (the plain pilot does not hold them)
+    tl_bytes = timeline_bytes(sim)
+    return CostEstimate(
+        block_requests=int(block_requests),
+        trace_requests=int(trace_requests),
+        oplog=oc,
+        peak_bytes_at_block=float(peak) + tl_bytes,
+        flops_at_block=float(flops),
+        critical_path=int(depth),
+        segments=segments,
+        capacity_bytes=device_capacity_bytes(
+            capacity_override, device=sim.device
+        ),
+        timeline_bytes=tl_bytes,
+    )
+
+
+def timeline_findings(estimate: CostEstimate) -> List[Finding]:
+    """The VET-M003 info verdict: the recorder's windowed carries take
+    more than the configured share of device capacity.  Informational:
+    the window planner clamps the window count (widening windows)
+    instead of running out of memory."""
+    tl = estimate.timeline_bytes
+    cap = estimate.capacity_bytes
+    if tl <= 0 or cap is None or cap <= 0:
+        return []
+    share_env = os.environ.get(ENV_TIMELINE_SHARE, "").strip()
+    share = float(share_env) if share_env else DEFAULT_TIMELINE_SHARE
+    if tl <= share * cap:
+        return []
+    return [Finding(
+        "VET-M003", SEV_INFO,
+        f"timeline recorder carries {tl:.3g} B exceed "
+        f"{share:.0%} of the {cap:.3g} B device capacity; the window "
+        "planner will clamp the window count (widening windows) — "
+        "lower SimParams.timeline_max_windows or widen "
+        "timeline_window_s to silence",
+    )]
+
+
+def ensemble_findings(
+    estimate: CostEstimate,
+    members: int,
+) -> List[Finding]:
+    """The VET-M004 verdict: a fleet whose ``members x peak-bytes``
+    exceeds the device budget — WARN, never blocking: the engine splits
+    the fleet into member chunks instead of running out of memory."""
+    cap = estimate.capacity_bytes
+    members = int(members)
+    if members <= 1 or cap is None or cap <= 0:
+        return []
+    peak = estimate.peak_bytes_at_block
+    budget = CAPACITY_FILL * cap
+    if members * peak <= budget:
+        return []
+    chunk = ensemble_chunk(members, peak, cap)
+    return [Finding(
+        "VET-M004", SEV_WARN,
+        f"ensemble of {members} members needs {members * peak:.3g} B "
+        f"(> the {budget:.3g} B budget, {CAPACITY_FILL:.0%} of "
+        f"{cap:.3g} B capacity); the fleet will run in member chunks "
+        f"of {chunk} — shrink the block or the fleet to run it in "
+        "one dispatch",
+    )]
+
+
+def protected_ensemble_findings(
+    estimate: CostEstimate,
+    members: int,
+    carry_bytes: float,
+) -> List[Finding]:
+    """The VET-T025 verdict: a protected fleet whose members' event
+    tensors plus control carries (:func:`protected_carry_bytes`) exceed
+    the device budget.  WARN, never blocking."""
+    cap = estimate.capacity_bytes
+    members = int(members)
+    if members <= 1 or cap is None or cap <= 0:
+        return []
+    peak = estimate.peak_bytes_at_block
+    budget = CAPACITY_FILL * cap
+    need = members * (peak + max(carry_bytes, 0.0))
+    if need <= budget:
+        return []
+    chunk = ensemble_chunk(
+        members, peak, cap, carry_bytes_per_member=carry_bytes
+    )
+    return [Finding(
+        "VET-T025", SEV_WARN,
+        f"protected fleet of {members} members needs {need:.3g} B "
+        f"including {carry_bytes:.3g} B/member of stacked control "
+        f"carry (> the {budget:.3g} B budget); the fleet will run in "
+        f"member chunks of {chunk} — shrink the block, the window "
+        "count, or the fleet to run it in one dispatch",
+    )]
+
+
+def observed_ensemble_findings(
+    estimate: CostEstimate,
+    members: int,
+    obs_carry_bytes: float,
+    base_carry_bytes: float = 0.0,
+) -> List[Finding]:
+    """The VET-M006 verdict: an observed fleet (attribution and/or
+    timeline per member) whose members' event tensors plus
+    observability carries (:func:`observability_carry_bytes`) exceed
+    the device budget.  WARN, never blocking."""
+    cap = estimate.capacity_bytes
+    members = int(members)
+    obs = max(float(obs_carry_bytes), 0.0)
+    if members <= 1 or cap is None or cap <= 0 or obs <= 0:
+        return []
+    peak = estimate.peak_bytes_at_block
+    carry = obs + max(float(base_carry_bytes), 0.0)
+    budget = CAPACITY_FILL * cap
+    need = members * (peak + carry)
+    if need <= budget:
+        return []
+    chunk = ensemble_chunk(
+        members, peak, cap, carry_bytes_per_member=carry
+    )
+    return [Finding(
+        "VET-M006", SEV_WARN,
+        f"observed fleet of {members} members needs {need:.3g} B "
+        f"including {obs:.3g} B/member of stacked blame/timeline "
+        f"carry (> the {budget:.3g} B budget); the fleet will run in "
+        f"member chunks of {chunk} — shrink the block, the window "
+        "count, or the fleet, or drop attribution/timeline, to run "
+        "it in one dispatch",
+    )]
+
+
+def search_findings(
+    estimate: CostEstimate,
+    widest_members: int,
+    connections: int = 0,
+) -> List[Finding]:
+    """The VET-M005 verdict: a search bracket whose widest rung's
+    ``members x (peak + carry)-bytes`` exceeds the device budget.  WARN,
+    never blocking: narrower rungs inherit smaller footprints."""
+    cap = estimate.capacity_bytes
+    members = int(widest_members)
+    if members <= 1 or cap is None or cap <= 0:
+        return []
+    peak = estimate.peak_bytes_at_block
+    carry = search_carry_bytes(connections)
+    budget = CAPACITY_FILL * cap
+    need = members * (peak + carry)
+    if need <= budget:
+        return []
+    chunk = ensemble_chunk(
+        members, peak, cap, carry_bytes_per_member=carry
+    )
+    return [Finding(
+        "VET-M005", SEV_WARN,
+        f"search bracket's widest rung of {members} candidates needs "
+        f"{need:.3g} B (> the {budget:.3g} B budget, "
+        f"{CAPACITY_FILL:.0%} of {cap:.3g} B capacity); the rung will "
+        f"run in member chunks of {chunk} — shrink the block or the "
+        "population to run each rung in one dispatch",
+    )]
+
+
+def memory_findings(
+    estimate: CostEstimate,
+    rung_names: Sequence[str] = RUNG_NAMES,
+) -> Tuple[List[Finding], int]:
+    """The VET-M verdict: findings plus the recommended start rung.
+
+    The half-block rung halves the live event-tensor footprint.  Every
+    rung of the port's ladder runs on the Simulator's device, so when
+    even half a block does not fit no rung can serve the case: VET-M001
+    (an error the gate blocks on, ladder or not) with the start rung
+    ``len(rung_names)``, past the ladder.  Unknown capacity (the CPU,
+    no override) recommends rung 0 and reports nothing."""
+    cap = estimate.capacity_bytes
+    if cap is None or cap <= 0:
+        return [], 0
+    budget = CAPACITY_FILL * cap
+    peak = estimate.peak_bytes_at_block
+    if peak <= budget:
+        return [], 0
+    half = peak / 2.0
+    last = len(rung_names) - 1
+    if half <= budget and last >= 1:
+        return [Finding(
+            "VET-M002", SEV_WARN,
+            f"estimated peak {peak:.3g} B exceeds the "
+            f"{budget:.3g} B budget ({CAPACITY_FILL:.0%} of "
+            f"{cap:.3g} B capacity); start the ladder at "
+            f"{rung_names[1]!r}",
+        )], 1
+    rungs = ", ".join(repr(r) for r in rung_names)
+    return [Finding(
+        "VET-M001", SEV_ERROR,
+        f"estimated peak {peak:.3g} B exceeds the {budget:.3g} B "
+        f"budget even at half-block ({half:.3g} B): no rung of the "
+        f"ladder ({rungs}) fits on the device — shard over a mesh or "
+        "shrink the block",
+    )], len(rung_names)

@@ -642,9 +642,37 @@ def lint_compiled(compiled, params=None) -> List[Finding]:
         ))
 
     # VET-T008: plan the buckets exactly as the reference's scan
-    # executor does (the port sweeps every level one by one and pads
-    # nothing; compiler/buckets.py) and check the realized padding
-    # against the configured budget.  The step encoding decision
+    # executor does and check the realized padding against the
+    # configured budget (reference_plan)
+    shapes, plan = reference_plan(compiled, params, findings)
+    stats = buckets.plan_stats(shapes, plan)
+    waste_budget = params.level_bucket_waste - 1.0
+    if stats["padded_elems"] and stats["padding_waste_fraction"] > max(
+        waste_budget / (1.0 + waste_budget), 0.0
+    ) + 1e-9:
+        findings.append(Finding(
+            "VET-T008", SEV_WARN,
+            f"bucket plan pads {stats['padding_waste_fraction']:.1%} of "
+            f"element slots (budget from level_bucket_waste="
+            f"{params.level_bucket_waste:g}); retune the waste knob for "
+            "this topology family" + T008_NOTE,
+        ))
+    return findings
+
+
+
+def reference_plan(compiled, params, findings=None):
+    """``(shapes, plan)``: the level shapes and the scan-bucket plan of
+    the reference's executor (``compiler/buckets.plan_segments``), which
+    the port does not execute: it sweeps every level one by one and pads
+    nothing.  VET-T008 and the cost model's ``bucket_schedule`` read it;
+    the VET-C006 findings of tiled and sparse levels are appended to
+    ``findings`` when given."""
+    from isotope_tpu_torch.compiler import buckets
+
+    if findings is None:
+        findings = []
+    # The step encoding decision
     # (dense / tiled / sparse) is the engine's own
     # (compiler/buckets.level_encoding), so VET-C006 reports the
     # executor's real fallbacks, not a reimplementation's.
@@ -723,20 +751,7 @@ def lint_compiled(compiled, params=None) -> List[Finding]:
         enabled=params.bucketed_scan,
         schedule=params.bucket_schedule,
     )
-    stats = buckets.plan_stats(shapes, plan)
-    waste_budget = params.level_bucket_waste - 1.0
-    if stats["padded_elems"] and stats["padding_waste_fraction"] > max(
-        waste_budget / (1.0 + waste_budget), 0.0
-    ) + 1e-9:
-        findings.append(Finding(
-            "VET-T008", SEV_WARN,
-            f"bucket plan pads {stats['padding_waste_fraction']:.1%} of "
-            f"element slots (budget from level_bucket_waste="
-            f"{params.level_bucket_waste:g}); retune the waste knob for "
-            "this topology family" + T008_NOTE,
-        ))
-    return findings
-
+    return shapes, plan
 
 def _capacity_qps(compiled, params) -> float:
     """Static saturation throughput (the engine's capacity_qps without

@@ -1,7 +1,7 @@
 """``python -m isotope_tpu_torch simulate|check|sweep|timeline|search ...``.
 
-The port of ``isotope-tpu``'s commands but ``vet`` (``suite``,
-``report``, ``telemetry``, ``fidelity``, ``ingest``, ``explain``,
+The port of ``isotope-tpu``'s commands (``suite``, ``report``,
+``telemetry``, ``fidelity``, ``ingest``, ``explain``, ``vet``,
 ``kubernetes``, ``graphviz``, ``security-policies``, ``generate``,
 ``pilot-load`` and ``plot`` live in ``commands/``):
 
@@ -44,8 +44,9 @@ The port of ``isotope-tpu``'s commands but ``vet`` (``suite``,
   (``runner/run.splitting_pass``).  ``simulate`` is a one-case
   ``runner/run.run_experiment``, under the run supervisor
   (``--max-retries``, ``--no-degrade``); ``--flat`` prints the flat row
-  and ``--telemetry`` the engine's own series.  ``--mesh``,
-  ``--overlap`` and ``--vet`` raise ``NotImplementedError`` naming
+  and ``--telemetry`` the engine's own series.  ``--vet[=strict]``
+  runs the pre-flight gate (``analysis/vet.py``) before the case.
+  ``--mesh`` and ``--overlap`` raise ``NotImplementedError`` naming
   their ROADMAP item.
 - ``sweep``: a TOML grid of topology x environment x load through
   ``run_experiment`` (checkpointed, resumable; ``--fresh``,
@@ -75,6 +76,7 @@ import sys
 from isotope_tpu_torch.commands.common import (
     add_resilience_args,
     add_telemetry_arg,
+    add_vet_arg,
     arm_telemetry,
     ignore_compile_cache,
     resilience_policy,
@@ -88,9 +90,8 @@ _MULTI = "item 11, multi-GPU"
 _REFUSED = [
     ("--mesh", dict(), _MULTI),
     ("--overlap", dict(action="store_true"), _MULTI),
-    ("--vet", dict(nargs="?", const="on", choices=("on", "strict")),
-     "item 13, static analysis"),
 ]
+
 
 
 def _refuse_unported(args) -> None:
@@ -148,7 +149,7 @@ def _add_ensemble_args(s) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="isotope-tpu-torch")
-    sub = parser.add_subparsers(dest="command", required=True)
+    sub = parser.add_subparsers(dest="command")
     s = sub.add_parser(
         "simulate", help="simulate one topology under one load"
     )
@@ -266,6 +267,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_resilience_args(s)
     for flag, kw, _ in _REFUSED:
         s.add_argument(flag, **kw)
+    add_vet_arg(s)
     s.add_argument("--lb-out", metavar="FILE", default=None,
                    help="write the load-balancing laws and their static "
                         "per-backend load split as JSON (isotope-lb/v1); "
@@ -310,6 +312,7 @@ def build_parser() -> argparse.ArgumentParser:
         report_cmd,
         suite_cmd,
         telemetry_cmd,
+        vet_cmd,
     )
 
     suite_cmd.register(sub)
@@ -322,6 +325,7 @@ def build_parser() -> argparse.ArgumentParser:
     generate_cmd.register(sub)
     generate_cmd.register_pilot(sub)
     plot_cmd.register(sub)
+    vet_cmd.register(sub)
     return parser
 
 
@@ -364,6 +368,7 @@ def _add_sweep_parser(sub) -> None:
     _add_ensemble_args(w)
     for flag, kw, _ in _REFUSED:
         w.add_argument(flag, **kw)
+    add_vet_arg(w)
     add_resilience_args(w)
     w.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")
@@ -410,6 +415,7 @@ def run_sweep(args) -> int:
         profile_dir=args.profile,
         export=args.export,
         policy=resilience_policy(args),
+        vet=args.vet,
         attribution=args.attribution,
         timeline=tl_window,
         device=args.device,
@@ -692,6 +698,7 @@ def run_simulate(args) -> int:
         **extra,
     )
     (result,) = run_experiment(config, policy=resilience_policy(args),
+                               vet=args.vet,
                                attribution=args.attribution,
                                timeline=tl_window, device=args.device)
     if result.failed:
@@ -1073,8 +1080,16 @@ def run_timeline_cmd(args) -> int:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    return args.func(args)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not getattr(args, "func", None):
+        parser.print_help()
+        return 2
+    try:
+        return args.func(args) or 0
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -74,3 +74,17 @@ def arm_telemetry(mode: Optional[str] = None,
             detail=want_detail or telemetry.detail_enabled()
         )
     return telemetry.detail_enabled()
+
+
+def add_vet_arg(parser) -> None:
+    """The static pre-flight gate (``analysis/``), shared by every
+    run-executing command."""
+    parser.add_argument(
+        "--vet", nargs="?", const="on", choices=("on", "strict"),
+        default=None,
+        help="pre-flight static analysis before each case (also env "
+             "ISOTOPE_VET=1|strict): lint the topology/config, audit "
+             "a pilot block of the engine, and let the pre-flight "
+             "memory verdict pick the ladder's starting rung.  "
+             "Blocking findings fail the case; 'strict' promotes "
+             "warnings")

@@ -14,6 +14,7 @@ import sys
 from isotope_tpu_torch.commands.common import (
     add_resilience_args,
     add_telemetry_arg,
+    add_vet_arg,
     arm_telemetry,
     ignore_compile_cache,
     resilience_policy,
@@ -45,9 +46,7 @@ def register(sub) -> None:
     add_telemetry_arg(s, "in each .prom artifact plus a "
                               "telemetry.jsonl per config")
     add_resilience_args(s)
-    s.add_argument("--vet", nargs="?", const="on", default=None,
-                   choices=("on", "strict"),
-                   help="not ported (ROADMAP.md queue 1: item 13)")
+    add_vet_arg(s)
     s.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")
     s.set_defaults(func=run_suite_cmd)

@@ -251,6 +251,9 @@ class _Library:
 
 LIBRARY = _Library()
 
+#: the recording op log's census hook (``analysis/oplog.py``), or None
+AUDIT = None
+
 
 def census_reference(
     step_base: torch.Tensor,
@@ -330,8 +333,12 @@ def census(
     """Fused census join: ``(busy (N, B), excl (N, B, P))``.
 
     CPU tensors go through :func:`census_reference`; CUDA tensors
-    through the kernel, which raises on what it does not take.
+    through the kernel, which raises on what it does not take.  While an
+    op log records (``analysis/oplog.py``), the call is its ``AUDIT``
+    hook's, which logs it as one entry.
     """
+    if AUDIT is not None:
+        return AUDIT(step_base, step_mask, agg, fail_step, err)
     if agg.device.type == "cpu":
         return census_reference(step_base, step_mask, agg, fail_step, err)
     if agg.device.type != "cuda":

@@ -19,17 +19,26 @@ comma-separated ``kind:site[:arg]`` entries:
 - ``nan:segment:<index>`` — poison the output of segment ``<index>`` of
   the upward sweep with NaN (``arg`` is the segment index, not a count;
   the port sweeps every level on its own, so segment ``i`` is level
-  ``i``); exercises the numeric sentinels and detail-mode localization.
+  ``i``); exercises the numeric sentinels and detail-mode localization;
+- ``stuck:policies.stuck_breaker`` — a tripped circuit breaker never
+  closes (``policies.advance(stuck_breaker=)``);
+- ``lag:policies.autoscaler_lag[:N]`` — the autoscaler misses its first
+  ``N`` sync periods (``policies.init_state(lag_periods=)``);
+- ``degrade:lb.degraded_backend[:B]`` — backend ``B``'s (default 0)
+  attraction weight collapses to ``DEGRADED_FACTOR``
+  (``lb.effective_profile(degraded=)``).
 
 The wired sites are the engine's: ``engine.build`` (``Simulator``
 construction) and ``engine.run`` (the entry of every run:
 ``run``, ``run_summary``, ``run_attributed``, ``run_timeline``,
 ``run_policies``, ``run_rollouts``, ``run_ensemble`` and the protected
-fleets).  The reference's other sites (the sharded runner's, the XLA
-cache's, the policy and lb layers' behavioral ``stuck`` / ``lag`` /
-``degrade`` kinds) parse as in the reference and then raise
-``NotImplementedError`` naming the ROADMAP item that wires them, so a
-plan never silently fails to fire.  ``check(site)`` with no plan armed
+fleets), and the policy and lb layers' sites: the standard kinds at
+``policies.stuck_breaker`` / ``policies.autoscaler_lag`` raise at the
+entry of a protected run or fleet with policy tables, at
+``lb.degraded_backend`` at the entry of a run with active lb laws.
+The reference's sharded runner's and XLA cache's sites parse as in the
+reference and then raise ``NotImplementedError`` naming the ROADMAP
+item that wires them, so a plan never silently fails to fire.  ``check(site)`` with no plan armed
 is one boolean test: the default path gains no work and no sync point.
 
 The second half is the chaos jitter of the fleets (numpy only):
@@ -81,9 +90,6 @@ _UNWIRED = {
     "sharded.dcn_collective": "item 11, multi-GPU",
     "sharded.gather": "item 11, multi-GPU",
     "cache.load": "none: the port has no compiled-executable cache",
-    "policies.stuck_breaker": "item 12, framework services",
-    "policies.autoscaler_lag": "item 12, framework services",
-    "lb.degraded_backend": "item 12, framework services",
 }
 
 
@@ -206,11 +212,43 @@ class FaultPlan:
                 return e.arg
         return None
 
+    def stuck_breaker(self) -> bool:
+        return any(e.kind == "stuck" for e in self.entries)
+
+    def autoscaler_lag(self) -> int:
+        for e in self.entries:
+            if e.kind == "lag":
+                return max(e.arg, 1)
+        return 0
+
+    #: the collapse factor of a degraded backend's attraction weight —
+    #: small but nonzero: the pod still advertises (gray failure), it
+    #: just draws ~no traffic
+    DEGRADED_FACTOR = 0.01
+
+    def lb_degraded_backend(self):
+        for e in self.entries:
+            if e.kind == "degrade":
+                return (max(e.arg, 0), self.DEGRADED_FACTOR)
+        return None
+
     def signature(self) -> str:
         """Stable identity of the part of the plan that changes what a
-        run computes (the NaN poisoning; host-side faults only raise)."""
+        run computes (the NaN poisoning and the behavioral kinds;
+        host-side faults only raise)."""
+        parts = []
         seg = self.nan_segment()
-        return "" if seg is None else f"nan:segment:{seg}"
+        if seg is not None:
+            parts.append(f"nan:segment:{seg}")
+        if self.stuck_breaker():
+            parts.append("stuck:policies.stuck_breaker")
+        lag = self.autoscaler_lag()
+        if lag:
+            parts.append(f"lag:policies.autoscaler_lag:{lag}")
+        deg = self.lb_degraded_backend()
+        if deg is not None:
+            parts.append(f"degrade:lb.degraded_backend:{deg[0]}")
+        return ",".join(parts)
 
 
 _plan: Optional[FaultPlan] = None
@@ -272,6 +310,31 @@ def nan_segment() -> Optional[int]:
     if not _env_loaded:
         _load_env()
     return None if _plan is None else _plan.nan_segment()
+
+
+def stuck_breaker() -> bool:
+    """Behavioral policy chaos: tripped breakers never close (read by
+    the protected block loop, ``sim/policies.advance``)."""
+    if not _env_loaded:
+        _load_env()
+    return False if _plan is None else _plan.stuck_breaker()
+
+
+def autoscaler_lag() -> int:
+    """Behavioral policy chaos: sync periods the autoscaler misses at
+    startup (0 = off; read by ``sim/policies.init_state``)."""
+    if not _env_loaded:
+        _load_env()
+    return 0 if _plan is None else _plan.autoscaler_lag()
+
+
+def lb_degraded_backend():
+    """Behavioral lb chaos: ``(backend, factor)`` collapsing that
+    backend's attraction weight, or None (read when a Simulator builds
+    its lb tables, ``sim/lb.effective_profile``)."""
+    if not _env_loaded:
+        _load_env()
+    return None if _plan is None else _plan.lb_degraded_backend()
 
 
 def signature() -> str:

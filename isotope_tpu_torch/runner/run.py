@@ -146,21 +146,86 @@ def _case_source(config, index, device):
     return RootedSource(sim_pkg.TorchDraws(config.seed, device), index)
 
 
-def _refuse_unported(config, vet) -> None:
-    """The vet gate (item 13) and a device mesh (item 11) are not
-    ported: a request for either raises before anything simulates."""
-    env_vet = os.environ.get("ISOTOPE_VET", "").strip().lower()
-    if vet or env_vet in ("1", "on", "true", "yes", "strict"):
-        raise NotImplementedError(
-            "the vet gate is not ported to isotope_tpu_torch yet "
-            "(ROADMAP.md queue 1: item 13, static analysis)"
-        )
+def _refuse_unported(config) -> None:
+    """A device mesh (item 11) is not ported: a request for one raises
+    before anything simulates."""
     if (config.mesh_spec or os.environ.get("ISOTOPE_MESH", "").strip()
             or config.mesh_data > 1 or config.mesh_svc > 1
             or config.overlap):
         raise NotImplementedError(
             "device meshes are not ported to isotope_tpu_torch yet "
             "(ROADMAP.md queue 1: item 11, multi-GPU)"
+        )
+
+
+def _vet_gate(mode: str, sim, topo, config, load, n, block, policy,
+              ensemble=None, protected: bool = False,
+              split_spec=None, search_spec=None) -> int:
+    """The ``--vet`` pre-flight: lint + op audit + cost model for one
+    case of ``n`` requests, on the Simulator the case runs on; the
+    estimate is at the block the case runs (``block``, capped by ``n``:
+    the reference estimates at ``block``).
+
+    Returns the ladder rung index the case should START on (the memory
+    verdict's recommendation, 0 when everything fits).  Blocking
+    findings raise :class:`~isotope_tpu_torch.analysis.VetError` — a
+    deterministic failure the sweep records like any other, the case
+    never running.  VET-M002 never blocks while the ladder is armed
+    (the half-block start IS its recovery); VET-M001 always blocks:
+    every rung of the port's ladder runs on the device."""
+    from isotope_tpu_torch.analysis import (
+        MEMORY_RULES,
+        VetError,
+        default_suppressions,
+        vet_simulator,
+    )
+    from isotope_tpu_torch.sim.engine import block_rows
+
+    rung_names = tuple(name for name, _ in rung_blocks(block))
+    report = vet_simulator(
+        sim, load, block_requests=block_rows(load, n, block),
+        graph=topo.graph, entry=config.entry,
+        suppress=default_suppressions(),
+        rung_names=rung_names,
+        ensemble=ensemble,
+        protected=protected,
+        split_spec=split_spec,
+        search_spec=search_spec,
+    )
+    for f in report.sorted():
+        print(f"vet: {f.render()}", file=sys.stderr)
+    nonblocking = MEMORY_RULES if policy.degrade else ()
+    if report.blocking(strict=(mode == "strict"),
+                       nonblocking_rules=nonblocking):
+        raise VetError(report, mode == "strict", nonblocking)
+    est = report.meta.get("cost", {}).get("peak_bytes_at_block")
+    if est:
+        # published so the post-run measured/estimate ratio gauge can
+        # calibrate CAPACITY_FILL from real runs
+        telemetry.gauge_set("vet_peak_bytes_estimate", float(est))
+    start = int(report.meta.get("start_rung", 0))
+    if start:
+        telemetry.counter_inc("vet_rung_preselections")
+        telemetry.set_meta("vet_start_rung", rung_names[start])
+        print(
+            f"vet: memory verdict pre-selects ladder rung "
+            f"{rung_names[start]!r}",
+            file=sys.stderr,
+        )
+    return start
+
+
+def _record_vet_memory_ratio() -> None:
+    """Measured/estimated device-peak-bytes ratio gauge: pairs the
+    VET-M cost-model estimate with the run's real high-water
+    (``torch.cuda.max_memory_allocated`` since the last
+    ``reset_peak_memory_stats``, ``telemetry.record_device_memory``) so
+    ``CAPACITY_FILL`` can be calibrated from real runs."""
+    est = telemetry.gauge_get("vet_peak_bytes_estimate")
+    measured = telemetry.gauge_get("device_memory_peak_bytes_max")
+    if est and measured:
+        telemetry.gauge_set(
+            "vet_peak_bytes_measured_ratio", measured / est
         )
 
 
@@ -727,8 +792,15 @@ class _Case:
 
 
 def _execute(case: _Case, topo, env, load, config, index, policy,
-             ens_groups, attribution, timeline, label) -> None:
-    """Build and run one case under the supervisor, filling ``case``."""
+             ens_groups, attribution, timeline, label, vet=None,
+             search_spec=None) -> None:
+    """Build and run one case under the supervisor, filling ``case``:
+    the vet gate first when armed (``vet``), whose memory verdict may
+    start the plain ladder at a later rung (recorded as degraded, as a
+    ladder descent would be).  A memory-degraded fleet, plain or
+    protected, gives way to the solo run (a protected one keeps its
+    own ladder), as in the reference: even a one-member chunk runs the
+    full block."""
     sim = call_with_retries(lambda: topo.sims(env), site="engine.build",
                             policy=policy)
     n = num_requests(load, sim.capacity_qps(), config.num_requests)
@@ -739,7 +811,17 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
     )
     roll = topo.rollout_tables is not None
     case.sim, case.n, case.block, case.source = sim, n, block, source
-    if protected and ens_groups is not None:
+    start_rung = 0
+    if vet is not None:
+        start_rung = _vet_gate(
+            vet, sim, topo, config, load, n, block, policy,
+            ensemble=config.ensemble_spec() if ens_groups is not None
+            else None,
+            protected=protected,
+            split_spec=config.ensemble_split,
+            search_spec=search_spec,
+        )
+    if protected and ens_groups is not None and start_rung == 0:
         # a PROTECTED fleet: member 0 rides the run's own draws (its
         # solo protected run), the worst member's series are the case's
         ens = ens_groups.run_protected(
@@ -763,7 +845,7 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
             sim, load, n, source, block, config, topo.collector, policy,
             timeline, roll, attribution=attribution,
         )
-    elif ens_groups is not None:
+    elif ens_groups is not None and start_rung == 0:
         # a Monte Carlo fleet serves the case (same-shape cells collapse
         # into one dispatch); the reported summary pools the members
         with telemetry.phase("ensemble.run"):
@@ -783,8 +865,13 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
                                 collector=topo.collector, trim=True,
                                 attribution=attribution)
         (case.summary, case.attr), case.degraded_to = run_ladder(
-            rungs, policy, site_prefix="engine",
+            rungs[start_rung:], policy, site_prefix="engine",
         )
+        if start_rung and case.degraded_to is None:
+            # the pre-selected rung IS a degradation: recorded exactly
+            # as a ladder descent would be
+            case.degraded_to = rungs[start_rung][0]
+            telemetry.set_meta("degraded_to", case.degraded_to)
         if timeline is not None:
             # the recorder pass replays the rung that served the run
             block = dict(rung_blocks(block))[case.degraded_to or "scan"]
@@ -981,11 +1068,17 @@ def run_experiment(
     the fleet dispatch: the worst member's documents, stamped with its
     member and seed, and ``<label>.fleet-blame.json``.
 
-    ``vet`` (the static pre-flight gate) and a device mesh (``mesh_spec``,
-    ``$ISOTOPE_MESH``, ``mesh_data`` / ``mesh_svc`` above 1,
-    ``overlap``) raise ``NotImplementedError`` naming their ROADMAP
-    items."""
-    _refuse_unported(config, vet)
+    ``vet`` (``"on"`` / ``"strict"``, or ``$ISOTOPE_VET``) runs the
+    static pre-flight gate before each case (:func:`_vet_gate`): a
+    blocking verdict fails the case before it runs, and the memory
+    verdict may start the ladder at ``half-block`` (recorded as
+    degraded).  A device mesh (``mesh_spec``, ``$ISOTOPE_MESH``,
+    ``mesh_data`` / ``mesh_svc`` above 1, ``overlap``) raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    from isotope_tpu_torch.analysis.vet import vet_mode
+
+    vet = vet_mode(vet)
+    _refuse_unported(config)
     # resolve exporter specs up front: a typo'd --export must fail
     # before any simulation, not after
     exporters = []
@@ -1068,6 +1161,7 @@ def run_experiment(
                         topo, env, load, config, index, done, out,
                         ckpt_file, progress, policy, ens_groups,
                         attribution, timeline, search_spec, profile_dir,
+                        vet,
                     ))
                     index += 1
     finally:
@@ -1102,7 +1196,7 @@ def run_experiment(
 
 def _sweep_case(topo, env, load, config, index, done, out, ckpt_file,
                 progress, policy, ens_groups, attribution, timeline,
-                search_spec, profile_dir) -> RunResult:
+                search_spec, profile_dir, vet=None) -> RunResult:
     """Case ``index`` of the sweep: restored from the checkpoint when it
     completed before, else run, its artifacts and checkpoint line
     written at once (a kill loses at most the in-flight run)."""
@@ -1117,7 +1211,7 @@ def _sweep_case(topo, env, load, config, index, done, out, ckpt_file,
         telemetry.reset()
     result, extra, run_telem = _run_case(
         topo, env, load, config, index, label, policy, ens_groups,
-        attribution, timeline, search_spec, profile_dir,
+        attribution, timeline, search_spec, profile_dir, vet,
     )
     if result.failed:
         if ckpt_file is not None:
@@ -1158,7 +1252,7 @@ def _sweep_case(topo, env, load, config, index, done, out, ckpt_file,
 
 
 def _run_case(topo, env, load, config, index, label, policy, ens_groups,
-              attribution, timeline, search_spec, profile_dir):
+              attribution, timeline, search_spec, profile_dir, vet=None):
     """One case, executed and documented: ``(RunResult, artifacts,
     RunTelemetry or None)``; an unrecoverable error gives a FAILED
     result whose artifacts hold its ``error_class``."""
@@ -1174,7 +1268,8 @@ def _run_case(topo, env, load, config, index, label, policy, ens_groups,
     try:
         with prof_ctx:
             _execute(case, topo, env, load, config, index, policy,
-                     ens_groups, attribution, timeline, label)
+                     ens_groups, attribution, timeline, label, vet,
+                     search_spec)
             doc, flat, window, extra = _documents(
                 case, topo, label, config, load, attribution, timeline,
                 search_spec,
@@ -1204,6 +1299,7 @@ def _run_case(topo, env, load, config, index, label, policy, ens_groups,
     if telemetry.emitting():
         # one scrape sees workload AND engine
         telemetry.record_device_memory()
+        _record_vet_memory_ratio()
         run_telem = telemetry.snapshot(label=label)
         prom_text += run_telem.prometheus_text()
     ens = case.ens

@@ -443,3 +443,92 @@ class LoadModel:
             raise ValueError("qps must be positive (or None for max)")
         if self.connections <= 0:
             raise ValueError("connections must be positive")
+
+
+@dataclasses.dataclass(frozen=True)
+class DesignParam:
+    """One registered design knob for the gradient audit (VET-G rules).
+
+    A knob either enters the traced program through named member-body
+    invars (``invars`` — names from
+    :data:`~isotope_tpu_torch.analysis.grad_audit.GRAD_INVARS`, the ten
+    traced arguments of the engine's universal member scan), or it is
+    baked into the jaxpr at build time (``invars`` empty,
+    ``constant_site`` says where) — the recompile-per-value population
+    problem from the config-search residuals.  ``partial`` notes knobs
+    that are only partly traced (the rest rides as constants)."""
+
+    name: str
+    doc: str
+    invars: tuple = ()
+    constant_site: str = ""
+    partial: str = ""
+
+    @property
+    def traced(self) -> bool:
+        return bool(self.invars)
+
+
+#: every design parameter the gradient audit classifies.  Order is the
+#: report order; names are stable API (tests/data pins key on them).
+DESIGN_PARAMS: tuple = (
+    DesignParam(
+        "qps_scale",
+        "offered-load scale: the open-loop arrival rate / closed-loop "
+        "pacing gap the planner would sweep",
+        invars=("offered_qps", "pace_gap", "nominal_gap"),
+    ),
+    DesignParam(
+        "cpu_time_s",
+        "per-service mean service time (the cpu_scale jitter scale "
+        "multiplies every sampled service time and the utilization "
+        "denominator)",
+        invars=("cpu_scale",),
+    ),
+    DesignParam(
+        "error_rate_scale",
+        "per-service 5xx error-rate scale (the err_scale jitter scale "
+        "multiplies every hop's errorRate before the 5xx coin)",
+        invars=("err_scale",),
+    ),
+    DesignParam(
+        "traffic_split_weights",
+        "traffic-split / canary phase weights, as the per-phase visit "
+        "vectors the closed-form solver bakes from them",
+        invars=("visits_pc",),
+        partial="per-hop churn send-coin thresholds stay baked "
+                "constants (engine._churn_weights)",
+    ),
+    DesignParam(
+        "timeout_ladder",
+        "per-call deadline ladder",
+        constant_site="compiled.call_timeout (per-hop f32 table baked "
+                      "at compile time)",
+    ),
+    DesignParam(
+        "retry_budgets",
+        "per-call retry counts and per-service retry budgets",
+        constant_site="compiled.hop_attempt unroll + "
+                      "policies.device_tables retry_budget",
+    ),
+    DesignParam(
+        "breaker_caps",
+        "circuit-breaker max_pending / max_connections caps",
+        constant_site="policies.device_tables breaker columns",
+    ),
+    DesignParam(
+        "hpa_targets",
+        "autoscaler target_utilization / min / max replicas",
+        constant_site="policies.device_tables autoscaler columns",
+    ),
+    DesignParam(
+        "canary_step_weights",
+        "rollout step schedule weights and bake durations",
+        constant_site="rollout.device_tables step/bake rows",
+    ),
+    DesignParam(
+        "lb_choices_d",
+        "load-balancer power-of-d choices_d and panic thresholds",
+        constant_site="policies lb tables (choices_d, panic_threshold)",
+    ),
+)

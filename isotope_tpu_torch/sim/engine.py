@@ -775,7 +775,13 @@ class _BlockControl:
 
             self.pol = policies_mod
             self.pdtab = policies_mod.device_tables(sim._policies, dev)
-            self.pstate = policies_mod.init_state(self.pdtab)
+            # the policy layer's behavioral chaos sites: an armed
+            # ``lag`` delays the autoscaler's first sync, ``stuck``
+            # keeps tripped breakers open
+            self.pstate = policies_mod.init_state(
+                self.pdtab, lag_periods=faults.autoscaler_lag()
+            )
+            self.stuck = faults.stuck_breaker()
             self.pacc = policies_mod.zeros_summary(self.spec, S, dev)
             self.pobs = torch.zeros((S, W), dtype=F32, device=dev)
             # rollout runs split the canary-first kill delta off the
@@ -815,7 +821,8 @@ class _BlockControl:
             )
             self.pstate, pdelta = self.pol.advance(
                 self.pstate, self.pdtab, self.tl_acc, self.pobs, t_done,
-                self.spec, downed_w=self.downed_w,
+                self.spec, stuck_breaker=self.stuck,
+                downed_w=self.downed_w,
             )
             self.pacc = self.pol.accumulate_summary(self.pacc, pdelta)
 
@@ -1103,8 +1110,15 @@ class Simulator:
         self._lb_dev = None
         self._lb_profile_np = None
         if lb is not None and lb.active:
-            self._lb_profile_np = lb_mod.effective_profile(lb, self._k_max)
-            self._lb_dev = lb_mod.device_tables(lb, self._k_max, dev)
+            # the lb.degraded_backend chaos site: one profile serves the
+            # device tables AND the host feedback mirror, so the static
+            # fixed point sees the collapsed backend too
+            degraded = faults.lb_degraded_backend()
+            self._lb_profile_np = lb_mod.effective_profile(
+                lb, self._k_max, degraded
+            )
+            self._lb_dev = lb_mod.device_tables(lb, self._k_max, dev,
+                                                degraded=degraded)
         # panic routing needs something that can unhealth a pool: chaos,
         # or (in a protected run) the policy state's ejections
         self._lb_any_panic = self._lb_dev is not None and lb.any_panic
@@ -1801,8 +1815,13 @@ class Simulator:
     def _check_lb_load(self, load: LoadModel) -> None:
         """An active lb law cannot run under the saturated ``-qps max``
         law, whose finite-population tables have no per-backend
-        dispatch: refuse it rather than fall back to fifo."""
-        if self._lb_dev is not None and self._saturated(load):
+        dispatch: refuse it rather than fall back to fifo.  Also the
+        ``lb.degraded_backend`` site's classified-fault entry (the
+        supervisor's retry path covers the lb layer)."""
+        if self._lb_dev is None:
+            return
+        faults.check("lb.degraded_backend")
+        if self._saturated(load):
             raise ValueError(
                 "lb laws do not support saturated -qps max loads: the "
                 "finite-population wait tables have no per-backend "
@@ -2579,6 +2598,12 @@ class Simulator:
                 "attributed policy runs need SimParams(attribution="
                 "True) alongside the policy tables"
             )
+        # the policy layer's own chaos sites: standard fault kinds raise
+        # classified faults here so the supervisor's retry path covers
+        # the policy runner too; the behavioral kinds (stuck/lag) alter
+        # the control loop instead (_BlockControl)
+        faults.check("policies.stuck_breaker")
+        faults.check("policies.autoscaler_lag")
         faults.check("engine.run")
         return self._run_protected(load, num_requests, source, False,
                                    block_size, collector, trim, window_s,
@@ -2704,6 +2729,10 @@ class Simulator:
                 "attributed rollout runs need SimParams(attribution="
                 "True) alongside the rollout tables"
             )
+        if self._policies is not None:
+            # the policy layer's chaos sites cover composed runs too
+            faults.check("policies.stuck_breaker")
+            faults.check("policies.autoscaler_lag")
         faults.check("engine.run")
         return self._run_protected(load, num_requests, source, True,
                                    block_size, collector, trim, window_s,
@@ -3340,6 +3369,8 @@ class Simulator:
                 "policy fleets need SimParams(timeline=True) — the "
                 "flight recorder is the control loop's observation side"
             )
+        faults.check("policies.stuck_breaker")
+        faults.check("policies.autoscaler_lag")
         return self._run_protected_ensemble(load, num_requests, source,
                                             spec, roll=False, **kw)
 
@@ -3358,6 +3389,9 @@ class Simulator:
                 "rollout fleets need SimParams(timeline=True) — the "
                 "flight recorder is the control loop's observation side"
             )
+        if self._policies is not None:
+            faults.check("policies.stuck_breaker")
+            faults.check("policies.autoscaler_lag")
         return self._run_protected_ensemble(load, num_requests, source,
                                             spec, roll=True, **kw)
 

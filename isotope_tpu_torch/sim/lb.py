@@ -358,10 +358,9 @@ def effective_profile(
 ) -> np.ndarray:
     """The backend-attraction profile the run executes:
     :meth:`LbTables.backend_profile`, with a ``(backend, factor)``
-    weight collapse applied when ``degraded`` is given.  One source for
-    the device tables and the host feedback mirror.  The engine passes
-    ``None``: the ``lb.degraded_backend`` fault site is not ported
-    (ROADMAP.md queue 1: framework services)."""
+    weight collapse applied when ``degraded`` is given (the armed
+    ``lb.degraded_backend`` chaos site, ``faults.lb_degraded_backend``).
+    One source for the device tables and the host feedback mirror."""
     prof = t.backend_profile(k_max)
     if degraded is not None:
         b, factor = degraded
@@ -371,9 +370,12 @@ def effective_profile(
     return prof
 
 
-def device_tables(t: LbTables, k_max: int, device) -> DeviceLb:
-    """The tables as tensors on ``device``."""
-    prof = effective_profile(t, k_max)
+def device_tables(t: LbTables, k_max: int, device,
+                  degraded: Optional[Tuple[int, float]] = None) -> DeviceLb:
+    """The tables as tensors on ``device``; ``degraded`` is the armed
+    ``lb.degraded_backend`` chaos site, ``(backend, factor)`` on that
+    backend's attraction weight (:func:`effective_profile`)."""
+    prof = effective_profile(t, k_max, degraded)
 
     def put(x, dtype):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)

@@ -19,7 +19,7 @@ import dataclasses
 import io
 import json
 import pathlib
-from contextlib import redirect_stdout
+from contextlib import redirect_stderr, redirect_stdout
 
 import jax
 import numpy as np
@@ -283,9 +283,11 @@ def test_cli_simulate_environment_label():
     load = JaxLoad(kind="open", qps=500.0, connections=64)
     assert doc["Labels"] == jax_label(str(path), "ISTIO", load, "")
     assert doc["Labels"] == "two-cluster-canonical_istio_500qps_64c"
-    with pytest.raises(ValueError, match="unknown environment"):
-        cli.main(["simulate", str(path), "--environment", "MESH",
-                  "--device", "cpu"])
+    err = io.StringIO()
+    with redirect_stderr(err):
+        assert cli.main(["simulate", str(path), "--environment", "MESH",
+                         "--device", "cpu"]) == 1
+    assert "error: unknown environment 'MESH'" in err.getvalue()
 
 
 TOML = """

@@ -279,7 +279,9 @@ def test_timeline_command_table_and_exit_code(tmp_path, monkeypatch):
 
 
 def test_timeline_command_refuses_a_bad_controlplane_spec():
-    with pytest.raises(ValueError, match="N:M:P"):
-        with redirect_stdout(io.StringIO()):
-            cli.main(["timeline", str(CANONICAL), "--duration", "1s",
-                      "--controlplane", "1:2", "--device", "cpu"])
+    err = io.StringIO()
+    with redirect_stdout(io.StringIO()), redirect_stderr(err):
+        assert cli.main(["timeline", str(CANONICAL), "--duration", "1s",
+                         "--controlplane", "1:2", "--device", "cpu"]) == 1
+    assert err.getvalue().startswith("error: ")
+    assert "N:M:P" in err.getvalue()

@@ -255,15 +255,15 @@ def _flags(parser):
     return {name: rows(p) for name, p in sub.choices.items()}
 
 
-def test_build_parser_matches_reference_but_vet():
-    """Both CLIs have the same subcommands but ``vet`` (ROADMAP item
-    13), and each shared command the reference's flags with their
-    defaults, choices and arities; the port adds ``--device`` to the
-    commands that run the engine, and nothing else."""
+def test_build_parser_matches_reference():
+    """Both CLIs have the same subcommands, and each command the
+    reference's flags with their defaults, choices and arities; the
+    port adds ``--device`` to the commands that run the engine, and
+    nothing else."""
     got, want = _flags(cli.build_parser()), _flags(jax_cli.build_parser())
-    assert set(want) - set(got) == {"vet"} and set(got) <= set(want)
+    assert set(got) == set(want)
     engine = {"simulate", "check", "sweep", "suite", "telemetry",
-              "timeline", "search", "fidelity", "pilot-load"}
+              "timeline", "search", "fidelity", "pilot-load", "vet"}
     for name in got:
         extra = set(got[name]) - set(want[name])
         assert extra == ({("--device",)} if name in engine else set()), (

@@ -208,8 +208,12 @@ def test_cli_lb_out_and_qps_max(tmp_path):
         json.dumps(jax_lb.to_doc(jt)))
     assert jax_lb.format_table(jax_lb.to_doc(jt)) in err.getvalue()
     assert f"lb -> {out_json}" in err.getvalue()
-    with pytest.raises(ValueError, match="-qps max"):
-        cli.main(["simulate", str(path), "--qps", "max", "--device", "cpu"])
+    err = io.StringIO()
+    with redirect_stderr(err):
+        assert cli.main(["simulate", str(path), "--qps", "max",
+                         "--device", "cpu"]) == 1
+    assert "error: lb laws do not support saturated -qps max" in \
+        err.getvalue()
     fifo = tmp_path / "fifo.yaml"
     fifo.write_text(BASE)
     err = io.StringIO()
@@ -637,3 +641,63 @@ def test_to_doc_and_format_table():
     assert len(got["services"]["worker"]["window_split"]) == 3
     assert lb_mod.format_table(got) == jax_lb.format_table(got)
 
+
+
+# -- degraded-backend chaos site -------------------------------------------
+
+
+def test_degraded_backend_chaos_site_matches_reference():
+    """The gray-failure site (the reference's
+    ``test_degraded_backend_chaos_site``): armed in both packages, one
+    backend's weight collapses in the wrr pool's profile and the port's
+    run equals the JAX package's on the same draws; the survivors absorb
+    its share, so waits explode; the standard kinds raise classified
+    faults at the run entry and the supervisor's retry path covers
+    them."""
+    from isotope_tpu.resilience import faults as jax_faults
+    from isotope_tpu_torch.resilience import (
+        ResiliencePolicy,
+        call_with_retries,
+        faults,
+    )
+    from isotope_tpu_torch.resilience.taxonomy import TRANSIENT, classify
+
+    plan = faults.FaultPlan.parse("degrade:lb.degraded_backend:1")
+    jplan = jax_faults.FaultPlan.parse("degrade:lb.degraded_backend:1")
+    assert plan.lb_degraded_backend() == jplan.lb_degraded_backend()
+    assert plan.signature() == jplan.signature()
+    with pytest.raises(ValueError, match="degrade faults target"):
+        faults.FaultPlan.parse("degrade:engine.run")
+
+    text = BASE + ("policies:\n  worker:\n"
+                   "    lb: {policy: wrr, weights: [1, 1, 1, 1]}\n")
+    _, jc, jt, pt = pair(text)
+    load = dict(kind="open", qps=45_000.0)
+    try:
+        faults.clear()
+        jax_faults.clear()
+        jax_sim, sim = scenario_pair(jc, lb=(jt, pt))
+        clean = summaries_both(jax_sim, sim, 4096, KEY, 1024, **load)
+        faults.install("degrade:lb.degraded_backend:0")
+        jax_faults.install("degrade:lb.degraded_backend:0")
+        jax_sim, sim = scenario_pair(jc, lb=(jt, pt))
+        assert sim._lb_profile_np[1, 0] == pytest.approx(
+            plan.DEGRADED_FACTOR * sim._lb_profile_np[1, 1])
+        degraded = summaries_both(jax_sim, sim, 4096, KEY, 1024, **load)
+        assert float(degraded.latency_sum) > 1.5 * float(clean.latency_sum)
+        faults.install("transient:lb.degraded_backend:1")
+        with pytest.raises(Exception) as e:
+            sim.run_summary(LoadModel(**load), 512, TorchDraws(0, "cpu"),
+                            block_size=256)
+        assert classify(e.value) == TRANSIENT
+        faults.install("transient:lb.degraded_backend:1")
+        out = call_with_retries(
+            lambda: sim.run_summary(LoadModel(**load), 512,
+                                    TorchDraws(0, "cpu"), block_size=256),
+            site="lb.run",
+            policy=ResiliencePolicy(max_retries=2, sleep=lambda s: None),
+        )
+        assert float(out.count) >= 512
+    finally:
+        faults.clear()
+        jax_faults.clear()

@@ -762,3 +762,108 @@ def test_run_policies_refusals():
                   device="cpu").run_policies(
             LoadModel(kind="closed", qps=None, connections=8), 256, src
         )
+
+
+# -- the policy layer's fault sites ------------------------------------------
+
+
+#: a breaker and a fast autoscaler on the worker (sync every 50 ms)
+FAST_HPA = """
+policies:
+  worker:
+    breaker: {max_pending: 6}
+    autoscaler: {min_replicas: 2, max_replicas: 8,
+                 target_utilization: 60%, sync_period: 50ms,
+                 stabilization_window: 1s}
+"""
+
+
+@pytest.mark.parametrize("spec", ["stuck:policies.stuck_breaker",
+                                  "lag:policies.autoscaler_lag:3"])
+def test_policy_fault_sites_match_reference(spec, monkeypatch):
+    """Armed in both packages, the behavioral policy sites give the
+    protected run of the JAX package on the same draws (the reference's
+    ``stuck_breaker`` / ``autoscaler_lag`` pins, end to end): the armed
+    breaker reaches ``advance`` stuck, and the lagged autoscaler's
+    first scale-up comes later than the clean run's."""
+    from isotope_tpu.resilience import faults as jax_faults
+    from isotope_tpu_torch.resilience import faults
+
+    jc, jt, pc, pt = both(CHAIN + FAST_HPA)
+    kill = [dict(service="worker", start_s=0.05, end_s=0.15,
+                 replicas_down=3)]
+    load = dict(kind="open", qps=0.3 * 4 * MU)
+    stuck_seen = []
+    advance = pol_mod.advance
+
+    def spy(*a, **kw):
+        stuck_seen.append(kw.get("stuck_breaker", False))
+        return advance(*a, **kw)
+
+    monkeypatch.setattr(pol_mod, "advance", spy)
+    runs = {}
+    for armed in (False, True):
+        try:
+            if armed:
+                faults.install(spec)
+                jax_faults.install(spec)
+            js, ps = scenario_pair(
+                jc, dict(timeline=True, timeline_window_s=0.05),
+                chaos=kill, policies=(jt, pt),
+            )
+            runs[armed] = (
+                ps.run_policies(LoadModel(**load), 8192,
+                                JaxReplayDraws(KEY, js), block_size=1024,
+                                window_s=0.05),
+                js.run_policies(JaxLoad(**load), 8192, KEY,
+                                block_size=1024, window_s=0.05),
+            )
+        finally:
+            faults.clear()
+            jax_faults.clear()
+    (s, tl, pol), (js_, jtl, jpol) = runs[True]
+    assert_summaries_match(s, js_)
+    assert_timeline_match(tl, jtl)
+    assert_policy_summary_equal(pol, jpol)
+    assert pol_mod.to_doc(pc, pol, pt) == jax_pol.to_doc(jc, jpol, jt)
+    half = len(stuck_seen) // 2
+    assert not any(stuck_seen[:half])
+    assert all(stuck_seen[half:]) == spec.startswith("stuck")
+    clean = runs[False][0][2]
+    w = list(pc.services.names).index("worker")
+    up = int((pol.replicas[w] > pol.replicas[w, 0]).nonzero()[0])
+    up_clean = int((clean.replicas[w] > clean.replicas[w, 0]).nonzero()[0])
+    assert (up > up_clean) == spec.startswith("lag")
+
+
+def test_policy_fault_sites_raise_classified_and_retry():
+    """The standard kinds at the policy sites raise classified faults at
+    the protected run's entry, and the supervisor's retry path covers
+    them (the reference's ``test_transient_policy_site_is_retried``)."""
+    from isotope_tpu_torch.resilience import (
+        ResiliencePolicy,
+        call_with_retries,
+        faults,
+    )
+    from isotope_tpu_torch.resilience.taxonomy import TRANSIENT, classify
+
+    jc, jt, pc, pt = both(CHAIN + POLICIES)
+    sim = Simulator(pc, SimParams(timeline=True), policies=pt,
+                    device="cpu")
+    load = LoadModel(kind="open", qps=1_000.0)
+    try:
+        faults.install("transient:policies.stuck_breaker:1")
+        with pytest.raises(Exception) as e:
+            sim.run_policies(load, 512, TorchDraws(0, "cpu"),
+                             block_size=256)
+        assert classify(e.value) == TRANSIENT
+        faults.install("transient:policies.autoscaler_lag:1")
+        out = call_with_retries(
+            lambda: sim.run_policies(load, 512, TorchDraws(0, "cpu"),
+                                     block_size=256),
+            site="policies.run",
+            policy=ResiliencePolicy(max_retries=2, sleep=lambda s: None),
+        )
+        assert float(out[0].count) >= 512
+    finally:
+        faults.clear()

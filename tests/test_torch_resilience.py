@@ -169,9 +169,6 @@ def test_fault_spec_validation_matches_reference(spec, err):
     ("oom:sharded.compute:1", "item 11"),
     ("transient:sharded.dcn_collective:1", "item 11"),
     ("corrupt:cache.load:1", "no compiled-executable cache"),
-    ("stuck:policies.stuck_breaker", "item 12"),
-    ("lag:policies.autoscaler_lag:2", "item 12"),
-    ("degrade:lb.degraded_backend:1", "item 12"),
 ])
 def test_unwired_fault_sites_raise_naming_their_item(spec, item):
     """A plan the port cannot fire raises when installed, never parses
@@ -179,6 +176,27 @@ def test_unwired_fault_sites_raise_naming_their_item(spec, item):
     with pytest.raises(NotImplementedError, match=item):
         faults.install(spec)
     assert not faults.active()
+
+
+@pytest.mark.parametrize("spec", [
+    "stuck:policies.stuck_breaker",
+    "lag:policies.autoscaler_lag:2",
+    "degrade:lb.degraded_backend:1",
+])
+def test_policy_and_lb_fault_sites_parse_like_reference(spec):
+    """The policy and lb layers' behavioral sites install, and read back
+    as the reference's plan does (its ``test_fault_spec_policy_sites``):
+    the accessors the engine consults and the plan's signature."""
+    try:
+        faults.install(spec)
+        want = jax_faults.FaultPlan.parse(spec)
+        assert faults.active()
+        assert faults.stuck_breaker() == want.stuck_breaker()
+        assert faults.autoscaler_lag() == want.autoscaler_lag()
+        assert faults.lb_degraded_backend() == want.lb_degraded_backend()
+        assert faults.signature() == want.signature() != ""
+    finally:
+        faults.clear()
 
 
 def test_fault_plan_from_the_environment(monkeypatch):
