@@ -23,9 +23,13 @@ allocate (the Simulator's tables, ``external_bytes``) are counted once,
 and the ones it allocated scale with the block (``block / n``), where
 the reference scales its whole trace.
 
-A fleet sizes its member chunk from the plan-only peak
-(:func:`peak_bytes_at_block`, ``Simulator.ensemble_chunk_size``); a
-chunk never changes a result.  The reference's collective cost rows
+A fleet sizes its member chunk from :func:`fleet_member_bytes`: two
+pilot blocks of ONE member of the fleet's own folded program (its chaos
+rows, control laws, recorder and blame reductions), extrapolated point
+by point to the block as the run's estimate is.  The plan-only peak
+(:func:`peak_bytes_at_block`) is the reference's law, kept where no
+pilot can be recorded (no load given); a chunk never changes a
+result.  The reference's collective cost rows
 (``comm_table``, its ICI/DCN constants) are TPU numbers and are not
 copied: they come with multi-GPU (ROADMAP item 11).
 """
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 from isotope_tpu_torch.analysis.findings import (
     SEV_ERROR,
@@ -312,12 +316,14 @@ def ensemble_chunk(
     capacity_bytes: Optional[float],
     fill: float = CAPACITY_FILL,
     carry_bytes_per_member: float = 0.0,
+    fixed_bytes: float = 0.0,
 ) -> int:
-    """Members per chunk of a fleet: ``members * peak_bytes`` must fit
-    the capacity budget.  Balanced split: the chunk count is minimized
-    first and members spread evenly across chunks (33 members over a
-    16-member budget run 11 + 11 + 11).  Unknown capacity runs the
-    whole fleet as one chunk."""
+    """Members per chunk of a fleet: ``fixed_bytes + members *
+    peak_bytes`` must fit the capacity budget (``fixed_bytes``: what a
+    chunk reads once, :func:`fleet_member_bytes`).  Balanced split: the
+    chunk count is minimized first and members spread evenly across
+    chunks (33 members over a 16-member budget run 11 + 11 + 11).
+    Unknown capacity runs the whole fleet as one chunk."""
     members = max(int(members), 1)
     if (
         capacity_bytes is None
@@ -325,7 +331,7 @@ def ensemble_chunk(
         or peak_bytes_per_member <= 0
     ):
         return members
-    budget = fill * float(capacity_bytes)
+    budget = fill * float(capacity_bytes) - max(float(fixed_bytes), 0.0)
     per_member = float(peak_bytes_per_member) + max(
         float(carry_bytes_per_member), 0.0
     )
@@ -352,6 +358,8 @@ class CostEstimate:
     # flight-recorder carry bytes (0 when SimParams.timeline is off);
     # already included in peak_bytes_at_block
     timeline_bytes: float = 0.0
+    # the second pilot's request count (0: one pilot)
+    slope_requests: int = 0
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -360,27 +368,165 @@ class CostEstimate:
         return d
 
 
+def pilot_live_bytes(log1, n1: int, log2, n2: int,
+                     block_requests: int) -> float:
+    """:func:`pilot_bytes` without the tables the pilots read: the
+    high-water of what a block of ``block_requests`` allocates."""
+    import numpy as np
+
+    t = (float(block_requests) - n1) / max(n2 - n1, 1)
+    h1 = np.asarray(log1.highs, np.float64)
+    h2 = np.asarray(log2.highs, np.float64)
+    if len(h1) and h1.shape == h2.shape:
+        peak = float((h1 + (h2 - h1) * t).max())
+    else:
+        p1, p2 = float(log1.peak_bytes), float(log2.peak_bytes)
+        peak = p1 + max(p2 - p1, 0.0) * t
+    return max(peak, 0.0)
+
+
+def pilot_bytes(log1, n1: int, log2, n2: int,
+                block_requests: int) -> float:
+    """The peak bytes of a block of ``block_requests`` from two pilots'
+    op logs (``analysis/oplog.OpLog``) of ``n1`` < ``n2`` requests.
+
+    Each pilot's live bytes after each allocation (``highs``) is a line
+    in the request count, point by point, when the two pilots ran the
+    same program: each point's slope (per request) scales with the
+    block and its intercept (fixed temporaries, such as the wait law's
+    (S x k_max) rows) counts once; the estimate is the extrapolated
+    curve's maximum, so a high-water that moves from a fixed temporary
+    at the pilots' sizes to the per-request tensors at the block is
+    found.  Pilots whose allocations differ in number take the same
+    law on their high-waters.  The tables the pilots read count once."""
+    return (max(float(log1.external_bytes), float(log2.external_bytes))
+            + pilot_live_bytes(log1, n1, log2, n2, block_requests))
+
+
+class PilotCurve(NamedTuple):
+    """What :func:`pilot_live_bytes` reads of a recorded op log."""
+
+    highs: tuple
+    peak_bytes: int
+    external_bytes: int
+
+    @classmethod
+    def of(cls, log) -> "PilotCurve":
+        return cls(tuple(log.highs), log.peak_bytes, log.external_bytes)
+
+
+class FleetBytes(NamedTuple):
+    """What a folded fleet's chunk law reads (:func:`fleet_member_bytes`):
+    a chunk of M members of a fleet of N needs ``fixed + N * retained +
+    M * per_member`` bytes (:func:`fleet_chunk`)."""
+
+    fixed: float        # the tables the chunk reads, once
+    per_member: float   # the high-water of one member's block loop
+    retained: float     # what a member's finished chunk keeps live
+
+
+def fleet_member_bytes(sim, load, block_requests: int, *, control=None,
+                       blame=False, chaos_fx=None,
+                       jittered: bool = False) -> FleetBytes:
+    """The :class:`FleetBytes` of a folded fleet whose block is
+    ``block_requests`` rows a member.
+
+    Two pilots of ONE member of the fleet's folded chunk
+    (``oplog.run_fleet_pilot``: ``Simulator._fleet_chunks`` at one
+    member for two blocks, at the pilot sizes of the run's estimate)
+    are extrapolated point by point (:func:`pilot_live_bytes`): what the
+    member's block loop allocates, its control carries (``control`` =
+    ``(tl_plan, policies, rollouts)``, the chunk's folded
+    ``_BlockControl``: a protected fleet's laws or an observed fleet's
+    recorder), its blame reduction (``blame``: False, None for mean
+    blame, or the tail cut) and its physics scales (``jittered``), with
+    the previous block's results live beside the next block.  The
+    tables the pilots read (the Simulator's, and ``chaos_fx``, the
+    fleet's member-stacked chaos rows, whose first row the pilot reads)
+    are the fixed part; what the larger pilot's chunk returns is what a
+    member keeps live while the other chunks run.  A fixed temporary of
+    the block counts once a member, an overestimate.  The pilots are
+    recorded once per Simulator and fleet kind (cached on ``sim``) and
+    launch the census as the fleet's blocks do."""
+    from isotope_tpu_torch.analysis import oplog
+    from isotope_tpu_torch.sim.config import CLOSED_LOOP
+
+    closed = load.kind == CLOSED_LOOP
+    fx_key = None if chaos_fx is None else tuple(
+        None if x is None else (tuple(x.shape[1:]), x.dtype)
+        for x in chaos_fx
+    )
+    blame_key = blame if blame is False or blame is None else "tail"
+    key = (load.kind, int(load.connections) if closed else 0,
+           None if control is None else (tuple(control[0]),
+                                         bool(control[1]),
+                                         bool(control[2])),
+           blame_key, fx_key, bool(jittered))
+    cache = sim._fleet_pilots
+    if key not in cache:
+        n1 = oplog.pilot_size(load)
+        kw = dict(control=control, blame=blame, chaos_fx=chaos_fx,
+                  jittered=jittered)
+        # a first, unrecorded run builds what the Simulator caches, so
+        # both recorded pilots allocate the same sequence
+        oplog.run_fleet_pilot(sim, load, n1, record=False, **kw)
+        pilots = []
+        for n in (n1, 2 * n1):
+            log, retained = oplog.run_fleet_pilot(sim, load, n, **kw)
+            pilots.append((PilotCurve.of(log), n, retained))
+        cache[key] = tuple(pilots)
+    (c1, n1, _), (c2, n2, retained) = cache[key]
+    return FleetBytes(
+        float(max(c1.external_bytes, c2.external_bytes)),
+        pilot_live_bytes(c1, n1, c2, n2, block_requests),
+        float(retained),
+    )
+
+
+def fleet_chunk(members: int, sizes: FleetBytes,
+                capacity_bytes: Optional[float],
+                carry_bytes_per_member: float = 0.0) -> int:
+    """Members per chunk of a fleet of ``members`` from its
+    :class:`FleetBytes` (:func:`ensemble_chunk`: the tables and every
+    member's returned rows are fixed, each chunk member takes its
+    block loop's high-water and ``carry_bytes_per_member``)."""
+    return ensemble_chunk(
+        members, sizes.per_member, capacity_bytes,
+        carry_bytes_per_member=carry_bytes_per_member,
+        fixed_bytes=sizes.fixed + max(int(members), 1) * sizes.retained,
+    )
+
+
 def estimate_run(
     sim,
     block_requests: int,
     log=None,
     trace_requests: int = 8,
     capacity_override: Optional[float] = None,
+    slope_log=None,
+    slope_requests: Optional[int] = None,
 ) -> CostEstimate:
     """Estimate one run's per-block cost at ``block_requests``.
 
     When the op auditor recorded a pilot, its ``log`` (at
-    ``trace_requests`` requests) seeds the estimate: the storages the
-    pilot allocated and its flops scale by ``block / trace_requests``,
-    the tables it read count once.  Without a pilot the plan table
-    alone gives the (coarser) estimate of the reference, to the byte."""
+    ``trace_requests`` requests) seeds the estimate: its flops scale by
+    ``block / trace_requests``.  Its bytes: with a second pilot
+    (``slope_log`` at ``slope_requests`` requests) the two-point law of
+    :func:`pilot_bytes`; with one, the storages the pilot allocated
+    scale by ``block / trace_requests`` and the tables it read count
+    once.  Without a pilot the plan table alone gives the (coarser)
+    estimate of the reference, to the byte."""
     segments = segment_table(sim, block_requests)
     plan_bytes = sum(r["bytes_f32"] for r in segments)
     oc = None
     if log is not None:
         oc = oplog_cost(log)
         scale = block_requests / max(trace_requests, 1)
-        peak = oc.external_bytes + oc.peak_bytes * scale
+        if slope_log is not None:
+            peak = pilot_bytes(log, trace_requests, slope_log,
+                               int(slope_requests), block_requests)
+        else:
+            peak = oc.external_bytes + oc.peak_bytes * scale
         flops = oc.flops * scale
         depth = oc.critical_path
     else:
@@ -405,6 +551,8 @@ def estimate_run(
             capacity_override, device=sim.device
         ),
         timeline_bytes=tl_bytes,
+        slope_requests=int(slope_requests or 0) if slope_log is not None
+        else 0,
     )
 
 
@@ -431,25 +579,43 @@ def timeline_findings(estimate: CostEstimate) -> List[Finding]:
     )]
 
 
+def fleet_need(estimate: CostEstimate, members: int, carry: float,
+                member_bytes) -> Tuple[float, int]:
+    """``(bytes, auto chunk)`` of a fleet of ``members``: the reference's
+    ``members x (peak + carry)`` on the estimate, or with
+    ``member_bytes`` (:func:`fleet_member_bytes`, whose per-member part
+    holds the control and observability carries) ``fixed + members x
+    (per member + carry)``, the engine's own chunk law."""
+    cap = estimate.capacity_bytes
+    if member_bytes is None:
+        peak = estimate.peak_bytes_at_block
+        return members * (peak + carry), ensemble_chunk(
+            members, peak, cap, carry_bytes_per_member=carry)
+    return (member_bytes.fixed
+            + members * (member_bytes.per_member + carry)), fleet_chunk(
+        members, member_bytes, cap, carry_bytes_per_member=carry)
+
+
 def ensemble_findings(
     estimate: CostEstimate,
     members: int,
+    member_bytes: Optional[FleetBytes] = None,
 ) -> List[Finding]:
     """The VET-M004 verdict: a fleet whose ``members x peak-bytes``
     exceeds the device budget — WARN, never blocking: the engine splits
-    the fleet into member chunks instead of running out of memory."""
+    the fleet into member chunks instead of running out of memory.
+    ``member_bytes``: the folded pilot's sizes (:func:`fleet_need`)."""
     cap = estimate.capacity_bytes
     members = int(members)
     if members <= 1 or cap is None or cap <= 0:
         return []
-    peak = estimate.peak_bytes_at_block
     budget = CAPACITY_FILL * cap
-    if members * peak <= budget:
+    need, chunk = fleet_need(estimate, members, 0.0, member_bytes)
+    if need <= budget:
         return []
-    chunk = ensemble_chunk(members, peak, cap)
     return [Finding(
         "VET-M004", SEV_WARN,
-        f"ensemble of {members} members needs {members * peak:.3g} B "
+        f"ensemble of {members} members needs {need:.3g} B "
         f"(> the {budget:.3g} B budget, {CAPACITY_FILL:.0%} of "
         f"{cap:.3g} B capacity); the fleet will run in member chunks "
         f"of {chunk} — shrink the block or the fleet to run it in "
@@ -461,22 +627,24 @@ def protected_ensemble_findings(
     estimate: CostEstimate,
     members: int,
     carry_bytes: float,
+    member_bytes: Optional[FleetBytes] = None,
 ) -> List[Finding]:
     """The VET-T025 verdict: a protected fleet whose members' event
     tensors plus control carries (:func:`protected_carry_bytes`) exceed
-    the device budget.  WARN, never blocking."""
+    the device budget.  WARN, never blocking.  ``member_bytes``: the
+    protected folded pilot's sizes, which hold the carries."""
     cap = estimate.capacity_bytes
     members = int(members)
     if members <= 1 or cap is None or cap <= 0:
         return []
-    peak = estimate.peak_bytes_at_block
     budget = CAPACITY_FILL * cap
-    need = members * (peak + max(carry_bytes, 0.0))
+    need, chunk = fleet_need(
+        estimate, members,
+        max(carry_bytes, 0.0) if member_bytes is None else 0.0,
+        member_bytes,
+    )
     if need <= budget:
         return []
-    chunk = ensemble_chunk(
-        members, peak, cap, carry_bytes_per_member=carry_bytes
-    )
     return [Finding(
         "VET-T025", SEV_WARN,
         f"protected fleet of {members} members needs {need:.3g} B "
@@ -492,25 +660,26 @@ def observed_ensemble_findings(
     members: int,
     obs_carry_bytes: float,
     base_carry_bytes: float = 0.0,
+    member_bytes: Optional[FleetBytes] = None,
 ) -> List[Finding]:
     """The VET-M006 verdict: an observed fleet (attribution and/or
     timeline per member) whose members' event tensors plus
     observability carries (:func:`observability_carry_bytes`) exceed
-    the device budget.  WARN, never blocking."""
+    the device budget.  WARN, never blocking.  ``member_bytes``: the
+    observed folded pilot's sizes, which hold the carries."""
     cap = estimate.capacity_bytes
     members = int(members)
     obs = max(float(obs_carry_bytes), 0.0)
     if members <= 1 or cap is None or cap <= 0 or obs <= 0:
         return []
-    peak = estimate.peak_bytes_at_block
     carry = obs + max(float(base_carry_bytes), 0.0)
     budget = CAPACITY_FILL * cap
-    need = members * (peak + carry)
+    need, chunk = fleet_need(
+        estimate, members, carry if member_bytes is None else 0.0,
+        member_bytes,
+    )
     if need <= budget:
         return []
-    chunk = ensemble_chunk(
-        members, peak, cap, carry_bytes_per_member=carry
-    )
     return [Finding(
         "VET-M006", SEV_WARN,
         f"observed fleet of {members} members needs {need:.3g} B "
@@ -526,23 +695,21 @@ def search_findings(
     estimate: CostEstimate,
     widest_members: int,
     connections: int = 0,
+    member_bytes: Optional[FleetBytes] = None,
 ) -> List[Finding]:
     """The VET-M005 verdict: a search bracket whose widest rung's
     ``members x (peak + carry)-bytes`` exceeds the device budget.  WARN,
-    never blocking: narrower rungs inherit smaller footprints."""
+    never blocking: narrower rungs inherit smaller footprints.
+    ``member_bytes``: the folded pilot's sizes (:func:`fleet_need`)."""
     cap = estimate.capacity_bytes
     members = int(widest_members)
     if members <= 1 or cap is None or cap <= 0:
         return []
-    peak = estimate.peak_bytes_at_block
-    carry = search_carry_bytes(connections)
     budget = CAPACITY_FILL * cap
-    need = members * (peak + carry)
+    need, chunk = fleet_need(estimate, members,
+                              search_carry_bytes(connections), member_bytes)
     if need <= budget:
         return []
-    chunk = ensemble_chunk(
-        members, peak, cap, carry_bytes_per_member=carry
-    )
     return [Finding(
         "VET-M005", SEV_WARN,
         f"search bracket's widest rung of {members} candidates needs "

@@ -166,6 +166,10 @@ class OpLog:
         self.external_bytes = 0
         self.live_bytes = 0
         self.peak_bytes = 0
+        # the live bytes after each allocation: the curve whose maximum
+        # is the high-water (analysis/costmodel.pilot_bytes extrapolates
+        # it point by point from two pilot sizes)
+        self.highs: List[int] = []
         self.census_calls = 0
         self._tensor_val = WeakIdKeyDictionary()  # tensor -> (vid, version)
         self._storage_last: Dict[int, int] = {}   # storage key -> vid
@@ -232,6 +236,7 @@ class OpLog:
             self._storage_bytes[skey] = new_bytes
             self.live_bytes += new_bytes
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            self.highs.append(self.live_bytes)
             weakref.finalize(storage, self._free, skey)
         self._storage_last[skey] = vid
         self._tensor_val[t] = (vid, t._version)
@@ -381,7 +386,8 @@ def pilot_size(load, num_requests: int = TRACE_REQUESTS) -> int:
 def run_pilot(sim, load, num_requests: int = TRACE_REQUESTS,
               armed: bool = False,
               inject: Optional[Callable] = None,
-              arm: Optional[Callable] = None) -> Pilot:
+              arm: Optional[Callable] = None,
+              protected=None) -> Pilot:
     """Record one pilot block of ``sim`` under ``load``.
 
     The block's draws come from ``TorchDraws(0)`` on the Simulator's
@@ -393,7 +399,15 @@ def run_pilot(sim, load, num_requests: int = TRACE_REQUESTS,
     reference's member body is.  ``arm`` (the gradient audit's
     ``graddead`` defect) maps ``cpu_scale`` before the block sees it,
     ``inject`` (the ``callback`` / ``f64`` defects) maps the block's
-    output; both run inside the recording."""
+    output; both run inside the recording.
+
+    ``protected`` = ``(tl_plan, rollouts)`` records the pilot block of a
+    protected case (``Simulator.run_policies`` / ``run_rollouts``): a
+    fresh ``_BlockControl`` on that window grid is built before the
+    recording (its carries are tables the pilot reads), the block runs
+    under its effects (the breaker-shed, retry-budget and canary coins
+    and masks) and the recorder and the laws observe it inside the
+    recording, so the log holds what a protected block allocates."""
     from isotope_tpu_torch.sim import summary as summary_mod
     from isotope_tpu_torch.sim.config import CLOSED_LOOP, OPEN_LOOP
     from isotope_tpu_torch.sim.draws import TorchDraws
@@ -423,31 +437,121 @@ def run_pilot(sim, load, num_requests: int = TRACE_REQUESTS,
     conn_t0 = torch.zeros(max(conns, 1) if closed else 1,
                           dtype=torch.float32, device=dev)
     source = TorchDraws(0, dev)
+    control = None
+    if protected is not None:
+        from isotope_tpu_torch.sim.engine import _BlockControl
+
+        tl_plan, roll = protected
+        control = _BlockControl(sim, tl_plan, sim._policies is not None,
+                                bool(roll))
     log = OpLog()
     # the arguments' values, made before the span: the grad audit seeds
     # its taint there
     seeds = {name: log.read(x) for name, x in t.items()}
     with log.record():
+        pfx, rfx = (
+            control.effects() if control is not None else (None, None)
+        )
         draws = sim._draws(source, None, n, OPEN_LOOP if not closed
-                           else CLOSED_LOOP)
+                           else CLOSED_LOOP, policy=pfx is not None,
+                           canary=rfx is not None)
         cpu_scale = t.get("cpu_scale")
         if arm is not None and cpu_scale is not None:
             cpu_scale = arm(cpu_scale)
-        res, _, _ = sim._simulate_core(
+        res, t_end, conn_end = sim._simulate_core(
             n, load.kind, conns, draws,
             t["offered_qps"], t["pace_gap"], t["offered_qps"], t0, conn_t0,
             visits_pc=t["visits_pc"],
             nominal_gap=t["nominal_gap"] if closed else None,
             phase_windows=t["phase_windows"],
+            policy_fx=pfx, rollout_fx=rfx,
             cpu_scale=cpu_scale,
             err_scale=t.get("err_scale"),
         )
+        if control is not None:
+            control.observe(res, conn_end.min() if closed else t_end)
         out = res
         if inject is not None:
             out = inject(out)
         if armed:
             out = summary_mod.summarize(out)
     return Pilot(log, n, out, seeds)
+
+
+#: blocks a fleet pilot runs: the second runs beside the first's
+#: results, as every later block of a fleet does
+FLEET_PILOT_BLOCKS = 2
+
+
+def run_fleet_pilot(sim, load, num_requests: int, *, control=None,
+                    blame=False, chaos_fx=None, jittered: bool = False,
+                    record: bool = True):
+    """Record ONE member of a folded fleet chunk: what
+    ``Simulator._fleet_chunks`` runs for a chunk, at one member, for
+    :data:`FLEET_PILOT_BLOCKS` blocks of ``num_requests`` rows
+    (``analysis/costmodel.fleet_member_bytes`` sizes a fleet's chunks
+    from two of these).
+
+    The member runs at the load's rate on ``TorchDraws(0)``'s draws (a
+    saturated ``-qps max`` load as the plain closed loop, as
+    :func:`run_pilot` does).  Inside the recording, as a chunk does,
+    it builds its stacked rows (with unit ``cpu_scale`` / ``err_scale``
+    when ``jittered``) and, with ``control`` = ``(tl_plan, policies,
+    rollouts)``, its folded ``_BlockControl``; it reads ``chaos_fx``'s
+    first row, and ``blame`` (not False) reduces its blame at that tail
+    cut (None: mean blame).  Returns ``(log, retained)``: ``retained``
+    is the live bytes of what the chunk returns (its summary, carries,
+    control and blame outputs), which stay live while the fleet's
+    other chunks run.  ``record=False`` runs it without a log and
+    returns None."""
+    from isotope_tpu_torch.sim.config import CLOSED_LOOP
+    from isotope_tpu_torch.sim.draws import TorchDraws
+    from isotope_tpu_torch.sim.engine import _BlockControl
+    from isotope_tpu_torch.sim.ensemble import tree_map
+
+    closed = load.kind == CLOSED_LOOP
+    conns = int(load.connections) if closed else 0
+    n = pilot_size(load, num_requests)
+    dev = sim.device
+    offered = float(load.qps) if load.qps else float(sim.capacity_qps())
+    if not (offered > 0 and offered < float("inf")):
+        offered = 1.0
+    pace = conns / float(load.qps) if closed and load.qps else 0.0
+    nominal = conns / offered if closed else 0.0
+    args = dict(kind=load.kind, conns=conns, block=n, sat=False,
+                num_blocks=FLEET_PILOT_BLOCKS, sources=[TorchDraws(0, dev)])
+    fx = (tree_map(lambda x: x[:1], chaos_fx) if chaos_fx is not None
+          else None)
+    make_control = None
+    if control is not None:
+        def make_control(m):
+            return _BlockControl(sim, control[0], control[1], control[2],
+                                 members=m)
+
+    def chunk():
+        def col(v):
+            return torch.full((1,), v, dtype=torch.float32, device=dev)
+
+        one = col(1.0) if jittered else None
+        stacked = dict(
+            offered=col(offered), pace=col(pace), nominal=col(nominal),
+            win_lo=col(0.0), win_hi=col(float("inf")),
+            visits=sim._vis_arg(offered)[None],
+            windows=sim._windows_arg(offered, False)[None],
+            cpu_scale=one, err_scale=one,
+        )
+        return sim._fleet_chunks(args, [0], stacked, 1, False, fx=fx,
+                                 control=make_control, attr=blame)
+
+    if not record:
+        chunk()
+        return None
+    log = OpLog()
+    with log.record():
+        out = chunk()
+    retained = log.live_bytes
+    del out
+    return log, retained
 
 
 def out_values(log: OpLog, out) -> List[Tuple[str, int]]:

@@ -117,16 +117,17 @@ def _timed(timings: dict, name: str):
 
 
 def _plan_windows(sim, load):
+    """The ``(windows, width)`` grid this LOAD plans."""
     from isotope_tpu_torch.metrics.timeline import plan_windows
 
-    w, _, _ = plan_windows(
+    w, width, _ = plan_windows(
         getattr(load, "duration_s", 0.0) or 1.0,
         sim.params.timeline_window_s,
         sim.params.timeline_max_windows,
         sim.compiled.num_services,
         log=lambda m: None,
     )
-    return w
+    return w, width
 
 
 def vet_simulator(
@@ -145,6 +146,7 @@ def vet_simulator(
     split_spec=None,
     search_spec=None,
     grad: bool = False,
+    protected_case=None,
 ) -> Report:
     """Full vet of one built Simulator under one load.
 
@@ -161,6 +163,13 @@ def vet_simulator(
     bracket (VET-T026) and runs its widest-rung verdict (VET-M005).
     ``grad=True`` runs the gradient audit on a second, knob-armed pilot;
     its ``isotope-gradaudit/v1`` document lands in ``meta['grad']``.
+
+    The byte estimate reads two pilot sizes (:func:`sizing_pilots`):
+    the audited pilot and one of twice its requests, or, for a
+    protected case (``protected_case`` = ``(tl_plan, rollouts)``: the
+    run's window grid and whether it rolls out), two protected pilots
+    under the case's control effects.  The audits read the audited
+    plain pilot only.
     """
     report = Report(suppress=suppress)
     timings: dict = {}
@@ -177,6 +186,10 @@ def vet_simulator(
             audit_findings, pilot, traced_n = op_audit.audit_simulator(
                 sim, load, trace=trace,
             )
+            sizing = (
+                sizing_pilots(sim, load, pilot, protected_case)
+                if pilot is not None else None
+            )
         report.extend(audit_findings)
         with _timed(timings, "cost"):
             block = (
@@ -184,9 +197,13 @@ def vet_simulator(
                 else sim.default_block_size()
             )
             est = costmodel.estimate_run(
-                sim, block, log=pilot.log if pilot is not None else None,
-                trace_requests=traced_n,
+                sim, block,
+                log=sizing[0].log if sizing is not None else None,
+                trace_requests=sizing[0].n if sizing is not None
+                else traced_n,
                 capacity_override=device_bytes,
+                slope_log=sizing[1].log if sizing is not None else None,
+                slope_requests=sizing[1].n if sizing is not None else None,
             )
             mem_findings, start_rung = costmodel.memory_findings(
                 est, rung_names=rung_names,
@@ -195,7 +212,7 @@ def vet_simulator(
             report.extend(costmodel.timeline_findings(est))
             if ensemble is not None:
                 _fleet_verdicts(report, sim, load, est, ensemble,
-                                protected)
+                                protected, protected_case)
         if grad:
             from isotope_tpu_torch.analysis import grad_audit
 
@@ -210,6 +227,9 @@ def vet_simulator(
         report.meta["cost"] = {
             "block_requests": est.block_requests,
             "trace_requests": est.trace_requests,
+            "slope_requests": est.slope_requests,
+            "pilot": "protected" if protected_case is not None
+            else "plain",
             "flops_at_block": est.flops_at_block,
             "peak_bytes_at_block": est.peak_bytes_at_block,
             "critical_path": est.critical_path,
@@ -237,55 +257,84 @@ def vet_simulator(
     return report
 
 
-def _fleet_verdicts(report, sim, load, est, ensemble, protected):
-    """VET-T023, then VET-M004 / VET-T025 / VET-M006 and the chunk."""
+def sizing_pilots(sim, load, pilot, protected_case=None):
+    """The two pilots the byte estimate reads (``costmodel.pilot_bytes``):
+    the audited pilot (``pilot``) and one of twice its requests, both
+    plain; for a protected case two protected pilots of those sizes
+    (``oplog.run_pilot(protected=protected_case)``)."""
+    from isotope_tpu_torch.analysis import oplog
+
+    n1 = pilot.n
+    if protected_case is not None:
+        pilot = oplog.run_pilot(sim, load, n1, protected=protected_case)
+    return pilot, oplog.run_pilot(sim, load, 2 * n1,
+                                  protected=protected_case)
+
+
+def _fleet_verdicts(report, sim, load, est, ensemble, protected,
+                    protected_case=None):
+    """VET-T023, then VET-M004 / VET-T025 / VET-M006 and the chunk, from
+    the bytes the engine sizes the fleet's chunk from
+    (``costmodel.fleet_member_bytes``: its folded pilot, under the
+    control laws on ``protected_case``'s window grid, or the one this
+    load plans); with no capacity, the reference's law."""
     if isinstance(ensemble, int):
         from isotope_tpu_torch.sim.ensemble import EnsembleSpec
 
         ensemble = EnsembleSpec.of(ensemble)
     report.extend(topo_lint.lint_ensemble(ensemble))
+    attr = bool(sim.params.attribution)
+    timeline = bool(sim.params.timeline) and not protected
+    roll = getattr(sim, "_rollouts", None) is not None
+    grid = None
+    if protected or timeline:
+        grid = (tuple(protected_case[0]) if protected_case is not None
+                else _plan_windows(sim, load))
+    sizes = None
+    if est.capacity_bytes:
+        control = None
+        if protected:
+            control = (grid, sim._policies is not None, roll)
+        elif timeline:
+            control = (grid, False, False)
+        sizes = costmodel.fleet_member_bytes(
+            sim, load, est.block_requests, control=control,
+            blame=None if attr else False, jittered=ensemble.jittered,
+        )
     carry = 0.0
     if protected:
-        # the carry of the windows this LOAD plans, as the engine sizes
-        # its chunk (the worst case would misreport it)
-        carry = costmodel.protected_carry_bytes(
-            sim, _plan_windows(sim, load),
-            roll=getattr(sim, "_rollouts", None) is not None,
-        )
+        carry = costmodel.protected_carry_bytes(sim, grid[0], roll=roll)
         report.extend(costmodel.protected_ensemble_findings(
-            est, ensemble.members, carry,
+            est, ensemble.members, carry, member_bytes=sizes,
         ))
     else:
         report.extend(costmodel.ensemble_findings(
-            est, ensemble.members,
+            est, ensemble.members, member_bytes=sizes,
         ))
     # an observed fleet stacks blame histograms and window series on
     # top of the event tensors; the protected carry above already
     # counts the recorder, so only attribution adds there
     obs_carry = 0.0
-    if sim.params.attribution or (sim.params.timeline and not protected):
-        obs_windows = None
-        if sim.params.timeline and not protected:
-            obs_windows = _plan_windows(sim, load)
+    if attr or timeline:
         obs_carry = costmodel.observability_carry_bytes(
-            sim, attr=bool(sim.params.attribution),
-            timeline_windows=obs_windows,
+            sim, attr=attr, timeline_windows=grid[0] if timeline else None,
         )
         report.extend(costmodel.observed_ensemble_findings(
             est, ensemble.members, obs_carry, base_carry_bytes=carry,
+            member_bytes=sizes,
         ))
-    # the chunk the engine picks: its sizing reads the plan-only peak
-    # (Simulator.ensemble_chunk_size / protected_ensemble_chunk)
+    # the chunk the engine picks (Simulator.ensemble_chunk_size /
+    # protected_ensemble_chunk)
     report.meta["ensemble"] = {
         "members": ensemble.members,
         "protected": bool(protected),
-        "chunk": costmodel.ensemble_chunk(
-            ensemble.members,
-            costmodel.peak_bytes_at_block(sim, est.block_requests),
-            est.capacity_bytes,
-            carry_bytes_per_member=carry + obs_carry,
-        ),
+        "chunk": costmodel.fleet_need(
+            est, ensemble.members, 0.0 if sizes else carry + obs_carry,
+            sizes,
+        )[1],
     }
+    if sizes is not None:
+        report.meta["ensemble"]["member_bytes"] = sizes._asdict()
 
 
 def _search_verdicts(report, sim, load, est, search_spec):
@@ -297,8 +346,14 @@ def _search_verdicts(report, sim, load, est, search_spec):
         return
     widths = search_spec.rung_widths()
     conns = getattr(load, "connections", 0) or 0
+    sizes = None
+    if est.capacity_bytes:
+        sizes = costmodel.fleet_member_bytes(
+            sim, load, est.block_requests,
+            jittered=search_spec.candidates.jittered,
+        )
     report.extend(costmodel.search_findings(
-        est, widths[0], connections=conns,
+        est, widths[0], connections=conns, member_bytes=sizes,
     ))
     report.meta["search"] = {
         "candidates": search_spec.members,
@@ -306,12 +361,9 @@ def _search_verdicts(report, sim, load, est, search_spec):
         "eta": search_spec.eta,
         "widths": list(widths),
         # the chunk the bracket picks (sim/search.search_auto_chunk)
-        "chunk": costmodel.ensemble_chunk(
-            widths[0],
-            costmodel.peak_bytes_at_block(sim, est.block_requests),
-            est.capacity_bytes,
-            carry_bytes_per_member=costmodel.search_carry_bytes(conns),
-        ),
+        "chunk": costmodel.fleet_need(
+            est, widths[0], costmodel.search_carry_bytes(conns), sizes,
+        )[1],
     }
 
 

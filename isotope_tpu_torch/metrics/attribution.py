@@ -360,12 +360,20 @@ def attribute_block(
     tail_cut: Optional[float] = None,
     top_k: int = 0,
     ex_state: Optional[ExemplarBatch] = None,
+    members: int = 0,
 ) -> Tuple[AttributionSummary, Optional[ExemplarBatch]]:
     """Reduce one block's SimResults to an AttributionSummary.
 
     ``tail_cut`` arms the conditional-tail accumulators; ``top_k`` > 0
     merges this block's slowest requests into ``ex_state`` (returned
     beside the summary, whose ``exemplars`` is None).
+
+    ``members = M > 0`` reduces a folded fleet block (M x N rows,
+    member-major) to each member's summary and exemplars, stacked along
+    a leading member axis: the sweep runs once over all rows, the row
+    sums run over each member's (M, N) view (float32 sums within
+    summation order of the member's solo block), the histograms bin
+    with member offsets (exact), the exemplars rank within each member.
     """
     lat_all = res.hop_latency
     wait_all = res.hop_wait
@@ -376,6 +384,8 @@ def attribute_block(
         )
     dev = lat_all.device
     n = lat_all.shape[0]
+    M = members
+    lead = (M,) if M else ()
     sent_f = res.hop_sent.to(F32)
     tail_w = (
         (res.client_latency >= tail_cut).to(F32)
@@ -383,23 +393,35 @@ def attribute_block(
     )
 
     def zeros(size, dtype=F32):
-        return torch.zeros(size, dtype=dtype, device=dev)
+        return torch.zeros(lead + (size,), dtype=dtype, device=dev)
 
+    def rsum(x):
+        """The row sum: each member's, (M, ...), in a folded block."""
+        if M:
+            return x.view(M, n // M, *x.shape[1:]).sum(1)
+        return x.sum(0)
+
+    n_hist = tables.num_services * NUM_BLAME_BUCKETS
+    # each member's histogram bins past the earlier members'
+    hist_off = (
+        torch.arange(M, device=dev).repeat_interleave(n // M)[:, None]
+        * n_hist if M else None
+    )
     net0 = torch.where(res.hop_sent[:, 0], tables.root_net,
                        tables.refused_net).to(F32)
     per_req = net0
     w = sent_f[:, :1]  # (N, 1) level 0 crit weights
 
     crit_l, wait_l, self_l = [], [], []
-    net_l = [net0.sum()[None]]
+    net_l = [rsum(net0)[..., None]]
     tmo_l = [zeros(1)]
     t_crit_l, t_wait_l, t_self_l = [], [], []
     t_net_l = [
-        (net0 * tail_w).sum()[None] if tail_w is not None else zeros(1)
+        rsum(net0 * tail_w)[..., None] if tail_w is not None else zeros(1)
     ]
     t_tmo_l = [zeros(1)]
-    hist = zeros(tables.num_services * NUM_BLAME_BUCKETS, I64)
-    t_hist = zeros(tables.num_services * NUM_BLAME_BUCKETS, I64)
+    hist = torch.zeros(max(M, 1) * n_hist, dtype=I64, device=dev)
+    t_hist = torch.zeros(max(M, 1) * n_hist, dtype=I64, device=dev)
 
     for lvl in tables.levels:
         sl = slice(lvl.offset, lvl.offset + lvl.size)
@@ -418,17 +440,17 @@ def attribute_block(
                 w_next = on_crit
                 net_c = on_crit * lvl.child_rtt
                 tmo_c = None
-            net_l.append(net_c.sum(0))
+            net_l.append(rsum(net_c))
             tmo_l.append(
-                tmo_c.sum(0) if tmo_c is not None else zeros(lvl.child_size)
+                rsum(tmo_c) if tmo_c is not None else zeros(lvl.child_size)
             )
             per_req = per_req + net_c.sum(1)
             if tmo_c is not None:
                 per_req = per_req + tmo_c.sum(1)
             if tail_w is not None:
-                t_net_l.append((net_c * tail_w[:, None]).sum(0))
+                t_net_l.append(rsum(net_c * tail_w[:, None]))
                 t_tmo_l.append(
-                    (tmo_c * tail_w[:, None]).sum(0)
+                    rsum(tmo_c * tail_w[:, None])
                     if tmo_c is not None else zeros(lvl.child_size)
                 )
             else:
@@ -443,20 +465,22 @@ def attribute_block(
         contrib = hop_wait + hop_self  # == w * lat - D
         per_req = per_req + contrib.sum(1)
         w_int = w.to(I64)
-        crit_l.append(w_int.sum(0))
-        wait_l.append(hop_wait.sum(0))
-        self_l.append(hop_self.sum(0))
+        crit_l.append(rsum(w_int))
+        wait_l.append(rsum(hop_wait))
+        self_l.append(rsum(hop_self))
         # clamp before bucketing: float32 accumulation can leave an
         # off-path hop's contribution a hair below zero
         flat_idx = lvl.svc_base + blame_bucket_index(
             torch.clamp(contrib, min=0.0).double()
         )
+        if hist_off is not None:
+            flat_idx = flat_idx + hist_off
         hist.index_add_(0, flat_idx.reshape(-1), w_int.reshape(-1))
         if tail_w is not None:
             wt_int = (w * tail_w[:, None]).to(I64)
-            t_crit_l.append(wt_int.sum(0))
-            t_wait_l.append((hop_wait * tail_w[:, None]).sum(0))
-            t_self_l.append((hop_self * tail_w[:, None]).sum(0))
+            t_crit_l.append(rsum(wt_int))
+            t_wait_l.append(rsum(hop_wait * tail_w[:, None]))
+            t_self_l.append(rsum(hop_self * tail_w[:, None]))
             t_hist.index_add_(0, flat_idx.reshape(-1), wt_int.reshape(-1))
         else:
             t_crit_l.append(zeros(lvl.size, I64))
@@ -465,67 +489,85 @@ def attribute_block(
         w = w_next
 
     resid = res.client_latency - per_req
-    err_count = (res.hop_sent & res.hop_error).sum(0)
+    err_count = rsum(res.hop_sent & res.hop_error)
 
     if top_k > 0:
-        ex_state = _update_exemplars(res, ex_state, top_k)
+        ex_state = _update_exemplars(res, ex_state, top_k, M)
 
     S = tables.num_services
     summary = AttributionSummary(
-        count=torch.tensor(n, dtype=I64, device=dev),
+        count=torch.full(lead, n // max(M, 1), dtype=I64, device=dev),
         tail_count=(
-            tail_w.to(I64).sum() if tail_w is not None
-            else torch.tensor(0, dtype=I64, device=dev)
+            rsum(tail_w.to(I64)) if tail_w is not None
+            else torch.zeros(lead, dtype=I64, device=dev)
         ),
-        tail_cut=torch.tensor(
-            tail_cut if tail_cut is not None else np.inf, dtype=F32,
-            device=dev,
+        tail_cut=torch.full(
+            lead, tail_cut if tail_cut is not None else np.inf,
+            dtype=F32, device=dev,
         ),
-        residual=resid.sum(),
-        residual_abs=torch.abs(resid).sum(),
-        crit_count=torch.cat(crit_l),
-        wait_blame=torch.cat(wait_l),
-        self_blame=torch.cat(self_l),
-        net_blame=torch.cat(net_l),
-        timeout_blame=torch.cat(tmo_l),
+        residual=rsum(resid),
+        residual_abs=rsum(torch.abs(resid)),
+        crit_count=torch.cat(crit_l, -1),
+        wait_blame=torch.cat(wait_l, -1),
+        self_blame=torch.cat(self_l, -1),
+        net_blame=torch.cat(net_l, -1),
+        timeout_blame=torch.cat(tmo_l, -1),
         error_count=err_count,
-        tail_crit_count=torch.cat(t_crit_l),
-        tail_wait_blame=torch.cat(t_wait_l),
-        tail_self_blame=torch.cat(t_self_l),
-        tail_net_blame=torch.cat(t_net_l),
-        tail_timeout_blame=torch.cat(t_tmo_l),
-        hist=hist.reshape(S, NUM_BLAME_BUCKETS),
-        tail_hist=t_hist.reshape(S, NUM_BLAME_BUCKETS),
+        tail_crit_count=torch.cat(t_crit_l, -1),
+        tail_wait_blame=torch.cat(t_wait_l, -1),
+        tail_self_blame=torch.cat(t_self_l, -1),
+        tail_net_blame=torch.cat(t_net_l, -1),
+        tail_timeout_blame=torch.cat(t_tmo_l, -1),
+        hist=hist.reshape(*lead, S, NUM_BLAME_BUCKETS),
+        tail_hist=t_hist.reshape(*lead, S, NUM_BLAME_BUCKETS),
         exemplars=None,
     )
     return summary, ex_state
 
 
 def _top_rows(latency: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest latencies, largest first, equal ones
-    lowest index first (``jax.lax.top_k``'s order, on every device)."""
-    return torch.argsort(-latency, stable=True)[:k]
+    """Indices of the ``k`` largest latencies along the last axis,
+    largest first, equal ones lowest index first (``jax.lax.top_k``'s
+    order, on every device)."""
+    return torch.argsort(-latency, dim=-1, stable=True)[..., :k]
 
 
-def _update_exemplars(res, ex: Optional[ExemplarBatch], k: int
-                      ) -> ExemplarBatch:
-    """Merge this block's top-K slowest requests into the carry."""
-    k = min(k, res.client_latency.shape[0])
-    idx = _top_rows(res.client_latency, k)
-    batch = ExemplarBatch(
-        latency=res.client_latency[idx],
-        start=res.client_start[idx],
-        error=res.client_error[idx],
-        hop_sent=res.hop_sent[idx],
-        hop_error=res.hop_error[idx],
-        hop_latency=res.hop_latency[idx],
-        hop_start=res.hop_start[idx],
-    )
+def _take_rows(x: torch.Tensor, idx: torch.Tensor, members: int):
+    """Rows ``idx`` of ``x``; a folded block's (M, k) indices pick
+    within each member's (M, N, ...) rows."""
+    if not members:
+        return x[idx]
+    rows = x.view(members, -1, *x.shape[1:])
+    return rows[torch.arange(members, device=x.device)[:, None], idx]
+
+
+def _update_exemplars(res, ex: Optional[ExemplarBatch], k: int,
+                      members: int = 0) -> ExemplarBatch:
+    """Merge this block's top-K slowest requests into the carry (a
+    folded block's: each member's into its own, (M, K, ...))."""
+    M = members
+    lat = res.client_latency
+    if M:
+        lat = lat.view(M, -1)
+    k = min(k, lat.shape[-1])
+    idx = _top_rows(lat, k)
+    batch = ExemplarBatch(*(
+        _take_rows(x, idx, M) for x in (
+            res.client_latency, res.client_start, res.client_error,
+            res.hop_sent, res.hop_error, res.hop_latency, res.hop_start,
+        )
+    ))
     if ex is None:
         return batch
-    merged = ExemplarBatch(*(torch.cat([a, b]) for a, b in zip(ex, batch)))
+    axis = 1 if M else 0
+    merged = ExemplarBatch(*(
+        torch.cat([a, b], axis) for a, b in zip(ex, batch)
+    ))
     keep = _top_rows(merged.latency, k)
-    return ExemplarBatch(*(a[keep] for a in merged))
+    if not M:
+        return ExemplarBatch(*(a[keep] for a in merged))
+    pick = torch.arange(M, device=keep.device)[:, None]
+    return ExemplarBatch(*(a[pick, keep] for a in merged))
 
 
 def accumulate(acc: Optional[AttributionSummary],

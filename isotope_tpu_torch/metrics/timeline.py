@@ -165,13 +165,23 @@ def fixed_point(t: torch.Tensor) -> torch.Tensor:
     )
 
 
-def bin_sums(idx: torch.Tensor, vals: Sequence[torch.Tensor], bins: int
-             ) -> torch.Tensor:
+def bin_sums(idx: torch.Tensor, vals: Sequence[torch.Tensor], bins: int,
+             members: int = 0) -> torch.Tensor:
     """(bins, V) int64 sums of the int64 channels ``vals`` (each shaped
     like ``idx``) by bin ``idx``.  Integer sums are exact whatever the
     order of their additions, so the card (atomic adds) and the CPU
     give the same bits from run to run: the control laws that read them
-    (``sim/policies.py``, ``sim/rollout.py``) take the same decisions."""
+    (``sim/policies.py``, ``sim/rollout.py``) take the same decisions.
+    ``members = M > 0``: ``idx``'s rows are M folded members'
+    (member-major), each binned into its own (bins, V) block: (M, bins,
+    V)."""
+    if members:
+        # each member's bins offset past the earlier members'
+        idx = (
+            idx.reshape(members, -1)
+            + torch.arange(members, device=idx.device)[:, None] * bins
+        )
+        return bin_sums(idx, vals, members * bins).view(members, bins, -1)
     flat = idx.reshape(-1)
     return torch.stack([
         torch.zeros(bins, dtype=torch.int64, device=flat.device)
@@ -186,18 +196,21 @@ def _service_window_bins(
     vals: Sequence[torch.Tensor],  # V int64 channels (N, H) to window-sum
     groups: Optional[torch.Tensor] = None,  # (N, H) int — extra axis
     num_groups: int = 1,
+    members: int = 0,
 ) -> torch.Tensor:
     """(S, G, W, V) int64 per-service (per-group) window sums of one
     time family; ``groups`` splits each service's events along an extra
-    axis of ``num_groups`` (the rollouts' version coin)."""
+    axis of ``num_groups`` (the rollouts' version coin).  ``members = M
+    > 0``: a folded fleet block's rows, (M, S, G, W, V)."""
     W = spec.num_windows
     S = spec.num_services
     key = spec.hop_service[None, :].expand(t.shape)
     if groups is not None:
         key = key * num_groups + groups
     key = key * W + _window_index(spec, t)
-    return bin_sums(key, vals, S * num_groups * W).reshape(
-        S, num_groups, W, len(vals)
+    lead = (members,) if members else ()
+    return bin_sums(key, vals, S * num_groups * W, members).reshape(
+        *lead, S, num_groups, W, len(vals)
     )
 
 
@@ -205,14 +218,19 @@ def _service_boundary_prefixes(
     spec: TimelineSpec,
     t: torch.Tensor,             # (N, H) f32 — clamped event times, [0, T]
     vals: Sequence[torch.Tensor],  # V int64 channels (N, H) to prefix-sum
+    members: int = 0,
 ) -> torch.Tensor:
     """(S, W+1, V) int64 per-service boundary prefixes of one time
     family: ``out[s, j, v]`` sums ``vals[v]`` over service-``s`` events
     with time before the boundary ``j * window_s`` (column ``W``: the
     family total, the clamped final window included).  Every series the
-    recorder reports is a first difference of these prefixes."""
-    bins = _service_window_bins(spec, t, vals)[:, 0]  # (S, W, V)
-    return torch.nn.functional.pad(torch.cumsum(bins, dim=1), (0, 0, 1, 0))
+    recorder reports is a first difference of these prefixes.
+    ``members``: (M, S, W+1, V), a folded block's members'."""
+    bins = _service_window_bins(spec, t, vals, members=members)[
+        ..., 0, :, :
+    ]  # (S, W, V)
+    return torch.nn.functional.pad(torch.cumsum(bins, dim=-2),
+                                   (0, 0, 1, 0))
 
 
 def versioned_service_windows(
@@ -220,13 +238,16 @@ def versioned_service_windows(
     t: torch.Tensor,             # (N, H) f32 — clamped event times, [0, T]
     version: torch.Tensor,       # (N, H) bool — per-hop version coin
     vals: Sequence[torch.Tensor],  # V int64 channels (N, H) to window-sum
+    members: int = 0,
 ) -> torch.Tensor:
     """(S, 2, W, V) int64 per-service, per-VERSION window sums of one
     time family — the recorder's (S, W) observation channel extended
     along a two-arm deployment axis (axis 1: 0 = baseline, 1 = canary);
-    additive across blocks like every recorder series."""
+    additive across blocks like every recorder series.  ``members``:
+    (M, S, 2, W, V), a folded block's members'."""
     return _service_window_bins(
-        spec, t, vals, groups=version.to(torch.int64), num_groups=2
+        spec, t, vals, groups=version.to(torch.int64), num_groups=2,
+        members=members,
     )
 
 
@@ -235,14 +256,17 @@ def _count_dtype(packed: bool):
 
 
 def timeline_block(
-    res, spec: TimelineSpec, packed: bool = False
+    res, spec: TimelineSpec, packed: bool = False, members: int = 0,
 ) -> TimelineSummary:
     """Reduce one block's SimResults to a TimelineSummary (the block's
     clocks are absolute sim time, so windows align across blocks).
 
     ``packed`` (SimParams.packed_carries) accumulates the COUNT series
     as int32 (exact past 2^24 where f32 loses integers); the occupancy
-    integrals stay f32.
+    integrals stay f32.  ``members = M > 0`` reduces a folded fleet
+    block (M x N rows, member-major) to each member's summary, stacked
+    along a leading member axis: every bin is offset by its member, so
+    each member's series are its solo block's bit for bit.
     """
     if res.hop_wait is None:
         raise ValueError(
@@ -251,6 +275,8 @@ def timeline_block(
             "must fill it)"
         )
     dev = res.client_latency.device
+    M = members
+    lead = (M,) if M else ()
     n = res.client_latency.shape[0]
     W = spec.num_windows
     cd = _count_dtype(packed)
@@ -261,14 +287,14 @@ def timeline_block(
     ones = torch.ones(n, dtype=i64, device=dev)
     by_start = bin_sums(start_w, (
         ones, res.client_error.to(i64), fixed_point(res.client_latency),
-    ), W)
+    ), W, M)
     completions = bin_sums(_window_index(spec, res.client_end), (ones,),
-                           W)[:, 0]
+                           W, M)[..., 0]
     hist_idx = start_w * NUM_BLAME_BUCKETS + blame_bucket_index(
         torch.clamp(res.client_latency, min=0.0)
     )
-    hist = bin_sums(hist_idx, (ones,), W * NUM_BLAME_BUCKETS).reshape(
-        W, NUM_BLAME_BUCKETS
+    hist = bin_sums(hist_idx, (ones,), W * NUM_BLAME_BUCKETS, M).reshape(
+        *lead, W, NUM_BLAME_BUCKETS
     )
 
     # -- per-service series ---------------------------------------------
@@ -286,18 +312,18 @@ def timeline_block(
                         e_c)
     p_start = _service_boundary_prefixes(spec, s_c, (
         sent, sent * fixed_point(s_c), (res.hop_sent & res.hop_error).to(i64),
-    ))
+    ), M)
     p_end = _service_boundary_prefixes(spec, e_c,
-                                       (sent, sent * fixed_point(e_c)))
+                                       (sent, sent * fixed_point(e_c)), M)
     p_busy = _service_boundary_prefixes(spec, b_c,
-                                        (sent, sent * fixed_point(b_c)))
+                                        (sent, sent * fixed_point(b_c)), M)
     a_pref, ssum = p_start[..., 0], p_start[..., 1]
     err_pref = p_start[..., 2]
     b_pref, esum = p_end[..., 0], p_end[..., 1]
     ab_pref, bsum = p_busy[..., 0], p_busy[..., 1]
 
     def diff(x):
-        return x[:, 1:] - x[:, :-1]
+        return x[..., 1:] - x[..., :-1]
 
     def seconds(x):
         return x.to(torch.float64) * TIME_UNIT
@@ -312,12 +338,12 @@ def timeline_block(
         seconds(esum - bsum) + bounds * (ab_pref - b_pref).to(torch.float64)
     )
     return TimelineSummary(
-        window_s=torch.full((), spec.window_s, dtype=F32, device=dev),
-        count=torch.full((), n, dtype=cd, device=dev),
-        arrivals=by_start[:, 0].to(cd),
+        window_s=torch.full(lead, spec.window_s, dtype=F32, device=dev),
+        count=torch.full(lead, n // max(M, 1), dtype=cd, device=dev),
+        arrivals=by_start[..., 0].to(cd),
         completions=completions.to(cd),
-        errors=by_start[:, 1].to(cd),
-        latency_sum=seconds(by_start[:, 2]).to(F32),
+        errors=by_start[..., 1].to(cd),
+        latency_sum=seconds(by_start[..., 2]).to(F32),
         latency_hist=hist.to(cd),
         svc_arrivals=diff(a_pref).to(cd),
         svc_completions=diff(b_pref).to(cd),
@@ -328,19 +354,21 @@ def timeline_block(
 
 
 def zeros_summary(spec: TimelineSpec, packed: bool = False,
-                  device="cpu") -> TimelineSummary:
+                  device="cpu", members: int = 0) -> TimelineSummary:
     """An all-zero TimelineSummary shaped for ``spec``: the block loop's
-    accumulator, so memory stays O(S x W) whatever the block count."""
+    accumulator, so memory stays O(S x W) whatever the block count
+    (``members = M > 0``: M members' stacked along a leading axis)."""
     W = spec.num_windows
     S = spec.num_services
     cd = _count_dtype(packed)
+    lead = (members,) if members else ()
 
     def z(*shape, dtype=F32):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
 
     return TimelineSummary(
-        window_s=torch.full((), spec.window_s, dtype=F32, device=device),
-        count=torch.zeros((), dtype=cd, device=device),
+        window_s=torch.full(lead, spec.window_s, dtype=F32, device=device),
+        count=z(dtype=cd),
         arrivals=z(W, dtype=cd),
         completions=z(W, dtype=cd),
         errors=z(W, dtype=cd),

@@ -160,11 +160,15 @@ def _refuse_unported(config) -> None:
 
 def _vet_gate(mode: str, sim, topo, config, load, n, block, policy,
               ensemble=None, protected: bool = False,
-              split_spec=None, search_spec=None) -> int:
+              split_spec=None, search_spec=None, timeline=None) -> int:
     """The ``--vet`` pre-flight: lint + op audit + cost model for one
     case of ``n`` requests, on the Simulator the case runs on; the
     estimate is at the block the case runs (``block``, capped by ``n``:
-    the reference estimates at ``block``).
+    the reference estimates at ``block``).  A protected case (policy or
+    rollout tables: ``protected``) runs its blocks at
+    :func:`protected_window_block`'s size under its control laws, so its
+    estimate is at that block, from protected pilots on its window grid
+    (``timeline``: the ``--timeline`` width).
 
     Returns the ladder rung index the case should START on (the memory
     verdict's recommendation, 0 when everything fits).  Blocking
@@ -182,6 +186,16 @@ def _vet_gate(mode: str, sim, topo, config, load, n, block, policy,
     from isotope_tpu_torch.sim.engine import block_rows
 
     rung_names = tuple(name for name, _ in rung_blocks(block))
+    protected_case = None
+    if protected:
+        win, block = protected_window_block(
+            sim, load, block, config.timeline_window_s, timeline
+        )
+        rate = load.qps if load.qps is not None else sim.capacity_qps()
+        protected_case = (
+            sim.plan_timeline_windows(n, rate, win),
+            topo.rollout_tables is not None,
+        )
     report = vet_simulator(
         sim, load, block_requests=block_rows(load, n, block),
         graph=topo.graph, entry=config.entry,
@@ -191,6 +205,7 @@ def _vet_gate(mode: str, sim, topo, config, load, n, block, policy,
         protected=protected,
         split_spec=split_spec,
         search_spec=search_spec,
+        protected_case=protected_case,
     )
     for f in report.sorted():
         print(f"vet: {f.render()}", file=sys.stderr)
@@ -820,6 +835,7 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
             protected=protected,
             split_spec=config.ensemble_split,
             search_spec=search_spec,
+            timeline=timeline,
         )
     if protected and ens_groups is not None and start_rung == 0:
         # a PROTECTED fleet: member 0 rides the run's own draws (its

@@ -55,9 +55,13 @@ values (the JAX package pins buckets against unrolled levels).
 Monte Carlo fleets (``sim/ensemble.py``, :meth:`Simulator.run_ensemble`
 and the protected fleets) run their members one after another through
 the solo block loop (``"map"``), or fold a chunk of M members into one
-block of M x N request rows (``"vmap"``, plain fleets).  A fleet can
-export its carry (``FleetCarry``, ``ProtectedCarry``) and resume from
-it, so the search brackets' rungs continue one unbroken block loop.
+block of M x N request rows (``"vmap"``): plain, chaos (each row reads
+its member's ``ChaosFx`` tables), protected (a folded
+:class:`_BlockControl` carries the members' control laws over an (M, S)
+state) and observed fleets (the recorder and the blame sweep bin by
+member).  A fleet can export its carry (``FleetCarry``,
+``ProtectedCarry``) and resume from it, so the search brackets' rungs
+continue one unbroken block loop.
 """
 from __future__ import annotations
 
@@ -103,13 +107,6 @@ from isotope_tpu_torch.sim.draws import (
 from isotope_tpu_torch.sim.feedback import RetryFeedback
 
 F32 = torch.float32
-
-
-def _unsupported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to isotope_tpu_torch yet "
-        f"(ROADMAP.md queue 1: {item})"
-    )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -746,29 +743,42 @@ class _BlockControl:
     and the rollout state (``sim/rollout.py``) with its (S, 2, W, 4)
     per-arm observations and series.  :meth:`effects` is what the next
     block runs under; :meth:`observe` folds a finished block in and
-    advances the control laws through the windows it completed."""
+    advances the control laws through the windows it completed.
+
+    ``members = M > 0`` carries a folded fleet chunk's M members, every
+    state and series stacked along a leading member axis (the states'
+    ``last_window`` an (M,) int64 array): the effects are (M, S) rows,
+    and each member's laws step only through its own completed windows.
+    ``downed_w`` gives the members' own (M, S, W) chaos-downed counts (a
+    chaos fleet's planners')."""
 
     def __init__(self, sim: "Simulator", tl_plan: Tuple[int, float],
-                 policies: bool, rollouts: bool):
+                 policies: bool, rollouts: bool, members: int = 0,
+                 downed_w: Optional[torch.Tensor] = None):
         from isotope_tpu_torch.metrics import timeline as timeline_mod
 
         dev = self.device = sim.device
+        M = self.members = members
         self._tl = timeline_mod
         self.spec = timeline_mod.build_spec(
             sim.compiled, tl_plan[0], tl_plan[1], dev
         )
         self.packed = sim.params.packed_carries
-        self.tl_acc = timeline_mod.zeros_summary(self.spec, self.packed, dev)
+        self.tl_acc = timeline_mod.zeros_summary(self.spec, self.packed, dev,
+                                                 members=M)
         S, W = sim.compiled.num_services, self.spec.num_windows
+        lead = (M,) if M else ()
         self.roll = None
         if rollouts:
             from isotope_tpu_torch.sim import rollout as rollout_mod
 
             self.roll = rollout_mod
             self.rdtab = rollout_mod.device_tables(sim._rollouts, dev)
-            self.rstate = rollout_mod.init_state(self.rdtab)
-            self.racc = rollout_mod.zeros_summary(self.spec, S, dev)
-            self.robs = torch.zeros((S, 2, W, 4), dtype=F32, device=dev)
+            self.rstate = self._stack(rollout_mod.init_state(self.rdtab))
+            self.racc = rollout_mod.zeros_summary(self.spec, S, dev,
+                                                  members=M)
+            self.robs = torch.zeros(lead + (S, 2, W, 4), dtype=F32,
+                                    device=dev)
         self.pol = None
         if policies:
             from isotope_tpu_torch.sim import policies as policies_mod
@@ -778,20 +788,34 @@ class _BlockControl:
             # the policy layer's behavioral chaos sites: an armed
             # ``lag`` delays the autoscaler's first sync, ``stuck``
             # keeps tripped breakers open
-            self.pstate = policies_mod.init_state(
+            self.pstate = self._stack(policies_mod.init_state(
                 self.pdtab, lag_periods=faults.autoscaler_lag()
-            )
+            ))
             self.stuck = faults.stuck_breaker()
-            self.pacc = policies_mod.zeros_summary(self.spec, S, dev)
-            self.pobs = torch.zeros((S, W), dtype=F32, device=dev)
+            self.pacc = policies_mod.zeros_summary(self.spec, S, dev,
+                                                   members=M)
+            self.pobs = torch.zeros(lead + (S, W), dtype=F32, device=dev)
             # rollout runs split the canary-first kill delta off the
             # baseline arm the autoscaler manages
-            self.downed_w = sim._policy_downed_windows(
-                self.spec, base_split=rollouts
+            self.downed_w = (
+                downed_w if downed_w is not None
+                else sim._policy_downed_windows(self.spec,
+                                                base_split=rollouts)
             )
             self.retry_mask = torch.as_tensor(
                 np.asarray(sim.compiled.hop_attempt) > 0
             ).to(dev)
+
+    def _stack(self, state):
+        """A law's initial state, once a member when folded."""
+        if not self.members:
+            return state
+        return type(state)(*(
+            x.expand(self.members, *x.shape).clone()
+            if isinstance(x, torch.Tensor)
+            else np.full(self.members, x, np.int64)
+            for x in state
+        ))
 
     def effects(self):
         """``(policy_fx, rollout_fx)`` of the next block."""
@@ -804,20 +828,23 @@ class _BlockControl:
     def observe(self, res: SimResults, t_done: torch.Tensor) -> None:
         """Fold one block in; ``t_done`` is the sim time every request
         of the run so far has passed (windows ending before it are
-        final)."""
+        final): (M,) a member in a folded chunk."""
         tl = self._tl
+        M = self.members
         self.tl_acc = tl.accumulate(
-            self.tl_acc, tl.timeline_block(res, self.spec, self.packed)
+            self.tl_acc,
+            tl.timeline_block(res, self.spec, self.packed, members=M),
         )
         if self.roll is not None:
-            self.robs = self.robs + self.roll.observe_block(res, self.spec)
+            self.robs = self.robs + self.roll.observe_block(res, self.spec,
+                                                            members=M)
             self.rstate, rdelta = self.roll.advance(
                 self.rstate, self.rdtab, self.robs, t_done, self.spec
             )
             self.racc = self.roll.accumulate_summary(self.racc, rdelta)
         if self.pol is not None:
             self.pobs = self.pobs + self.pol.observe_block(
-                res, self.spec, self.retry_mask
+                res, self.spec, self.retry_mask, members=M,
             )
             self.pstate, pdelta = self.pol.advance(
                 self.pstate, self.pdtab, self.tl_acc, self.pobs, t_done,
@@ -829,17 +856,27 @@ class _BlockControl:
     def rollout_summary(self):
         return self.roll.attach_observations(self.racc, self.robs)
 
-    def export(self, clock: _Clock) -> ProtectedCarry:
-        """The loop's full carry after its last block: resuming a
-        fresh control from it (:meth:`resume`) continues the unbroken
-        loop exactly."""
+    def outputs(self) -> tuple:
+        """``(timeline[, rollout summary][, policy summary])``, the
+        control's part of a protected run's outputs."""
+        out = (self.tl_acc,)
+        if self.roll is not None:
+            out = out + (self.rollout_summary(),)
+        if self.pol is not None:
+            out = out + (self.pacc,)
+        return out
+
+    def export(self, clocks) -> ProtectedCarry:
+        """The loop's full carry after its last block, with ``clocks``
+        its ``(t0, conn_t0, req_off)``: resuming a fresh control from
+        it (:meth:`resume`) continues the unbroken loop exactly."""
         def state(st):
-            return st._replace(last_window=torch.tensor(
+            return st._replace(last_window=torch.as_tensor(
                 st.last_window, dtype=torch.int64, device=self.device
             ))
 
         return ProtectedCarry(
-            *clock.export(),
+            *clocks,
             tl_acc=self.tl_acc,
             robs=self.robs if self.roll is not None else None,
             rstate=state(self.rstate) if self.roll is not None else None,
@@ -850,21 +887,28 @@ class _BlockControl:
         )
 
     def resume(self, carry: ProtectedCarry) -> None:
-        """Continue from one member's :class:`ProtectedCarry` (each
-        tensor copied: the loop never writes into the stacked carry)."""
+        """Continue from one member's :class:`ProtectedCarry` (a folded
+        control: its members' rows); each tensor copied: the loop never
+        writes into the stacked carry."""
         from isotope_tpu_torch.sim.ensemble import tree_map
 
         carry = tree_map(torch.clone, carry)
+
+        def last(st):
+            if self.members:
+                return st.last_window.cpu().numpy().astype(np.int64)
+            return int(st.last_window)
+
         self.tl_acc = carry.tl_acc
         if self.roll is not None:
             self.robs, self.racc = carry.robs, carry.racc
             self.rstate = carry.rstate._replace(
-                last_window=int(carry.rstate.last_window)
+                last_window=last(carry.rstate)
             )
         if self.pol is not None:
             self.pobs, self.pacc = carry.pobs, carry.pacc
             self.pstate = carry.pstate._replace(
-                last_window=int(carry.pstate.last_window)
+                last_window=last(carry.pstate)
             )
 
 
@@ -1035,6 +1079,9 @@ class Simulator:
             F32,
         )
         self._window_cache: Dict[tuple, torch.Tensor] = {}
+        # a folded fleet's pilot curves by fleet kind
+        # (analysis/costmodel.fleet_member_bytes)
+        self._fleet_pilots: Dict[tuple, tuple] = {}
 
         # -- ungraceful kills (drain=False): resident-request resets ---------
         self._kill_tables(chaos, name_to_idx, cuts, eff)
@@ -2645,11 +2692,7 @@ class Simulator:
         )
         if attribution:
             summary, attr = summary
-        out = (summary, control.tl_acc)
-        if roll:
-            out = out + (control.rollout_summary(),)
-        if self._policies is not None:
-            out = out + (control.pacc,)
+        out = (summary,) + control.outputs()
         if attribution:
             out = out + (attr,)
         return out
@@ -2920,54 +2963,78 @@ class Simulator:
 
     def ensemble_chunk_size(self, members: int, block: int,
                             attr: bool = False,
-                            timeline_windows: Optional[int] = None) -> int:
-        """The auto member chunk: how many members fold into one block,
-        from the cost model's plan-only peak bytes a member
-        (``analysis/costmodel.py``) against the device's memory (the
-        CPU reports none: one chunk); ``attr`` / ``timeline_windows``
-        add an observed fleet's reductions a member."""
-        from isotope_tpu_torch.analysis import costmodel
-
-        cap = costmodel.device_capacity_bytes(device=self.device)
-        obs = costmodel.observability_carry_bytes(
-            self, attr=attr, timeline_windows=timeline_windows,
-        )
-        return costmodel.ensemble_chunk(
-            members, costmodel.peak_bytes_at_block(self, block), cap,
-            carry_bytes_per_member=obs,
-        )
+                            timeline_windows: Optional[int] = None,
+                            chaos_fx=None, *, load=None, tl_plan=None,
+                            tail_cut=None, jittered: bool = False) -> int:
+        """The auto member chunk: how many members fold into one block
+        (:meth:`_chunk_and_sizes`).  With the fleet's ``load``, from two
+        pilot blocks of one member of its folded program (its
+        ``chaos_fx`` rows, ``jittered`` scales, with ``attr`` its blame
+        at ``tail_cut`` and with ``tl_plan`` its recorder).  Without
+        one, the reference's law: the plan-only peak of the block plus,
+        with ``attr`` / ``timeline_windows``, an observed fleet's
+        reductions."""
+        return self._chunk_and_sizes(
+            members, block, attr, chaos_fx, load, tail_cut, jittered,
+            tl_plan=tl_plan, timeline_windows=timeline_windows,
+        )[0]
 
     def protected_ensemble_chunk(self, members: int, block: int,
                                  tl_plan: Tuple[int, float], roll: bool,
-                                 attr: bool = False) -> int:
-        """A protected fleet's auto chunk: the plain split with each
-        member's control carry (and, ``attr``, its blame reductions)."""
+                                 attr: bool = False, chaos_fx=None, *,
+                                 load=None, tail_cut=None,
+                                 jittered: bool = False) -> int:
+        """A protected fleet's auto chunk: as :meth:`ensemble_chunk_size`,
+        the pilot under the fleet's control laws on ``tl_plan``'s
+        window grid; without a load, the plain split with each member's
+        control carry (and, ``attr``, its blame reductions)."""
+        return self._chunk_and_sizes(
+            members, block, attr, chaos_fx, load, tail_cut, jittered,
+            tl_plan=tl_plan, roll=roll,
+        )[0]
+
+    def _chunk_and_sizes(self, members, block, attr, chaos_fx, load,
+                         tail_cut, jittered, tl_plan=None,
+                         timeline_windows=None, roll=None):
+        """``(members per chunk, sizes)`` of a fleet against the device's
+        memory (the CPU reports none: one chunk).  ``roll`` None: an
+        unprotected fleet, observed by the recorder on ``tl_plan`` when
+        given; else a protected one.  With ``load`` the sizes are the
+        ``(fixed, per member)`` bytes of
+        ``analysis/costmodel.fleet_member_bytes``; without one (or
+        without a capacity) the reference's plan-only law, and None."""
         from isotope_tpu_torch.analysis import costmodel
 
         cap = costmodel.device_capacity_bytes(device=self.device)
-        carry = costmodel.protected_carry_bytes(self, tl_plan[0], roll=roll)
-        if attr:
-            carry += costmodel.observability_carry_bytes(self, attr=True)
-        return costmodel.ensemble_chunk(
-            members, costmodel.peak_bytes_at_block(self, block), cap,
-            carry_bytes_per_member=carry,
+        if load is None or cap is None:
+            if roll is None:
+                carry = costmodel.observability_carry_bytes(
+                    self, attr=attr, timeline_windows=timeline_windows,
+                )
+            else:
+                carry = costmodel.protected_carry_bytes(
+                    self, tl_plan[0], roll=roll,
+                )
+                if attr:
+                    carry += costmodel.observability_carry_bytes(
+                        self, attr=True,
+                    )
+            return costmodel.ensemble_chunk(
+                members, costmodel.peak_bytes_at_block(self, block), cap,
+                carry_bytes_per_member=carry,
+            ), None
+        control = None
+        if roll is not None:
+            control = (tuple(tl_plan), self._policies is not None,
+                       bool(roll))
+        elif tl_plan is not None:
+            control = (tuple(tl_plan), False, False)
+        sizes = costmodel.fleet_member_bytes(
+            self, load, block, control=control,
+            blame=tail_cut if attr else False, chaos_fx=chaos_fx,
+            jittered=jittered,
         )
-
-    @staticmethod
-    def _fleet_mode(tables, spec, served: bool, what: str) -> str:
-        """The member axis mode of a fleet: the spec's (auto: per
-        device), except that fleets the folded block does not serve yet
-        (``served`` False: chaos, protected and observed fleets) plan
-        ``"map"`` and refuse an explicit ``"vmap"``."""
-        if served:
-            return tables.mode
-        if spec.mode == "vmap":
-            raise _unsupported(
-                f"the folded (\"vmap\") member axis of {what}",
-                "item 9, fleets: the folded mode for chaos, protected "
-                "and observed fleets",
-            )
-        return "map"
+        return costmodel.fleet_chunk(members, sizes, cap), sizes
 
     def zero_ensemble_carry(self, n_mem: int, connections: int) -> FleetCarry:
         """The fresh-start member-stacked ``(t0, conn_t0, req_off)``
@@ -2992,7 +3059,7 @@ class Simulator:
 
         control = _BlockControl(self, tl_plan, self._policies is not None,
                                 roll)
-        row = control.export(_Clock.zero(self, connections))
+        row = control.export(_Clock.zero(self, connections).export())
         return ens_mod.tree_stack([row] * n_mem)
 
     def _member_scales(self, tables, m: int):
@@ -3045,16 +3112,17 @@ class Simulator:
         ``"map"`` fleet's, float sums agree within float32 summation
         order.  ``chunk`` (or ``spec.chunk``) caps M; None sizes it
         from the cost model against the device's memory
-        (:meth:`ensemble_chunk_size`).  The folded mode serves plain
-        fleets (seeds and qps / cpu / error jitter, on open, paced and
-        saturated loads, under the Simulator's own chaos, churn, mTLS
-        and lb laws); chaos and observed fleets plan ``"map"``, and an
-        explicit ``"vmap"`` on them raises naming ROADMAP item 9.
+        (:meth:`ensemble_chunk_size`).  Every fleet folds: seeds and
+        qps / cpu / error jitter on open, paced and saturated loads
+        under the Simulator's own chaos, churn, mTLS and lb laws; chaos
+        fleets (each row reads its member's ``ChaosFx`` tables); and
+        observed fleets (the recorder and the blame sweep reduce each
+        member's rows, binned by member).
 
         ``attribution`` (needs ``SimParams.attribution``) reduces each
         member's critical-path blame and ``timeline`` (needs
-        ``SimParams.timeline``) its recorder series, in the member's
-        own block loop: the result stacks them under
+        ``SimParams.timeline``) its recorder series, over the member's
+        own rows: the result stacks them under
         ``attributions`` / ``timelines``.  ``tail=True`` arms the tail
         accumulators at ``tail_cut``, estimated once on the FLEET's
         source when not given.  The timeline grid is planned from
@@ -3103,7 +3171,7 @@ class Simulator:
             )
         tables = compile_ensemble(spec, self.device)
         sat = self._saturated(load)
-        member_events, planners, _ = self._resolve_member_chaos(
+        member_events, planners, fx = self._resolve_member_chaos(
             member_chaos, spec.seeds,
             sat_conns=load.connections if sat else 0, source=source,
         )
@@ -3127,10 +3195,7 @@ class Simulator:
                 "attribution/timeline reductions (screen first, then "
                 "explain with an observed fleet)"
             )
-        mode = self._fleet_mode(
-            tables, spec, planners is None and not observed,
-            "chaos and observed fleets",
-        )
+        mode = tables.mode
         n_mem = spec.members
         tl_plan = None
         if timeline:
@@ -3139,22 +3204,38 @@ class Simulator:
                 float(args["offered"][0]), window_s,
             )
         chunk_sz = chunk if chunk is not None else spec.chunk
+        sizes = None
         if chunk_sz is None:
-            chunk_sz = self.ensemble_chunk_size(
-                n_mem, args["block"], attr=attribution,
+            chunk_sz, sizes = self._chunk_and_sizes(
+                n_mem, args["block"], attribution, fx, load,
+                tail_cut if tail else None, tables.jittered,
+                tl_plan=tl_plan,
                 timeline_windows=tl_plan[0] if tl_plan else None,
             )
         chunk_sz = max(1, min(int(chunk_sz), n_mem))
         tl_stack = attr_stack = carry_out = None
-        if planners is None and not observed:
-            if carry_run and carry_in is None:
-                carry_in = self.zero_ensemble_carry(n_mem, args["conns"])
+        if carry_run and carry_in is None:
+            carry_in = self.zero_ensemble_carry(n_mem, args["conns"])
+        if mode == "vmap":
+            control = None
+            if timeline:
+                def control(rows):
+                    return _BlockControl(self, tl_plan, False, False,
+                                         members=rows)
+            summaries, carry_out, ctl, attr_stack = self._fleet_chunks(
+                args, range(n_mem), self._ensemble_stacked_args(args,
+                                                               tables),
+                chunk_sz, trim, start_block=int(block_offset),
+                carry=carry_in, fx=fx, control=control,
+                attr=(tail_cut if tail else None) if attribution
+                else False,
+            )
+            if timeline:
+                tl_stack = ctl[0]
+        elif planners is None and not observed:
             summaries, carry_out = self._plain_fleet(
-                args, tables, range(n_mem),
-                self._ensemble_stacked_args(args, tables)
-                if mode == "vmap" else None,
-                mode, chunk_sz, trim, start_block=int(block_offset),
-                carry=carry_in,
+                args, tables, range(n_mem), trim,
+                start_block=int(block_offset), carry=carry_in,
             )
         else:
             outs = []
@@ -3190,6 +3271,7 @@ class Simulator:
             member_chaos=member_events,
             timelines=tl_stack,
             attributions=attr_stack,
+            member_bytes=sizes,
         )
         if return_carry:
             return ens, carry_out
@@ -3218,39 +3300,22 @@ class Simulator:
             err_scale=tables.err_scale.to(dev) if jit else None,
         )
 
-    def _plain_fleet(self, args: dict, tables, ids, stacked: dict,
-                     mode: str, chunk_sz: int, trim: bool,
+    def _plain_fleet(self, args: dict, tables, ids, trim: bool,
                      start_block: int = 0,
                      num_blocks: Optional[int] = None, carry=None):
         """Members ``ids`` (indices into the plan ``args``) of a plain
-        fleet, ``stacked`` their rows of :meth:`_ensemble_stacked_args`
-        (``"vmap"`` only) and ``carry`` (a :class:`FleetCarry`, or None)
-        their clocks, in ``ids`` order: ``"vmap"`` folds chunks of ``chunk_sz`` members
-        into one block loop (:meth:`_folded_fleet`), ``"map"`` runs each
-        member's solo block loop on the fleet's plan.  Each runs
-        ``num_blocks`` blocks (default: the plan's) from block
-        ``start_block``.  Returns ``(member-stacked RunSummary,
-        FleetCarry)``, the carry None when none was given."""
+        ``"map"`` fleet, each through its solo block loop on the fleet's
+        plan, ``carry`` (a :class:`FleetCarry`, or None) their clocks in
+        ``ids`` order (the ``"vmap"`` fleets fold through
+        :meth:`_fleet_chunks`).  Each runs ``num_blocks`` blocks
+        (default: the plan's) from block ``start_block``.  Returns
+        ``(member-stacked RunSummary, FleetCarry)``, the carry None when
+        none was given."""
         from isotope_tpu_torch.sim import ensemble as ens_mod
 
         ids = list(ids)
         block = args["block"]
         nb = args["num_blocks"] if num_blocks is None else int(num_blocks)
-        if mode == "vmap":
-            parts = []
-            for lo in range(0, len(ids), chunk_sz):
-                hi = min(lo + chunk_sz, len(ids))
-
-                def rows(tree):
-                    return ens_mod.tree_map(lambda x: x[lo:hi], tree)
-
-                parts.append(self._folded_fleet(
-                    args, rows(stacked),
-                    [args["sources"][g] for g in ids[lo:hi]], trim,
-                    start_block, nb, rows(carry),
-                ))
-            return (ens_mod.tree_cat([p[0] for p in parts]),
-                    ens_mod.tree_cat([p[1] for p in parts]))
         outs, clocks = [], []
         for row, g in enumerate(ids):
             cpu, err = self._member_scales(tables, g)
@@ -3270,19 +3335,59 @@ class Simulator:
             torch.stack(x) for x in zip(*(c.export() for c in clocks))
         ))
 
-        return ens_mod.EnsembleSummary(
-            spec=spec,
-            summaries=summaries,
-            offered_qps=args["offered"],
-            chunk=chunk_sz,
-            member_chaos=member_events,
-            timelines=tl_stack,
-            attributions=attr_stack,
-        )
+    def _fleet_chunks(self, args: dict, ids, stacked: dict, chunk_sz: int,
+                      trim: bool, start_block: int = 0,
+                      num_blocks: Optional[int] = None, carry=None,
+                      fx=None, control=None, attr=False):
+        """Members ``ids`` (indices into the plan ``args``) folded in
+        chunks of ``chunk_sz`` (:meth:`_folded_fleet`); ``stacked``,
+        ``carry`` (a :class:`FleetCarry` or :class:`ProtectedCarry`)
+        and ``fx`` (a member-stacked ``ChaosFx``) are the members' rows
+        in ``ids`` order.  ``control(M)`` builds a chunk's folded
+        :class:`_BlockControl` (resumed from the chunk's carry rows when
+        ``carry`` is a ProtectedCarry); ``attr`` (not False) is the tail
+        cut of each member's blame reduction (None: mean blame only).
+        Returns ``(summary, carry out, the controls' outputs,
+        attribution)``, member-stacked; None where not run."""
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        ids = list(ids)
+        parts = []
+        for lo in range(0, len(ids), chunk_sz):
+            hi = min(lo + chunk_sz, len(ids))
+
+            def rows(tree):
+                return ens_mod.tree_map(lambda x: x[lo:hi], tree)
+
+            ctl = control(hi - lo) if control is not None else None
+            c_rows = rows(carry)
+            if isinstance(c_rows, ProtectedCarry):
+                ctl.resume(c_rows)
+                c_rows = FleetCarry(c_rows.t0, c_rows.conn_t0,
+                                    c_rows.req_off)
+            summary, clocks, attr_out = self._folded_fleet(
+                args, rows(stacked),
+                [args["sources"][g] for g in ids[lo:hi]], trim,
+                start_block, num_blocks, c_rows, chaos_fx=rows(fx),
+                control=ctl, attr=attr,
+            )
+            if ctl is not None and clocks is not None:
+                clocks = ctl.export(clocks)
+            parts.append((summary, clocks,
+                          ctl.outputs() if ctl is not None else None,
+                          attr_out))
+        cols = list(zip(*parts))
+        outs = None
+        if control is not None:
+            outs = [ens_mod.tree_cat(list(c)) for c in zip(*cols[2])]
+        return (ens_mod.tree_cat(list(cols[0])),
+                ens_mod.tree_cat(list(cols[1])), outs,
+                ens_mod.tree_cat(list(cols[3])))
 
     def _folded_fleet(self, args: dict, stacked: dict, sources,
                       trim: bool, start_block: int = 0,
-                      num_blocks: Optional[int] = None, carry=None):
+                      num_blocks: Optional[int] = None, carry=None,
+                      chaos_fx=None, control=None, attr=False):
         """M members of a planned fleet folded into one block loop
         (``stacked``: their rows of :meth:`_ensemble_stacked_args`,
         ``sources`` their draw sources): each block draws every member's
@@ -3291,8 +3396,14 @@ class Simulator:
         each member's rows to its own summary.  ``carry`` (a
         :class:`FleetCarry`) starts the members' clocks and
         ``start_block`` the block index; the members must share the
-        carry's request offset.  Returns ``(member-stacked RunSummary,
-        FleetCarry or None)``."""
+        carry's request offset.  ``chaos_fx`` holds the members'
+        ``ChaosFx`` rows (chaos fleets); ``control`` (a folded
+        :class:`_BlockControl`) runs each block under its (M, S)
+        effects and observes it, each member's laws on its own clock;
+        ``attr`` (not False: the tail cut, or None) reduces each
+        member's blame.  Returns ``(member-stacked RunSummary,
+        FleetCarry or None, member-stacked AttributionSummary or
+        None)``."""
         from isotope_tpu_torch.sim import summary as summary_mod
 
         dev = self.device
@@ -3314,12 +3425,29 @@ class Simulator:
                     f"offset (got {sorted(offs)}); run mode=\"map\""
                 )
             req_off = offs.pop()
+        if attr is not False:
+            from isotope_tpu_torch.metrics import attribution
+            from isotope_tpu_torch.sim.ensemble import tree_stack
+
+            a_tables = self._attribution_tables()
+            top_k = self.params.attribution_top_k
+            k0 = min(top_k, block)
+            ex = (
+                tree_stack([attribution.empty_exemplars(
+                    k0, self.compiled.num_hops, dev
+                )] * M) if k0 > 0 else None
+            )
+            a_acc = None
         per = block // max(conns, 1)
         parts = []
         for b in range(nb):
+            pfx, rfx = (
+                control.effects() if control is not None else (None, None)
+            )
             draws = _cat_draws([
                 self._draws(src, BLOCK_INDEX_BASE + start_block + b, block,
-                            kind, sat)
+                            kind, sat, policy=pfx is not None,
+                            canary=rfx is not None)
                 for src in sources
             ])
             res, t0, conn_t0 = self._simulate_core(
@@ -3330,18 +3458,33 @@ class Simulator:
                 nominal_gap=stacked["nominal"],
                 req_offset=req_off + b * per,
                 phase_windows=stacked["windows"],
+                policy_fx=pfx, rollout_fx=rfx,
                 cpu_scale=stacked["cpu_scale"],
                 err_scale=stacked["err_scale"], members=M,
+                chaos_fx=chaos_fx,
             )
+            if control is not None:
+                # closed loop: a member's window is final only once its
+                # SLOWEST connection passed it
+                control.observe(
+                    res, conn_t0.amin(-1) if kind == CLOSED_LOOP else t0
+                )
             parts.append(summary_mod.summarize_members(res, M, window=win))
+            if attr is not False:
+                a, ex = attribution.attribute_block(
+                    res, a_tables, tail_cut=attr, top_k=top_k,
+                    ex_state=ex, members=M,
+                )
+                a_acc = attribution.accumulate(a_acc, a)
         summary = summary_mod.reduce_stacked(summary_mod.stack(parts))
+        attr_out = a_acc._replace(exemplars=ex) if attr is not False else None
         if carry is None:
-            return summary, None
+            return summary, None, attr_out
         return summary, FleetCarry(
             t0, conn_t0,
             torch.full((M,), float(req_off + nb * per), dtype=F32,
                        device=dev),
-        )
+        ), attr_out
 
     def run_policies_ensemble(self, load: LoadModel, num_requests: int,
                               source, spec=None, **kw):
@@ -3355,8 +3498,11 @@ class Simulator:
         ``tail``, ``tail_cut``; no ``timeline``: the recorder always
         rides; ``carry_in`` / ``return_carry`` / ``block_offset`` carry
         the FULL control state, a :class:`ProtectedCarry`:
-        :meth:`zero_protected_carry`).  The members run ``"map"`` (an
-        explicit ``"vmap"`` raises naming ROADMAP item 9).  Returns an
+        :meth:`zero_protected_carry`).  The members fold in the spec's
+        mode as :meth:`run_ensemble`'s do: a ``"vmap"`` chunk runs one
+        block loop of M x N rows whose :class:`_BlockControl` carries
+        the members' control laws over an (M, S) state, each member
+        stepping through its own completed windows.  Returns an
         :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary` with
         the stacked ``timelines`` and ``policies``."""
         if self._policies is None:
@@ -3438,7 +3584,7 @@ class Simulator:
         self._check_lb_load(load)
         faults.check("engine.run")
         tables = compile_ensemble(spec, self.device)
-        member_events, planners, _ = self._resolve_member_chaos(
+        member_events, planners, fx = self._resolve_member_chaos(
             member_chaos, spec.seeds, with_pol=True, roll=roll,
         )
         args = self._ensemble_args(
@@ -3455,25 +3601,34 @@ class Simulator:
                 "block_offset) requires trim=False, no member_chaos, "
                 "and no attribution"
             )
-        self._fleet_mode(tables, spec, False, "protected fleets")
         n_mem = spec.members
         tl_plan = self.plan_timeline_windows(
             args["num_blocks"] * args["block"],
             float(args["offered"][0]), window_s,
         )
         chunk_sz = chunk if chunk is not None else spec.chunk
+        sizes = None
         if chunk_sz is None:
-            chunk_sz = self.protected_ensemble_chunk(
-                n_mem, args["block"], tl_plan, roll, attr=attribution,
+            chunk_sz, sizes = self._chunk_and_sizes(
+                n_mem, args["block"], attribution, fx, load,
+                tail_cut if tail else None, tables.jittered,
+                tl_plan=tl_plan, roll=roll,
             )
         chunk_sz = max(1, min(int(chunk_sz), n_mem))
         carry_out = None
-        if carry_run:
-            if carry_in is None:
-                carry_in = self.zero_protected_carry(
-                    n_mem, args["conns"], tl_plan, roll=roll,
-                )
-            outs, carry_out = self._protected_fleet(
+        if carry_run and carry_in is None:
+            carry_in = self.zero_protected_carry(
+                n_mem, args["conns"], tl_plan, roll=roll,
+            )
+        if tables.mode == "vmap":
+            cols, carry_out = self._protected_chunks(
+                args, tables, range(n_mem), roll, tl_plan, chunk_sz,
+                carry_in, start_block=int(block_offset), trim=trim,
+                fx=fx, planners=planners, attribution=attribution,
+                tail_cut=tail_cut if tail else None,
+            )
+        elif carry_run:
+            cols, carry_out = self._protected_fleet(
                 args, tables, range(n_mem), roll, window_s, tl_plan,
                 carry_in, start_block=int(block_offset),
             )
@@ -3488,8 +3643,8 @@ class Simulator:
                     tail, tail_cut, cpu_scale=cpu, err_scale=err,
                     tl_plan=tl_plan,
                 ))
-        # (summary, tl[, roll][, pol][, attr]) per member
-        cols = [ens_mod.tree_stack(list(c)) for c in zip(*outs)]
+            # (summary, tl[, roll][, pol][, attr]) per member
+            cols = [ens_mod.tree_stack(list(c)) for c in zip(*outs)]
         summary, tl = cols[0], cols[1]
         rest = cols[2:]
         roll_stack = rest.pop(0) if roll else None
@@ -3505,25 +3660,92 @@ class Simulator:
             policies=pol_stack,
             rollouts=roll_stack,
             attributions=attr_stack,
+            member_bytes=sizes,
         )
         if return_carry:
             return ens, carry_out
         return ens
 
+    def _protected_chunks(self, args: dict, tables, ids, roll: bool,
+                          tl_plan: Tuple[int, float], chunk_sz: int,
+                          carry=None, start_block: int = 0,
+                          num_blocks: Optional[int] = None,
+                          trim: bool = False, fx=None, planners=None,
+                          attribution: bool = False, tail_cut=None,
+                          stacked: Optional[dict] = None):
+        """Members ``ids`` of a protected fleet folded in chunks of
+        ``chunk_sz`` (:meth:`_fleet_chunks`): each chunk one block loop
+        of M x N rows whose folded :class:`_BlockControl` carries its
+        members' control laws, resumed from ``carry`` (a member-stacked
+        :class:`ProtectedCarry`, rows in ``ids`` order, or None) at
+        ``start_block``.  ``fx`` (the members' ``ChaosFx`` rows, in
+        ``ids`` order) and ``planners`` are a chaos fleet's (the
+        planners' chaos-downed windows feed the autoscalers);
+        ``stacked`` the members' rows of :meth:`_ensemble_stacked_args`
+        (default: the plan's, in ``ids`` order).  Returns ``([summary,
+        timeline[, rollout][, policy][, attribution]] member-stacked,
+        ProtectedCarry or None)``."""
+        from isotope_tpu_torch.metrics import timeline as timeline_mod
+
+        ids = list(ids)
+        pol = self._policies is not None
+        downed = None
+        if planners is not None and pol:
+            spec = timeline_mod.build_spec(self.compiled, tl_plan[0],
+                                           tl_plan[1], self.device)
+            downed = torch.stack([
+                planners[g]._policy_downed_windows(spec, base_split=roll)
+                for g in ids
+            ])
+        if stacked is None:
+            from isotope_tpu_torch.compiler.compile import ensemble_take
+
+            stacked = ensemble_take(
+                self._ensemble_stacked_args(args, tables), torch.tensor(ids)
+            )
+        offset = [0]
+
+        def control(m):
+            lo = offset[0]
+            offset[0] += m
+            return _BlockControl(
+                self, tl_plan, pol, roll, members=m,
+                downed_w=downed[lo:lo + m] if downed is not None else None,
+            )
+
+        summary, carry_out, outs, attr = self._fleet_chunks(
+            args, ids, stacked, chunk_sz, trim, start_block, num_blocks,
+            carry, fx=fx, control=control,
+            attr=tail_cut if attribution else False,
+        )
+        cols = [summary] + outs + ([attr] if attribution else [])
+        return cols, carry_out
+
     def _protected_fleet(self, args: dict, tables, ids, roll: bool,
                          window_s: Optional[float],
                          tl_plan: Tuple[int, float], carry,
                          start_block: int = 0,
-                         num_blocks: Optional[int] = None):
+                         num_blocks: Optional[int] = None,
+                         chunk_sz: Optional[int] = None,
+                         stacked: Optional[dict] = None):
         """Members ``ids`` (indices into the plan ``args``) of a
         protected fleet resumed from ``carry`` (a member-stacked
         :class:`ProtectedCarry`, rows in ``ids`` order) at block
-        ``start_block``, each through its own protected block loop for
-        ``num_blocks`` blocks (default: the plan's) on the window grid
-        ``tl_plan``.  Returns ``(per-member outputs of
-        :meth:`_run_protected`, member-stacked ProtectedCarry)``."""
+        ``start_block``, for ``num_blocks`` blocks (default: the plan's)
+        on the window grid ``tl_plan``: in the fleet's mode, ``"vmap"``
+        folding chunks of ``chunk_sz`` (:meth:`_protected_chunks`, from
+        ``stacked`` rows when given), ``"map"`` each member through its
+        own protected block loop.  Returns ``([summary, timeline[,
+        rollout][, policy]] member-stacked, member-stacked
+        ProtectedCarry)``."""
         from isotope_tpu_torch.sim import ensemble as ens_mod
 
+        ids = list(ids)
+        if tables.mode == "vmap":
+            return self._protected_chunks(
+                args, tables, ids, roll, tl_plan, chunk_sz or len(ids),
+                carry, start_block, num_blocks, stacked=stacked,
+            )
         block = args["block"]
         nb = args["num_blocks"] if num_blocks is None else int(num_blocks)
         outs, rows = [], []
@@ -3539,8 +3761,9 @@ class Simulator:
                 err_scale=err, tl_plan=tl_plan, control=control,
                 clock=clock, plan=(float(args["offered"][g]), block, nb),
             ))
-            rows.append(control.export(clock))
-        return outs, ens_mod.tree_stack(rows)
+            rows.append(control.export(clock.export()))
+        return ([ens_mod.tree_stack(list(c)) for c in zip(*outs)],
+                ens_mod.tree_stack(rows))
 
     # -- config search (sim/search.py) --------------------------------------
 
@@ -3730,7 +3953,8 @@ class Simulator:
 
     # -- the tensor program ------------------------------------------------
 
-    def _saturated_wait(self, z, sat_conns: int, sat_override, phase_idx):
+    def _saturated_wait(self, z, sat_conns: int, sat_override, phase_idx,
+                        tables=None):
         """(N, H) waits under the finite-population law: the population
         copula ``z' = scale * (z - c * e * (e . z))`` centres the normals
         across hops (the in-flight census is fixed at C), then a per-hop
@@ -3738,7 +3962,9 @@ class Simulator:
         broadcast over the request axis) of the conditional uniform
         ``u'`` above the zero-wait mass ``p0``.  ``phase_idx`` (N,)
         selects each request's (chaos x churn) row of phased tables
-        (``None``: one row)."""
+        (``None``: one row); ``tables`` = ``(p0, coef, e, c, scale)``
+        replaces the cached phased tables (a chaos fleet's members' rows,
+        ``phase_idx`` indexing them)."""
         if sat_override is not None:
             p0_h, coef_h, e_o, c_o, scale_o = sat_override
             zproj = (z * e_o).sum(-1, keepdim=True)
@@ -3763,12 +3989,16 @@ class Simulator:
                 return coef_0[ci]
         else:
             # per-phase rows gathered by each request's arrival phase
-            _, p0_r, coef_r, e_r, c_r, scale_r = self._closed_tables(
-                sat_conns
-            )
+            if tables is not None:
+                p0_r, coef_r, e_r, c_t, scale_r = tables
+            else:
+                _, p0_r, coef_r, e_r, c_r, scale_r = self._closed_tables(
+                    sat_conns
+                )
+                c_t = _const(c_r, F32, self.device)
             p0_h = p0_r[phase_idx]
             e_n = e_r[phase_idx]
-            c_n = _const(c_r, F32, self.device)[:, None][phase_idx]
+            c_n = c_t[:, None][phase_idx]
             scale_n = scale_r[phase_idx]
             zproj = (z * e_n).sum(-1, keepdim=True)
             z = (z - c_n * e_n * zproj) * scale_n
@@ -3788,7 +4018,7 @@ class Simulator:
         return torch.where(u_sat < p0_h, 0.0, torch.clamp(w, min=0.0))
 
     def _nominal_arrivals(self, n, connections, sat_conns, nominal_gap,
-                          req_offset, members: int = 0):
+                          req_offset, members: int = 0, chaos_fx=None):
         """(n,) nominal closed-loop arrival times, used only to place
         requests into chaos, churn and mTLS phases: request ``k`` of each
         connection's stream at ``(req_offset + k) * nominal_gap``, the
@@ -3797,7 +4027,9 @@ class Simulator:
         q-th request (globally) fires at R^-1(q), R(t) the cumulative
         requests under the per-phase rates.  ``members = M > 0``: ``n``
         requests of each of M folded members, ``nominal_gap`` (M,), the
-        (M * n,) clocks member-major."""
+        (M * n,) clocks member-major; a chaos fleet's members warp by
+        their own phases (``chaos_fx``'s ``sat_cuts`` / ``sat_lam`` /
+        ``sat_breaks``, (M, P))."""
         dev = self.device
         c = max(connections, 1)
         per = n // c
@@ -3805,6 +4037,28 @@ class Simulator:
         rem_idx = torch.full((n - c * per,), float(req_offset + per),
                              dtype=F32, device=dev)
         P_n = len(self._phase_starts)
+        if (sat_conns and members and chaos_fx is not None
+                and chaos_fx.sat_lam is not None):
+            cuts_f = chaos_fx.sat_cuts
+            lam_f = chaos_fx.sat_lam
+            breaks_f = chaos_fx.sat_breaks
+
+            def warp_rows(i):
+                q = (i * float(sat_conns))[None, :].expand(
+                    members, -1
+                ).contiguous()
+                k_ph = torch.clamp(
+                    torch.searchsorted(breaks_f, q, right=True) - 1,
+                    0, P_n - 1,
+                )
+                return cuts_f.gather(1, k_ph) + (
+                    q - breaks_f.gather(1, k_ph)
+                ) / lam_f.gather(1, k_ph)
+
+            nominal = warp_rows(idx)[:, None, :].expand(
+                members, c, per
+            ).reshape(members, -1)
+            return torch.cat([nominal, warp_rows(rem_idx)], 1).reshape(-1)
         if sat_conns and P_n * self._num_combos > 1:
             thr = self._closed_tables(sat_conns)[0]
             lam_p = np.maximum(
@@ -3865,6 +4119,7 @@ class Simulator:
         cpu_scale: Optional[torch.Tensor] = None,
         err_scale: Optional[torch.Tensor] = None,
         members: int = 0,
+        chaos_fx=None,
     ) -> Tuple[SimResults, torch.Tensor, torch.Tensor]:
         """One block of ``n`` requests; returns ``(results, t_end,
         conn_end)`` for the next block's clocks.
@@ -3905,8 +4160,12 @@ class Simulator:
         are (M,), and ``t_end`` / ``conn_end`` come back per member.
         Each member's queue tables are its own rows of one (M*P*Cc, S)
         table (the Erlang-B recursion runs once over all of them), and
-        each level makes one census call over all M*N rows.  Protected
-        blocks are not folded.
+        each level makes one census call over all M*N rows.  A folded
+        block's ``policy_fx`` / ``rollout_fx`` hold (M, S) rows, one a
+        member, and ``chaos_fx`` (a member-stacked
+        ``compiler/compile.ChaosFx``, chaos fleets) swaps every planner
+        table it arms for its member's rows: each row reads its own
+        member's tables, so a member's rows are its solo block's.
         """
         dev = self.device
         zero = torch.zeros((), dtype=F32, device=dev)
@@ -3916,31 +4175,47 @@ class Simulator:
             nominal_gap = pace_gap
         hop_svc = self._hop_service
         M = members
+        cfx = chaos_fx
         if M:
-            if policy_fx is not None or rollout_fx is not None:
-                raise ValueError(
-                    "protected blocks are not folded over fleet members"
-                )
             N = n // M
             member_row = torch.arange(
                 M, device=dev
             ).repeat_interleave(N)
+        elif cfx is not None:
+            raise ValueError("chaos_fx rows need a folded block (members)")
+
+        def coin(u, per_svc):
+            """(n, H) coins of ``u`` against each hop's service
+            threshold: (S,), or (M, S) a member in a folded block."""
+            if M:
+                return (
+                    u.view(M, N, -1) < per_svc[:, hop_svc][:, None, :]
+                ).view(n, -1)
+            return u < per_svc[hop_svc][None, :]
+
+        def fold(table, field=None):
+            """A (P*Cc, X) planner table as the folded block's (M*P*Cc,
+            X): its members' ``chaos_fx`` rows where armed, else the
+            table once a member."""
+            rows = getattr(cfx, field) if cfx is not None and field else None
+            if rows is not None:
+                return rows.reshape(-1, *rows.shape[2:])
+            return table.repeat(M, *([1] * (table.dim() - 1)))
+
         # -- policy coins (sim/policies.py), from a folded index so every
         # other stream is the unprotected twin's
         shed_coin = retry_coin = None
         if policy_fx is not None:
             pol = self._policies
             if pol.any_breaker:
-                shed_coin = draws.u_shed < policy_fx.shed[hop_svc][None, :]
+                shed_coin = coin(draws.u_shed, policy_fx.shed)
             if pol.any_budget and self._has_retries:
-                retry_coin = (
-                    draws.u_retry < policy_fx.retry_allow[hop_svc][None, :]
-                )
+                retry_coin = coin(draws.u_retry, policy_fx.retry_allow)
         # -- rollout version coin (sim/rollout.py): each hop routes to the
         # CANARY arm with its service's current weight
         can_coin = None
         if rollout_fx is not None:
-            can_coin = draws.u_canary < rollout_fx.weight[hop_svc][None, :]
+            can_coin = coin(draws.u_canary, rollout_fx.weight)
 
         # ---- wait draws: copulas in normal space, then U(0,1) marginals
         # (the saturated law keeps the normals, and takes the flat
@@ -3993,7 +4268,7 @@ class Simulator:
             if phased_clock:
                 nominal_arrivals = self._nominal_arrivals(
                     n // max(M, 1), connections, sat_conns, nominal_gap,
-                    req_offset, members=M,
+                    req_offset, members=M, chaos_fx=cfx,
                 )
 
         # ---- phased mTLS tax at each request's arrival time --------------
@@ -4028,48 +4303,70 @@ class Simulator:
         if visits_pc is None:
             visits_pc = self._visits_pc
         eff_replicas_pc = self._replicas_pc
+        svc_down_pc = self._svc_down_pc
+        down_ph = self._down_ph
         if M:
             # member m's queue tables are rows m*P*Cc .. (m+1)*P*Cc - 1
             lam_pc = (offered_qps[:, None, None] * visits_pc).reshape(
                 M * num_phases, -1
             )
-            eff_replicas_pc = eff_replicas_pc.repeat(M, 1)
+            eff_replicas_pc = fold(eff_replicas_pc, "eff_replicas_pc")
+            if self.has_chaos:
+                svc_down_pc = fold(svc_down_pc, "svc_down_pc")
+
+            def per_member(x):
+                # (M, S) member rows onto their members' phase rows
+                return x.repeat_interleave(num_phases, 0)
         else:
             lam_pc = offered_qps * visits_pc
+
+            def per_member(x):
+                return x[None, :]
+
+        def downed_pc():
+            # the policy layer's chaos-downed replicas (under a rollout
+            # the kill takes CANARY replicas first)
+            if rollout_fx is not None and self.has_chaos:
+                return (fold(self._downed_base_pc, "downed_base_pc") if M
+                        else self._downed_base_pc)
+            return fold(self._downed_pc, "downed_pc") if M else self._downed_pc
+
         pol_capacity = False
         if policy_fx is not None:
             pol = self._policies
             if pol.any_breaker:
                 # shed requests never enter the queue: the wait law sees
                 # the ADMITTED load
-                lam_pc = lam_pc * (1.0 - policy_fx.shed)[None, :]
+                lam_pc = lam_pc * per_member(1.0 - policy_fx.shed)
             if pol.any_hpa or pol.any_ejection:
                 # autoscaled/ejected capacity composes with the chaos
-                # phases' down deltas (under a rollout the kill takes
-                # CANARY replicas first); every station keeps >= 1 server
+                # phases' down deltas; every station keeps >= 1 server
                 pol_capacity = True
-                downed = (
-                    self._downed_base_pc
-                    if rollout_fx is not None and self.has_chaos
-                    else self._downed_pc
-                )
                 eff_replicas_pc = torch.clamp(
-                    policy_fx.replicas[None, :] - downed, min=1.0
+                    per_member(policy_fx.replicas) - downed_pc(), min=1.0
                 ).to(torch.int32)
         lam_can = None
-        svc_down_pc = self._svc_down_pc
-        down_ph = self._down_ph
         if rollout_fx is not None:
             # two-version split: the canary arm is its OWN M/M/k station
             # fed the split-off admitted load; the baseline keeps the rest
-            w_row = rollout_fx.weight[None, :]
+            w_row = per_member(rollout_fx.weight)
             lam_can = lam_pc * w_row
             lam_pc = lam_pc * (1.0 - w_row)
             if self.has_chaos:
                 if not pol_capacity:
-                    eff_replicas_pc = self._eff_base_roll_pc
-                svc_down_pc = self._svc_down_base_roll_pc
+                    eff_replicas_pc = (
+                        fold(self._eff_base_roll_pc, "eff_base_roll_pc")
+                        if M else self._eff_base_roll_pc
+                    )
+                svc_down_pc = (
+                    fold(self._svc_down_base_roll_pc,
+                         "svc_down_base_roll_pc")
+                    if M else self._svc_down_base_roll_pc
+                )
                 down_ph = self._down_base_roll_ph
+        if M and self.has_chaos:
+            # each member's outage flags per hop and phase row
+            down_ph = svc_down_pc[:, hop_svc]
         # panic routing (sim/lb.py): below a pool's panic threshold the
         # dead-backend share fast-fails through the panic coin below and
         # the wait law's load scales by the healthy fraction
@@ -4079,18 +4376,15 @@ class Simulator:
         ):
             if policy_fx is not None:
                 # the policy state's actuated pool and its healthy part
-                total = policy_fx.total[None, :]
-                alive = policy_fx.alive[None, :]
+                total = per_member(policy_fx.total)
+                alive = per_member(policy_fx.alive)
                 if self.has_chaos:
-                    alive = alive - (
-                        self._downed_base_pc if rollout_fx is not None
-                        else self._downed_pc
-                    )
+                    alive = alive - downed_pc()
                 alive = torch.clamp(alive, min=0.0)
             else:
                 total, alive = self._lb_total_row, self._lb_alive_pc
                 if M:
-                    alive = alive.repeat(M, 1)
+                    alive = fold(alive, "lb_alive_pc")
             lam_pc, panic_pc = lb_mod.panic_split(
                 self._lb_dev, lam_pc, alive, total
             )
@@ -4109,7 +4403,17 @@ class Simulator:
             if M:
                 mu = mu.repeat_interleave(num_phases)[:, None]
             if rollout_fx is not None:
-                can_mu = self._canary_mu / cpu_scale
+                can_mu = (
+                    per_member(self._canary_mu[None, :]
+                               / cpu_scale[:, None]) if M
+                    else self._canary_mu / cpu_scale
+                )
+        can_reps_pc = None
+        if rollout_fx is not None:
+            can_reps_pc = (
+                fold(self._can_reps_pc, "can_reps_pc") if M
+                else self._can_reps_pc
+            )
         if self._lb_dev is not None and not sat_conns:
             qp = lb_mod.wait_params(
                 self._lb, self._lb_dev, lam_pc, mu,
@@ -4118,7 +4422,7 @@ class Simulator:
             if rollout_fx is not None:
                 qp_can = lb_mod.wait_params(
                     self._lb, self._lb_dev, lam_can, can_mu,
-                    self._can_reps_pc, self._k_max,
+                    can_reps_pc, self._k_max,
                 )
         else:
             qp = queueing.mmk_params(
@@ -4126,8 +4430,7 @@ class Simulator:
             )
             if rollout_fx is not None:
                 qp_can = queueing.mmk_params(
-                    lam_can, can_mu, self._can_reps_pc,
-                    self._k_max,
+                    lam_can, can_mu, can_reps_pc, self._k_max,
                 )
         down = None
         phase_idx = None
@@ -4163,30 +4466,45 @@ class Simulator:
                 if combo_idx is not None
                 else chaos_idx
             )
-            if self.has_chaos:
+        if M:
+            # a row's phase-table row: its member's block of phases
+            q_idx = member_row * num_phases
+            if phase_idx is not None:
+                q_idx = q_idx + phase_idx
+        if self.has_chaos:
+            if M:
+                down = down_ph[q_idx]
+            elif phase_idx is not None:
                 down = down_ph[phase_idx]
-        elif self.has_chaos:
-            down = down_ph[0].expand(n, H)
+            else:
+                down = down_ph[0].expand(n, H)
         if can_coin is not None and self.has_chaos:
             # a canary hop's callee is down when its canary arm is
-            down = torch.where(
-                can_coin,
-                self._down_can_ph[0][None, :] if phase_idx is None
-                else self._down_can_ph[phase_idx],
-                down,
-            )
-        if sat_conns:
-            wait = self._saturated_wait(
-                z_wait, sat_conns, sat_override,
-                phase_idx if sat_override is None else None,
-            )
-        else:
             if M:
-                # a row's queue-table row: its member's block of phases
-                q_idx = member_row * num_phases
-                if phase_idx is not None:
-                    q_idx = q_idx + phase_idx
-
+                down_can = fold(self._svc_down_can_pc,
+                                "svc_down_can_pc")[:, hop_svc][q_idx]
+            elif phase_idx is None:
+                down_can = self._down_can_ph[0][None, :]
+            else:
+                down_can = self._down_can_ph[phase_idx]
+            down = torch.where(can_coin, down_can, down)
+        if sat_conns:
+            if cfx is not None and cfx.sat_p0 is not None:
+                # each member's own finite-population tables
+                wait = self._saturated_wait(
+                    z_wait, sat_conns, None, q_idx,
+                    tables=(cfx.sat_p0.flatten(0, 1),
+                            cfx.sat_coef.flatten(0, 1),
+                            cfx.sat_e.flatten(0, 1),
+                            cfx.sat_c.reshape(-1),
+                            cfx.sat_scale.flatten(0, 1)),
+                )
+            else:
+                wait = self._saturated_wait(
+                    z_wait, sat_conns, sat_override,
+                    phase_idx if sat_override is None else None,
+                )
+        else:
             def per_hop(table):
                 if M:
                     return table[:, hop_svc][q_idx]
@@ -4228,8 +4546,6 @@ class Simulator:
         if self.has_chaos:
             # a fully-down service does no work: zero utilization for
             # those phases instead of the clamped-to-1-replica saturation
-            if M:
-                svc_down_pc = svc_down_pc.repeat(M, 1)
             utilization = torch.where(svc_down_pc, 0.0, utilization)
             unstable = unstable & ~svc_down_pc
         svc_time = self._sample_service_time(draws.svc, n)
@@ -4252,25 +4568,34 @@ class Simulator:
         # a member's err_scale multiplies the per-hop error rates; it
         # preserves zeros, so the static coin elimination stays sound
         err_rate_h = self._hop_err_rate
-        if err_scale is not None and not M:
+        can_err_h = getattr(self, "_canary_err_h", None)
+        if err_scale is not None and M:
+            # (M, H) rates, each member's own
+            err_rate_h = torch.clamp(
+                err_rate_h[None, :] * err_scale[:, None], 0.0, 1.0
+            )
+            if can_coin is not None:
+                can_err_h = torch.clamp(
+                    can_err_h[None, :] * err_scale[:, None], 0.0, 1.0
+                )
+        elif err_scale is not None:
             err_rate_h = torch.clamp(err_rate_h * err_scale, 0.0, 1.0)
+            if can_coin is not None:
+                can_err_h = torch.clamp(can_err_h * err_scale, 0.0, 1.0)
         if u_err is None:
             err_coin = None
+        elif err_scale is not None and M:
+            rate = err_rate_h[:, None, :]
+            if can_coin is not None:
+                # per-arm error rates: a canary hop draws against its own
+                rate = torch.where(can_coin.view(M, N, -1),
+                                   can_err_h[:, None, :], rate)
+            err_coin = (u_err.view(M, N, -1) < rate).view(n, -1)
         elif can_coin is not None:
             # per-arm error rates: a canary hop draws against its own
-            can_err_h = self._canary_err_h
-            if err_scale is not None:
-                can_err_h = torch.clamp(can_err_h * err_scale, 0.0, 1.0)
             err_coin = u_err < torch.where(
                 can_coin, can_err_h[None, :], err_rate_h[None, :],
             )
-        elif err_scale is not None and M:
-            rate_m = torch.clamp(
-                err_rate_h[None, :] * err_scale[:, None], 0.0, 1.0
-            )
-            err_coin = (
-                u_err.view(M, N, -1) < rate_m[:, None, :]
-            ).view(n, -1)
         else:
             err_coin = u_err < err_rate_h
         if shed_coin is not None:
@@ -4601,6 +4926,8 @@ class Simulator:
             root_lat, client_error = self._kill_resets(
                 draws.u_kill, hop_sent, hop_start, hop_lat, arrivals,
                 root_lat, client_error,
+                rows=(cfx.kill_t, cfx.kill_frac)
+                if cfx is not None and cfx.kill_t is not None else None,
             )
         res = SimResults(
             client_start=arrivals,
@@ -4666,19 +4993,32 @@ class Simulator:
         return arrivals.reshape(-1), conn_end
 
     def _kill_resets(self, u_kill, hop_sent, hop_start, hop_lat, arrivals,
-                     root_lat, client_error):
+                     root_lat, client_error, rows=None):
         """Ungraceful kills: a request whose hop on the killed service
         is in flight at the kill instant dies (transport) with the
         event's probability; the client sees the reset at about the
         kill time, after the shortest payload-free return path among
-        its killed hops.  The earliest event wins."""
+        its killed hops.  The earliest event wins.  ``rows`` =
+        ``(kill_t, kill_frac)``, (M, E) and (M, E, H): a folded chaos
+        fleet's members' own events over their own rows."""
         died_any = torch.zeros_like(client_error)
+        if rows is not None:
+            M = rows[0].shape[0]
+            N = arrivals.shape[0] // M
         for i in range(self._num_kill_events):
-            t_k = self._kill_t[i]
+            if rows is None:
+                t_k = self._kill_t[i]
+                t_h = t_k
+                frac = self._kill_frac[i][None, :]
+            else:
+                # each member's kill instant over its own rows
+                t_k = rows[0][:, i].repeat_interleave(N)
+                t_h = t_k[:, None]
+                frac = rows[1][:, i].repeat_interleave(N, 0)
             strad = (
-                hop_sent & (hop_start < t_k) & (hop_start + hop_lat > t_k)
+                hop_sent & (hop_start < t_h) & (hop_start + hop_lat > t_h)
             )
-            died_h = strad & (u_kill[i] < self._kill_frac[i][None, :])
+            died_h = strad & (u_kill[i] < frac)
             died = died_h.any(1) & ~died_any
             ret = torch.where(
                 died_h, self._back_cum[None, :], float("inf")

@@ -18,12 +18,16 @@ perturbations:
 - :func:`wilson_interval` and :func:`norm_ppf` are the closed forms of
   the reference (float64 on the host).
 
-``EnsembleSpec.mode`` picks how the engine runs the member axis
-(``Simulator.run_ensemble``): ``"map"`` runs the members one after
-another through the solo block loop, so member k is bit-equal to its
-solo run; ``"vmap"`` folds a chunk of M members into one block of
-M x N request rows.  ``None`` resolves per device: ``"vmap"`` on CUDA,
-``"map"`` on the CPU.
+``EnsembleSpec.mode`` picks how the engine runs the member axis of
+every fleet (``Simulator.run_ensemble``, ``run_policies_ensemble``,
+``run_rollouts_ensemble``, the search brackets and the splitting
+levels): ``"map"`` runs the members one after another through the solo
+block loop, so member k is bit-equal to its solo run; ``"vmap"`` folds
+a chunk of M members into one block of M x N request rows, chaos fleets
+with each member's chaos tables, protected fleets with their control
+laws over an (M, S) state, observed fleets with their reductions binned
+by member.  ``None`` resolves per device: ``"vmap"`` on CUDA, ``"map"``
+on the CPU.
 """
 from __future__ import annotations
 
@@ -390,6 +394,10 @@ class EnsembleSummary:
     # an AttributionSummary with (N,)-leading leaves when the fleet
     # ran with attribution armed
     attributions: Optional[object] = None
+    # the bytes the auto chunk was sized from (a FleetBytes of
+    # analysis/costmodel.fleet_member_bytes); None when the chunk was
+    # given or the device reports no capacity
+    member_bytes: Optional[object] = None
 
     @property
     def members(self) -> int:

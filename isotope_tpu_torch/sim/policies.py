@@ -661,15 +661,19 @@ def effects(state: PolicyState) -> PolicyFx:
     )
 
 
-def zeros_summary(spec, num_services: int, device="cpu") -> PolicySummary:
+def zeros_summary(spec, num_services: int, device="cpu",
+                  members: int = 0) -> PolicySummary:
+    """An all-zero PolicySummary (``members = M > 0``: M members'
+    stacked along a leading axis)."""
     W = spec.num_windows
     S = num_services
+    lead = (members,) if members else ()
 
     def z(*shape):
-        return torch.zeros(shape, dtype=F32, device=device)
+        return torch.zeros(lead + shape, dtype=F32, device=device)
 
     return PolicySummary(
-        window_s=torch.full((), spec.window_s, dtype=F32, device=device),
+        window_s=torch.full(lead, spec.window_s, dtype=F32, device=device),
         replicas=z(S, W),
         effective=z(S, W),
         shed=z(S, W),
@@ -683,27 +687,68 @@ def zeros_summary(spec, num_services: int, device="cpu") -> PolicySummary:
     )
 
 
-def observe_block(res, spec, retry_hop_mask: torch.Tensor) -> torch.Tensor:
+def observe_block(res, spec, retry_hop_mask: torch.Tensor,
+                  members: int = 0) -> torch.Tensor:
     """(S, W) executed RETRY hops (attempt >= 1) of one block, binned by
     hop start — the budget law's numerator, an observation channel the
-    flight recorder doesn't carry; additive across blocks."""
+    flight recorder doesn't carry; additive across blocks.  ``members =
+    M > 0``: a folded fleet block's, (M, S, W)."""
     from isotope_tpu_torch.metrics import timeline as timeline_mod
 
     T = spec.num_windows * spec.window_s
     s_c = torch.clamp(res.hop_start, 0.0, T)
     retries = (res.hop_sent & retry_hop_mask[None, :]).to(torch.int64)
-    return timeline_mod._service_window_bins(spec, s_c, (retries,))[
-        :, 0, :, 0
-    ].to(F32)
+    return timeline_mod._service_window_bins(
+        spec, s_c, (retries,), members=members,
+    )[..., 0, :, 0].to(F32)
 
 
-def completed_windows(t_complete: torch.Tensor, spec) -> int:
+def completed_windows(t_complete: torch.Tensor, spec):
     """``floor(t_complete / window_s)``, a float32 division on the
     device as the reference computes it, read once per block.  (The
     divisor is a device tensor: on the card a Python float divisor
-    becomes a product with its reciprocal, one rounding off.)"""
+    becomes a product with its reciprocal, one rounding off.)  A
+    folded fleet's (M,) clocks give an (M,) int64 array in one read."""
     dtw = torch.full((), spec.window_s, dtype=F32, device=t_complete.device)
-    return int(torch.floor(t_complete.to(F32) / dtw).item())
+    done = torch.floor(t_complete.to(F32) / dtw)
+    if done.dim() == 0:
+        return int(done.item())
+    return np.asarray(done.tolist(), np.float64).astype(np.int64)
+
+
+class LiveWindows(NamedTuple):
+    """The windows one control-law advance walks: ``windows`` in order;
+    for a folded fleet (``mask`` not None) the union of the members'
+    live windows, with ``mask[:, j]`` (M, 1) true where window
+    ``windows[j]`` is live for a member, and ``last`` the members' new
+    last windows."""
+
+    windows: range
+    mask: Optional[torch.Tensor]
+    last: object
+
+
+def live_windows(last_window, done_below, num_windows: int,
+                 device) -> LiveWindows:
+    """The windows ``(last_window, min(done_below, W))`` a control law
+    advances through: one member's (host integers), or a folded fleet's
+    (``last_window`` and ``done_below`` (M,) int64 arrays; each member
+    steps only through its own live windows, so its values are its
+    solo run's)."""
+    if not isinstance(last_window, np.ndarray):
+        return LiveWindows(
+            range(last_window + 1, min(done_below, num_windows)), None,
+            None,
+        )
+    lo = last_window + 1
+    hi = np.minimum(done_below, num_windows)
+    win = range(int(lo.min()), max(int(hi.max()), int(lo.min())))
+    w = np.arange(win.start, win.stop)
+    live = (w[None, :] >= lo[:, None]) & (w[None, :] < hi[:, None])
+    last = np.where(hi > lo, hi - 1, last_window)
+    return LiveWindows(
+        win, torch.as_tensor(live, device=device)[:, None, :], last,
+    )
 
 
 def advance(
@@ -728,16 +773,18 @@ def advance(
     """
     dev = state.replicas.device
     W = spec.num_windows
-    S = state.replicas.shape[0]
+    S = state.replicas.shape[-1]
+    folded = state.replicas.dim() > 1
     # the window width as a float32 operand, as the reference's
     # jnp.float32(window_s); the divisions take it as a device tensor
     # (completed_windows)
     dtw = float(np.float32(spec.window_s))
     dtw_t = torch.full((), dtw, dtype=F32, device=dev)
     done_below = completed_windows(t_complete, spec)
-    delta = zeros_summary(spec, S, dev)
-    live = range(state.last_window + 1, min(done_below, W))
-    if len(live) == 0:
+    delta = zeros_summary(spec, S, dev,
+                          members=state.replicas.shape[0] if folded else 0)
+    live = live_windows(state.last_window, done_below, W, dev)
+    if len(live.windows) == 0:
         return state, delta
     arr_w = tl_acc.svc_arrivals.to(F32)
     err_w = tl_acc.svc_errors.to(F32)
@@ -745,12 +792,13 @@ def advance(
     infl_w = tl_acc.svc_inflight_s
     d = dt_tables
     st = state
-    for w in live:
-        arr = arr_w[:, w]
-        err = err_w[:, w]
-        queue = torch.clamp(infl_w[:, w] - busy_w[:, w], min=0.0) / dtw_t
-        conc = infl_w[:, w] / dtw_t
-        retries = retry_acc[:, w]
+    for j, w in enumerate(live.windows):
+        arr = arr_w[..., w]
+        err = err_w[..., w]
+        queue = torch.clamp(infl_w[..., w] - busy_w[..., w],
+                            min=0.0) / dtw_t
+        conc = infl_w[..., w] / dtw_t
+        retries = retry_acc[..., w]
 
         # -- outlier ejection: errors over consecutive erroring windows;
         # a SHEDDING breaker holds the streak (shed requests take the
@@ -814,10 +862,10 @@ def advance(
         # -- autoscaler: HPA formula at sync boundaries, utilization over
         # the ALIVE capacity (actuated minus ejected minus chaos-downed)
         w_end = float(np.float32(np.float32(w + 1) * np.float32(dtw)))
-        down_now = downed_w[:, w] if downed_w is not None else 0.0
+        down_now = downed_w[..., w] if downed_w is not None else 0.0
         alive_raw = current - torch.round(st.ejected) - down_now
         alive = torch.clamp(alive_raw, min=1.0)
-        util = busy_w[:, w] / (dtw * alive)
+        util = busy_w[..., w] / (dtw * alive)
         desired = torch.minimum(
             torch.maximum(
                 torch.ceil(current * util / d.target_util), d.min_replicas
@@ -854,7 +902,7 @@ def advance(
         scale_events = st.scale_events + torch.where(
             scale_up | scale_down, 1.0, 0.0
         )
-        st = PolicyState(
+        new = PolicyState(
             replicas=new_count,
             ejected=ejected,
             eject_timer_s=timer,
@@ -869,20 +917,44 @@ def advance(
             ejections=st.ejections + torch.where(can_eject, 1.0, 0.0),
             scale_events=scale_events,
         )
+        mask = None if live.mask is None else live.mask[..., j]
+        st = step_members(mask, new, st)
         fx = effects(st)
-        delta.replicas[:, w] = st.replicas
-        delta.effective[:, w] = fx.replicas
-        delta.shed[:, w] = st.shed
-        delta.retry_allow[:, w] = st.retry_allow
-        delta.ejected[:, w] = st.ejected
-        delta.breaker_open[:, w] = (st.shed > 0.0).to(F32)
-    delta.windows_done[live.start:live.stop] = 1.0
+        for series, val in (
+            (delta.replicas, st.replicas), (delta.effective, fx.replicas),
+            (delta.shed, st.shed), (delta.retry_allow, st.retry_allow),
+            (delta.ejected, st.ejected),
+            (delta.breaker_open, (st.shed > 0.0).to(F32)),
+        ):
+            series[..., w] = (
+                val if mask is None else torch.where(mask, val, 0.0)
+            )
+    if live.mask is None:
+        delta.windows_done[live.windows.start:live.windows.stop] = 1.0
+    else:
+        st = st._replace(last_window=live.last)
+        delta.windows_done[:, live.windows.start:live.windows.stop] = (
+            live.mask[:, 0].to(F32)
+        )
     delta = delta._replace(
         trips=st.trips - state.trips,
         ejections=st.ejections - state.ejections,
         scale_events=st.scale_events - state.scale_events,
     )
     return st, delta
+
+
+def step_members(mask: Optional[torch.Tensor], new, old):
+    """A control state's step through one window: ``new`` where the
+    window is live (``mask``, (M, 1), True for the members it is live
+    for; None: one member, always), else ``old``; ``last_window`` is
+    the caller's."""
+    if mask is None:
+        return new
+    return type(new)(*(
+        torch.where(mask, a, b) if isinstance(a, torch.Tensor) else b
+        for a, b in zip(new, old)
+    ))
 
 
 def accumulate_summary(

@@ -588,15 +588,19 @@ def effects(state: RolloutState) -> RolloutFx:
     return RolloutFx(weight=state.weight)
 
 
-def zeros_summary(spec, num_services: int, device="cpu") -> RolloutSummary:
+def zeros_summary(spec, num_services: int, device="cpu",
+                  members: int = 0) -> RolloutSummary:
+    """An all-zero RolloutSummary (``members = M > 0``: M members'
+    stacked along a leading axis)."""
     W = spec.num_windows
     S = num_services
+    lead = (members,) if members else ()
 
     def z(*shape):
-        return torch.zeros(shape, dtype=F32, device=device)
+        return torch.zeros(lead + shape, dtype=F32, device=device)
 
     return RolloutSummary(
-        window_s=torch.full((), spec.window_s, dtype=F32, device=device),
+        window_s=torch.full(lead, spec.window_s, dtype=F32, device=device),
         weight=z(S, W),
         step=z(S, W),
         phase=z(S, W),
@@ -610,11 +614,12 @@ def zeros_summary(spec, num_services: int, device="cpu") -> RolloutSummary:
     )
 
 
-def observe_block(res, spec) -> torch.Tensor:
+def observe_block(res, spec, members: int = 0) -> torch.Tensor:
     """(S, 2, W, 4) per-service, per-ARM window sums of one block —
     channels (arrived hops incl. refused, hop 500s, hop-latency sum,
     EXECUTED hops), binned by hop start (``SimResults.hop_canary`` is
-    the per-hop version coin); additive across blocks."""
+    the per-hop version coin); additive across blocks.  ``members = M
+    > 0``: a folded fleet block's, (M, S, 2, W, 4)."""
     from isotope_tpu_torch.metrics import timeline as timeline_mod
 
     if res.hop_canary is None:
@@ -636,7 +641,7 @@ def observe_block(res, spec) -> torch.Tensor:
         sent = sent + ref
         err = err + ref
     obs = timeline_mod.versioned_service_windows(
-        spec, s_c, res.hop_canary, (sent, err, lat, exe)
+        spec, s_c, res.hop_canary, (sent, err, lat, exe), members,
     ).to(torch.float64)
     obs[..., 2] *= timeline_mod.TIME_UNIT
     return obs.to(F32)
@@ -665,44 +670,52 @@ def advance(
     4. while COOLING DOWN, burn the cooldown clock; expiry restarts the
        schedule from step 0.
     """
-    from isotope_tpu_torch.sim.policies import completed_windows
+    from isotope_tpu_torch.sim.policies import (
+        completed_windows,
+        live_windows,
+        step_members,
+    )
 
     dev = state.weight.device
     W = spec.num_windows
-    S = state.weight.shape[0]
+    S = state.weight.shape[-1]
+    folded = state.weight.dim() > 1
     # the window width as a float32 scalar operand, as the reference's
     # jnp.float32(window_s)
     dtw = float(np.float32(spec.window_s))
     done_below = completed_windows(t_complete, spec)
-    delta = zeros_summary(spec, S, dev)
-    live = range(state.last_window + 1, min(done_below, W))
-    if len(live) == 0:
+    delta = zeros_summary(spec, S, dev,
+                          members=state.weight.shape[0] if folded else 0)
+    live = live_windows(state.last_window, done_below, W, dev)
+    if len(live.windows) == 0:
         return state, delta
     d = dt_tables
     M = d.steps.shape[1]
-    cnt_w = obs_acc[:, :, :, 0]
-    err_w = obs_acc[:, :, :, 1]
-    lat_w = obs_acc[:, :, :, 2]
-    exe_w = obs_acc[:, :, :, 3]
+    cnt_w = obs_acc[..., 0]
+    err_w = obs_acc[..., 1]
+    lat_w = obs_acc[..., 2]
+    exe_w = obs_acc[..., 3]
 
     def weight_at(step):
-        idx = torch.clamp(step, 0.0, M - 1.0).to(torch.int64)[:, None]
-        return torch.gather(d.steps, 1, idx)[:, 0]
+        idx = torch.clamp(step, 0.0, M - 1.0).to(torch.int64)[..., None]
+        return torch.gather(d.steps.expand(*step.shape, M), -1, idx)[
+            ..., 0
+        ]
 
     st = state
-    for w in live:
+    for j, w in enumerate(live.windows):
         rolling = d.has_rollout & (st.phase == PHASE_ROLLING)
         cooling = d.has_rollout & (st.phase == PHASE_COOLDOWN)
 
         roll_f = rolling.to(F32)
-        cnt_b = st.cnt_b + roll_f * cnt_w[:, 0, w]
-        cnt_c = st.cnt_c + roll_f * cnt_w[:, 1, w]
-        err_b = st.err_b + roll_f * err_w[:, 0, w]
-        err_c = st.err_c + roll_f * err_w[:, 1, w]
-        lat_b = st.lat_b + roll_f * lat_w[:, 0, w]
-        lat_c = st.lat_c + roll_f * lat_w[:, 1, w]
-        exe_b = st.exe_b + roll_f * exe_w[:, 0, w]
-        exe_c = st.exe_c + roll_f * exe_w[:, 1, w]
+        cnt_b = st.cnt_b + roll_f * cnt_w[..., 0, w]
+        cnt_c = st.cnt_c + roll_f * cnt_w[..., 1, w]
+        err_b = st.err_b + roll_f * err_w[..., 0, w]
+        err_c = st.err_c + roll_f * err_w[..., 1, w]
+        lat_b = st.lat_b + roll_f * lat_w[..., 0, w]
+        lat_c = st.lat_c + roll_f * lat_w[..., 1, w]
+        exe_b = st.exe_b + roll_f * exe_w[..., 0, w]
+        exe_c = st.exe_c + roll_f * exe_w[..., 1, w]
         bake = st.bake_t + roll_f * dtw
 
         # -- gates, once min-samples are met.  At a full-traffic step the
@@ -778,7 +791,7 @@ def advance(
             weight_at(step),
             0.0,
         )
-        st = RolloutState(
+        new = RolloutState(
             phase=phase,
             step=step,
             weight=weight,
@@ -791,13 +804,23 @@ def advance(
             exe_b=acc(exe_b), exe_c=acc(exe_c),
             last_window=w,
         )
-        delta.weight[:, w] = st.weight
-        delta.step[:, w] = st.step
-        delta.phase[:, w] = st.phase
-        delta.promotions[:, w] = promote.to(F32)
-        delta.holds[:, w] = hold.to(F32)
-        delta.rollbacks[:, w] = trip.to(F32)
-    delta.windows_done[live.start:live.stop] = 1.0
+        mask = None if live.mask is None else live.mask[..., j]
+        st = step_members(mask, new, st)
+        for series, val in (
+            (delta.weight, st.weight), (delta.step, st.step),
+            (delta.phase, st.phase), (delta.promotions, promote.to(F32)),
+            (delta.holds, hold.to(F32)), (delta.rollbacks, trip.to(F32)),
+        ):
+            series[..., w] = (
+                val if mask is None else torch.where(mask, val, 0.0)
+            )
+    if live.mask is None:
+        delta.windows_done[live.windows.start:live.windows.stop] = 1.0
+    else:
+        st = st._replace(last_window=live.last)
+        delta.windows_done[:, live.windows.start:live.windows.stop] = (
+            live.mask[:, 0].to(F32)
+        )
     return st, delta
 
 
@@ -818,9 +841,9 @@ def attach_observations(
     """Attach the final (S, 2, W, 4) observation accumulator's channels
     as the summary's per-version window series."""
     return summary._replace(
-        ver_arrivals=obs_acc[:, :, :, 0],
-        ver_errors=obs_acc[:, :, :, 1],
-        ver_latency_s=obs_acc[:, :, :, 2],
+        ver_arrivals=obs_acc[..., 0],
+        ver_errors=obs_acc[..., 1],
+        ver_latency_s=obs_acc[..., 2],
     )
 
 

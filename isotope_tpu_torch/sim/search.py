@@ -5,9 +5,9 @@ a candidate population (an :class:`~isotope_tpu_torch.sim.ensemble.
 EnsembleSpec`: qps / cpu / error scales a candidate) by classic
 successive halving:
 
-- rung 0 runs all N candidates for a SHORT horizon as one fleet
-  (folded ``"vmap"`` chunks on the card: one census call of
-  (M*N, B, P) a level; member by member ``"map"`` on the CPU);
+- rung 0 runs all N candidates for a SHORT horizon as one fleet,
+  plain or protected (folded ``"vmap"`` chunks on the card: one census
+  call of (M*N, B, P) a level; member by member ``"map"`` on the CPU);
 - candidates are ranked on the device by a severity channel
   (:func:`~isotope_tpu_torch.sim.splitting.severity_scores_device`:
   ``err_share``, ``p99`` SLO-violation depth, ``trips`` for protected
@@ -441,16 +441,26 @@ def _rank_advance(summ, pol, tb, ids, cur, carry, rank, slo_s, keep):
 
 
 def search_auto_chunk(sim, members: int, block: int,
-                      connections: int) -> int:
+                      connections: int, load=None,
+                      jittered: bool = False) -> int:
     """The carry-aware member chunk: the fleet chunk law with the
-    search carries' bytes a member on the ledger."""
+    search carries' bytes a member on the ledger.  With the bracket's
+    ``load``, a member's block bytes come from the folded pilot
+    (``analysis/costmodel.fleet_member_bytes``, ``jittered`` scales);
+    without one, the reference's plan-only peak."""
     from isotope_tpu_torch.analysis import costmodel
 
     cap = costmodel.device_capacity_bytes(device=sim.device)
-    return costmodel.ensemble_chunk(
-        members, costmodel.peak_bytes_at_block(sim, block), cap,
-        carry_bytes_per_member=costmodel.search_carry_bytes(connections),
-    )
+    carry = costmodel.search_carry_bytes(connections)
+    if load is None or cap is None:
+        return costmodel.ensemble_chunk(
+            members, costmodel.peak_bytes_at_block(sim, block), cap,
+            carry_bytes_per_member=carry,
+        )
+    sizes = costmodel.fleet_member_bytes(sim, load, block,
+                                         jittered=jittered)
+    return costmodel.fleet_chunk(members, sizes, cap,
+                                 carry_bytes_per_member=carry)
 
 
 def _host(tree):
@@ -543,7 +553,8 @@ def run_search(sim, load, num_requests: int, source, spec: SearchSpec,
                chunk: Optional[int] = None) -> SearchSummary:
     """Run one successive-halving bracket on one device.  Candidate k
     draws from ``RootedSource(source, seeds[k])``; each rung is a plain
-    fleet of its survivors (``Simulator._plain_fleet``) in chunks of
+    fleet of its survivors (folded by ``Simulator._fleet_chunks``, or
+    member by member by ``Simulator._plain_fleet``) in chunks of
     ``min(bucket, floor_pow2(cap))`` members, ``cap`` = ``chunk``,
     ``spec.chunk`` or :func:`search_auto_chunk`."""
     tables, args, plan = _plan(sim, load, num_requests, source, spec,
@@ -551,15 +562,21 @@ def run_search(sim, load, num_requests: int, source, spec: SearchSpec,
     block, conns = args["block"], args["conns"]
     cap = chunk if chunk is not None else spec.chunk
     if cap is None:
-        cap = search_auto_chunk(sim, plan[0].bucket, block, conns)
+        cap = search_auto_chunk(sim, plan[0].bucket, block, conns,
+                                load=load, jittered=tables.jittered)
 
     def dispatch(rp, ids, cur, carry):
         chunk_sz = max(1, min(rp.bucket, _floor_pow2(cap)))
-        summ, carry_out = sim._plain_fleet(
-            args, tables, ids, cur, tables.mode, chunk_sz, False,
-            start_block=rp.start_block, num_blocks=rp.num_blocks,
-            carry=carry,
-        )
+        if tables.mode == "vmap":
+            summ, carry_out, _, _ = sim._fleet_chunks(
+                args, ids, cur, chunk_sz, False, rp.start_block,
+                rp.num_blocks, carry,
+            )
+        else:
+            summ, carry_out = sim._plain_fleet(
+                args, tables, ids, False, start_block=rp.start_block,
+                num_blocks=rp.num_blocks, carry=carry,
+            )
         return summ, None, carry_out, chunk_sz
 
     # the folded rungs read the stacked inputs; "map" members read the
@@ -586,9 +603,11 @@ def run_search_protected(sim, load, num_requests: int, source,
     resumes.  The ``trips`` channel ranks by breaker trips and budget
     ejections of the cumulative policy series.  The recorder's window
     grid is planned once over the full horizon, so rung 0's rows are
-    the protected fleet's at the screening horizon.  The members run
-    one by one (the folded block does not serve protected members);
-    the reported chunk follows the reference's law."""
+    the protected fleet's at the screening horizon.  Each rung runs its
+    survivors as a protected fleet in the population's mode: folded
+    ``"vmap"`` chunks (one block loop of M x N rows whose control laws
+    carry (M, S) states) from the survivors' gathered input rows, as
+    the plain rungs do, or member by member (``"map"``)."""
     if roll and sim._rollouts is None:
         raise ValueError(
             "protected rollout brackets need compiled rollout tables "
@@ -619,28 +638,26 @@ def run_search_protected(sim, load, num_requests: int, source,
     cap = chunk if chunk is not None else spec.chunk
     if cap is None:
         cap = sim.protected_ensemble_chunk(plan[0].bucket, block, tl_plan,
-                                           roll)
+                                           roll, load=load,
+                                           jittered=tables.jittered)
 
     def dispatch(rp, ids, cur, carry):
-        from isotope_tpu_torch.sim.ensemble import tree_stack
-
         chunk_sz = max(1, min(rp.bucket, _floor_pow2(cap)))
-        outs, carry_out = sim._protected_fleet(
+        cols, carry_out = sim._protected_fleet(
             args, tables, ids, roll, window_s, tl_plan, carry,
             start_block=rp.start_block, num_blocks=rp.num_blocks,
+            chunk_sz=chunk_sz, stacked=cur,
         )
-        # (summary, tl[, roll][, pol]) a member; pol feeds "trips"
-        summ = tree_stack([o[0] for o in outs])
-        pol = (
-            tree_stack([o[2 + (1 if roll else 0)] for o in outs])
-            if with_pol else None
-        )
-        return summ, pol, carry_out, chunk_sz
+        # [summary, tl[, roll][, pol]] stacked; pol feeds "trips"
+        pol = cols[2 + (1 if roll else 0)] if with_pol else None
+        return cols[0], pol, carry_out, chunk_sz
 
-    # the members run one by one from the plan's host rows: no stacked
-    # inputs to gather, only the carries
+    # the folded rungs read the stacked inputs; "map" members read the
+    # plan's host rows
+    stacked = (sim._ensemble_stacked_args(args, tables)
+               if tables.mode == "vmap" else None)
     return _run_bracket(
-        sim, spec, plan, args, tables, None,
+        sim, spec, plan, args, tables, stacked,
         sim.zero_protected_carry(spec.members, conns, tl_plan, roll=roll),
         dispatch,
     )

@@ -191,14 +191,17 @@ def _chip_smoke_shapes():
              chip_smoke.scenario_runs(port, {}, device="cpu")
              + chip_smoke.lb_runs(port, device="cpu")
              + chip_smoke.protected_runs(port, device="cpu")]
-    runs += chip_smoke.fleet_census_runs(
-        runs, chip_smoke.chaosfleet_sim(port, device="cpu"))
+    chaos_sim = chip_smoke.chaosfleet_sim(port, device="cpu")
+    storm = chip_smoke.storm_sim(port, device="cpu")
+    runs += chip_smoke.fleet_census_runs(runs, chaos_sim)
     runs += chip_smoke.search_census_runs(
-        runs, chip_smoke.planted_sim(port, device="cpu"))
+        runs, chip_smoke.planted_sim(port, device="cpu"), storm)
     runs += chip_smoke.runner_census_runs(device="cpu")
     runs += chip_smoke.calibration_census_runs(device="cpu")
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
+        chip_smoke.fleet_pilot_shapes(port, runs, chaos_sim, storm,
+                                      device="cpu"),
     )
 
 
@@ -292,6 +295,35 @@ def test_chip_smoke_covers_the_folded_fleet():
         plan = census_mod.launch_plan(n, b, p)
         assert plan.path == "stream" and plan.blocks >= 1
     assert any(s[0] == 4_096 and s[3] for s in _SHAPES)
+
+
+def test_chip_smoke_covers_the_folded_chaos_and_protected_fleets():
+    """The folded fleets of the chaos, protected and observed kinds:
+    svc1000-chaosfleet's 8 x 4,096 rows a level of the 1000-service
+    graph with the kill's fail steps, ensembleN-observed's 8 x 8,192,
+    and the protected bracket's rungs of 16 and 4 x 2,048 rows (and its
+    map twin's 2,048) on the storm topology, its one call a block with
+    a fail step (timeouts, the kill) and error flags (errorRate,
+    breaker sheds)."""
+    assert {(8 * 4_096, b, 1, True, False) for b in (216, 36, 6, 1)} <= \
+        set(_SHAPES)
+    assert {(8 * 8_192, b, 1, False, False) for b in (216, 36, 6, 1)} <= \
+        set(_SHAPES)
+    for m in (16, 4, 1):
+        assert (m * 2_048, 1, 1, True, True) in _SHAPES, m
+
+
+def test_chip_smoke_covers_the_fleet_pilots():
+    """The folded pilots a fleet's auto chunk is sized from
+    (``costmodel.fleet_member_bytes``): one member's blocks of 8 and 16
+    requests of the 1000-service graph (ensembleN, search64), of 64 and
+    128 at 64 connections (ensembleN-closed), and of the storm's one
+    protected call a block with its fail step and error flags."""
+    for n in (8, 16, 64, 128):
+        assert {(n, b, 1, False, False) for b in (216, 36, 6, 1)} <= \
+            set(_SHAPES), n
+    for n in (8, 16):
+        assert (n, 1, 1, True, True) in _SHAPES, n
 
 
 def test_chip_smoke_covers_the_search_rungs():

@@ -215,6 +215,17 @@ def test_panic_run_on_the_kernel_matches_the_cpu(card, tile_pmax):
                                    atol=1e-9)
 
 
+def _pilot_launches(sim):
+    """The census launches of a fresh Simulator's first folded fleet's
+    pilots (``analysis/costmodel.fleet_member_bytes``: one fleet kind,
+    an unrecorded and two recorded runs of one member for
+    ``FLEET_PILOT_BLOCKS`` blocks of 8 and 16 requests)."""
+    from isotope_tpu_torch.analysis.oplog import FLEET_PILOT_BLOCKS
+
+    assert len(sim._fleet_pilots) == 1
+    return 3 * FLEET_PILOT_BLOCKS * len(sim.census_shapes(8))
+
+
 @pytest.mark.cuda
 def test_folded_fleet_level_on_the_kernel_matches_the_cpu(card):
     """A folded fleet block (``run_ensemble`` in ``"vmap"`` mode) makes
@@ -235,9 +246,10 @@ def test_folded_fleet_level_on_the_kernel_matches_the_cpu(card):
     got = card_sim.run_ensemble(load, 1024, source, EnsembleSpec.from_jitter(
         4, mode="vmap", **kw), block_size=512)
     torch.cuda.synchronize()
+    # two folded blocks, and the pilots the auto chunk is sized from
     assert census_mod.census.launches - before == 2 * len(
         card_sim.census_shapes(512, members=4)
-    )
+    ) + _pilot_launches(card_sim)
     want = Simulator(compiled, device="cpu").run_ensemble(
         load, 1024, source, EnsembleSpec.from_jitter(4, mode="map", **kw),
         block_size=512)
@@ -277,10 +289,12 @@ def test_folded_bracket_rung_on_the_kernel_matches_the_cpu(card):
                                       block_size=512)
         if device == "cuda":
             torch.cuda.synchronize()
-            # rung 0: 8 folded members, one block; rung 1: 4, one block
+            # rung 0: 8 folded members, one block; rung 1: 4, one
+            # block; and the pilots the auto chunk is sized from
             assert census_mod.census.launches - before == (
                 len(sim.census_shapes(512, members=8))
                 + len(sim.census_shapes(512, members=4))
+                + _pilot_launches(sim)
             )
     got, want = runs["cuda"], runs["cpu"]
     assert got.mode == "vmap" and want.mode == "map"

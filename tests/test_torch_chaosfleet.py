@@ -267,12 +267,17 @@ def test_member_chaos_rejections(psim):
     with pytest.raises(ValueError, match="phase-cut structure"):
         sim.run_ensemble(LoadModel(**OPEN), N, src, EnsembleSpec.of(1),
                          member_chaos=[()])
-    # the folded mode does not serve chaos fleets yet: a plan-time
-    # refusal, never a quiet fallback
-    with pytest.raises(NotImplementedError, match="item 9.*chaos"):
+    # the folded mode serves chaos fleets: an explicit "vmap" runs and
+    # equals the member-by-member fleet
+    jit = faults.ChaosJitterSpec(time=0.1)
+    folded, mapped = (
         sim.run_ensemble(LoadModel(**OPEN), N, src,
-                         EnsembleSpec.of(2, mode="vmap"),
-                         member_chaos=faults.ChaosJitterSpec(time=0.1))
+                         EnsembleSpec.of(2, mode=mode), block_size=BLOCK,
+                         member_chaos=jit)
+        for mode in ("vmap", "map")
+    )
+    assert folded.member_chaos == mapped.member_chaos
+    assert_stacks(folded.summaries, mapped.summaries)
 
 
 COMPOSED = {
@@ -442,9 +447,16 @@ def test_protected_fleet_severity_and_doc_match_reference(pfleets):
 def test_protected_fleet_refusals(psim):
     _, sim = psim
     src = TorchDraws(0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 9.*protected"):
+    # the folded mode serves protected fleets: an explicit "vmap" runs
+    # and equals the member-by-member fleet
+    folded, mapped = (
         sim.run_policies_ensemble(LoadModel(**OPEN), N, src,
-                                  EnsembleSpec.of(2, mode="vmap"))
+                                  EnsembleSpec.of(2, mode=mode),
+                                  block_size=BLOCK, window_s=WIN)
+        for mode in ("vmap", "map")
+    )
+    assert_stacks(folded.summaries, mapped.summaries)
+    assert_policy_summary_equal(folded.policies, mapped.policies)
     with pytest.raises(ValueError, match="saturated"):
         sim.run_policies_ensemble(LoadModel(**SAT), N, src,
                                   EnsembleSpec.of(2))

@@ -229,31 +229,6 @@ def test_default_device_raises_without_gpu():
         Simulator(compile_graph(pg))
 
 
-@pytest.mark.parametrize(
-    "kwargs,item",
-    [
-        # the lb laws, the timeline recorder, the protected layers,
-        # attribution, the fleets and their carry export are ported
-        # (test_torch_lb.py, test_torch_timeline.py,
-        # test_torch_policies.py, test_torch_rollout.py,
-        # test_torch_attribution.py, test_torch_ensemble.py,
-        # test_torch_search.py); the folded mode of observed fleets is
-        # not
-        (dict(timeline=True), "item 9, fleets: the folded mode"),
-    ],
-)
-def test_unported_features_raise(kwargs, item):
-    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
-
-    _, pg = _graphs("canonical")
-    sim = Simulator(compile_graph(pg),
-                    SimParams(ensemble=2, timeline=True), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        sim.run_ensemble(LoadModel(kind="open", qps=100.0), 8,
-                         TorchDraws(0, "cpu"),
-                         EnsembleSpec.of(2, mode="vmap"), **kwargs)
-
-
 PROTECTED_YAML = """
 services:
 - name: a

@@ -174,9 +174,14 @@ def test_observed_fleet_refusals():
                            attribution=True)
     with pytest.raises(ValueError, match="SimParams\\(timeline=True"):
         plain.run_ensemble(lm, N, src, EnsembleSpec.of(2), timeline=True)
-    with pytest.raises(NotImplementedError, match="item 9.*observed"):
-        sim.run_ensemble(lm, N, src, EnsembleSpec.of(2, mode="vmap"),
-                         timeline=True)
+    # the folded mode serves observed fleets: an explicit "vmap" runs
+    # and its recorder series equal the member-by-member fleet's
+    folded, mapped = (
+        sim.run_ensemble(lm, N, src, EnsembleSpec.of(2, mode=mode),
+                         block_size=BLOCK, timeline=True, window_s=WIN)
+        for mode in ("vmap", "map")
+    )
+    _equal(folded.timelines, mapped.timelines)
     # the solo loop still reduces one of the two
     from isotope_tpu_torch.sim.engine import _BlockControl
 

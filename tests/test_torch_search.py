@@ -474,11 +474,12 @@ def test_protected_segments_equal_the_unbroken_fleet(ppair):
                                            start_block=b0, num_blocks=1)
         parts.append(outs)
     for k in range(3):
-        joined = summary_mod.summary_accumulate(parts[0][k][0],
-                                                parts[1][k][0])
+        first, second = ([ens.member_summary(c, k) for c in cols]
+                         for cols in parts)
+        joined = summary_mod.summary_accumulate(first[0], second[0])
         assert_equal_fields(joined, full.member(k), EXACT, k)
-        assert_same_summaries(parts[1][k][1], full.member_timeline(k))
-        assert_same_summaries(parts[1][k][2], full.member_policies(k))
+        assert_same_summaries(second[1], full.member_timeline(k))
+        assert_same_summaries(second[2], full.member_policies(k))
     # resuming from a gathered carry row continues that member alone
     from isotope_tpu_torch.compiler.compile import ensemble_take
 
@@ -492,7 +493,8 @@ def test_protected_segments_equal_the_unbroken_fleet(ppair):
         args, tables, [2], False, P_WIN, tl_plan,
         ensemble_take(mid, torch.tensor([2])), start_block=1,
         num_blocks=1)
-    assert_same_summaries(outs[0][2], full.member_policies(2))
+    assert_same_summaries(ens.member_summary(outs[2], 0),
+                          full.member_policies(2))
 
 
 def test_protected_carry_refusals_match_reference(ppair):
