@@ -271,6 +271,32 @@ any failure exits non-zero and nothing is caught:
    same under ``ISOTOPE_VET_DEVICE_BYTES=65536``, which must exit 1
    with ``error: vet found`` (VET-M001) before a block runs.
 
+11. the device mesh (``mesh_phase``, ``isotope_tpu_torch/parallel/``) on
+   the reference dryrun's topology at its full width
+   (``tree_topology(num_branches=4, num_services=1024)``, 1,024 hops,
+   open loop at 500 qps, blocks of 32,768 requests): a world of one
+   over NCCL (``build_mesh(MeshSpec(1, 1), device="cuda")``) runs 2
+   blocks of ``run``, ``run`` with ``overlap=True``, ``run_attributed``
+   (``tail``) and ``run_timeline``, each bit-equal to its ``*_emulated``
+   twin over ``EmulatedMesh(MeshSpec(1, 1))`` on the card (the overlapped
+   run within the reference's ``test_overlap_equivalence`` bounds of the
+   plain one), each wall per block printed beside a solo
+   ``run_summary`` of the same topology and block (path ``mesh``: their
+   census launches, counted exactly, the tail pilot's included); the
+   emulated twin of ``MeshSpec(data=2, svc=2, slices=2)``, 8 shards x 2
+   blocks x 32,768 requests on the card (path ``mesh-emulated``): count,
+   ``hop_events = count x hops``, each service's duration histogram
+   summing to its incoming total, its peak memory within 1.1x of the
+   one-shard run's, and the same twin at 8 shards x 1 block x 2,048
+   requests card against CPU (phase 4's tolerances); the degradation
+   ladder under ``oom:sharded.gather:2`` on the world-of-one mesh, which
+   must end on ``single-device`` within one float32 spacing of the clean
+   run; and ``simulate --mesh 2x1`` in this process, which must exit 1
+   with the reference's ``needs 2 devices, have 1`` before a block runs.
+   Phase 3 holds the census at the phase's shapes (its blocks, the
+   half-block rung's 16,384, the tail pilot's 8,192, the CPU twin's
+   2,048; ``mesh_census_runs``, ``mesh_extra_shapes``).
+
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 with code 1 and prints no result.
@@ -5322,6 +5348,9 @@ class _BuiltTopology:
     def sims(self, env):
         return self._sim
 
+    def sharded(self, env):
+        return None  # one card: no mesh
+
 
 @contextlib.contextmanager
 def built_topologies(cases):
@@ -5329,7 +5358,9 @@ def built_topologies(cases):
 
     built = {c.name: _BuiltTopology(c) for c in cases}
     lazy = run_mod._LazyTopology
-    run_mod._LazyTopology = lambda path, config, device=None: built[path]
+    run_mod._LazyTopology = (
+        lambda path, config, device=None, mesh_spec=None: built[path]
+    )
     try:
         yield
     finally:
@@ -5641,6 +5672,357 @@ def vet_phase(port, cases, grad_sims, prot, scenarios, checked):
     return out
 
 
+# -- phase 11: the device mesh -------------------------------------------------
+
+#: the reference dryrun's topology (``__graft_entry__.py``) at full width
+MESH_SERVICES = 1_024
+MESH_QPS = 500.0
+MESH_BLOCK = 32_768
+MESH_BLOCKS = 2
+#: the emulated multi-host twin's mesh: 2 slices x 2 x 2
+MESH_EMULATED = (2, 2, 2)
+#: a shard's requests in the twin's card-against-CPU check
+MESH_CPU_BLOCK = 2_048
+#: an attributed run's tail pilot: min(requests, 8,192), one block
+MESH_PILOT_N = 8_192
+#: the emulated twin's peak against the one-shard run's
+MESH_PEAK_RATIO = 1.1
+
+
+def mesh_compiled(port):
+    from isotope_tpu_torch.models.generators import tree_topology
+
+    return port.compile_graph(port.ServiceGraph.decode(tree_topology(
+        num_branches=4, num_services=MESH_SERVICES,
+    )))
+
+
+def mesh_census_runs(port, device="cuda"):
+    """Phase 11's blocks for phase 3, as a run: one shard's 32,768 rows
+    (the world of one's and each of the emulated twin's shards)."""
+    sim = port.Simulator(mesh_compiled(port), device=device)
+    return [("mesh-1024svc", sim, port.LoadModel(kind="open", qps=MESH_QPS),
+             MESH_BLOCKS * MESH_BLOCK, MESH_BLOCK)]
+
+
+def _pilot_blocks(n):
+    """``(requests, block)`` of an attributed run's tail pilot
+    (``Simulator.estimate_tail_cut``) for a run of ``n``."""
+    rows = min(n, MESH_PILOT_N)
+    return rows, min(MESH_BLOCK, rows)
+
+
+def mesh_extra_shapes(runs):
+    """Phase 11's other census calls: the half-block rung's, the tail
+    pilot's and the CPU twin's blocks."""
+    sim = [r for r in runs if r[0] == "mesh-1024svc"][0][1]
+    return sum((sim.census_shapes(n) for n in (
+        MESH_BLOCK // 2, _pilot_blocks(MESH_BLOCKS * MESH_BLOCK)[1],
+        MESH_CPU_BLOCK)), [])
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _leaves(v)] if x is not None else []
+
+
+def bit_equal(got, want, what):
+    a, b = _leaves(got), _leaves(want)
+    if len(a) != len(b) or not all(
+        torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b)
+    ):
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def max_spacings(got, want) -> float:
+    """The largest difference of two summaries' leaves in float32
+    spacings of the larger value (booleans and integers: 0 or inf)."""
+    worst = 0.0
+    for x, y in zip(_leaves(got), _leaves(want)):
+        a = x.cpu().double().numpy()
+        b = y.cpu().double().numpy()
+        same = (a == b)
+        sp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+        with np.errstate(invalid="ignore"):
+            d = np.abs(a - b) / np.where(sp > 0, sp, 1.0)
+        worst = max(worst, float(np.max(np.where(same, 0.0, d),
+                                        initial=0.0)))
+    return worst
+
+
+def overlap_close(on, off, what):
+    """The reference's ``test_overlap_equivalence`` bounds: integer
+    fields and extremes equal, sums and m2 within rtol 1e-5, the
+    per-service series within 4 float32 spacings."""
+    for f in ("count", "error_count", "hop_events", "win_count",
+              "win_error_count", "win_lo", "win_hi", "latency_min",
+              "latency_max", "end_max", "latency_hist", "win_latency_hist",
+              "utilization", "unstable"):
+        if not torch.equal(getattr(on, f), getattr(off, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    for f in ("latency_sum", "latency_m2"):
+        a, b = float(getattr(on, f)), float(getattr(off, f))
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"{what}: {f} {a} vs {b}")
+    worst = max_spacings(on.metrics, off.metrics)
+    if worst > 4.0:
+        raise AssertionError(f"{what}: per-service series {worst} spacings")
+    return worst
+
+
+def summary_card_cpu(got, want, what):
+    """A summary on the card against its CPU twin, phase 4's tolerances:
+    counts and histogram totals equal, seconds within rtol / atol,
+    quantiles within one bucket."""
+    for f in ("count", "error_count", "hop_events", "win_count"):
+        if float(getattr(got, f)) != float(getattr(want, f)):
+            raise AssertionError(f"{what}: {f} differs")
+    for f in ("latency_sum", "latency_m2", "latency_min", "latency_max",
+              "end_max"):
+        a, b = float(getattr(got, f)), float(getattr(want, f))
+        if abs(a - b) > RESULT_ATOL + RESULT_RTOL * abs(b):
+            raise AssertionError(f"{what}: {f} {a} vs {b}")
+    from isotope_tpu_torch.metrics.histogram import EDGES
+
+    qs = (0.5, 0.9, 0.99)
+    ga = np.searchsorted(EDGES, got.quantiles_s(qs), side="right")
+    wa = np.searchsorted(EDGES, want.quantiles_s(qs), side="right")
+    if np.any(np.abs(ga - wa) > 1):
+        raise AssertionError(f"{what}: quantiles differ by a bucket")
+    for f in ("incoming_total", "outgoing_total"):
+        if not torch.equal(getattr(got.metrics, f).cpu(),
+                           getattr(want.metrics, f).cpu()):
+            raise AssertionError(f"{what}: {f} differs")
+    if not torch.equal(got.metrics.duration_hist.sum(-1).cpu(),
+                       want.metrics.duration_hist.sum(-1).cpu()):
+        raise AssertionError(f"{what}: duration rows differ")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _own_peak(fn):
+    """``fn()``'s result and its own peak device bytes (above what was
+    allocated when it started)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def mesh_phase(port):
+    """Phase 11 (module docstring).  Returns the census launches of its
+    two paths: ``mesh`` (the world of one's four runs) and
+    ``mesh-emulated`` (the 8-shard twin)."""
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+
+    import torch.distributed as dist
+
+    from isotope_tpu_torch import cli
+    from isotope_tpu_torch.metrics.prometheus import MetricsCollector
+    from isotope_tpu_torch.parallel import (
+        EmulatedMesh,
+        MeshSpec,
+        ShardedSimulator,
+        build_mesh,
+    )
+    from isotope_tpu_torch.parallel.mesh import close_world
+    from isotope_tpu_torch.resilience import (
+        ResiliencePolicy,
+        execution_rungs,
+        faults,
+        run_ladder,
+    )
+
+    t_phase = time.perf_counter()
+    compiled = mesh_compiled(port)
+    H = compiled.num_hops
+    load = port.LoadModel(kind="open", qps=MESH_QPS)
+    n = MESH_BLOCKS * MESH_BLOCK
+    mesh = build_mesh(MeshSpec(1, 1), device="cuda", timeout_s=300)
+    log(f"mesh: world of {dist.get_world_size()} over "
+        f"{dist.get_backend()}, dims {mesh.mesh_dim_names}; "
+        f"tree of {compiled.num_services} services, {H} hops, open "
+        f"{MESH_QPS:g} qps, {MESH_BLOCKS} x {MESH_BLOCK} requests")
+
+    def src():
+        return port.TorchDraws(0, "cuda")
+
+    kinds = [
+        ("run", {}, "run", {}),
+        ("run overlap", dict(overlap=True), "run", {}),
+        ("run_attributed tail", dict(attribution=True), "run_attributed",
+         dict(tail=True)),
+        ("run_timeline", dict(timeline=True), "run_timeline", {}),
+    ]
+    on_mesh, twins = {}, {}
+    for name, params, method, kw in kinds:
+        on_mesh[name] = ShardedSimulator(compiled, mesh,
+                                         port.SimParams(**params))
+        twins[name] = ShardedSimulator(
+            compiled, EmulatedMesh(MeshSpec(1, 1)),
+            port.SimParams(**params), device="cuda",
+        )
+    solo = port.Simulator(compiled, device="cuda")
+    collector = MetricsCollector(compiled)
+
+    def call(sh, method, kw, suffix=""):
+        return getattr(sh, method + suffix)(
+            load, n, src(), block_size=MESH_BLOCK, trim=True, **kw
+        )
+
+    # one unmeasured run of each first (the allocator's growth)
+    for name, _, method, kw in kinds:
+        call(on_mesh[name], method, kw)
+    solo.run_summary(load, n, src(), block_size=MESH_BLOCK,
+                     collector=collector, trim=True)
+    torch.cuda.synchronize()
+
+    per_block = len(solo.census_shapes(MESH_BLOCK))
+    pilot_rows, pilot_block = _pilot_blocks(n)
+    pilot = -(-pilot_rows // pilot_block) * len(
+        solo.census_shapes(pilot_block))
+    by_path = {}
+    outs, walls = {}, {}
+    port.census.launches = 0
+    for name, _, method, kw in kinds:
+        if name == "run":
+            (outs[name], walls[name]), peak_one = _own_peak(
+                lambda: _timed(lambda: call(on_mesh["run"], method, kw))
+            )
+        else:
+            outs[name], walls[name] = _timed(
+                lambda: call(on_mesh[name], method, kw)
+            )
+    by_path["mesh"] = port.census.launches
+    want = len(kinds) * MESH_BLOCKS * per_block + pilot
+    if by_path["mesh"] != want:
+        raise AssertionError(
+            f"mesh: {by_path['mesh']} census launches, expected {want}"
+        )
+    _, solo_wall = _timed(lambda: solo.run_summary(
+        load, n, src(), block_size=MESH_BLOCK, collector=collector,
+        trim=True,
+    ))
+    for name, _, method, kw in kinds:
+        got = outs[name]
+        summary = got if method == "run" else got[0]
+        if int(summary.count) != n or float(summary.hop_events) != n * H:
+            raise AssertionError(f"mesh {name}: count / hop_events")
+        qs = summary.quantiles_s((0.5, 0.9, 0.99))
+        twin = call(twins[name], method, kw, "_emulated")
+        if name == "run overlap":
+            worst = overlap_close(summary, outs["run"], f"mesh {name}")
+            overlap_close(summary, twin, f"mesh {name} twin")
+            verdict = (f"within the overlap bounds of the plain run and "
+                       f"its twin (per-service {worst:.2f} spacings)")
+        else:
+            bit_equal(got, twin, f"mesh {name}")
+            verdict = "bit-equal to its emulated twin"
+        log(f"mesh {name}: {walls[name] / MESH_BLOCKS * 1e3:.2f} ms per "
+            f"block (solo run_summary {solo_wall / MESH_BLOCKS * 1e3:.2f}),"
+            f" {n * H / walls[name]:.4e} hop-events/s, p50/p90/p99 "
+            f"{qs[0] * 1e3:.4f}/{qs[1] * 1e3:.4f}/{qs[2] * 1e3:.4f} ms; "
+            f"{verdict}")
+    log(f"mesh: census launches {by_path['mesh']} ({per_block} a block, "
+        f"{pilot} for the tail pilot; exact), one-shard peak "
+        f"{peak_one / 2**30:.3f} GiB")
+
+    # the emulated multi-host twin: 8 shards x 2 blocks on the card
+    twin8 = ShardedSimulator(compiled, EmulatedMesh(MeshSpec(
+        *MESH_EMULATED[:2], slices=MESH_EMULATED[2])), device="cuda")
+    n8 = twin8.n_shards * n
+    port.census.launches = 0
+    (s8, wall8), peak8 = _own_peak(lambda: _timed(
+        lambda: twin8.run_emulated(load, n8, src(),
+                                   block_size=MESH_BLOCK, trim=True)
+    ))
+    by_path["mesh-emulated"] = port.census.launches
+    want = twin8.n_shards * MESH_BLOCKS * per_block
+    if by_path["mesh-emulated"] != want:
+        raise AssertionError(
+            f"mesh-emulated: {by_path['mesh-emulated']} census launches, "
+            f"expected {want}"
+        )
+    if int(s8.count) != n8 or float(s8.hop_events) != n8 * H:
+        raise AssertionError("mesh-emulated: count / hop_events")
+    dur = s8.metrics.duration_hist.double().sum((1, 2)).cpu()
+    inc = s8.metrics.incoming_total.double().cpu()
+    if not torch.equal(dur[:compiled.num_services], inc):
+        raise AssertionError("mesh-emulated: duration rows != incoming")
+    if peak8 > MESH_PEAK_RATIO * peak_one:
+        raise AssertionError(
+            f"mesh-emulated: peak {peak8} > {MESH_PEAK_RATIO} x "
+            f"{peak_one} (one shard)"
+        )
+    log(f"mesh emulated {twin8.mesh!r}: {twin8.n_shards} shards x "
+        f"{MESH_BLOCKS} blocks in {wall8:.3f} s "
+        f"({wall8 / (twin8.n_shards * MESH_BLOCKS) * 1e3:.2f} ms per "
+        f"block), census launches {by_path['mesh-emulated']} (exact), "
+        f"peak {peak8 / 2**30:.3f} GiB = {peak8 / max(peak_one, 1):.4f} x the "
+        f"one-shard run's; count, hop_events and every service's "
+        f"duration rows hold")
+    small = twin8.n_shards * MESH_CPU_BLOCK
+    tw_cpu = ShardedSimulator(compiled, twin8.mesh, device="cpu")
+    source = port.TorchDraws(11, "cuda")
+    got = twin8.run_emulated(load, small, source, block_size=MESH_CPU_BLOCK,
+                             trim=True)
+    t = time.perf_counter()
+    want_cpu = tw_cpu.run_emulated(load, small, source,
+                                   block_size=MESH_CPU_BLOCK, trim=True)
+    summary_card_cpu(got, want_cpu, "mesh-emulated card against cpu")
+    log(f"mesh emulated card against cpu: {twin8.n_shards} shards x "
+        f"{MESH_CPU_BLOCK} requests equal within phase 4's tolerances "
+        f"(cpu {time.perf_counter() - t:.1f} s)")
+
+    # the ladder on the card: the gather fault twice, then single-device
+    sh = on_mesh["run"]
+    clean = outs["run"]
+    faults.install("oom:sharded.gather:2")
+    try:
+        rungs = execution_rungs(sh.sim, load, n, src(), MESH_BLOCK,
+                                trim=True, sharded=sh)
+        ((summary, _), degraded), wall = _timed(lambda: run_ladder(
+            rungs, ResiliencePolicy(sleep=lambda s: None),
+            site_prefix="engine",
+        ))
+    finally:
+        faults.clear()
+    worst = max_spacings(summary, clean)
+    if degraded != "single-device" or worst > 1.0:
+        raise AssertionError(
+            f"mesh ladder: degraded to {degraded}, {worst} spacings"
+        )
+    log(f"mesh ladder under oom:sharded.gather:2: degraded to {degraded} "
+        f"in {wall:.3f} s, summary within {worst:.1f} float32 spacings of "
+        f"the clean run")
+
+    # the command line: a mesh the world cannot hold, before a block
+    err = io.StringIO()
+    before = port.census.launches
+    with redirect_stdout(io.StringIO()), redirect_stderr(err):
+        rc = cli.main(["simulate", str(TOPOLOGIES / "canonical.yaml"),
+                       "--qps", "1000", "--duration", "2s", "--load-kind",
+                       "open", "--mesh", "2x1"])
+    text = err.getvalue()
+    if (rc == 0 or "needs 2 devices, have 1" not in text
+            or port.census.launches != before):
+        raise AssertionError(f"simulate --mesh 2x1: rc {rc}, {text!r}")
+    log(f"simulate --mesh 2x1: exit {rc}, {text.strip()!r}, no block run")
+    close_world()
+    log(f"mesh phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5719,13 +6101,14 @@ def main() -> int:
     census_runs = (runs + [run[:5] for run in prot]
                    + fleet_census_runs(runs, chaos_sim)
                    + search_census_runs(runs, planted, storm)
-                   + runner_census_runs() + calibration_census_runs())
+                   + runner_census_runs() + calibration_census_runs()
+                   + mesh_census_runs(port))
     census_only = census_only_configs(port)
     vet = vet_cases(port, flagship_graph, runs, scenarios, prot)
     grad_sims = vet_grad_sims(port, vet)
     vet_shapes = vet_census_shapes(vet, grad_sims) + sum(
-        vet_cli_shapes(port), []) + fleet_pilot_shapes(port, runs,
-                                                       chaos_sim, storm)
+        vet_cli_shapes(port), []) + fleet_pilot_shapes(
+            port, runs, chaos_sim, storm) + mesh_extra_shapes(census_runs)
     timing = kernel_phase(census_mod, census_runs, census_only, vet_shapes)
     checked = census_check_shapes(census_runs, census_only, vet_shapes)
 
@@ -5840,6 +6223,9 @@ def main() -> int:
     # vet on the card: the pilots' path and the vetted runs' path
     by_path.update(vet_phase(port, vet, grad_sims, prot, scenarios,
                              checked))
+    # the device mesh: the world of one's runs and the emulated twin,
+    # each its own path
+    by_path.update(mesh_phase(port))
     launches = sum(by_path.values())
     log(f"census launches on every path: {launches}")
 

@@ -46,11 +46,17 @@ The port of ``isotope-tpu``'s commands (``suite``, ``report``,
   (``--max-retries``, ``--no-degrade``); ``--flat`` prints the flat row
   and ``--telemetry`` the engine's own series.  ``--vet[=strict]``
   runs the pre-flight gate (``analysis/vet.py``) before the case.
-  ``--mesh`` and ``--overlap`` raise ``NotImplementedError`` naming
-  their ROADMAP item.
+  ``--mesh SPEC`` (``DATAxSVC[xSLICE]`` or ``data=..,svc=..,slice=..``;
+  also ``$ISOTOPE_MESH``) serves the case on a device mesh of as many
+  ranks (``parallel/``), launched as ``torchrun --standalone
+  --nproc-per-node N -m isotope_tpu_torch ...``; only rank 0 prints.
+  ``--overlap`` pipelines the mesh's metric merge behind the next
+  block.  ``--mesh auto`` raises ``NotImplementedError`` naming ROADMAP
+  item 11b.
 - ``sweep``: a TOML grid of topology x environment x load through
   ``run_experiment`` (checkpointed, resumable; ``--fresh``,
-  ``--profile``, ``--export``).
+  ``--profile``, ``--export``; ``--mesh`` / ``--overlap`` as in
+  ``simulate``).
 - ``check``: the run's Prometheus series (``MetricsCollector``) are
   queried by the reference's stability alarm suite; every alarm is
   printed to stderr and the exit code is 1 when one fires.
@@ -81,26 +87,30 @@ from isotope_tpu_torch.commands.common import (
     ignore_compile_cache,
     resilience_policy,
 )
+from isotope_tpu_torch.parallel.mesh import rank_console
 from isotope_tpu_torch.utils import duration as dur
 
 
-# the JAX command's flags whose layers are not ported: each raises
-# NotImplementedError naming its ROADMAP item
-_MULTI = "item 11, multi-GPU"
-_REFUSED = [
-    ("--mesh", dict(), _MULTI),
-    ("--overlap", dict(action="store_true"), _MULTI),
-]
-
-
-
-def _refuse_unported(args) -> None:
-    for flag, _, item in _REFUSED:
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            raise NotImplementedError(
-                f"{args.command} {flag} is not ported to isotope_tpu_torch "
-                f"yet (ROADMAP.md queue 1: {item})"
-            )
+def _add_mesh_args(parser) -> None:
+    """The mesh-layout knobs (parallel/mesh.py), shared by simulate and
+    sweep."""
+    parser.add_argument(
+        "--mesh", default=None, metavar="SPEC",
+        help="device-mesh factorization for sharded runs, one rank per "
+             "device (torchrun --standalone --nproc-per-node N -m "
+             "isotope_tpu_torch ...): 'DATAxSVC[xSLICE]' (e.g. 4x2 or "
+             "2x2x2 — the slice axis crosses hosts), or "
+             "'data=4,svc=2,slice=1'; 'auto' (the layout search) is "
+             "not ported.  Also env $ISOTOPE_MESH; default: the TOML "
+             "mesh_data/mesh_svc keys, else every rank on the data "
+             "axis")
+    parser.add_argument(
+        "--overlap", action="store_true",
+        help="overlap the sharded metric-merge collectives with the "
+             "next request block's compute.  Identical results up to "
+             "f32 reduction order; off by default.  Applies to the "
+             "main summary run — the --attribution/--timeline passes "
+             "keep their single post-scan merge")
 
 
 def _add_ensemble_args(s) -> None:
@@ -265,8 +275,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the ensemble's distributional summary "
                         "as JSON (isotope-ensemble/v2)")
     add_resilience_args(s)
-    for flag, kw, _ in _REFUSED:
-        s.add_argument(flag, **kw)
+    _add_mesh_args(s)
     add_vet_arg(s)
     s.add_argument("--lb-out", metavar="FILE", default=None,
                    help="write the load-balancing laws and their static "
@@ -366,8 +375,7 @@ def _add_sweep_parser(sub) -> None:
     w.add_argument("--rollouts", action="store_true",
                    help="co-simulate the topologies' `rollouts:` blocks")
     _add_ensemble_args(w)
-    for flag, kw, _ in _REFUSED:
-        w.add_argument(flag, **kw)
+    _add_mesh_args(w)
     add_vet_arg(w)
     add_resilience_args(w)
     w.add_argument("--device", default=None,
@@ -383,10 +391,13 @@ def run_sweep(args) -> int:
     from isotope_tpu_torch.runner.config import load_toml
     from isotope_tpu_torch.runner.run import run_experiment
 
-    _refuse_unported(args)
     arm_telemetry(args.telemetry)
     ignore_compile_cache(args)
     config = load_toml(args.config)
+    if args.mesh:
+        config = dataclasses.replace(config, mesh_spec=args.mesh)
+    if args.overlap and not config.overlap:
+        config = dataclasses.replace(config, overlap=True)
     if args.attribution and not config.attribution:
         config = dataclasses.replace(config, attribution=True)
     if args.policies and not config.policies:
@@ -657,7 +668,6 @@ def run_simulate(args) -> int:
     )
     from isotope_tpu_torch.runner.run import run_experiment
 
-    _refuse_unported(args)
     ens_kw = _ensemble_config_kwargs(args)
     arm_telemetry(args.telemetry)
     ignore_compile_cache(args)
@@ -694,6 +704,8 @@ def run_simulate(args) -> int:
         timeline=tl_window is not None,
         policies=args.policies,
         rollouts=args.rollouts,
+        mesh_spec=args.mesh,
+        overlap=args.overlap,
         **ens_kw,
         **extra,
     )
@@ -1085,11 +1097,13 @@ def main(argv=None) -> int:
     if not getattr(args, "func", None):
         parser.print_help()
         return 2
-    try:
-        return args.func(args) or 0
-    except (OSError, ValueError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+    # under a world of several ranks (torchrun) only rank 0 prints
+    with rank_console():
+        try:
+            return args.func(args) or 0
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
 
 
 if __name__ == "__main__":

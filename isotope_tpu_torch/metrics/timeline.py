@@ -37,8 +37,8 @@ Counts are int32 when ``packed`` (the ``SimParams.packed_carries``
 default), as the reference's are; the occupancy integrals and latency
 sums are float32.
 
-Not ported: ``merge_host`` (the sharded runs' host merge, ROADMAP item
-11).
+:func:`merge_host` replays the mesh runs' sum over per-shard summaries
+on the host, in shard order (``parallel/sharded.py``'s emulated twin).
 """
 from __future__ import annotations
 
@@ -390,6 +390,22 @@ def accumulate(
     return TimelineSummary(
         acc.window_s, *(a + b for a, b in zip(acc[1:], block[1:]))
     )
+
+
+def merge_host(shards: Sequence[TimelineSummary]) -> TimelineSummary:
+    """Host replay of the mesh sum over per-shard summaries
+    (sequential shard-order sums at each leaf's own dtype — the
+    single-device emulation); ``window_s`` is shard 0's."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    acc = [host(x) for x in shards[0]]
+    for s in shards[1:]:
+        acc = [a + host(b) for a, b in zip(acc, s)]
+    acc[0] = host(shards[0].window_s)
+    return TimelineSummary(*acc)
 
 
 # -- host-side derivations ---------------------------------------------------

@@ -32,13 +32,18 @@ The wired sites are the engine's: ``engine.build`` (``Simulator``
 construction) and ``engine.run`` (the entry of every run:
 ``run``, ``run_summary``, ``run_attributed``, ``run_timeline``,
 ``run_policies``, ``run_rollouts``, ``run_ensemble`` and the protected
-fleets), and the policy and lb layers' sites: the standard kinds at
+fleets), the sharded runner's (``parallel/sharded.py``, where the
+reference checks them: ``sharded.args_put`` while a run's argument
+tables are built, ``sharded.compute`` before the shards' scan,
+``sharded.dcn_collective`` before it on a mesh with a ``slice`` axis,
+``sharded.gather`` after the merge), and the policy and lb layers'
+sites: the standard kinds at
 ``policies.stuck_breaker`` / ``policies.autoscaler_lag`` raise at the
 entry of a protected run or fleet with policy tables, at
 ``lb.degraded_backend`` at the entry of a run with active lb laws.
-The reference's sharded runner's and XLA cache's sites parse as in the
-reference and then raise ``NotImplementedError`` naming the ROADMAP
-item that wires them, so a plan never silently fails to fire.  ``check(site)`` with no plan armed
+The reference's XLA cache site parses as in the reference and then
+raises ``NotImplementedError`` (the port has no compiled-executable
+cache), so a plan never silently fails to fire.  ``check(site)`` with no plan armed
 is one boolean test: the default path gains no work and no sync point.
 
 The second half is the chaos jitter of the fleets (numpy only):
@@ -85,10 +90,6 @@ VALID_SITES = (
 #: the reference's sites whose layer the port has not wired yet, and
 #: the ROADMAP item that wires them
 _UNWIRED = {
-    "sharded.args_put": "item 11, multi-GPU",
-    "sharded.compute": "item 11, multi-GPU",
-    "sharded.dcn_collective": "item 11, multi-GPU",
-    "sharded.gather": "item 11, multi-GPU",
     "cache.load": "none: the port has no compiled-executable cache",
 }
 

@@ -11,7 +11,10 @@ composed by the sweep driver (runner/run.py):
   down one rung per RESOURCE_EXHAUSTED failure.  :func:`execution_rungs`
   builds the ladder of one case: ``scan`` (the memory-sized block),
   then ``half-block`` (half the block: the same requests in twice the
-  blocks, half the live event tensors).  Every rung runs on the
+  blocks, half the live event tensors).  A mesh-served case
+  (``parallel/sharded.py``) walks ``sharded``, ``sharded-half-block``
+  and ``single-device`` (every shard replayed on the rank's own device,
+  the collectives merged on the host).  Every rung runs on the
   Simulator's own device: no rung moves a case to the CPU.  The
   reference's last rung, ``cpu-eager`` (``jax.disable_jit`` on the same
   device, which also survives a compile-time OOM), has no counterpart:
@@ -173,6 +176,7 @@ def execution_rungs(
     collector=None,
     trim: bool = True,
     attribution: Optional[str] = None,
+    sharded=None,
 ) -> List[Tuple[str, Callable[[], object]]]:
     """The degradation ladder of one sweep case, on ``sim``'s device.
 
@@ -182,7 +186,39 @@ def execution_rungs(
     attributed run (:meth:`Simulator.run_attributed`: the same draws and
     blocking as the plain run, so the same summary): the blame pass
     rides the rung that serves the case.
+
+    ``sharded`` (a ``parallel.ShardedSimulator``) serves the case on
+    its mesh: ``sharded`` and ``sharded-half-block`` are its collective
+    runs, ``single-device`` replays every shard on this rank's device
+    (``run_emulated``, the same draws and blocking as the ``sharded``
+    rung).  The ranks agree on every failure, so each rank's ladder
+    takes the same rungs.  The summary carries the mesh's own
+    collector's series (``collector`` is for the solo rungs).
     """
+    if sharded is not None:
+        def _mesh(block, emulated=False):
+            def thunk():
+                suffix = "_emulated" if emulated else ""
+                if attribution is None:
+                    out = getattr(sharded, "run" + suffix)(
+                        load, num_requests, source, block_size=block,
+                        trim=trim,
+                    )
+                    return finish(out), None
+                summary, attr = getattr(
+                    sharded, "run_attributed" + suffix
+                )(load, num_requests, source, block_size=block, trim=trim,
+                  tail=attribution == "tail")
+                return finish(summary), attr
+            return thunk
+
+        (_, full), (_, half) = rung_blocks(block_size)
+        return [
+            ("sharded", _mesh(full)),
+            ("sharded-half-block", _mesh(half)),
+            ("single-device", _mesh(full, emulated=True)),
+        ]
+
     def _scan(block):
         def thunk():
             if attribution is None:

@@ -21,7 +21,12 @@ retry with backoff, an out-of-memory error walks the degradation ladder
 unrecoverable case is recorded FAILED in the checkpoint while the sweep
 goes on.  A sticky CUDA error is recorded FAILED too and then ends the
 sweep: the CUDA context is lost, and the same command in a new process
-resumes from the checkpoint.  Where the reference's diagnostic passes (attribution, the
+resumes from the checkpoint.  A device mesh (``--mesh``, ``$ISOTOPE_MESH``,
+``mesh_data`` / ``mesh_svc``; ``parallel/``) serves the plain, attributed
+and recorded cases of a world of several ranks (``torchrun``): every
+rank runs the sweep, only rank 0 writes (the results directory, the
+CSV, the checkpoint, the documents and the console lines), and a
+barrier ends the sweep.  Where the reference's diagnostic passes (attribution, the
 fleet dispatch, the search bracket, splitting, the fleet explainer) are
 best-effort, the port's fail the case: an error is recorded, never
 swallowed.
@@ -146,16 +151,63 @@ def _case_source(config, index, device):
     return RootedSource(sim_pkg.TorchDraws(config.seed, device), index)
 
 
-def _refuse_unported(config) -> None:
-    """A device mesh (item 11) is not ported: a request for one raises
-    before anything simulates."""
-    if (config.mesh_spec or os.environ.get("ISOTOPE_MESH", "").strip()
-            or config.mesh_data > 1 or config.mesh_svc > 1
-            or config.overlap):
+def resolve_mesh_request(config):
+    """The mesh request of a sweep: ``"auto"``, a ``MeshSpec``, or
+    ``None`` (the legacy ``mesh_data`` / ``mesh_svc`` sizing).
+
+    Priority: the config's explicit spec (CLI ``--mesh`` / TOML ``[sim]
+    mesh``) > ``$ISOTOPE_MESH`` > the legacy keys.  Spec errors are
+    key-pathed config errors raised here, before any simulation.
+    """
+    from isotope_tpu_torch.parallel.mesh import (
+        mesh_spec_from_env,
+        parse_mesh_spec,
+    )
+
+    if config.mesh_spec:
+        return parse_mesh_spec(str(config.mesh_spec))
+    return mesh_spec_from_env()
+
+
+def _mesh_spec(config, mesh_req):
+    """The factorization a sweep runs on: an explicit spec, else
+    ``mesh_data`` x ``mesh_svc`` (``mesh_data`` 0 = the world's ranks
+    over ``mesh_svc``).  ``--mesh auto`` (the layout search) raises
+    ``NotImplementedError``; a spec the world cannot hold raises the
+    key-pathed config error — both before anything simulates."""
+    from isotope_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        check_world,
+        world_size,
+    )
+
+    if mesh_req == "auto":
         raise NotImplementedError(
-            "device meshes are not ported to isotope_tpu_torch yet "
-            "(ROADMAP.md queue 1: item 11, multi-GPU)"
+            "--mesh auto (the layout search, parallel/layout.py) is not "
+            "ported to isotope_tpu_torch yet (ROADMAP.md queue 1: item "
+            "11b)"
         )
+    if isinstance(mesh_req, MeshSpec):
+        spec = mesh_req
+    else:
+        svc = max(config.mesh_svc, 1)
+        data = (
+            config.mesh_data if config.mesh_data > 0
+            else max(world_size() // svc, 1)
+        )
+        spec = MeshSpec(data=data, svc=svc)
+    if spec.size > 1:
+        check_world(spec)
+    return spec
+
+
+def _refuse_mesh_served(what: str) -> None:
+    """A case the mesh would serve whose mesh path is not ported."""
+    raise NotImplementedError(
+        f"a mesh-served {what} is not ported to isotope_tpu_torch yet "
+        "(ROADMAP.md queue 1: item 11b); run it on one device "
+        "(--mesh 1x1)"
+    )
 
 
 def _vet_gate(mode: str, sim, topo, config, load, n, block, policy,
@@ -248,10 +300,15 @@ class _LazyTopology:
     """Compile a topology (and build its simulators) only if some run of
     it actually executes — a fully-resumed topology costs nothing."""
 
-    def __init__(self, topo_path: str, config, device=None):
+    def __init__(self, topo_path: str, config, device=None,
+                 mesh_spec=None):
         self.path = topo_path
         self.config = config
         self.device = device
+        # the mesh the sweep runs on (a MeshSpec; size 1: no mesh)
+        self.mesh_spec = mesh_spec
+        self.mesh_layout = None
+        self._sharded = {}
         self._compiled = None
         self._collector = None
         self._entry_resp = 0.0
@@ -339,6 +396,28 @@ class _LazyTopology:
                 lb=self.lb_tables, device=self.device,
             )
         return self._sims[env.name]
+
+    def sharded(self, env):
+        """The environment's ``ShardedSimulator`` over the sweep's mesh
+        (sharing :meth:`sims`' Simulator), or None when the mesh has
+        one rank."""
+        spec = self.mesh_spec
+        if spec is None or spec.size == 1:
+            return None
+        if env.name not in self._sharded:
+            from isotope_tpu_torch.parallel import (
+                ShardedSimulator,
+                build_mesh,
+            )
+
+            sim = self.sims(env)
+            self._sharded[env.name] = ShardedSimulator(
+                self.compiled,
+                build_mesh(spec, device=sim.device.type),
+                sim=sim,
+            )
+            self.mesh_layout = spec.describe()
+        return self._sharded[env.name]
 
 
 class _EnsembleGroups:
@@ -619,13 +698,15 @@ def _restore_result(rec: dict, out: pathlib.Path) -> RunResult:
     )
 
 
-def _timeline_pass(sim, load, n, source, block, window_s):
+def _timeline_pass(run_timeline, load, n, source, block, window_s):
     """The timeline pass of one case: the main run's draws and blocking,
     reduced to the windowed series on the device (a failure fails the
-    case)."""
+    case).  ``run_timeline`` is the Simulator's, the mesh's
+    (``ShardedSimulator.run_timeline``) or, when the ``single-device``
+    rung served a mesh case, its emulated twin's."""
     with telemetry.phase("timeline.pass"):
-        _, tl = sim.run_timeline(load, n, source, block_size=block,
-                                 trim=True, window_s=window_s)
+        _, tl = run_timeline(load, n, source, block_size=block, trim=True,
+                             window_s=window_s)
     telemetry.counter_inc("timeline_passes")
     return tl
 
@@ -804,6 +885,7 @@ class _Case:
     tl: object = None         # ... timeline
     pol: object = None        # ... policy and rollout series
     roll: object = None
+    mesh_layout: Optional[str] = None  # the mesh that served the case
 
 
 def _execute(case: _Case, topo, env, load, config, index, policy,
@@ -818,6 +900,8 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
     full block."""
     sim = call_with_retries(lambda: topo.sims(env), site="engine.build",
                             policy=policy)
+    sharded = call_with_retries(lambda: topo.sharded(env),
+                                site="engine.build", policy=policy)
     n = num_requests(load, sim.capacity_qps(), config.num_requests)
     block = sim.default_block_size()
     source = _case_source(config, index, sim.device)
@@ -826,6 +910,21 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
     )
     roll = topo.rollout_tables is not None
     case.sim, case.n, case.block, case.source = sim, n, block, source
+    # the mesh serves the case where the reference's does: open loops,
+    # and closed loops whose connections divide over the shards
+    if sharded is not None and (
+        load.kind == OPEN_LOOP
+        or load.connections % sharded.n_shards == 0
+    ):
+        for what, on in (("fleet", ens_groups is not None),
+                         ("protected run", protected),
+                         ("search bracket", search_spec is not None),
+                         ("splitting pass", bool(config.ensemble_split))):
+            if on:
+                _refuse_mesh_served(what)
+        case.mesh_layout = topo.mesh_layout
+    else:
+        sharded = None
     start_rung = 0
     if vet is not None:
         start_rung = _vet_gate(
@@ -879,7 +978,7 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
     else:
         rungs = execution_rungs(sim, load, n, source, block,
                                 collector=topo.collector, trim=True,
-                                attribution=attribution)
+                                attribution=attribution, sharded=sharded)
         (case.summary, case.attr), case.degraded_to = run_ladder(
             rungs[start_rung:], policy, site_prefix="engine",
         )
@@ -890,12 +989,28 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
             telemetry.set_meta("degraded_to", case.degraded_to)
         if timeline is not None:
             # the recorder pass replays the rung that served the run
-            block = dict(rung_blocks(block))[case.degraded_to or "scan"]
-            case.tl = _timeline_pass(sim, load, n, source, block,
+            run_tl, block = _timeline_rung(sim, sharded, block,
+                                           case.degraded_to)
+            case.tl = _timeline_pass(run_tl, load, n, source, block,
                                      timeline)
     if case.ens is not None:
         telemetry.counter_inc("ensemble_cases")
         telemetry.set_meta("ensemble", str(case.ens.members))
+
+
+def _timeline_rung(sim, sharded, block: int, degraded_to):
+    """``(run_timeline, block)`` replaying the ladder rung that served
+    a case: the Simulator's at that rung's block, or on a mesh its
+    collective run (``sharded``, ``sharded-half-block``) or its
+    emulated twin (``single-device``)."""
+    blocks = dict(rung_blocks(block))
+    if sharded is None:
+        return sim.run_timeline, blocks[degraded_to or "scan"]
+    if degraded_to == "single-device":
+        return sharded.run_timeline_emulated, block
+    if degraded_to == "sharded-half-block":
+        return sharded.run_timeline, blocks["half-block"]
+    return sharded.run_timeline, block
 
 
 def _documents(case: _Case, topo, label, config, load, attribution,
@@ -952,6 +1067,12 @@ def _documents(case: _Case, topo, label, config, load, attribution,
     if ens is not None:
         window = dataclasses.replace(window, qps=window.qps / ens.members)
     flat["windowDiscarded"] = window.discarded
+    if case.mesh_layout is not None:
+        # the factorization that served the case is run METADATA (like
+        # degraded_to): a record made on another layout is another
+        # measurement
+        flat["_mesh_layout"] = case.mesh_layout
+        telemetry.set_meta("mesh_layout", case.mesh_layout)
     if case.degraded_to is not None:
         # degradation is run METADATA: a row off a fallback rung says so
         flat["degraded_to"] = case.degraded_to
@@ -1088,13 +1209,27 @@ def run_experiment(
     static pre-flight gate before each case (:func:`_vet_gate`): a
     blocking verdict fails the case before it runs, and the memory
     verdict may start the ladder at ``half-block`` (recorded as
-    degraded).  A device mesh (``mesh_spec``, ``$ISOTOPE_MESH``,
-    ``mesh_data`` / ``mesh_svc`` above 1, ``overlap``) raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    degraded).
+
+    A device mesh (``mesh_spec``, ``$ISOTOPE_MESH``, ``mesh_data`` /
+    ``mesh_svc``; ``overlap`` pipelines its merge) of more than one rank
+    serves the plain, attributed and recorded cases
+    (``parallel/sharded.py``) in a world of as many ranks (``torchrun``):
+    every rank runs the sweep and returns the same results, rank 0
+    alone writes, and a barrier ends the sweep.  ``--mesh auto`` and a
+    mesh-served fleet, search bracket, protected run or splitting pass
+    raise ``NotImplementedError`` naming ROADMAP item 11b; a spec the
+    world cannot hold raises the key-pathed config error before
+    anything simulates."""
     from isotope_tpu_torch.analysis.vet import vet_mode
+    from isotope_tpu_torch.parallel import mesh as mesh_mod
 
     vet = vet_mode(vet)
-    _refuse_unported(config)
+    mesh_spec = _mesh_spec(config, resolve_mesh_request(config))
+    world = mesh_mod.world_size()
+    if world > 1:
+        mesh_mod.init_world(device if device is not None else "cuda")
+    writer = mesh_mod.world_rank() == 0
     # resolve exporter specs up front: a typo'd --export must fail
     # before any simulation, not after
     exporters = []
@@ -1140,25 +1275,35 @@ def run_experiment(
     done: dict = {}
     if out_dir is not None:
         out = pathlib.Path(out_dir)
-        out.mkdir(parents=True, exist_ok=True)
         ckpt_path = out / "checkpoint.jsonl"
         fingerprint = _config_fingerprint(config)
+        # every rank reads the checkpoint, so every rank skips the same
+        # cases (their collectives pair up); rank 0 rewrites it after
         records = _load_checkpoint(ckpt_path, fingerprint) if resume else []
-        # rewrite via temp + atomic rename: drops any truncated tail a
-        # kill left behind, guarantees appends start on a fresh line,
-        # and a kill during the rewrite itself cannot lose the old file
-        tmp_path = out / "checkpoint.jsonl.tmp"
-        with open(tmp_path, "w") as tmp:
-            tmp.write(json.dumps({"config": fingerprint}) + "\n")
-            for rec in records:
-                tmp.write(json.dumps(rec) + "\n")
-            tmp.flush()
-            os.fsync(tmp.fileno())
-        os.replace(tmp_path, ckpt_path)
-        ckpt_file = open(ckpt_path, "a")
+        if world > 1:
+            _barrier()
+        if writer:
+            out.mkdir(parents=True, exist_ok=True)
+            # rewrite via temp + atomic rename: drops any truncated tail
+            # a kill left behind, guarantees appends start on a fresh
+            # line, and a kill during the rewrite itself cannot lose the
+            # old file
+            tmp_path = out / "checkpoint.jsonl.tmp"
+            with open(tmp_path, "w") as tmp:
+                tmp.write(json.dumps({"config": fingerprint}) + "\n")
+                for rec in records:
+                    tmp.write(json.dumps(rec) + "\n")
+                tmp.flush()
+                os.fsync(tmp.fileno())
+            os.replace(tmp_path, ckpt_path)
+            ckpt_file = open(ckpt_path, "a")
         # label-keyed restore (latest record wins): completed cases are
         # never re-run, FAILED and quarantined-corrupt cases are
         done = {rec["label"]: rec for rec in records}
+    if not writer:
+        # only rank 0 writes: its console lines, profiles and documents
+        progress = None
+        profile_dir = None
 
     ens_groups = None
     if ens_spec is not None:
@@ -1167,23 +1312,39 @@ def run_experiment(
                                      completed)
 
     results: List[RunResult] = []
-    try:
-        index = 0
-        for topo_path in config.topology_paths:
-            topo = _LazyTopology(topo_path, config, device)
-            for env in config.environments:
-                for load in config.load_models():
-                    results.append(_sweep_case(
-                        topo, env, load, config, index, done, out,
-                        ckpt_file, progress, policy, ens_groups,
-                        attribution, timeline, search_spec, profile_dir,
-                        vet,
-                    ))
-                    index += 1
-    finally:
-        if ckpt_file is not None:
-            ckpt_file.close()
+    with mesh_mod.rank_console():
+        try:
+            index = 0
+            for topo_path in config.topology_paths:
+                topo = _LazyTopology(topo_path, config, device, mesh_spec)
+                for env in config.environments:
+                    for load in config.load_models():
+                        results.append(_sweep_case(
+                            topo, env, load, config, index, done, out,
+                            ckpt_file, progress, policy, ens_groups,
+                            attribution, timeline, search_spec,
+                            profile_dir, vet,
+                        ))
+                        index += 1
+        finally:
+            if ckpt_file is not None:
+                ckpt_file.close()
+        _finish_sweep(results, out if writer else None, exporters)
+    if world > 1:
+        _barrier()
+    return results
 
+
+def _barrier() -> None:
+    """Every rank of the world waits here."""
+    import torch.distributed as dist
+
+    dist.barrier()
+
+
+def _finish_sweep(results, out, exporters) -> None:
+    """The sweep's closing writes (``out`` None: none) and its failure
+    count on the console."""
     ok = [r for r in results if not r.failed]
     if out is not None:
         with open(out / "results.jsonl", "w") as f:
@@ -1207,7 +1368,6 @@ def run_experiment(
             "them",
             file=sys.stderr,
         )
-    return results
 
 
 def _sweep_case(topo, env, load, config, index, done, out, ckpt_file,
@@ -1290,6 +1450,10 @@ def _run_case(topo, env, load, config, index, label, policy, ens_groups,
                 case, topo, label, config, load, attribution, timeline,
                 search_spec,
             )
+    except NotImplementedError:
+        # an unported path (ROADMAP.md names it) ends the sweep: it
+        # would fail every case that takes it
+        raise
     except Exception as e:
         # unrecoverable for THIS case (deterministic error, retries or
         # ladder exhausted): record it, keep the sweep alive

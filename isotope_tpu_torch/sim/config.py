@@ -12,7 +12,8 @@ parameter set describes a run of either package.  The port honours the
 fields of the physics it implements; the options of layers it has not
 ported yet (attribution, timeline, ensembles) raise in the Simulator,
 and the JAX executor switches (scan buckets, the Pallas census flag,
-packed carries, sharded overlap) have no effect here.  The chaos,
+packed carries) have no effect here; ``overlap`` pipelines the merge
+of ``parallel/sharded.py``'s mesh runs.  The chaos,
 traffic-split and mTLS schedule types (``ChaosEvent``,
 ``bounce_schedule``, ``TrafficSplit``, ``MtlsSchedule``) are copied with
 their validation and messages.
@@ -202,10 +203,10 @@ class SimParams:
     timeline_max_windows: int = 256
     # Collective/compute overlap (parallel/sharded.py): when True, the
     # sharded runner issues each block's summary-merge collectives
-    # INSIDE the scan, one block late behind a double-buffered carry —
-    # block k's psum/psum_scatter results are consumed while block k+1
-    # computes, so DCN merge latency hides behind the next block's
-    # event sweep.  Off (default) keeps the historical single
+    # INSIDE the block loop, one block late — block k's all-reduce /
+    # reduce-scatter results are consumed while block k+1 computes, so
+    # cross-host merge latency hides behind the next block's event
+    # sweep.  Off (default) keeps the historical single
     # post-scan merge byte-identical; on matches off exactly on
     # integer-valued fields and to reduction-order f32 noise on float
     # sums (tests/test_multihost.py).  SCOPE: the plain summary path

@@ -73,6 +73,12 @@ CANARY_INDEX = 880_001
 #: fold-in of an attributed run's tail-cut pilot run
 TAIL_PILOT_INDEX = 777_000
 
+#: fold-in offset of a mesh run's shard ``r`` (the reference's
+#: ``fold_in(key, 500_000 + shard)``): shard ``r`` runs under
+#: ``RootedSource(source, SHARD_INDEX_BASE + r)``, so its block ``b``
+#: draws from ``(SHARD_INDEX_BASE + r, 1_000_000 + b)``
+SHARD_INDEX_BASE = 500_000
+
 #: fold-in of the importance-splitting fleets (the reference's
 #: ``fold_in(run_key, 777_000_001)``): a lane of their own, so they
 #: never replay the measurement fleet's streams; member ``w`` draws

@@ -2268,6 +2268,7 @@ class Simulator:
                    err_scale: Optional[torch.Tensor] = None,
                    clock: Optional[_Clock] = None,
                    plan: Optional[Tuple[float, int, int]] = None,
+                   shards: int = 1,
                    ) -> Iterator[SimResults]:
         """The :class:`SimResults` of each block of a run of >=
         ``num_requests`` (:meth:`_block_plan`).
@@ -2291,6 +2292,12 @@ class Simulator:
         loop's clocks after each block; ``plan`` gives ``(offered rate,
         block, number of blocks)`` instead of :meth:`_block_plan` (a
         fleet's members run its plan).
+
+        ``shards = R > 1`` runs one shard of a mesh run
+        (``parallel/sharded.py``): its arrivals are paced at ``offered /
+        R`` and a closed loop's at ``connections / R`` connections,
+        while the queueing law, the pacing gap, the nominal clock and
+        the saturated law keep the whole run's rate and connections.
         """
         self._check_lb_load(load)
         offered, block, num_blocks = plan if plan is not None else (
@@ -2307,19 +2314,23 @@ class Simulator:
         offered_t = self._scalar(offered)
         pace_t = self._scalar(pace)
         nominal_t = self._scalar(nominal)
+        # a shard's share of the arrival stream, in float32 as the
+        # reference's ``offered_qps / n_shards``
+        arrival_t = offered_t / shards if shards > 1 else offered_t
+        local = conns // shards
         if clock is None:
-            clock = _Clock.zero(self, conns)
-        per = block // max(conns, 1)
+            clock = _Clock.zero(self, local)
+        per = block // max(local, 1)
         for _ in range(num_blocks):
             pfx, rfx = (
                 control.effects() if control is not None else (None, None)
             )
             res, t0, conn_t0 = self._simulate_core(
-                block, load.kind, conns,
+                block, load.kind, local,
                 self._draws(source, BLOCK_INDEX_BASE + clock.block, block,
                             load.kind, sat, policy=pfx is not None,
                             canary=rfx is not None),
-                offered_t, pace_t, offered_t, clock.t0, clock.conn_t0,
+                offered_t, pace_t, arrival_t, clock.t0, clock.conn_t0,
                 visits_pc=visits_pc,
                 sat_conns=conns if sat else 0,
                 nominal_gap=nominal_t,
@@ -2367,13 +2378,14 @@ class Simulator:
     def _run_summary(self, load, num_requests, source, block_size,
                      collector, trim, control=None, attr=False,
                      tail_cut=None, cpu_scale=None, err_scale=None,
-                     fleet=False, clock=None, plan=None):
+                     fleet=False, clock=None, plan=None, shards=1):
         """The block loop reduced to a RunSummary; with ``attr`` also to
         an AttributionSummary (its tail accumulators armed at
         ``tail_cut`` when given): ``(summary, attribution)``.  A solo
         loop reduces blame or the recorder's timeline, not both; a fleet
         member (``fleet``) may reduce both, as the reference's observed
-        fleet members do."""
+        fleet members do.  ``shards``: one shard of a mesh run
+        (:meth:`run_blocks`), whose trim window spans all of them."""
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
@@ -2391,7 +2403,8 @@ class Simulator:
         telemetry.gauge_set("engine_num_blocks", num_blocks)
         win = None
         if trim:
-            lo, hi = trim_window_bounds(num_blocks * block, offered)
+            lo, hi = trim_window_bounds(num_blocks * block * shards,
+                                        offered)
             win = (self._scalar(lo), self._scalar(hi))
         if attr:
             from isotope_tpu_torch.metrics import attribution
@@ -2411,7 +2424,7 @@ class Simulator:
                                    block_size=block_size, control=control,
                                    cpu_scale=cpu_scale,
                                    err_scale=err_scale, clock=clock,
-                                   plan=plan):
+                                   plan=plan, shards=shards):
             parts.append(summary_mod.summarize(res, collector, window=win))
             if attr:
                 a, ex = attribution.attribute_block(

@@ -30,7 +30,8 @@ seed)``) from its carried clocks, and ties rank by the tie-break
 uniforms, so the lineage is a pure function of (spec, source, horizon).
 The document's ``traces`` and each rung's ``evidence.compile_s`` count
 the reference's engine traces and compile wall, which the port has
-none of: they are 0.  The sharded and emulated brackets are not ported.
+none of: they are 0.  The sharded and emulated brackets are not ported
+(ROADMAP item 11b).
 """
 from __future__ import annotations
 

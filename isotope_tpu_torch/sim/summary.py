@@ -5,7 +5,9 @@ The port of ``isotope_tpu.sim.summary``.  Everything in a
 blocks accumulates into one summary: each block is reduced by
 :func:`summarize` (with the per-service Prometheus series of a
 ``MetricsCollector`` when one is given), the block summaries are stacked
-with :func:`stack` and reduced by :func:`reduce_stacked`.
+with :func:`stack` and reduced by :func:`reduce_stacked`;
+:func:`zeros_summary` is the identity of :func:`summary_accumulate`, the
+primer of the mesh runs' overlapped merge (``parallel/sharded.py``).
 """
 from __future__ import annotations
 
@@ -272,4 +274,59 @@ def reduce_stacked(parts: RunSummary) -> RunSummary:
         metrics=metrics,
         utilization=parts.utilization.amax(0),
         unstable=parts.unstable.any(0),
+    )
+
+
+def zeros_summary(
+    collector: Optional[MetricsCollector],
+    num_services: int,
+    svc_rows: Optional[int] = None,
+    device="cpu",
+) -> RunSummary:
+    """The identity element of :func:`summary_accumulate`.
+
+    Primes the collective/compute overlap pipeline (parallel/
+    sharded.py): sums start at 0, mins at +inf, maxes at -inf, so
+    accumulating any real block summary over this leaves the block
+    unchanged.  ``svc_rows`` overrides the leading dimension of the
+    svc-sharded per-service histograms (after the reduce-scatter each
+    rank holds an ``s_pad / svc``-row tile, not the full ``S``).
+    """
+    metrics = None
+    if collector is not None:
+        metrics = collector.zeros(device)
+        if svc_rows is not None:
+            metrics = metrics._replace(
+                duration_hist=torch.zeros(
+                    (svc_rows,) + tuple(metrics.duration_hist.shape[1:]),
+                    dtype=F32, device=device,
+                ),
+                response_size_hist=torch.zeros(
+                    (svc_rows,)
+                    + tuple(metrics.response_size_hist.shape[1:]),
+                    dtype=F32, device=device,
+                ),
+            )
+
+    def z():
+        return torch.zeros((), dtype=F32, device=device)
+
+    return RunSummary(
+        count=z(),
+        error_count=z(),
+        hop_events=z(),
+        latency_sum=z(),
+        latency_m2=z(),
+        latency_min=torch.tensor(np.inf, dtype=F32, device=device),
+        latency_max=torch.tensor(-np.inf, dtype=F32, device=device),
+        latency_hist=torch.zeros(NUM_BUCKETS, dtype=F32, device=device),
+        end_max=z(),
+        win_lo=z(),
+        win_hi=z(),
+        win_count=z(),
+        win_error_count=z(),
+        win_latency_hist=torch.zeros(NUM_BUCKETS, dtype=F32, device=device),
+        metrics=metrics,
+        utilization=torch.zeros(num_services, dtype=F32, device=device),
+        unstable=torch.zeros(num_services, dtype=torch.bool, device=device),
     )

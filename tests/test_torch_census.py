@@ -198,10 +198,12 @@ def _chip_smoke_shapes():
         runs, chip_smoke.planted_sim(port, device="cpu"), storm)
     runs += chip_smoke.runner_census_runs(device="cpu")
     runs += chip_smoke.calibration_census_runs(device="cpu")
+    runs += chip_smoke.mesh_census_runs(port, device="cpu")
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
         chip_smoke.fleet_pilot_shapes(port, runs, chaos_sim, storm,
-                                      device="cpu"),
+                                      device="cpu")
+        + chip_smoke.mesh_extra_shapes(runs),
     )
 
 
@@ -340,6 +342,32 @@ def test_chip_smoke_covers_the_search_rungs():
     for m in (16, 4):
         planted = [s for s in _SHAPES if s[0] == m * 64]
         assert len(planted) >= 4 and any(s[4] for s in planted), m
+
+
+def test_chip_smoke_covers_the_mesh_path():
+    """Phase 11's census calls: the 1,024-service tree of the
+    reference dryrun (5 dense levels with children, no fail step, no
+    error flags) at one shard's 32,768 rows, the half-block rung's
+    16,384, the tail pilot's 8,192 and the CPU twin's 2,048; a shard of
+    a mesh run calls the census at its Simulator's solo shapes."""
+    from types import SimpleNamespace
+
+    import chip_smoke
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+
+    port = SimpleNamespace(
+        compile_graph=compile_graph, ServiceGraph=ServiceGraph,
+        LoadModel=LoadModel, SimParams=SimParams, Simulator=Simulator)
+    (run,) = chip_smoke.mesh_census_runs(port, device="cpu")
+    sim = run[1]
+    assert sim.compiled.num_services == sim.compiled.num_hops == 1_024
+    for n in (32_768, 16_384, 8_192, 2_048):
+        shapes = sim.census_shapes(n)
+        assert len(shapes) == 5 and set(shapes) <= set(_SHAPES), n
+        assert not any(f or e for _, _, _, f, e in shapes)
+    assert chip_smoke._pilot_blocks(2 * 32_768) == (8_192, 8_192)
 
 
 def test_chip_smoke_covers_the_runner_suite():

@@ -166,8 +166,6 @@ def test_fault_spec_validation_matches_reference(spec, err):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("oom:sharded.compute:1", "item 11"),
-    ("transient:sharded.dcn_collective:1", "item 11"),
     ("corrupt:cache.load:1", "no compiled-executable cache"),
 ])
 def test_unwired_fault_sites_raise_naming_their_item(spec, item):
@@ -176,6 +174,28 @@ def test_unwired_fault_sites_raise_naming_their_item(spec, item):
     with pytest.raises(NotImplementedError, match=item):
         faults.install(spec)
     assert not faults.active()
+
+
+@pytest.mark.parametrize("spec", [
+    "oom:sharded.args_put:1",
+    "oom:sharded.compute:1",
+    "transient:sharded.dcn_collective:1",
+    "oom:sharded.gather:2",
+])
+def test_sharded_fault_sites_are_wired(spec):
+    """The sharded runner's sites install and fire where the reference
+    checks them (``parallel/sharded.py``), as the reference's plan
+    reads them."""
+    site = spec.split(":")[1]
+    try:
+        faults.install(spec)
+        assert faults.active()
+        assert faults.signature() == jax_faults.FaultPlan.parse(
+            spec).signature()
+        with pytest.raises(InjectedFault):
+            faults.check(site)
+    finally:
+        faults.clear()
 
 
 @pytest.mark.parametrize("spec", [

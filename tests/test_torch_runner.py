@@ -499,13 +499,27 @@ def test_fleet_grid_collapses_same_shape_cells(tmp_path, capsys):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    cfg = load_toml(grid(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """A mesh the one-process world cannot hold raises the reference's
+    key-pathed message, and ``--mesh auto`` (through ``$ISOTOPE_MESH``)
+    names item 11b, both before anything simulates; a 1x1 mesh and
+    ``overlap`` run the plain path."""
+    cfg = load_toml(grid(tmp_path, qps=(300,), n=500))
+    out = tmp_path / "out"
+    with pytest.raises(ValueError,
+                       match="mesh: mesh data=2,svc=1 needs 2 devices"):
         run_experiment(dataclasses.replace(cfg, mesh_spec="2x1"),
-                       device="cpu")
+                       out_dir=str(out), device="cpu")
+    assert not out.exists()
     monkeypatch.setenv("ISOTOPE_MESH", "auto")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
         run_experiment(cfg, device="cpu")
+    monkeypatch.setenv("ISOTOPE_MESH", "1x1")
+    plain = run_experiment(cfg, device="cpu")
+    over = run_experiment(dataclasses.replace(cfg, overlap=True),
+                          device="cpu")
+    for a, b in zip(plain, over):
+        assert "_mesh_layout" not in a.flat
+        assert dict(a.flat, StartTime=0) == dict(b.flat, StartTime=0)
 
 
 def test_duplicate_labels_rejected(tmp_path):
@@ -568,5 +582,5 @@ def test_cli_accepts_every_flag_of_the_jax_command(command):
 def test_cli_sweep_refuses_the_unported_flags(tmp_path):
     cfg = grid(tmp_path)
     with pytest.raises(NotImplementedError,
-                       match="sweep --overlap .*item 11"):
-        cli.main(["sweep", str(cfg), "--overlap", "--device", "cpu"])
+                       match="--mesh auto .*item 11b"):
+        cli.main(["sweep", str(cfg), "--mesh", "auto", "--device", "cpu"])

@@ -487,15 +487,32 @@ def test_cli_protected_run_matches_reference_number_for_number(tmp_path,
         assert table in got["stderr"][0], table
 
 
-@pytest.mark.parametrize("opt,kind,item", cli._REFUSED,
-                         ids=[r[0] for r in cli._REFUSED])
-def test_cli_refused_flags_name_their_item(opt, kind, item):
-    argv = ["simulate", str(CANONICAL), "--device", "cpu", opt]
-    if kind.get("action") != "store_true" and "const" not in kind:
-        argv.append("1")
-    with pytest.raises(NotImplementedError,
-                       match=f"{opt} .*{item.split(',')[0]}"):
-        cli.main(argv)
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--mesh", "auto"], NotImplementedError, "--mesh auto .*item 11b"),
+    (["--overlap", "--mesh", "2x1"], ValueError,
+     "mesh: mesh data=2,svc=1 needs 2 devices, have 1"),
+], ids=["--mesh", "--overlap"])
+def test_cli_refused_flags_name_their_item(flags, exc, match, monkeypatch,
+                                           capsys):
+    """The mesh flags parse; what the port cannot serve is refused
+    before anything simulates: ``--mesh auto`` (the layout search)
+    names its ROADMAP item, and a mesh larger than the world (one
+    process here) exits 1 with the reference's key-pathed message."""
+    import re
+
+    import isotope_tpu_torch.runner.run as run_mod
+
+    def no_sim(*args, **kwargs):
+        raise AssertionError("simulated before refusing")
+
+    monkeypatch.setattr(run_mod, "_execute", no_sim)
+    argv = ["simulate", str(CANONICAL), "--device", "cpu"] + flags
+    if exc is ValueError:
+        assert cli.main(argv) == 1
+        assert re.search(match, capsys.readouterr().err)
+    else:
+        with pytest.raises(exc, match=match):
+            cli.main(argv)
 
 
 def test_cli_accepts_every_flag_of_the_jax_command():
