@@ -295,7 +295,26 @@ any failure exits non-zero and nothing is caught:
    with the reference's ``needs 2 devices, have 1`` before a block runs.
    Phase 3 holds the census at the phase's shapes (its blocks, the
    half-block rung's 16,384, the tail pilot's 8,192, the CPU twin's
-   2,048; ``mesh_census_runs``, ``mesh_extra_shapes``).
+   2,048; ``mesh_census_runs``, ``mesh_extra_shapes``).  Then the
+   mesh-served runs (``mesh_served_runs``), each its own path (census
+   launches set to 0 just before, read just after): ensembleN (32 x
+   8,192) and ensembleN-observed (8 x 8,192, blame and recorder) over
+   the world of one, each bit-equal to its twin over
+   ``EmulatedMesh(MeshSpec(1, 1))`` and timed beside the solo folded
+   fleet, and over the emulated ``MeshSpec(2, 2, 2)`` twin (4 and 1
+   members a shard), held to the world of one's fleet within the folded
+   fleets' tolerances; search64 over the 2x2x2 twin (rungs of 8 / 2 / 1
+   members a shard); ``run_policies`` on policies-1000svc-kill and
+   ``run_rollouts`` on rollouts-multitier-1000-bad, 3 windows deep, over
+   the world of one (bit-equal to its twin, timed beside the solo run a
+   block) and the emulated ``MeshSpec(4, 1, 2)`` twin (blocks of
+   ``protected_window_block(..., shards=8)``); svc1000-chaosfleet's
+   protected fleet and its splitting estimate over the world of one
+   (equal to the solo fleet and the solo estimate).  Each twin is held
+   to its CPU twin at a small size within phase 4's tolerances
+   (``mesh_served_cpu``; the policy twin on policies-smoke's topology),
+   and phase 3 holds the census at the twins'
+   shapes (``mesh_served_census_runs``).
 
 It then prints the kernel table as one JSON line and, last, the result
 line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -5721,6 +5740,65 @@ def mesh_extra_shapes(runs):
         MESH_CPU_BLOCK)), [])
 
 
+#: the mesh-served fleets' and bracket's emulated twin: 2 x 2 x 2
+MESH_FLEET_TWIN = (2, 2, 2)
+#: the mesh-served protected runs' emulated twin (svc = 1): 4 x 1 x 2
+MESH_PROT_TWIN = (4, 1, 2)
+#: the protected runs' depth on the mesh: windows of 1 s
+MESH_PROT_WINDOWS = 3
+#: the twins' CPU checks: a fleet of 8 members x 512 requests, a bracket
+#: of 16 candidates over 2 rungs (blocks of 256), a protected run of
+#: 8 shards x 2 blocks of 256 requests in 20 ms windows
+MESH_CPU_FLEET = dict(members=8, n=512)
+MESH_CPU_BRACKET = dict(members=16, eta=4, rungs=2, n=1_024, block=256)
+MESH_CPU_PROT = dict(block=256, blocks=2, window_s=0.02)
+
+
+def _shards(spec) -> int:
+    return int(np.prod(spec))
+
+
+def mesh_served_census_runs(runs):
+    """The mesh-served twins' census calls for phase 3, as runs: the
+    2x2x2 twin's folded chunks of ensembleN (4 x 8,192), its observed
+    twin (1 x 8,192) and search64 (8 / 2 / 1 x 4,096), the 4x1x2 twin's
+    protected blocks (a shard's ``protected_window_block``) and the
+    blocks of ``mesh_served_cpu``'s card runs."""
+    from isotope_tpu_torch.runner.run import protected_window_block
+
+    sim = ensemble_sim(runs)
+    open_load = SimpleNamespace(kind="open", qps=ENS_QPS)
+    n8 = _shards(MESH_FLEET_TWIN)
+    out = [(f"mesh twin ensembleN ({-(-ENS_MEMBERS // n8)} folded)", sim,
+            open_load, -(-ENS_MEMBERS // n8) * ENS_N,
+            -(-ENS_MEMBERS // n8) * ENS_N)]
+    for m in (64, 16, 4):
+        rows = -(-m // n8) * SEARCH64["block"]
+        out.append((f"mesh twin search64 ({-(-m // n8)} folded)", sim,
+                    open_load, rows, rows))
+    for name in ("policies-1000svc-kill", "rollouts-multitier-1000-bad"):
+        _, psim, load, _, _ = [r for r in runs if r[0] == name][0][:5]
+        _, block = protected_window_block(
+            psim, load, psim.default_block_size(),
+            psim.params.timeline_window_s, PROTECTED_WINDOW_S,
+            shards=_shards(MESH_PROT_TWIN),
+        )
+        out.append((f"mesh twin {name}", psim, load, block, block))
+    # the CPU checks' blocks (mesh_served_cpu)
+    rows = MESH_CPU_FLEET["n"] * -(-MESH_CPU_FLEET["members"] // n8)
+    out.append(("mesh cpu check fleet", sim, open_load, rows, rows))
+    b = MESH_CPU_BRACKET
+    for m in (b["members"], b["members"] // b["eta"]):
+        rows = -(-m // n8) * b["block"]
+        out.append((f"mesh cpu check bracket ({-(-m // n8)} folded)", sim,
+                    open_load, rows, rows))
+    for name in ("policies-smoke", "rollouts-multitier-1000-bad"):
+        _, psim, load, _, _ = [r for r in runs if r[0] == name][0][:5]
+        out.append((f"mesh cpu check {name}", psim, load,
+                    MESH_CPU_PROT["block"], MESH_CPU_PROT["block"]))
+    return out
+
+
 def _leaves(x):
     if isinstance(x, torch.Tensor):
         return [x]
@@ -5818,10 +5896,11 @@ def _own_peak(fn):
     return out, torch.cuda.max_memory_allocated() - base
 
 
-def mesh_phase(port):
+def mesh_phase(port, runs, prot, chaos_sim):
     """Phase 11 (module docstring).  Returns the census launches of its
-    two paths: ``mesh`` (the world of one's four runs) and
-    ``mesh-emulated`` (the 8-shard twin)."""
+    paths: ``mesh`` (the world of one's four runs), ``mesh-emulated``
+    (the 8-shard twin) and the mesh-served runs' (``mesh_served_runs``;
+    ``runs``, ``prot`` and ``chaos_sim`` are phase 5's)."""
     import io
     from contextlib import redirect_stderr, redirect_stdout
 
@@ -6006,6 +6085,8 @@ def mesh_phase(port):
         f"in {wall:.3f} s, summary within {worst:.1f} float32 spacings of "
         f"the clean run")
 
+    by_path.update(mesh_served_runs(port, mesh, runs, prot, chaos_sim))
+
     # the command line: a mesh the world cannot hold, before a block
     err = io.StringIO()
     before = port.census.launches
@@ -6020,6 +6101,328 @@ def mesh_phase(port):
     log(f"simulate --mesh 2x1: exit {rc}, {text.strip()!r}, no block run")
     close_world()
     log(f"mesh phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def _as_fleet(out, roll: bool):
+    """A protected run's ``(summary, timeline[, rollout], policy)`` as a
+    one-member fleet, for ``compare_folded``."""
+    from isotope_tpu_torch.sim.ensemble import tree_stack
+
+    rest = list(out[2:])
+    ro = rest.pop(0) if roll else None
+    pol = rest.pop(0) if rest else None
+    return SimpleNamespace(
+        summaries=tree_stack([out[0]._replace(metrics=None)]),
+        timelines=tree_stack([out[1]]),
+        rollouts=tree_stack([ro]) if ro is not None else None,
+        policies=tree_stack([pol]) if pol is not None else None,
+        attributions=None,
+    )
+
+
+def _path(port, fn):
+    """``fn()`` with the census launches set to 0 just before and read
+    just after, its wall and own peak: ``(result, launches, wall s,
+    peak GiB)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    port.census.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = port.census.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if launches <= 0:
+        raise AssertionError("a mesh-served path launched no census")
+    return out, launches, wall, peak
+
+
+def mesh_served_cpu(port, sims):
+    """Each mesh-served twin held to its CPU twin at a small size, on
+    one draw source, within phase 4's tolerances (``sims[name](device)``
+    builds a case's Simulator, ``sims[name + ".load"]`` is its load):
+    the 2x2x2 fleet (``MESH_CPU_FLEET``, one member a shard) and bracket
+    (``MESH_CPU_BRACKET``: the same lineage), the 4x1x2 protected runs
+    (``MESH_CPU_PROT``: ``compare_folded`` with ``cross=True``) on
+    policies-smoke's and rollouts-multitier-1000-bad's topologies."""
+    from isotope_tpu_torch.parallel import (
+        EmulatedMesh,
+        MeshSpec,
+        ShardedSimulator,
+    )
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+    from isotope_tpu_torch.sim.search import SearchSpec
+
+    fleet_mesh = EmulatedMesh(MeshSpec(*MESH_FLEET_TWIN[:2],
+                                       slices=MESH_FLEET_TWIN[2]))
+    prot_mesh = EmulatedMesh(MeshSpec(*MESH_PROT_TWIN[:2],
+                                      slices=MESH_PROT_TWIN[2]))
+    t = time.perf_counter()
+    got = {}
+    for device in ("cuda", "cpu"):
+        ens = sims["ensembleN"](device)
+        twin = ShardedSimulator(ens.compiled, fleet_mesh, sim=ens)
+        load = port.LoadModel(kind="open", qps=ENS_QPS)
+        c = MESH_CPU_FLEET
+        fleet = twin.run_ensemble_emulated(
+            load, c["n"], port.TorchDraws(41, "cuda"),
+            EnsembleSpec.from_jitter(c["members"], **SEARCH_JITTER),
+            block_size=c["n"])
+        b = MESH_CPU_BRACKET
+        bracket = twin.run_search_emulated(
+            load, b["n"], port.TorchDraws(42, "cuda"), SearchSpec(
+                candidates=EnsembleSpec.from_jitter(b["members"],
+                                                    **SEARCH_JITTER),
+                eta=b["eta"], rungs=b["rungs"]),
+            block_size=b["block"])
+        prot = {}
+        for name, roll in (("policies", False), ("rollouts", True)):
+            psim = sims[name](device)
+            ptwin = ShardedSimulator(psim.compiled, prot_mesh, sim=psim)
+            fn = (ptwin.run_rollouts_emulated if roll
+                  else ptwin.run_policies_emulated)
+            p = MESH_CPU_PROT
+            prot[name] = _as_fleet(fn(
+                sims[name + ".load"], _shards(MESH_PROT_TWIN) * p["block"]
+                * p["blocks"], port.TorchDraws(43, "cuda"),
+                block_size=p["block"], trim=True, window_s=p["window_s"],
+            ), roll)
+        got[device] = (fleet, bracket, prot)
+    (cf, cb, cp), (hf, hb, hp) = got["cuda"], got["cpu"]
+    compare_fleets(cf.summaries, hf.summaries, "mesh twin fleet card/cpu")
+    for a, b in zip(cb.rungs, hb.rungs):
+        if not (np.array_equal(a.candidates, b.candidates)
+                and np.array_equal(a.survivors, b.survivors)):
+            raise AssertionError("mesh twin bracket: lineage card != cpu")
+        compare_fleets(a.summaries, b.summaries,
+                       f"mesh twin bracket rung {a.rung} card/cpu")
+    for name in cp:
+        compare_folded(cp[name], hp[name], f"mesh twin {name} card/cpu",
+                       cross=True)
+    log(f"mesh-served twins card against cpu: the {fleet_mesh!r} fleet "
+        f"({MESH_CPU_FLEET['members']} x {MESH_CPU_FLEET['n']}) and "
+        f"bracket ({MESH_CPU_BRACKET['members']} candidates, winner "
+        f"{cb.winner} both), the {prot_mesh!r} policies (policies-smoke) "
+        f"and rollouts "
+        f"({_shards(MESH_PROT_TWIN)} shards x {MESH_CPU_PROT['blocks']} "
+        f"blocks of {MESH_CPU_PROT['block']}) within phase 4's tolerances "
+        f"({time.perf_counter() - t:.1f} s)")
+
+
+def mesh_served_runs(port, mesh, runs, prot, chaos_sim):
+    """The mesh-served fleets, bracket, protected runs, protected fleet
+    and splitting estimate (module docstring, phase 11); returns each
+    path's census launches."""
+    from isotope_tpu_torch.parallel import (
+        EmulatedMesh,
+        MeshSpec,
+        ShardedSimulator,
+    )
+    from isotope_tpu_torch.resilience.faults import ChaosJitterSpec
+    from isotope_tpu_torch.runner.run import (
+        protected_window_block,
+        splitting_pass,
+    )
+    from isotope_tpu_torch.sim.ensemble import EnsembleSpec
+    from isotope_tpu_torch.sim.search import SearchSpec
+    from isotope_tpu_torch.sim.splitting import SplitSpec
+
+    t_phase = time.perf_counter()
+    one = EmulatedMesh(MeshSpec(1, 1))
+    fleet_mesh = EmulatedMesh(MeshSpec(*MESH_FLEET_TWIN[:2],
+                                       slices=MESH_FLEET_TWIN[2]))
+    prot_mesh = EmulatedMesh(MeshSpec(*MESH_PROT_TWIN[:2],
+                                      slices=MESH_PROT_TWIN[2]))
+    by_path = {}
+    ens = ensemble_sim(runs)
+    load = port.LoadModel(kind="open", qps=ENS_QPS)
+    asim = port.Simulator(ens.compiled, port.SimParams(
+        attribution=True, timeline=True), device="cuda")
+
+    # -- the fleets: ensembleN and ensembleN-observed ------------------------
+    for name, sim, members, kw in (
+        ("ensembleN", ens, ENS_MEMBERS, {}),
+        ("ensembleN-observed", asim, ENS_OBSERVED,
+         dict(attribution=True, timeline=True, window_s=0.1)),
+    ):
+        spec = EnsembleSpec.of(members)
+        on_mesh = ShardedSimulator(sim.compiled, mesh, sim=sim)
+        twin1 = ShardedSimulator(sim.compiled, one, sim=sim)
+        twin8 = ShardedSimulator(sim.compiled, fleet_mesh, sim=sim)
+
+        def fleet(runner, method="run_ensemble", seed=51):
+            return getattr(runner, method)(
+                load, ENS_N, port.TorchDraws(seed, "cuda"), spec,
+                block_size=ENS_N, **kw)
+
+        fleet(on_mesh)  # unmeasured: the allocator's growth, the pilots
+        got, by_path[f"mesh {name}"], wall, peak = _path(
+            port, lambda: fleet(on_mesh))
+        _, solo_wall = _timed(lambda: fleet(sim))
+        bit_equal((got.summaries, got.timelines, got.attributions),
+                  (lambda t: (t.summaries, t.timelines, t.attributions))(
+                      fleet(twin1, "run_ensemble_emulated")),
+                  f"mesh {name}")
+        tw, by_path[f"mesh {name} emulated"], t_wall, t_peak = _path(
+            port, lambda: fleet(twin8, "run_ensemble_emulated"))
+        moved = compare_folded(tw, got, f"mesh {name} 2x2x2 twin")
+        hops = float(got.summaries.hop_events.sum())
+        log(f"mesh {name}: {members} x {ENS_N} over the world of one in "
+            f"{wall * 1e3:.2f} ms (solo folded fleet {solo_wall * 1e3:.2f} "
+            f"ms, {wall / solo_wall:.4f}x; prediction <= 1.1x), "
+            f"{hops / wall:.4e} hop-events/s, chunk {got.chunk}, census "
+            f"launches {by_path[f'mesh {name}']}, own peak {peak:.3f} GiB; "
+            f"bit-equal to its 1x1 twin; the {fleet_mesh!r} twin (chunk "
+            f"{tw.chunk} a shard) {t_wall * 1e3:.2f} ms, census launches "
+            f"{by_path[f'mesh {name} emulated']}, own peak {t_peak:.3f} "
+            f"GiB, within the folded fleets' tolerances of the world of "
+            f"one's ({moved} histogram counts a bucket over)")
+
+    # -- search64 over the 2x2x2 twin ----------------------------------------
+    c = SEARCH64
+    sspec = SearchSpec(candidates=EnsembleSpec.from_jitter(
+        c["members"], **SEARCH_JITTER), eta=c["eta"], rungs=c["rungs"],
+        growth=c["growth"])
+    twin8 = ShardedSimulator(ens.compiled, fleet_mesh, sim=ens)
+    srch, by_path["mesh search64 emulated"], wall, peak = _path(
+        port, lambda: twin8.run_search_emulated(
+            load, c["n"], port.TorchDraws(31, "cuda"), sspec,
+            block_size=c["block"]))
+    solo = ens.run_search(load, c["n"], port.TorchDraws(31, "cuda"), sspec,
+                          block_size=c["block"])
+    same = all(np.array_equal(a.survivors, b.survivors)
+               for a, b in zip(srch.rungs, solo.rungs))
+    if srch.winner != solo.winner or not same:
+        raise AssertionError("mesh search64: the twin's lineage is not the "
+                             "solo bracket's")
+    for a, b in zip(srch.rungs, solo.rungs):
+        compare_fleets(a.summaries, b.summaries,
+                       f"mesh search64 rung {a.rung}")
+    log(f"mesh search64 over the {fleet_mesh!r} twin: chunks "
+        f"{[r.chunk for r in srch.rungs]} a shard (solo "
+        f"{[r.chunk for r in solo.rungs]}), wall {wall * 1e3:.2f} ms, "
+        f"census launches {by_path['mesh search64 emulated']}, own peak "
+        f"{peak:.3f} GiB; the solo bracket's lineage and winner "
+        f"({srch.winner})")
+
+    # -- the protected runs ---------------------------------------------------
+    sims = {"ensembleN": lambda device: ens if device == "cuda" else
+            port.Simulator(ens.compiled, device=device)}
+    # the CPU twins: policies-smoke's topology for the policy laws (a
+    # block of policies-1000svc-kill's 66,196 hops takes seconds on the
+    # CPU), rollouts-multitier-1000-bad's own
+    for name, key in (("policies-smoke", "policies"),
+                      ("rollouts-multitier-1000-bad", "rollouts")):
+        (_, psim, pload, _, _, _, _, make) = [
+            r for r in prot if r[0] == name][0]
+        sims[key] = lambda device, psim=psim, make=make: (
+            psim if device == "cuda" else make(device))
+        sims[key + ".load"] = pload
+    for name, roll, key in (("policies-1000svc-kill", False, "policies"),
+                            ("rollouts-multitier-1000-bad", True,
+                             "rollouts")):
+        (_, psim, pload, _, block, window, _, make) = [
+            r for r in prot if r[0] == name][0]
+        n = int(MESH_PROT_WINDOWS * window * pload.qps)
+        method = "run_rollouts" if roll else "run_policies"
+        on_mesh = ShardedSimulator(psim.compiled, mesh, sim=psim)
+        twin1 = ShardedSimulator(psim.compiled, one, sim=psim)
+        twin8 = ShardedSimulator(psim.compiled, prot_mesh, sim=psim)
+        _, b8 = protected_window_block(
+            psim, pload, psim.default_block_size(),
+            psim.params.timeline_window_s, PROTECTED_WINDOW_S,
+            shards=twin8.n_shards)
+
+        def call(runner, suffix="", b=block, seed=61):
+            return getattr(runner, method + suffix)(
+                pload, n, port.TorchDraws(seed, "cuda"), block_size=b,
+                trim=True, window_s=window)
+
+        call(on_mesh)  # unmeasured
+        got, by_path[f"mesh {key}"], wall, peak = _path(
+            port, lambda: call(on_mesh))
+        calls = len(census_calls(psim, block))
+        blocks = -(-n // block)
+        if by_path[f"mesh {key}"] != blocks * calls:
+            raise AssertionError(f"mesh {key}: {by_path[f'mesh {key}']} "
+                                 "census launches")
+        _, solo_wall = _timed(lambda: getattr(psim, method)(
+            pload, n, port.TorchDraws(61, "cuda"), block_size=block,
+            trim=True, window_s=window))
+        bit_equal(got[1:], call(twin1, "_emulated")[1:], f"mesh {key}")
+        tw, by_path[f"mesh {key} emulated"], t_wall, t_peak = _path(
+            port, lambda: call(twin8, "_emulated", b8))
+        want = twin8.n_shards * -(-n // twin8.n_shards // b8) * len(
+            census_calls(psim, b8))
+        if by_path[f"mesh {key} emulated"] != want:
+            raise AssertionError(
+                f"mesh {key} emulated: {by_path[f'mesh {key} emulated']} "
+                f"census launches, expected {want}")
+        for out, what in ((got, "world of one"), (tw, "4x1x2 twin")):
+            if int(out[0].count) < n or int(out[1].arrivals.sum()) != int(
+                    out[0].count):
+                raise AssertionError(f"mesh {key} {what}: counts")
+        pol = got[-1]
+        log(f"mesh {key} ({name}): {MESH_PROT_WINDOWS} windows of "
+            f"{window:g} s, {n} requests in {blocks} blocks of {block} over "
+            f"the world of one in {wall / blocks * 1e3:.2f} ms a block (solo "
+            f"{solo_wall / blocks * 1e3:.2f} ms, "
+            f"{wall / solo_wall:.4f}x; prediction <= 1.2x), census "
+            f"launches {by_path[f'mesh {key}']} (exact), own peak "
+            f"{peak:.3f} GiB, windows done "
+            f"{int(pol.windows_done.sum())}; series bit-equal to its 1x1 "
+            f"twin; the {prot_mesh!r} twin (blocks of {b8} a shard) "
+            f"{t_wall * 1e3:.2f} ms, census launches "
+            f"{by_path[f'mesh {key} emulated']} "
+            f"(exact), own peak {t_peak:.3f} GiB")
+
+    # -- the protected fleet and its splitting estimate ------------------------
+    cf = CHAOSFLEET
+    cload = port.LoadModel(kind="open", qps=cf["qps"])
+    jitter = ChaosJitterSpec(**cf["jitter"])
+    on_mesh = ShardedSimulator(chaos_sim.compiled, mesh, sim=chaos_sim)
+
+    def pfleet(runner):
+        return runner.run_policies_ensemble(
+            cload, cf["n"], port.TorchDraws(22, "cuda"),
+            EnsembleSpec.of(cf["members"]), block_size=cf["block"],
+            window_s=cf["window_s"], member_chaos=jitter)
+
+    got, by_path["mesh svc1000-chaosfleet"], wall, peak = _path(
+        port, lambda: pfleet(on_mesh))
+    want = pfleet(chaos_sim)
+    bit_equal((got.summaries, got.timelines, got.policies),
+              (want.summaries, want.timelines, want.policies),
+              "mesh svc1000-chaosfleet")
+    split = SplitSpec(levels=2, members=cf["members"], keep=0.25,
+                      threshold=0.2, severity="err_peak", horizon=0.5)
+
+    def estimate(sharded):
+        # 0.5 s windows: the runner's protected block is the fleet's
+        # 4,096 (protected_window_block), phase 3's shapes
+        return splitting_pass(
+            chaos_sim, cload, cf["n"], port.TorchDraws(35, "cuda"),
+            cf["block"], split, protected=True,
+            timeline_window_s=chaos_sim.params.timeline_window_s,
+            timeline=0.5, chaos_jitter=jitter, sharded=sharded)
+
+    doc, by_path["mesh splitting"], s_wall, s_peak = _path(
+        port, lambda: estimate(on_mesh))
+    if doc != estimate(None):
+        raise AssertionError("mesh splitting: not the solo estimate")
+    log(f"mesh svc1000-chaosfleet: {cf['members']} protected members over "
+        f"the world of one in {wall * 1e3:.2f} ms, census launches "
+        f"{by_path['mesh svc1000-chaosfleet']}, own peak {peak:.3f} GiB, "
+        f"bit-equal to the solo fleet; its splitting estimate (2 levels) "
+        f"p {doc['p']:.6g} in {doc['evaluations']} member runs, "
+        f"{s_wall * 1e3:.2f} ms, census launches "
+        f"{by_path['mesh splitting']}, own peak {s_peak:.3f} GiB, equal "
+        f"to the solo estimate")
+    mesh_served_cpu(port, sims)
+    log(f"mesh-served runs {time.perf_counter() - t_phase:.1f} s")
     return by_path
 
 
@@ -6103,6 +6506,7 @@ def main() -> int:
                    + search_census_runs(runs, planted, storm)
                    + runner_census_runs() + calibration_census_runs()
                    + mesh_census_runs(port))
+    census_runs += mesh_served_census_runs(census_runs)
     census_only = census_only_configs(port)
     vet = vet_cases(port, flagship_graph, runs, scenarios, prot)
     grad_sims = vet_grad_sims(port, vet)
@@ -6225,7 +6629,7 @@ def main() -> int:
                              checked))
     # the device mesh: the world of one's runs and the emulated twin,
     # each its own path
-    by_path.update(mesh_phase(port))
+    by_path.update(mesh_phase(port, runs, prot, chaos_sim))
     launches = sum(by_path.values())
     log(f"census launches on every path: {launches}")
 

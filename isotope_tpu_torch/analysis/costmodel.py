@@ -32,7 +32,7 @@ pilot can be recorded (no load given); a chunk never changes a
 result.  The reference's collective cost rows
 (``comm_table``, its ICI/DCN constants) are TPU numbers and are not
 copied: they come with ``--mesh auto``'s layout search (ROADMAP item
-11b), measured on a machine with several cards.
+11b.5), measured on a machine with several cards.
 """
 from __future__ import annotations
 

@@ -53,7 +53,8 @@ _VERDICT_RULES = ("VET-M001", "VET-M002")
 #: why ``vet --json`` has no ``mesh_layout`` block
 MESH_LAYOUT_NOTE = (
     "omitted: the reference's collective cost rows are TPU numbers; "
-    "the port's come with --mesh auto's layout search (ROADMAP item 11b)"
+    "the port's come with --mesh auto's layout search (ROADMAP item "
+    "11b.5)"
 )
 
 

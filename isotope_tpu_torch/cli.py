@@ -52,7 +52,7 @@ The port of ``isotope-tpu``'s commands (``suite``, ``report``,
   --nproc-per-node N -m isotope_tpu_torch ...``; only rank 0 prints.
   ``--overlap`` pipelines the mesh's metric merge behind the next
   block.  ``--mesh auto`` raises ``NotImplementedError`` naming ROADMAP
-  item 11b.
+  item 11b.5.
 - ``sweep``: a TOML grid of topology x environment x load through
   ``run_experiment`` (checkpointed, resumable; ``--fresh``,
   ``--profile``, ``--export``; ``--mesh`` / ``--overlap`` as in

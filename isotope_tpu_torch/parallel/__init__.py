@@ -9,9 +9,11 @@ and a final cross-``slice`` sum on multi-host meshes.
 
 The mesh comes from an explicit spec (``--mesh`` / ``$ISOTOPE_MESH``)
 or an :class:`EmulatedMesh` that replays any host count on one device.
-Not ported yet (ROADMAP item 11b): ``--mesh auto`` and its layout
-search (``parallel/layout.py``), and the mesh-served fleets, search
-brackets, protected runs and splitting.
+The mesh serves the solo runs (plain, attributed, recorded and
+protected: request-sharded), the fleets and the search brackets (the
+member axis spread over the ranks, the member stacks gathered) and the
+splitting passes.  Not ported yet (ROADMAP item 11b.5): ``--mesh auto``
+and its layout search (``parallel/layout.py``).
 """
 from isotope_tpu_torch.parallel.mesh import (
     EmulatedMesh,

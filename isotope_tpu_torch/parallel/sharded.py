@@ -1,8 +1,9 @@
 """Sharded simulation over a device mesh, with collective-merged metrics.
 
-The port of ``isotope_tpu.parallel.sharded``'s solo runs: the plain run
-(with the collective/compute overlap), the attributed run, the recorded
-run, and the emulated twin of each.  One process per device (a
+The port of ``isotope_tpu.parallel.sharded`` but ``--mesh auto``: the
+plain run (with the collective/compute overlap), the attributed, the
+recorded and the protected runs, the fleets, the search brackets, and
+the emulated twin of each.  One process per device (a
 ``torch.distributed`` rank); global rank ``r`` is shard ``r``
 (``parallel/mesh.py``).  Every shard simulates a disjoint slice of the
 request stream in memory-bounded blocks — the Simulator's own block loop
@@ -38,7 +39,27 @@ through a status slot of each block's MAX reduction) and again after the
 ``sharded.gather`` fault site, every rank all-reduces (MAX) a status
 code, and when any rank failed every rank raises an error of the same
 recovery class (its own, or :class:`MeshFault`), so each rank's
-``run_ladder`` takes the same next rung.
+``run_ladder`` takes the same next rung.  A protected run's per-block
+merges carry the status too: a rank whose block fails joins the next
+merge with zero observations and its code, and every rank raises there.
+
+Fleets (plain, jittered, chaos, closed, observed and protected) and
+the search brackets' rungs spread the MEMBER axis instead: members are
+whole runs, ``per_shard = ceil(M / n_shards)`` of them a rank in
+balanced rounds of the chunk law's width (chunk ``c = r * n_shards + s``
+of round r is shard s's), each rank folds its chunks through the
+Simulator's own fleet, and the member stacks are all-gathered into
+member order — no sum, so every rank and the twin hold the same bits.
+
+A protected run (``run_policies`` / ``run_rollouts``, ``svc = 1``)
+shards the request stream like the plain run, under SHARED control
+state: each block's observations (the recorder's block, the retry and
+rollout observation channels) are all-gathered and summed in the
+twin's shard order before the laws advance (:meth:`ShardedSimulator.
+merge_observations`, through ``_BlockControl``'s merge hook), and
+``t_done`` is the mesh's minimum, so every rank actuates the same
+breakers, autoscaler and canary; its twin steps every shard's loop in
+lockstep, block by block.
 
 An :class:`~isotope_tpu_torch.parallel.mesh.EmulatedMesh` (and the
 ladder's ``single-device`` rung on a real mesh) replays every shard
@@ -77,7 +98,7 @@ from isotope_tpu_torch.resilience.taxonomy import (
 )
 from isotope_tpu_torch.sim.config import OPEN_LOOP, LoadModel, SimParams
 from isotope_tpu_torch.sim.draws import SHARD_INDEX_BASE, RootedSource
-from isotope_tpu_torch.sim.engine import Simulator, _BlockControl
+from isotope_tpu_torch.sim.engine import Simulator, _BlockControl, drain
 from isotope_tpu_torch.sim.summary import (
     RunSummary,
     summarize,
@@ -457,6 +478,492 @@ class ShardedSimulator:
             )
 
         return self._agreed(body, "sharded.emulated")
+
+    # -- fleets (sim/ensemble.py) ----------------------------------------
+
+    def run_ensemble(self, load: LoadModel, num_requests: int, source,
+                     spec=None, *, chunk: Optional[int] = None, **kw):
+        """The Monte Carlo fleet over the mesh: members are whole runs,
+        so the mesh spreads the member axis and splits no request
+        stream.  Each rank runs its members through the Simulator's own
+        fleet (folded chunks on the card, :meth:`Simulator.
+        _fleet_members`) and the member stacks are gathered into member
+        order; every rank returns the same
+        :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary`, bit
+        for bit equal to :meth:`run_ensemble_emulated` and to the solo
+        fleet run at ``chunk=`` this fleet's ``chunk``.
+
+        ``per_shard = ceil(M / n_shards)`` members ride each rank, in
+        balanced rounds of ``width`` (the chunk law at ``per_shard``
+        members, ``chunk`` or ``spec.chunk``): round r's chunk of shard
+        s holds the members ``[c * width, (c + 1) * width)``, ``c = r *
+        n_shards + s``.  Keywords as :meth:`Simulator.run_ensemble`'s
+        (no carry export); an attributed fleet's tail pilot runs once,
+        on the fleet's source."""
+        return self._fleet_collective("run_ensemble", chunk, lambda: (
+            self.sim._plan_fleet(load, num_requests, source, spec, **kw)
+        ))
+
+    def run_ensemble_emulated(self, load: LoadModel, num_requests: int,
+                              source, spec=None, *,
+                              chunk: Optional[int] = None, **kw):
+        """The mesh fleet's twin on one device: the same member chunks,
+        walked in (round, shard) order, i.e. member order — bit for bit
+        :meth:`run_ensemble` (no collective touches a member).  The
+        fleet's degradation rung and the laptop twin of a mesh."""
+        return self._fleet_emulated(lambda: self.sim._plan_fleet(
+            load, num_requests, source, spec, **kw
+        ), chunk)
+
+    def run_policies_ensemble(self, load: LoadModel, num_requests: int,
+                              source, spec=None, **kw):
+        """A fleet of :meth:`Simulator.run_policies` runs over the mesh,
+        members spread and gathered as :meth:`run_ensemble`'s (each
+        rank's chunks fold their members' control laws,
+        :meth:`Simulator._protected_chunks`); no collective crosses
+        members and any mesh serves it.  Keywords as
+        :meth:`Simulator.run_policies_ensemble`'s (no carry export)."""
+        self._require_protected_fleet(load, False)
+        return self._protected_fleet(load, num_requests, source, spec,
+                                     False, kw, emulated=False)
+
+    def run_rollouts_ensemble(self, load: LoadModel, num_requests: int,
+                              source, spec=None, **kw):
+        """A fleet of :meth:`Simulator.run_rollouts` runs over the mesh
+        (:meth:`run_policies_ensemble`)."""
+        self._require_protected_fleet(load, True)
+        return self._protected_fleet(load, num_requests, source, spec,
+                                     True, kw, emulated=False)
+
+    def run_policies_ensemble_emulated(self, load: LoadModel,
+                                       num_requests: int, source,
+                                       spec=None, **kw):
+        """:meth:`run_policies_ensemble`'s twin on one device."""
+        self._require_protected_fleet(load, False)
+        return self._protected_fleet(load, num_requests, source, spec,
+                                     False, kw, emulated=True)
+
+    def run_rollouts_ensemble_emulated(self, load: LoadModel,
+                                       num_requests: int, source,
+                                       spec=None, **kw):
+        """:meth:`run_rollouts_ensemble`'s twin on one device."""
+        self._require_protected_fleet(load, True)
+        return self._protected_fleet(load, num_requests, source, spec,
+                                     True, kw, emulated=True)
+
+    def _protected_fleet(self, load, num_requests, source, spec, roll,
+                         kw, emulated: bool):
+        kw = dict(kw)
+        chunk = kw.pop("chunk", None)
+
+        def plan():
+            return self.sim._plan_protected_fleet(
+                load, num_requests, source, spec, roll=roll, **kw
+            )
+
+        if emulated:
+            return self._fleet_emulated(plan, chunk)
+        return self._fleet_collective(
+            "run_rollouts_ensemble" if roll else "run_policies_ensemble",
+            chunk, plan,
+        )
+
+    def fleet_geometry(self, members: int, cap: int) -> Tuple[int, int]:
+        """``(width, rounds)`` of ``members`` spread over the mesh under
+        a chunk ``cap``: ``per_shard = ceil(members / n_shards)``, cut
+        into balanced rounds of at most ``cap`` members."""
+        per_shard = -(-members // self.n_shards)
+        width = max(1, min(int(cap), per_shard))
+        rounds = -(-per_shard // width)
+        return -(-per_shard // rounds), rounds
+
+    def shard_members(self, members: int, width: int, rounds: int,
+                      shard: int) -> list:
+        """The member rows of ``shard``: its chunk of every round
+        (chunk ``c = r * n_shards + shard`` holds ``[c * width, (c + 1)
+        * width)``, cut at ``members``)."""
+        rows = []
+        for r in range(rounds):
+            c = r * self.n_shards + shard
+            rows.extend(range(min(c * width, members),
+                              min((c + 1) * width, members)))
+        return rows
+
+    def _fleet_plan_geometry(self, plan, chunk):
+        fp = plan()
+        n_mem = fp.spec.members
+        cap, sizes = self.sim._fleet_chunk(fp, -(-n_mem // self.n_shards),
+                                           chunk)
+        width, rounds = self.fleet_geometry(n_mem, cap)
+        telemetry.gauge_set("ensemble_members", n_mem)
+        telemetry.gauge_set("ensemble_members_per_shard", width)
+        telemetry.gauge_set("ensemble_rounds", rounds)
+        return fp, width, rounds, sizes
+
+    def _fleet_collective(self, what: str, chunk, plan):
+        """Plan a fleet (``plan()``), run this rank's members, agree,
+        gather the member stacks into member order, agree again."""
+        self._require_mesh(what)
+        err = local = None
+        try:
+            fp, width, rounds, sizes = self._fleet_plan_geometry(plan,
+                                                                 chunk)
+            telemetry.counter_inc("sharded_ensemble_runs")
+            faults.check("sharded.compute")
+            if self.dcn_axes:
+                faults.check("sharded.dcn_collective")
+            n_mem = fp.spec.members
+            rows = self.shard_members(n_mem, width, rounds, self.shard)
+            # a rank with no member runs member 0 as a pad, so its part
+            # of the gather has the fleet's layout; the pad is dropped
+            local = self.sim._fleet_members(fp, rows or [0], width)
+        except Exception as e:
+            err = e
+        self._agree(err, "sharded.compute")
+        cols = self.gather_members(local, [
+            self.shard_members(n_mem, width, rounds, s)
+            for s in range(self.n_shards)
+        ], rounds * width)
+        self._gather_check()
+        return self.sim._fleet_result(fp, cols, width, sizes)
+
+    def _fleet_emulated(self, plan, chunk):
+        def body():
+            fp, width, _, sizes = self._fleet_plan_geometry(plan, chunk)
+            telemetry.counter_inc("sharded_ensemble_emulated_runs")
+            with telemetry.phase("sharded.emulated"):
+                # the contiguous width-chunks of every (round, shard), in
+                # member order: the ranks' chunks, one after another
+                cols = self.sim._fleet_members(
+                    fp, range(fp.spec.members), width
+                )
+            return self.sim._fleet_result(fp, cols, width, sizes)
+
+        return self._agreed(body, "sharded.emulated")
+
+    def gather_members(self, tree, shard_rows, rows: int):
+        """Every rank's member-stacked ``tree`` (its rows
+        ``shard_rows[shard]``, at least one row) gathered into member
+        order: each rank pads its stack to ``rows`` rows, one
+        ``all_gather`` a dtype, then a row index puts member m where it
+        belongs.  The gathered leaves are the ranks' bits."""
+        from isotope_tpu_torch.sim.ensemble import tree_map
+
+        dist = _dist()
+        leaves = []
+
+        def collect(x):
+            if not isinstance(x, torch.Tensor):
+                raise TypeError(f"a member stack holds a {type(x)!r}")
+            leaves.append(x)
+            return len(leaves) - 1
+
+        skeleton = tree_map(collect, tree)
+        n_mem = sum(len(r) for r in shard_rows)
+        order = torch.empty(n_mem, dtype=torch.int64)
+        for s, r in enumerate(shard_rows):
+            order[torch.tensor(r, dtype=torch.int64)] = (
+                s * rows + torch.arange(len(r), dtype=torch.int64)
+            )
+        order = order.to(self.device)
+        k = len(shard_rows[self.shard])
+        out = list(leaves)
+        by_dtype = {}
+        for i, x in enumerate(leaves):
+            by_dtype.setdefault(x.dtype, []).append(i)
+        for dtype, idx in by_dtype.items():
+            wire = torch.uint8 if dtype == torch.bool else dtype
+            cols = [
+                leaves[i][:k].reshape(
+                    k, int(np.prod(leaves[i].shape[1:]))
+                ).to(wire)
+                for i in idx
+            ]
+            width = sum(c.shape[1] for c in cols)
+            buf = torch.zeros((rows, width), dtype=wire, device=self.device)
+            if k:
+                buf[:k] = torch.cat(cols, 1)
+            full = buf.new_empty((self.n_shards * rows, width))
+            if self.n_shards > 1:
+                _quiet(dist.all_gather_into_tensor, full, buf)
+            else:
+                full = buf
+            full = full.index_select(0, order)
+            off = 0
+            for i, c in zip(idx, cols):
+                w = c.shape[1]
+                out[i] = full[:, off:off + w].reshape(
+                    (n_mem,) + tuple(leaves[i].shape[1:])
+                ).to(dtype)
+                off += w
+        return tree_map(lambda i: out[i], skeleton)
+
+    def _gather_check(self) -> None:
+        """The ``sharded.gather`` fault site, agreed by every rank."""
+        err = None
+        try:
+            faults.check("sharded.gather")
+        except Exception as e:
+            err = e
+        self._agree(err, "sharded.gather")
+
+    # -- search brackets (sim/search.py) --------------------------------
+
+    def run_search(self, load: LoadModel, num_requests: int, source, spec,
+                   *, block_size: int = 65_536,
+                   chunk: Optional[int] = None):
+        """The successive-halving bracket over the mesh
+        (:func:`~isotope_tpu_torch.sim.search.run_search_sharded`): each
+        rung's fleet spreads its candidates as :meth:`run_ensemble`'s
+        members, their summaries and carries gathered; every rank ranks
+        the gathered rung identically, so the lineage is
+        :meth:`run_search_emulated`'s bit for bit."""
+        from isotope_tpu_torch.sim import search as search_mod
+
+        self._require_mesh("run_search")
+        return search_mod.run_search_sharded(
+            self, load, num_requests, source, spec,
+            block_size=block_size, chunk=chunk,
+        )
+
+    def run_search_emulated(self, load: LoadModel, num_requests: int,
+                            source, spec, *, block_size: int = 65_536,
+                            chunk: Optional[int] = None):
+        """The mesh bracket's twin on one device: the same rung
+        geometry, the chunks walked in member order."""
+        from isotope_tpu_torch.sim import search as search_mod
+
+        return search_mod.run_search_emulated(
+            self, load, num_requests, source, spec,
+            block_size=block_size, chunk=chunk,
+        )
+
+    # -- protected runs (sim/policies.py, sim/rollout.py) ---------------
+
+    def run_policies(self, load: LoadModel, num_requests: int, source,
+                     offered_qps=None, block_size: int = 65_536,
+                     trim: bool = False, window_s=None,
+                     attribution: bool = False, tail: bool = False,
+                     tail_cut=None):
+        """Sharded twin of :meth:`Simulator.run_policies`: every shard
+        runs its slice of the request stream under the SHARED policy
+        state.  Each block's observations (the recorder's block, the
+        (S, W) retry observations) are all-gathered and summed in the
+        twin's shard order before the laws advance, and ``t_done`` is
+        the mesh's minimum, so every rank actuates the same breaker and
+        HPA trajectory, bit for bit :meth:`run_policies_emulated`'s.
+        Returns ``(RunSummary, TimelineSummary, PolicySummary[,
+        AttributionSummary])``; the summary (and the blame) merge with
+        the plain run's collectives.  Needs a mesh with ``svc = 1``."""
+        self._require_protected(load, False)
+        self._require_mesh("run_policies")
+        return self._protected_run(
+            False, load, num_requests, source, offered_qps, block_size,
+            trim, window_s, attribution, tail, tail_cut,
+        )
+
+    def run_rollouts(self, load: LoadModel, num_requests: int, source,
+                     offered_qps=None, block_size: int = 65_536,
+                     trim: bool = False, window_s=None,
+                     attribution: bool = False, tail: bool = False,
+                     tail_cut=None):
+        """Sharded twin of :meth:`Simulator.run_rollouts`, as
+        :meth:`run_policies` with the (S, 2, W, 4) rollout observations
+        merged too.  Returns ``(RunSummary, TimelineSummary,
+        RolloutSummary[, PolicySummary][, AttributionSummary])``."""
+        self._require_protected(load, True)
+        self._require_mesh("run_rollouts")
+        return self._protected_run(
+            True, load, num_requests, source, offered_qps, block_size,
+            trim, window_s, attribution, tail, tail_cut,
+        )
+
+    def run_policies_emulated(self, load: LoadModel, num_requests: int,
+                              source, offered_qps=None,
+                              block_size: int = 65_536, trim: bool = False,
+                              window_s=None, attribution: bool = False,
+                              tail: bool = False, tail_cut=None):
+        """The policy mesh program on one device: unlike the other
+        twins, which run one whole shard after another, the control
+        laws couple the shards every block, so every shard's loop steps
+        in lockstep, block by block, and the shards' observations merge
+        in shard order (each slice's shards, then the slice partials)
+        before the shared laws advance once."""
+        self._require_protected(load, False)
+        return self._protected_emulated(
+            False, load, num_requests, source, offered_qps, block_size,
+            trim, window_s, attribution, tail, tail_cut,
+        )
+
+    def run_rollouts_emulated(self, load: LoadModel, num_requests: int,
+                              source, offered_qps=None,
+                              block_size: int = 65_536, trim: bool = False,
+                              window_s=None, attribution: bool = False,
+                              tail: bool = False, tail_cut=None):
+        """The rollout mesh program on one device
+        (:meth:`run_policies_emulated`)."""
+        self._require_protected(load, True)
+        return self._protected_emulated(
+            True, load, num_requests, source, offered_qps, block_size,
+            trim, window_s, attribution, tail, tail_cut,
+        )
+
+    def _protected_prologue(self, load, num_requests, source, offered_qps,
+                            block_size, trim, window_s, attribution, tail,
+                            tail_cut, counter: str):
+        """Shared by the collective run and the twin: the attribution
+        precondition, the tail cut (one pilot on the run's source), the
+        plan and its window grid, the policy fault sites.  Returns
+        ``(plan, tl_plan, tail cut or None)``."""
+        if attribution and not self.sim.params.attribution:
+            raise ValueError(
+                "attributed protected runs need SimParams("
+                "attribution=True)"
+            )
+        if attribution and tail and tail_cut is None:
+            tail_cut = self.sim.estimate_tail_cut(
+                load, num_requests, source, block_size=block_size
+            )
+        plan = self._plan_run(load, num_requests, source, offered_qps,
+                              block_size, trim)
+        tl_plan = self._timeline_plan(plan, window_s)
+        telemetry.counter_inc(counter)
+        if self.sim._policies is not None:
+            faults.check("policies.stuck_breaker")
+            faults.check("policies.autoscaler_lag")
+        return plan, tl_plan, tail_cut if (attribution and tail) else None
+
+    def _protected_steps(self, load, plan: _RunPlan, shard: int, source,
+                         control, attribution: bool, tail_cut):
+        """Shard ``shard``'s protected block loop under ``control`` (a
+        generator, :meth:`Simulator._summary_steps`)."""
+        return self.sim._summary_steps(
+            load, plan.num_blocks * plan.block,
+            RootedSource(source, SHARD_INDEX_BASE + shard), plan.block,
+            self.collector, plan.trim, control, attr=attribution,
+            tail_cut=tail_cut,
+            plan=(plan.offered, plan.block, plan.num_blocks),
+            shards=self.n_shards,
+        )
+
+    def _protected_run(self, roll: bool, load, num_requests, source,
+                       offered_qps, block_size, trim, window_s,
+                       attribution, tail, tail_cut):
+        what = "rollout" if roll else "policy"
+        merge = _ControlMerge(self)
+        err = local = control = None
+        try:
+            plan, tl_plan, cut = self._protected_prologue(
+                load, num_requests, source, offered_qps, block_size, trim,
+                window_s, attribution, tail, tail_cut,
+                f"sharded_{what}_runs",
+            )
+            control = _BlockControl(self.sim, tl_plan,
+                                    self.sim._policies is not None, roll,
+                                    merge=merge)
+            merge.arm(control, plan.num_blocks)
+            self._args_put(plan)
+            faults.check("sharded.compute")
+            if self.dcn_axes:
+                faults.check("sharded.dcn_collective")
+            local = drain(self._protected_steps(
+                load, plan, self.shard, source, control, attribution, cut,
+            ))
+        except Exception as e:
+            err = e
+            merge.abort(e)
+        self._agree(err, "sharded.compute")
+        summary, attr = local if attribution else (local, None)
+        out = (self._gather_svc(
+            self._merge_summary_collective(summary)[0]
+        ),) + control.outputs()
+        if attribution:
+            out = out + (self._merge_attribution(attr),)
+        if telemetry.detail_enabled():
+            with telemetry.phase("sharded.gather"):
+                self._sync()
+        self._gather_check()
+        return out
+
+    def _protected_emulated(self, roll: bool, load, num_requests, source,
+                            offered_qps, block_size, trim, window_s,
+                            attribution, tail, tail_cut):
+        from isotope_tpu_torch.metrics import attribution as attr_mod
+
+        what = "rollout" if roll else "policy"
+
+        def body():
+            plan, tl_plan, cut = self._protected_prologue(
+                load, num_requests, source, offered_qps, block_size, trim,
+                window_s, attribution, tail, tail_cut,
+                f"sharded_{what}_emulated_runs",
+            )
+            shared = _BlockControl(self.sim, tl_plan,
+                                   self.sim._policies is not None, roll)
+            self._args_put(plan)
+            views = [_ShardControl(shared) for _ in range(self.n_shards)]
+            steps = [
+                self._protected_steps(load, plan, s, source, views[s],
+                                      attribution, cut)
+                for s in range(self.n_shards)
+            ]
+            with telemetry.phase("sharded.emulated"):
+                for _ in range(plan.num_blocks):
+                    for st in steps:
+                        next(st)
+                    shared.fold(*self.merge_observations(
+                        [v.pending for v in views]
+                    ))
+                outs = [drain(st) for st in steps]
+                self._sync()
+            if attribution:
+                summaries = [o[0] for o in outs]
+            else:
+                summaries = outs
+            out = (self._merge_shard_summaries(summaries),)
+            out = out + shared.outputs()
+            if attribution:
+                out = out + (_on_device(
+                    attr_mod.merge_host([o[1] for o in outs]), self.device,
+                ),)
+            return out
+
+        return self._agreed(body, "sharded.emulated")
+
+    def merge_observations(self, shards):
+        """The merge rule of a protected mesh run: ``shards`` holds
+        each shard's ``(observations, t_done)`` of one block (in shard
+        order); returns ``(merged observations, t_done)``.  Every leaf
+        sums in shard order, each slice's shards first and then the
+        slice partials (``window_s`` is kept), and ``t_done`` is the
+        minimum.  The collective path gathers the shards' observations
+        and applies this same rule, so every rank and the twin fold the
+        same bits."""
+        obs = [o for o, _ in shards]
+        tl = [o[0] for o in obs]
+        tl_sum = type(tl[0])(tl[0].window_s, *(
+            self._hier([t[i] for t in tl]) for i in range(1, len(tl[0]))
+        ))
+        robs = None if obs[0][1] is None else self._hier([o[1] for o in obs])
+        pobs = None if obs[0][2] is None else self._hier([o[2] for o in obs])
+        t_done = torch.stack([t for _, t in shards]).amin()
+        return (tl_sum, robs, pobs), t_done
+
+    def _hier(self, vals):
+        """``vals`` (one a shard, in shard order) summed sequentially
+        at their own dtype, each slice's shards first, then the slice
+        partials: the emulated twin's association."""
+        n_slices = self.shape.get(SLICE_AXIS, 1)
+        per_slice = len(vals) // n_slices
+
+        def seq(vs):
+            acc = vs[0]
+            for v in vs[1:]:
+                acc = acc + v
+            return acc
+
+        return seq([seq(vals[i * per_slice:(i + 1) * per_slice])
+                    for i in range(n_slices)])
 
     # -- planning -------------------------------------------------------
 
@@ -931,23 +1438,8 @@ class ShardedSimulator:
         merge.  The per-service histograms come back padded to
         ``s_pad`` rows, the collective path's global layout.
         """
-        n_slices = self.shape.get(SLICE_AXIS, 1)
-        per_slice = len(shards) // n_slices
-
-        def _seq(vals):
-            acc = vals[0]
-            for v in vals[1:]:
-                acc = acc + v  # elementwise, own dtype
-            return acc
-
-        def _hier(vals):
-            return _seq([
-                _seq(vals[i * per_slice:(i + 1) * per_slice])
-                for i in range(n_slices)
-            ])
-
         def allsum(get):
-            return _hier([get(s) for s in shards])
+            return self._hier([get(s) for s in shards])
 
         def stack(get):
             return torch.stack([get(s) for s in shards])
@@ -969,7 +1461,7 @@ class ShardedSimulator:
         mean_local = sums / torch.clamp(counts, min=1.0)
         mean_tot = s_tot / torch.clamp(n_tot, min=1.0)
         terms = m2s + counts * (mean_local - mean_tot) ** 2
-        m2_tot = _hier(list(terms))
+        m2_tot = self._hier(list(terms))
         metrics = None
         if shards[0].metrics is not None:
             metrics = ServiceMetrics(
@@ -1024,6 +1516,53 @@ class ShardedSimulator:
                 f"one device"
             )
 
+    def _require_protected(self, load: LoadModel, roll: bool) -> None:
+        """The reference's refusals of a protected mesh run: its tables,
+        the recorder, no saturated load, and ``svc = 1`` (the control
+        state is replicated over the shards, which a svc-sharded
+        metric layout would split)."""
+        what = "rollout" if roll else "policy"
+        if (self.sim._rollouts if roll else self.sim._policies) is None:
+            raise ValueError(
+                f"{what} runs need compiled {what} tables "
+                f"(ShardedSimulator(..., {what.replace('y', 'ie')}s=...))"
+            )
+        if not self.sim.params.timeline:
+            raise ValueError(
+                f"{what} runs need SimParams(timeline=True)"
+            )
+        if self.sim._saturated(load):
+            raise ValueError(
+                f"{what} runs do not support saturated -qps max loads "
+                "(static finite-population tables; see "
+                f"Simulator.run_{what.replace('y', 'ie')}s)"
+            )
+        if self.n_svc != 1:
+            raise ValueError(
+                f"{what} runs need a mesh with svc=1: the per-service "
+                "control state is replicated across shards (every shard "
+                "advances the same trajectory from the merged window "
+                "signals), which a svc-sharded metric layout would split"
+            )
+
+    def _require_protected_fleet(self, load: LoadModel, roll: bool) -> None:
+        """A protected fleet's tables and recorder (any mesh serves it:
+        no collective crosses members), and its fault sites."""
+        what = "rollout" if roll else "policy"
+        if (self.sim._rollouts if roll else self.sim._policies) is None:
+            raise ValueError(
+                f"{what} fleets need compiled {what} tables "
+                f"(ShardedSimulator(..., {what.replace('y', 'ie')}s=...))"
+            )
+        if not self.sim.params.timeline:
+            raise ValueError(
+                f"{what} fleets need SimParams(timeline=True) — the "
+                "flight recorder is the control loop's observation side"
+            )
+        if self.sim._policies is not None:
+            faults.check("policies.stuck_breaker")
+            faults.check("policies.autoscaler_lag")
+
     def _require_attribution(self) -> None:
         if not self.sim.params.attribution:
             raise ValueError(
@@ -1039,3 +1578,106 @@ class ShardedSimulator:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class _ShardControl:
+    """One shard's view of a lockstep twin's shared
+    :class:`_BlockControl`: its blocks run under the shared effects, and
+    its observations wait in ``pending`` for the shards' merge."""
+
+    def __init__(self, shared: _BlockControl):
+        self.shared = shared
+        self.pol, self.roll = shared.pol, shared.roll
+        self.pending = None
+
+    def effects(self):
+        return self.shared.effects()
+
+    def observe(self, res, t_done) -> None:
+        self.pending = (self.shared.contributions(res), t_done)
+
+
+class _ControlMerge:
+    """The merge hook of a protected mesh run's control
+    (:class:`_BlockControl`): each block's observations and ``t_done``
+    are all-gathered (one buffer a dtype, with this rank's status code)
+    and merged by :meth:`ShardedSimulator.merge_observations`.  A rank
+    whose block failed takes part in the next merge with zero
+    observations and its status code; every rank then raises there, so
+    none waits in a later collective."""
+
+    def __init__(self, sh: ShardedSimulator):
+        self.sh = sh
+        self.control = None
+        self.blocks = 0
+        self.done = 0
+        self.closed = False
+
+    def arm(self, control: _BlockControl, blocks: int) -> None:
+        self.control, self.blocks = control, blocks
+
+    def __call__(self, parts, t_done, code: int = 0):
+        sh = self.sh
+        dist = _dist()
+        tl, robs, pobs = parts
+        slots = list(tl[1:]) + [robs, pobs]
+        leaves = [x for x in slots if x is not None]
+        head = torch.stack([
+            t_done.to(F32).reshape(()),
+            torch.tensor(float(code), dtype=F32, device=sh.device),
+        ])
+        groups = {F32: []}
+        for i, x in enumerate(leaves):
+            groups.setdefault(x.dtype, []).append(i)
+        rows = [[None] * len(leaves) for _ in range(sh.n_shards)]
+        for dtype, idx in groups.items():
+            buf = torch.cat(([head] if dtype == F32 else [])
+                            + [leaves[i].reshape(-1) for i in idx])
+            full = buf.new_empty(sh.n_shards * buf.numel())
+            _quiet(dist.all_gather_into_tensor, full, buf)
+            full = full.view(sh.n_shards, buf.numel())
+            off = 0
+            if dtype == F32:
+                times, stat = full[:, 0], full[:, 1]
+                off = 2
+            for i in idx:
+                n = leaves[i].numel()
+                for r in range(sh.n_shards):
+                    rows[r][i] = full[r, off:off + n].view(leaves[i].shape)
+                off += n
+        self.done += 1
+        code_max = int(stat.max().item())
+        if code_max:
+            self.closed = True
+            cls = _CLASSES[code_max]
+            raise MeshFault(
+                f"sharded.compute failed ({cls}) on another rank", cls
+            )
+        shards = []
+        for r in range(sh.n_shards):
+            got = iter(rows[r])
+            vals = [None if x is None else next(got) for x in slots]
+            shards.append((
+                (type(tl)(tl.window_s, *vals[:-2]), vals[-2], vals[-1]),
+                times[r],
+            ))
+        return sh.merge_observations(shards)
+
+    def abort(self, err: BaseException) -> None:
+        """This rank failed: join the merge the other ranks wait in
+        (if any is left) with zero observations and its status code."""
+        if (self.control is None or self.closed
+                or self.done >= self.blocks):
+            return
+        c = self.control
+        zeros = (
+            type(c.tl_acc)(c.tl_acc.window_s,
+                           *(torch.zeros_like(x) for x in c.tl_acc[1:])),
+            torch.zeros_like(c.robs) if c.roll is not None else None,
+            torch.zeros_like(c.pobs) if c.pol is not None else None,
+        )
+        try:
+            self(zeros, torch.zeros((), dtype=F32, device=self.sh.device),
+                 code=_CODES[classify(err)])
+        except MeshFault:
+            pass

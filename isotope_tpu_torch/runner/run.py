@@ -185,7 +185,7 @@ def _mesh_spec(config, mesh_req):
         raise NotImplementedError(
             "--mesh auto (the layout search, parallel/layout.py) is not "
             "ported to isotope_tpu_torch yet (ROADMAP.md queue 1: item "
-            "11b)"
+            "11b.5)"
         )
     if isinstance(mesh_req, MeshSpec):
         spec = mesh_req
@@ -199,15 +199,6 @@ def _mesh_spec(config, mesh_req):
     if spec.size > 1:
         check_world(spec)
     return spec
-
-
-def _refuse_mesh_served(what: str) -> None:
-    """A case the mesh would serve whose mesh path is not ported."""
-    raise NotImplementedError(
-        f"a mesh-served {what} is not ported to isotope_tpu_torch yet "
-        "(ROADMAP.md queue 1: item 11b); run it on one device "
-        "(--mesh 1x1)"
-    )
 
 
 def _vet_gate(mode: str, sim, topo, config, load, n, block, policy,
@@ -551,11 +542,13 @@ class _EnsembleGroups:
         return self.results.pop(label)
 
     def run(self, label, topo_path, env_name, load, sim, n, block,
-            attribution=None, timeline=None):
+            attribution=None, timeline=None, sharded=None):
         """This cell's EnsembleSummary (dispatching its whole same-shape
         group on first touch).  ``attribution`` (``"on"`` / ``"tail"``)
         and ``timeline`` (a window width) thread the fleet observability
-        pass through the SAME dispatch."""
+        pass through the SAME dispatch; ``sharded`` (a
+        ``ShardedSimulator``) spreads the fleet's members over its
+        mesh."""
         if label in self.results:
             telemetry.counter_inc("ensemble_collapsed_cases")
             return self.results.pop(label)
@@ -567,7 +560,7 @@ class _EnsembleGroups:
             obs_kw.update(attribution=True, tail=attribution == "tail")
         if timeline is not None:
             obs_kw.update(timeline=True, window_s=float(timeline))
-        ens = sim.run_ensemble(
+        ens = (sharded or sim).run_ensemble(
             load, n, _case_source(self.config, group[0]["idx"], sim.device),
             group_spec, block_size=block, trim=True, member_keys=keys,
             member_qps=qps_arg, **obs_kw,
@@ -576,7 +569,7 @@ class _EnsembleGroups:
 
     def run_protected(self, label, topo_path, env_name, load, sim, n,
                       block, roll: bool, chaos_jitter, attribution=None,
-                      timeline=None):
+                      timeline=None, sharded=None):
         """The same-shape collapse extended to PROTECTED fleets: grid
         cells whose policy/rollout fleets share a shape ride ONE
         ``run_policies_ensemble`` / ``run_rollouts_ensemble`` dispatch.
@@ -608,8 +601,10 @@ class _EnsembleGroups:
                 )
                 for s in spec.seeds[1:]
             ]) * len(group)
+        runner = sharded or sim
         method = (
-            sim.run_rollouts_ensemble if roll else sim.run_policies_ensemble
+            runner.run_rollouts_ensemble if roll
+            else runner.run_policies_ensemble
         )
         obs_kw = {}
         if attribution is not None:
@@ -713,24 +708,30 @@ def _timeline_pass(run_timeline, load, n, source, block, window_s):
 
 def protected_window_block(sim, load, block: int,
                            timeline_window_s: float,
-                           timeline=None) -> Tuple[float, int]:
+                           timeline=None, shards: int = 1
+                           ) -> Tuple[float, int]:
     """The protected runs' ``(window_s, block)``: the control loops act
     at block boundaries, so the block is capped near ONE recorder window
     of requests (the default memory-sized block would give a whole-run
     actuation lag).  Without an explicit ``--timeline`` width the window
     is ``min(timeline_window_s, duration / 8)``, so a run spans at least
     ~8 windows: a window that never completes is a control loop that
-    never observes."""
+    never observes.  ``shards`` is a mesh run's shard count: each shard
+    runs ``1 / shards`` of the window's requests a block, so the mesh
+    still acts once a window.  The fleets pass 1: a member is a solo
+    run."""
     if timeline is not None:
         win = float(timeline)
     else:
         win = min(timeline_window_s, max(load.duration_s / 8.0, 1e-3))
     rate = load.qps if load.qps is not None else sim.capacity_qps()
-    return win, max(256, min(block, int(max(rate * win, 1.0))))
+    return win, max(
+        256, min(block, int(max(rate * win / max(shards, 1), 1.0)))
+    )
 
 
 def _protected_run(sim, load, n, source, block, config, collector, policy,
-                   timeline, roll: bool, attribution=None):
+                   timeline, roll: bool, attribution=None, sharded=None):
     """The protected co-sim main run of one case (sim/policies.py and/or
     sim/rollout.py): the PROTECTED physics is the measurement, so this
     replaces the plain ladder run.  Failures walk the ladder's rungs
@@ -741,26 +742,53 @@ def _protected_run(sim, load, n, source, block, config, collector, policy,
     ``attribution`` reduces the blame over the protected physics in the
     same loop (same draws, blocking and trajectory).
 
+    ``sharded`` (a ``ShardedSimulator`` with ``svc = 1``) serves the run
+    on its mesh, the block sized a shard (:func:`protected_window_block`
+    with its shard count), on the rungs ``sharded``,
+    ``sharded-half-block`` and ``single-device`` (the lockstep twin on
+    this rank's device).  A svc-sharded mesh splits the per-service
+    layout the replicated control state needs: the case runs on one
+    device, with the reference's warning.
+
     Returns ``(summary, timeline, roll_summary | None, pol_summary |
     None, attr_summary | None, degraded_to | None)``."""
-    method = sim.run_rollouts if roll else sim.run_policies
+    runner = sharded if sharded is not None and sharded.n_svc == 1 else sim
+    if sharded is not None and runner is sim:
+        print(
+            "warning: the protected co-sim falls back to the single-device "
+            "scan (the svc-sharded mesh splits the per-service metric "
+            "layout the replicated control state needs; use svc=1)",
+            file=sys.stderr,
+        )
+    name = "run_rollouts" if roll else "run_policies"
     win, block = protected_window_block(
-        sim, load, block, config.timeline_window_s, timeline
+        sim, load, block, config.timeline_window_s, timeline,
+        shards=getattr(runner, "n_shards", 1),
     )
-    kwargs = dict(trim=True, window_s=win, collector=collector)
+    kwargs = dict(trim=True, window_s=win)
+    if runner is sim:
+        # the sharded runner summarizes with its own collector
+        kwargs["collector"] = collector
     if attribution is not None:
         kwargs.update(attribution=True, tail=attribution == "tail")
+    (_, full), (_, half) = rung_blocks(block)
+    if runner is sim:
+        specs = [(r, b, name) for r, b in rung_blocks(block)]
+    else:
+        specs = [("sharded", full, name), ("sharded-half-block", half, name),
+                 ("single-device", full, name + "_emulated")]
 
-    def rung(b):
+    def rung(b, method):
         def thunk():
-            out = method(load, n, source, block_size=b, **kwargs)
+            out = getattr(runner, method)(load, n, source, block_size=b,
+                                          **kwargs)
             finish(out[0])
             return out
         return thunk
 
     with telemetry.phase(f"{'rollouts' if roll else 'policies'}.run"):
         out, degraded_to = run_ladder(
-            [(name, rung(b)) for name, b in rung_blocks(block)],
+            [(r, rung(b, method)) for r, b, method in specs],
             policy, site_prefix="engine",
         )
     telemetry.counter_inc(f"{'rollout' if roll else 'policy'}_main_runs")
@@ -776,7 +804,7 @@ def _protected_run(sim, load, n, source, block, config, collector, policy,
 def splitting_pass(sim, load, n: int, source, block: int, split,
                    protected: bool = False, roll: bool = False,
                    timeline_window_s: float = 10.0, timeline=None,
-                   chaos_jitter=None) -> dict:
+                   chaos_jitter=None, sharded=None) -> dict:
     """The importance-splitting estimate of one fleet-served case
     (``sim/splitting.py``, the reference's ``_splitting_pass``): one
     SHORT-HORIZON fleet a level (``max(256, int(n * split.horizon))``
@@ -788,9 +816,10 @@ def splitting_pass(sim, load, n: int, source, block: int, split,
     ``run_policies_ensemble`` / ``run_rollouts_ensemble`` (``roll``) on
     its window and block (:func:`protected_window_block`); under the
     Simulator's chaos schedule and ``chaos_jitter`` each member's
-    schedule is jittered from its chaos seeds.  Returns the
-    ``isotope-splitting/v1`` document.  Unlike the reference's
-    best-effort pass, a failure raises."""
+    schedule is jittered from its chaos seeds.  ``sharded`` (a
+    ``ShardedSimulator``) runs each level's fleet over its mesh.
+    Returns the ``isotope-splitting/v1`` document.  Unlike the
+    reference's best-effort pass, a failure raises."""
     import numpy as np
 
     from isotope_tpu_torch.sim import splitting as split_mod
@@ -803,16 +832,17 @@ def splitting_pass(sim, load, n: int, source, block: int, split,
     base = RootedSource(source, SPLIT_INDEX)
     kwargs = {}
     blk = block
+    runner = sharded or sim
     if protected:
         win, blk = protected_window_block(sim, load, block,
                                           timeline_window_s, timeline)
         method = (
-            sim.run_rollouts_ensemble if roll
-            else sim.run_policies_ensemble
+            runner.run_rollouts_ensemble if roll
+            else runner.run_policies_ensemble
         )
         kwargs["window_s"] = win
     else:
-        method = sim.run_ensemble
+        method = runner.run_ensemble
     if jitter is not None:
         from isotope_tpu_torch.resilience import faults
 
@@ -886,6 +916,7 @@ class _Case:
     pol: object = None        # ... policy and rollout series
     roll: object = None
     mesh_layout: Optional[str] = None  # the mesh that served the case
+    sharded: object = None    # its ShardedSimulator
 
 
 def _execute(case: _Case, topo, env, load, config, index, policy,
@@ -916,15 +947,10 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
         load.kind == OPEN_LOOP
         or load.connections % sharded.n_shards == 0
     ):
-        for what, on in (("fleet", ens_groups is not None),
-                         ("protected run", protected),
-                         ("search bracket", search_spec is not None),
-                         ("splitting pass", bool(config.ensemble_split))):
-            if on:
-                _refuse_mesh_served(what)
         case.mesh_layout = topo.mesh_layout
     else:
         sharded = None
+    case.sharded = sharded
     start_rung = 0
     if vet is not None:
         start_rung = _vet_gate(
@@ -942,7 +968,7 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
         ens = ens_groups.run_protected(
             label, topo.path, env.name, load, sim, n, block, roll,
             config.chaos_jitter_spec(), attribution=attribution,
-            timeline=timeline,
+            timeline=timeline, sharded=sharded,
         )
         case.ens, case.prot_fleet = ens, True
         worst = ens.worst_member()
@@ -958,7 +984,7 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
         (case.summary, case.tl, case.roll, case.pol, case.attr,
          case.degraded_to) = _protected_run(
             sim, load, n, source, block, config, topo.collector, policy,
-            timeline, roll, attribution=attribution,
+            timeline, roll, attribution=attribution, sharded=sharded,
         )
     elif ens_groups is not None and start_rung == 0:
         # a Monte Carlo fleet serves the case (same-shape cells collapse
@@ -967,6 +993,7 @@ def _execute(case: _Case, topo, env, load, config, index, policy,
             case.ens = ens_groups.run(
                 label, topo.path, env.name, load, sim, n, block,
                 attribution=attribution, timeline=timeline,
+                sharded=sharded,
             )
         ens = case.ens
         case.summary = ens.pooled()
@@ -1097,6 +1124,7 @@ def _documents(case: _Case, topo, label, config, load, attribution,
                 roll=case.roll is not None,
                 timeline_window_s=config.timeline_window_s,
                 timeline=timeline, chaos_jitter=config.chaos_jitter_spec(),
+                sharded=case.sharded,
             )
         ens_doc = ens.to_doc(label=label, slo_s=config.ensemble_slo_s,
                              splitting=split_doc)
@@ -1127,7 +1155,7 @@ def _documents(case: _Case, topo, label, config, load, attribution,
         from isotope_tpu_torch.sim.draws import RootedSource
 
         with telemetry.phase("search.run"):
-            srch = case.sim.run_search(
+            srch = (case.sharded or case.sim).run_search(
                 load, case.n, RootedSource(case.source, 911), search_spec,
                 block_size=case.block,
             )
@@ -1213,12 +1241,14 @@ def run_experiment(
 
     A device mesh (``mesh_spec``, ``$ISOTOPE_MESH``, ``mesh_data`` /
     ``mesh_svc``; ``overlap`` pipelines its merge) of more than one rank
-    serves the plain, attributed and recorded cases
-    (``parallel/sharded.py``) in a world of as many ranks (``torchrun``):
-    every rank runs the sweep and returns the same results, rank 0
-    alone writes, and a barrier ends the sweep.  ``--mesh auto`` and a
-    mesh-served fleet, search bracket, protected run or splitting pass
-    raise ``NotImplementedError`` naming ROADMAP item 11b; a spec the
+    serves the plain, attributed and recorded cases, the fleets (plain,
+    observed and protected), the search brackets, the protected runs
+    (a svc-sharded mesh falls back to one device, with a warning) and
+    the splitting passes (``parallel/sharded.py``) in a world of as
+    many ranks (``torchrun``): every rank runs the sweep and returns the
+    same results, rank 0 alone writes, and a barrier ends the sweep.
+    ``--mesh auto`` raises ``NotImplementedError`` naming ROADMAP item
+    11b.5; a spec the
     world cannot hold raises the key-pathed config error before
     anything simulates."""
     from isotope_tpu_torch.analysis.vet import vet_mode

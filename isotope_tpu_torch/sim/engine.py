@@ -647,6 +647,16 @@ def _sparse_level_sweep(
     return busy, fail_step, off
 
 
+def drain(steps):
+    """Run a generator of steps (``Simulator._summary_steps``) to its
+    end; returns its result."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
 def _cat_draws(parts: Sequence[Draws]) -> Draws:
     """Fleet members' block draws stacked along the request axis,
     member-major (the ungraceful-kill coins, (E, N, H), along their
@@ -750,15 +760,21 @@ class _BlockControl:
     ``last_window`` an (M,) int64 array): the effects are (M, S) rows,
     and each member's laws step only through its own completed windows.
     ``downed_w`` gives the members' own (M, S, W) chaos-downed counts (a
-    chaos fleet's planners')."""
+    chaos fleet's planners').
+
+    ``merge`` (a shard of a protected mesh run, ``parallel/sharded.py``)
+    maps ``(observations, t_done)`` of each block to the mesh's merged
+    ones before the laws advance; None (a solo run) folds the block's
+    own."""
 
     def __init__(self, sim: "Simulator", tl_plan: Tuple[int, float],
                  policies: bool, rollouts: bool, members: int = 0,
-                 downed_w: Optional[torch.Tensor] = None):
+                 downed_w: Optional[torch.Tensor] = None, merge=None):
         from isotope_tpu_torch.metrics import timeline as timeline_mod
 
         dev = self.device = sim.device
         M = self.members = members
+        self.merge = merge
         self._tl = timeline_mod
         self.spec = timeline_mod.build_spec(
             sim.compiled, tl_plan[0], tl_plan[1], dev
@@ -828,24 +844,43 @@ class _BlockControl:
     def observe(self, res: SimResults, t_done: torch.Tensor) -> None:
         """Fold one block in; ``t_done`` is the sim time every request
         of the run so far has passed (windows ending before it are
-        final): (M,) a member in a folded chunk."""
-        tl = self._tl
+        final): (M,) a member in a folded chunk.  With a ``merge`` hook
+        (a shard of a mesh run) the block's observations and ``t_done``
+        pass through it first, so every shard advances the laws from the
+        mesh's merged signals."""
+        parts = self.contributions(res)
+        if self.merge is not None:
+            parts, t_done = self.merge(parts, t_done)
+        self.fold(parts, t_done)
+
+    def contributions(self, res: SimResults) -> tuple:
+        """One block's observations: ``(timeline block, (S, 2, W, 4)
+        rollout observations or None, (S, W) retry observations or
+        None)``."""
         M = self.members
-        self.tl_acc = tl.accumulate(
-            self.tl_acc,
-            tl.timeline_block(res, self.spec, self.packed, members=M),
+        return (
+            self._tl.timeline_block(res, self.spec, self.packed, members=M),
+            self.roll.observe_block(res, self.spec, members=M)
+            if self.roll is not None else None,
+            self.pol.observe_block(res, self.spec, self.retry_mask,
+                                   members=M)
+            if self.pol is not None else None,
         )
+
+    def fold(self, parts: tuple, t_done: torch.Tensor) -> None:
+        """Accumulate a block's observations (:meth:`contributions`)
+        and advance the control laws through the windows ending before
+        ``t_done``."""
+        tl_blk, robs, pobs = parts
+        self.tl_acc = self._tl.accumulate(self.tl_acc, tl_blk)
         if self.roll is not None:
-            self.robs = self.robs + self.roll.observe_block(res, self.spec,
-                                                            members=M)
+            self.robs = self.robs + robs
             self.rstate, rdelta = self.roll.advance(
                 self.rstate, self.rdtab, self.robs, t_done, self.spec
             )
             self.racc = self.roll.accumulate_summary(self.racc, rdelta)
         if self.pol is not None:
-            self.pobs = self.pobs + self.pol.observe_block(
-                res, self.spec, self.retry_mask, members=M,
-            )
+            self.pobs = self.pobs + pobs
             self.pstate, pdelta = self.pol.advance(
                 self.pstate, self.pdtab, self.tl_acc, self.pobs, t_done,
                 self.spec, stuck_breaker=self.stuck,
@@ -910,6 +945,32 @@ class _BlockControl:
             self.pstate = carry.pstate._replace(
                 last_window=last(carry.pstate)
             )
+
+
+class _FleetPlan(NamedTuple):
+    """A fleet planned on the host (``Simulator._plan_fleet``,
+    ``_plan_protected_fleet``): what every member of it runs, whichever
+    device or shard of a mesh runs which members.  ``tail_cut`` is the
+    blame's tail cut (None: mean blame, or no tail); ``roll`` is None
+    for an unprotected fleet, else whether the rollout controller
+    rides."""
+
+    spec: object
+    tables: object
+    args: dict
+    load: LoadModel
+    num_requests: int
+    block_size: int
+    trim: bool
+    member_events: Optional[list]
+    planners: Optional[list]
+    fx: object
+    attribution: bool
+    tail_cut: Optional[float]
+    timeline: bool
+    tl_plan: Optional[Tuple[int, float]]
+    roll: Optional[bool]
+    window_s: Optional[float]
 
 
 class Simulator:
@@ -2386,6 +2447,21 @@ class Simulator:
         member (``fleet``) may reduce both, as the reference's observed
         fleet members do.  ``shards``: one shard of a mesh run
         (:meth:`run_blocks`), whose trim window spans all of them."""
+        return drain(self._summary_steps(
+            load, num_requests, source, block_size, collector, trim,
+            control, attr, tail_cut, cpu_scale, err_scale, fleet, clock,
+            plan, shards,
+        ))
+
+    def _summary_steps(self, load, num_requests, source, block_size,
+                       collector, trim, control=None, attr=False,
+                       tail_cut=None, cpu_scale=None, err_scale=None,
+                       fleet=False, clock=None, plan=None, shards=1):
+        """:meth:`_run_summary` as a generator that yields after each
+        block and returns the result: the emulated twin of a protected
+        mesh run (``parallel/sharded.py``) steps every shard's loop
+        block by block in lockstep, merging their observations between
+        the steps."""
         from isotope_tpu_torch.metrics.fortio import trim_window_bounds
         from isotope_tpu_torch.sim import summary as summary_mod
 
@@ -2432,6 +2508,8 @@ class Simulator:
                     ex_state=ex,
                 )
                 a_acc = attribution.accumulate(a_acc, a)
+            del res
+            yield
         summary = summary_mod.reduce_stacked(summary_mod.stack(parts))
         if not attr:
             return summary
@@ -3155,6 +3233,50 @@ class Simulator:
         reference.  Returns an
         :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary`.
         """
+        fp = self._plan_fleet(
+            load, num_requests, source, spec, block_size=block_size,
+            trim=trim, member_keys=member_keys, member_qps=member_qps,
+            member_chaos=member_chaos, attribution=attribution, tail=tail,
+            tail_cut=tail_cut, timeline=timeline, window_s=window_s,
+        )
+        carry_run = (
+            carry_in is not None or return_carry or block_offset != 0
+        )
+        if carry_run and (trim or fp.planners is not None):
+            raise ValueError(
+                "the ensemble carry export (carry_in/return_carry/"
+                "block_offset) requires trim=False and no member_chaos"
+            )
+        if carry_run and (attribution or timeline):
+            raise ValueError(
+                "the ensemble carry export does not compose with the "
+                "attribution/timeline reductions (screen first, then "
+                "explain with an observed fleet)"
+            )
+        n_mem = fp.spec.members
+        chunk_sz, sizes = self._fleet_chunk(fp, n_mem, chunk)
+        if carry_run and carry_in is None:
+            carry_in = self.zero_ensemble_carry(n_mem, fp.args["conns"])
+        cols = self._fleet_members(fp, range(n_mem), chunk_sz,
+                                   carry=carry_in,
+                                   start_block=int(block_offset))
+        ens = self._fleet_result(fp, cols, chunk_sz, sizes)
+        if return_carry:
+            return ens, cols[-1]
+        return ens
+
+    def _plan_fleet(self, load, num_requests: int, source, spec, *,
+                    block_size: int = 65_536, trim: bool = False,
+                    member_keys=None, member_qps=None, member_chaos=None,
+                    attribution: bool = False, tail: bool = False,
+                    tail_cut: Optional[float] = None, timeline: bool = False,
+                    window_s: Optional[float] = None) -> "_FleetPlan":
+        """The host plan of an unprotected fleet (:meth:`run_ensemble`):
+        the spec, its compiled tables, every member's
+        :meth:`_ensemble_args`, the members' chaos, the tail cut (one
+        pilot on the fleet's source) and the recorder's grid (member
+        0's rate).  Shared by the solo fleet and the mesh's
+        (``parallel/sharded.py``), so both run the same members."""
         from isotope_tpu_torch.compiler.compile import compile_ensemble
         from isotope_tpu_torch.sim import ensemble as ens_mod
 
@@ -3193,76 +3315,92 @@ class Simulator:
             member_keys=member_keys, block_size=block_size, trim=trim,
             member_qps=member_qps, planners=planners,
         )
-        carry_run = (
-            carry_in is not None or return_carry or block_offset != 0
-        )
-        if carry_run and (trim or planners is not None):
-            raise ValueError(
-                "the ensemble carry export (carry_in/return_carry/"
-                "block_offset) requires trim=False and no member_chaos"
-            )
-        observed = attribution or timeline
-        if carry_run and observed:
-            raise ValueError(
-                "the ensemble carry export does not compose with the "
-                "attribution/timeline reductions (screen first, then "
-                "explain with an observed fleet)"
-            )
-        mode = tables.mode
-        n_mem = spec.members
         tl_plan = None
         if timeline:
             tl_plan = self.plan_timeline_windows(
                 args["num_blocks"] * args["block"],
                 float(args["offered"][0]), window_s,
             )
-        chunk_sz = chunk if chunk is not None else spec.chunk
+        return _FleetPlan(
+            spec=spec, tables=tables, args=args, load=load,
+            num_requests=num_requests, block_size=block_size, trim=trim,
+            member_events=member_events, planners=planners, fx=fx,
+            attribution=bool(attribution),
+            tail_cut=tail_cut if tail else None, timeline=bool(timeline),
+            tl_plan=tl_plan, roll=None, window_s=window_s,
+        )
+
+    def _fleet_chunk(self, fp: "_FleetPlan", members: int, chunk=None):
+        """``(members per folded chunk, sizes)`` of a planned fleet
+        running ``members`` members on this device: ``chunk`` (or the
+        spec's) when given, else the cost model's
+        (:meth:`_chunk_and_sizes`)."""
+        chunk_sz = chunk if chunk is not None else fp.spec.chunk
         sizes = None
         if chunk_sz is None:
             chunk_sz, sizes = self._chunk_and_sizes(
-                n_mem, args["block"], attribution, fx, load,
-                tail_cut if tail else None, tables.jittered,
-                tl_plan=tl_plan,
-                timeline_windows=tl_plan[0] if tl_plan else None,
+                members, fp.args["block"], fp.attribution, fp.fx, fp.load,
+                fp.tail_cut, fp.tables.jittered, tl_plan=fp.tl_plan,
+                timeline_windows=fp.tl_plan[0] if fp.tl_plan else None,
+                roll=fp.roll,
             )
-        chunk_sz = max(1, min(int(chunk_sz), n_mem))
+        return max(1, min(int(chunk_sz), max(members, 1))), sizes
+
+    def _fleet_members(self, fp: "_FleetPlan", ids, chunk_sz: int,
+                       carry=None, start_block: int = 0) -> list:
+        """Members ``ids`` (indices into the plan) of a planned fleet,
+        in the spec's mode: ``"vmap"`` folding ``chunk_sz`` consecutive
+        ids a chunk, ``"map"`` each through its own block loop.
+        ``carry`` (member-stacked, one row an id) resumes their clocks
+        (and a protected fleet's control state) at ``start_block``.
+        Returns ``[summary, timelines, rollouts, policies,
+        attributions, carry out]``, each member-stacked in ``ids``
+        order, None where not run."""
+        from isotope_tpu_torch.compiler.compile import ensemble_take
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        ids = list(ids)
+        args, tables = fp.args, fp.tables
+        idx = torch.tensor(ids, dtype=torch.int64)
+        fx = ensemble_take(fp.fx, idx) if fp.fx is not None else None
+        if fp.roll is not None:
+            return self._protected_members(fp, ids, chunk_sz, carry,
+                                           start_block, fx)
+        timeline, attribution = fp.timeline, fp.attribution
         tl_stack = attr_stack = carry_out = None
-        if carry_run and carry_in is None:
-            carry_in = self.zero_ensemble_carry(n_mem, args["conns"])
-        if mode == "vmap":
+        if tables.mode == "vmap":
             control = None
             if timeline:
                 def control(rows):
-                    return _BlockControl(self, tl_plan, False, False,
+                    return _BlockControl(self, fp.tl_plan, False, False,
                                          members=rows)
             summaries, carry_out, ctl, attr_stack = self._fleet_chunks(
-                args, range(n_mem), self._ensemble_stacked_args(args,
-                                                               tables),
-                chunk_sz, trim, start_block=int(block_offset),
-                carry=carry_in, fx=fx, control=control,
-                attr=(tail_cut if tail else None) if attribution
-                else False,
+                args, ids, ensemble_take(
+                    self._ensemble_stacked_args(args, tables), idx
+                ), chunk_sz, fp.trim, start_block=start_block,
+                carry=carry, fx=fx, control=control,
+                attr=fp.tail_cut if attribution else False,
             )
             if timeline:
                 tl_stack = ctl[0]
-        elif planners is None and not observed:
+        elif fp.planners is None and not (attribution or timeline):
             summaries, carry_out = self._plain_fleet(
-                args, tables, range(n_mem), trim,
-                start_block=int(block_offset), carry=carry_in,
+                args, tables, ids, fp.trim, start_block=start_block,
+                carry=carry,
             )
         else:
             outs = []
-            for m in range(n_mem):
-                host = self if planners is None else planners[m]
+            for m in ids:
+                host = self if fp.planners is None else fp.planners[m]
                 cpu, err = self._member_scales(tables, m)
                 control = (
-                    _BlockControl(host, tl_plan, False, False)
+                    _BlockControl(host, fp.tl_plan, False, False)
                     if timeline else None
                 )
                 out = host._run_summary(
-                    args["loads"][m], num_requests, args["sources"][m],
-                    block_size, None, trim, control, attr=attribution,
-                    tail_cut=tail_cut if tail else None, cpu_scale=cpu,
+                    args["loads"][m], fp.num_requests, args["sources"][m],
+                    fp.block_size, None, fp.trim, control,
+                    attr=attribution, tail_cut=fp.tail_cut, cpu_scale=cpu,
                     err_scale=err, fleet=True,
                 )
                 summary, attr = out if attribution else (out, None)
@@ -3276,19 +3414,28 @@ class Simulator:
                 tl_stack = ens_mod.tree_stack([o[1] for o in outs])
             if attribution:
                 attr_stack = ens_mod.tree_stack([o[2] for o in outs])
-        ens = ens_mod.EnsembleSummary(
-            spec=spec,
-            summaries=summaries,
-            offered_qps=args["offered"],
+        return [summaries, tl_stack, None, None, attr_stack, carry_out]
+
+    def _fleet_result(self, fp: "_FleetPlan", cols: list, chunk_sz: int,
+                      sizes=None):
+        """The :class:`~isotope_tpu_torch.sim.ensemble.EnsembleSummary`
+        of a planned fleet from its members' columns
+        (:meth:`_fleet_members`, every member in order)."""
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        summary, tl, roll, pol, attr, _ = cols
+        return ens_mod.EnsembleSummary(
+            spec=fp.spec,
+            summaries=summary,
+            offered_qps=fp.args["offered"],
             chunk=chunk_sz,
-            member_chaos=member_events,
-            timelines=tl_stack,
-            attributions=attr_stack,
+            member_chaos=fp.member_events,
+            timelines=tl,
+            policies=pol,
+            rollouts=roll,
+            attributions=attr,
             member_bytes=sizes,
         )
-        if return_carry:
-            return ens, carry_out
-        return ens
 
     def _ensemble_stacked_args(self, args: dict, tables) -> dict:
         """A planned fleet's per-member inputs (``args`` of
@@ -3568,6 +3715,49 @@ class Simulator:
                                 block_offset: int = 0):
         """The shared tail of the protected fleets: the fleet planning
         of :meth:`run_ensemble` over :meth:`_run_protected` members."""
+        fp = self._plan_protected_fleet(
+            load, num_requests, source, spec, roll=roll,
+            block_size=block_size, trim=trim, window_s=window_s,
+            member_keys=member_keys, member_qps=member_qps,
+            member_chaos=member_chaos, attribution=attribution, tail=tail,
+            tail_cut=tail_cut,
+        )
+        carry_run = (
+            carry_in is not None or return_carry or block_offset != 0
+        )
+        if carry_run and (trim or fp.planners is not None or attribution):
+            raise ValueError(
+                "the protected carry export (carry_in/return_carry/"
+                "block_offset) requires trim=False, no member_chaos, "
+                "and no attribution"
+            )
+        n_mem = fp.spec.members
+        chunk_sz, sizes = self._fleet_chunk(fp, n_mem, chunk)
+        if carry_run and carry_in is None:
+            carry_in = self.zero_protected_carry(
+                n_mem, fp.args["conns"], fp.tl_plan, roll=roll,
+            )
+        cols = self._fleet_members(fp, range(n_mem), chunk_sz,
+                                   carry=carry_in,
+                                   start_block=int(block_offset))
+        ens = self._fleet_result(fp, cols, chunk_sz, sizes)
+        if return_carry:
+            return ens, cols[-1]
+        return ens
+
+    def _plan_protected_fleet(self, load, num_requests, source, spec, *,
+                              roll: bool, block_size: int = 65_536,
+                              trim: bool = False,
+                              window_s: Optional[float] = None,
+                              member_keys=None, member_qps=None,
+                              member_chaos=None, attribution: bool = False,
+                              tail: bool = False,
+                              tail_cut: Optional[float] = None
+                              ) -> "_FleetPlan":
+        """The host plan of a protected fleet
+        (:meth:`run_policies_ensemble`, :meth:`run_rollouts_ensemble`):
+        :meth:`_plan_fleet`'s, with the control layers (``roll``) and
+        the recorder's grid every member's laws share."""
         from isotope_tpu_torch.compiler.compile import compile_ensemble
         from isotope_tpu_torch.sim import ensemble as ens_mod
 
@@ -3605,56 +3795,49 @@ class Simulator:
             member_keys=member_keys, block_size=block_size, trim=trim,
             member_qps=member_qps, planners=planners,
         )
-        carry_run = (
-            carry_in is not None or return_carry or block_offset != 0
-        )
-        if carry_run and (trim or planners is not None or attribution):
-            raise ValueError(
-                "the protected carry export (carry_in/return_carry/"
-                "block_offset) requires trim=False, no member_chaos, "
-                "and no attribution"
-            )
-        n_mem = spec.members
         tl_plan = self.plan_timeline_windows(
             args["num_blocks"] * args["block"],
             float(args["offered"][0]), window_s,
         )
-        chunk_sz = chunk if chunk is not None else spec.chunk
-        sizes = None
-        if chunk_sz is None:
-            chunk_sz, sizes = self._chunk_and_sizes(
-                n_mem, args["block"], attribution, fx, load,
-                tail_cut if tail else None, tables.jittered,
-                tl_plan=tl_plan, roll=roll,
-            )
-        chunk_sz = max(1, min(int(chunk_sz), n_mem))
+        return _FleetPlan(
+            spec=spec, tables=tables, args=args, load=load,
+            num_requests=num_requests, block_size=block_size, trim=trim,
+            member_events=member_events, planners=planners, fx=fx,
+            attribution=bool(attribution),
+            tail_cut=tail_cut if tail else None, timeline=True,
+            tl_plan=tl_plan, roll=bool(roll), window_s=window_s,
+        )
+
+    def _protected_members(self, fp: "_FleetPlan", ids, chunk_sz: int,
+                           carry, start_block: int, fx) -> list:
+        """:meth:`_fleet_members` of a protected fleet (``fx`` the ids'
+        ``ChaosFx`` rows)."""
+        from isotope_tpu_torch.sim import ensemble as ens_mod
+
+        roll, args, tables = fp.roll, fp.args, fp.tables
         carry_out = None
-        if carry_run and carry_in is None:
-            carry_in = self.zero_protected_carry(
-                n_mem, args["conns"], tl_plan, roll=roll,
-            )
         if tables.mode == "vmap":
             cols, carry_out = self._protected_chunks(
-                args, tables, range(n_mem), roll, tl_plan, chunk_sz,
-                carry_in, start_block=int(block_offset), trim=trim,
-                fx=fx, planners=planners, attribution=attribution,
-                tail_cut=tail_cut if tail else None,
+                args, tables, ids, roll, fp.tl_plan, chunk_sz, carry,
+                start_block=start_block, trim=fp.trim, fx=fx,
+                planners=fp.planners, attribution=fp.attribution,
+                tail_cut=fp.tail_cut,
             )
-        elif carry_run:
+        elif carry is not None:
             cols, carry_out = self._protected_fleet(
-                args, tables, range(n_mem), roll, window_s, tl_plan,
-                carry_in, start_block=int(block_offset),
+                args, tables, ids, roll, fp.window_s, fp.tl_plan, carry,
+                start_block=start_block,
             )
         else:
             outs = []
-            for m in range(n_mem):
-                host = self if planners is None else planners[m]
+            for m in ids:
+                host = self if fp.planners is None else fp.planners[m]
                 cpu, err = self._member_scales(tables, m)
                 outs.append(host._run_protected(
-                    args["loads"][m], num_requests, args["sources"][m],
-                    roll, block_size, None, trim, window_s, attribution,
-                    tail, tail_cut, cpu_scale=cpu, err_scale=err,
-                    tl_plan=tl_plan,
+                    args["loads"][m], fp.num_requests, args["sources"][m],
+                    roll, fp.block_size, None, fp.trim, fp.window_s,
+                    fp.attribution, fp.tail_cut is not None, fp.tail_cut,
+                    cpu_scale=cpu, err_scale=err, tl_plan=fp.tl_plan,
                 ))
             # (summary, tl[, roll][, pol][, attr]) per member
             cols = [ens_mod.tree_stack(list(c)) for c in zip(*outs)]
@@ -3662,22 +3845,8 @@ class Simulator:
         rest = cols[2:]
         roll_stack = rest.pop(0) if roll else None
         pol_stack = rest.pop(0) if self._policies is not None else None
-        attr_stack = rest.pop(0) if attribution else None
-        ens = ens_mod.EnsembleSummary(
-            spec=spec,
-            summaries=summary,
-            offered_qps=args["offered"],
-            chunk=chunk_sz,
-            member_chaos=member_events,
-            timelines=tl,
-            policies=pol_stack,
-            rollouts=roll_stack,
-            attributions=attr_stack,
-            member_bytes=sizes,
-        )
-        if return_carry:
-            return ens, carry_out
-        return ens
+        attr_stack = rest.pop(0) if fp.attribution else None
+        return [summary, tl, roll_stack, pol_stack, attr_stack, carry_out]
 
     def _protected_chunks(self, args: dict, tables, ids, roll: bool,
                           tl_plan: Tuple[int, float], chunk_sz: int,

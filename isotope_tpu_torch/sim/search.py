@@ -30,8 +30,11 @@ seed)``) from its carried clocks, and ties rank by the tie-break
 uniforms, so the lineage is a pure function of (spec, source, horizon).
 The document's ``traces`` and each rung's ``evidence.compile_s`` count
 the reference's engine traces and compile wall, which the port has
-none of: they are 0.  The sharded and emulated brackets are not ported
-(ROADMAP item 11b).
+none of: they are 0.  On a device mesh (:func:`run_search_sharded`)
+each rung's candidates spread over the ranks as a mesh fleet's members
+and their summaries and carries are gathered, so every rank ranks the
+same rung; :func:`run_search_emulated` walks the same chunks on one
+device.
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from isotope_tpu_torch import telemetry
+from isotope_tpu_torch.resilience import faults
 from isotope_tpu_torch.sim.ensemble import EnsembleSpec
 from isotope_tpu_torch.sim.splitting import SEVERITIES
 
@@ -588,6 +593,99 @@ def run_search(sim, load, num_requests: int, source, spec: SearchSpec,
         sim, spec, plan, args, tables, stacked,
         sim.zero_ensemble_carry(spec.members, conns), dispatch,
     )
+
+
+def _mesh_rungs(sh, load, num_requests: int, source, spec: SearchSpec,
+                block_size: int, chunk: Optional[int],
+                emulated: bool) -> SearchSummary:
+    """A plain bracket whose rungs run over ``sh``'s mesh (a
+    ``parallel.ShardedSimulator``): rung r's ``width`` candidates spread
+    as ``sh.fleet_geometry(width, cap)`` says (``cap`` the chunk, or
+    the carry-aware chunk law at ``ceil(width_0 / n_shards)``
+    candidates), each rank folding its chunks; ``emulated`` walks every
+    chunk on this device, in candidate order."""
+    sim = sh.sim
+    tables, args, plan = _plan(sim, load, num_requests, source, spec,
+                               block_size)
+    block, conns = args["block"], args["conns"]
+    cap = chunk if chunk is not None else spec.chunk
+    if cap is None:
+        cap = search_auto_chunk(sim, -(-plan[0].width // sh.n_shards),
+                                block, conns, load=load,
+                                jittered=tables.jittered)
+
+    def run_rows(rp, ids, cur, carry, rows, width):
+        from isotope_tpu_torch.compiler.compile import ensemble_take
+
+        idx = torch.tensor(rows, dtype=torch.int64)
+        ids_r = [ids[i] for i in rows]
+        cur_r = ensemble_take(cur, idx) if cur is not None else None
+        carry_r = ensemble_take(carry, idx)
+        if tables.mode == "vmap":
+            summ, carry_out, _, _ = sim._fleet_chunks(
+                args, ids_r, cur_r, width, False, rp.start_block,
+                rp.num_blocks, carry_r,
+            )
+        else:
+            summ, carry_out = sim._plain_fleet(
+                args, tables, ids_r, False, start_block=rp.start_block,
+                num_blocks=rp.num_blocks, carry=carry_r,
+            )
+        return [summ, carry_out]
+
+    def dispatch(rp, ids, cur, carry):
+        width, rounds = sh.fleet_geometry(len(ids), cap)
+        if emulated:
+            with telemetry.phase("sharded.emulated"):
+                summ, carry_out = run_rows(rp, ids, cur, carry,
+                                           list(range(len(ids))), width)
+            return summ, None, carry_out, width
+        shard_rows = [sh.shard_members(len(ids), width, rounds, s)
+                      for s in range(sh.n_shards)]
+        err = local = None
+        try:
+            faults.check("sharded.compute")
+            # a rank with no candidate runs the rung's first as a pad
+            local = run_rows(rp, ids, cur, carry,
+                             shard_rows[sh.shard] or [0], width)
+        except Exception as e:
+            err = e
+        sh._agree(err, "sharded.compute")
+        summ, carry_out = sh.gather_members(local, shard_rows,
+                                            rounds * width)
+        sh._gather_check()
+        return summ, None, carry_out, width
+
+    # the folded rungs read the stacked inputs; "map" members read the
+    # plan's host rows
+    stacked = (sim._ensemble_stacked_args(args, tables)
+               if tables.mode == "vmap" else None)
+    return _run_bracket(
+        sim, spec, plan, args, tables, stacked,
+        sim.zero_ensemble_carry(spec.members, conns), dispatch,
+    )
+
+
+def run_search_sharded(sh, load, num_requests: int, source,
+                       spec: SearchSpec, *, block_size: int = 65_536,
+                       chunk: Optional[int] = None) -> SearchSummary:
+    """The bracket over ``sh``'s device mesh: every rank returns the
+    same lineage, :func:`run_search_emulated`'s bit for bit.  The ranks
+    agree on a failure after each rung's local fleet and after its
+    gather (the ``sharded.compute`` and ``sharded.gather`` sites)."""
+    telemetry.counter_inc("sharded_search_runs")
+    return _mesh_rungs(sh, load, num_requests, source, spec, block_size,
+                       chunk, emulated=False)
+
+
+def run_search_emulated(sh, load, num_requests: int, source,
+                        spec: SearchSpec, *, block_size: int = 65_536,
+                        chunk: Optional[int] = None) -> SearchSummary:
+    """The mesh bracket's twin on one device (any
+    ``parallel.EmulatedMesh``)."""
+    telemetry.counter_inc("sharded_search_emulated_runs")
+    return _mesh_rungs(sh, load, num_requests, source, spec, block_size,
+                       chunk, emulated=True)
 
 
 def run_search_protected(sim, load, num_requests: int, source,

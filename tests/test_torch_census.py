@@ -199,6 +199,8 @@ def _chip_smoke_shapes():
     runs += chip_smoke.runner_census_runs(device="cpu")
     runs += chip_smoke.calibration_census_runs(device="cpu")
     runs += chip_smoke.mesh_census_runs(port, device="cpu")
+    runs += chip_smoke.mesh_served_census_runs(runs)
+    _MESH_SERVED.extend(chip_smoke.mesh_served_census_runs(runs))
     return chip_smoke.census_check_shapes(
         runs, chip_smoke.census_only_configs(port, device="cpu"),
         chip_smoke.fleet_pilot_shapes(port, runs, chaos_sim, storm,
@@ -207,6 +209,7 @@ def _chip_smoke_shapes():
     )
 
 
+_MESH_SERVED = []
 _SHAPES = _chip_smoke_shapes()
 
 
@@ -368,6 +371,32 @@ def test_chip_smoke_covers_the_mesh_path():
         assert len(shapes) == 5 and set(shapes) <= set(_SHAPES), n
         assert not any(f or e for _, _, _, f, e in shapes)
     assert chip_smoke._pilot_blocks(2 * 32_768) == (8_192, 8_192)
+
+
+def test_chip_smoke_covers_the_mesh_served_paths():
+    """Phase 11's mesh-served twins: the 2x2x2 twin folds ensembleN 4
+    members a shard (4 x 8,192 rows) and search64's rungs 8 / 2 / 1
+    (x 4,096); the 4x1x2 twin runs policies-1000svc-kill and
+    rollouts-multitier-1000-bad in a shard's
+    ``protected_window_block(..., shards=8)`` (1,250 rows of the
+    former's 10,000-request window, capped at its memory-sized block of
+    506 rows: 33,554,432 elements over 66,196 hops); phase 3 holds every
+    census call
+    of each, and of the CPU checks' card runs, with its policy flag.
+    The world of one runs the solo shapes."""
+    import chip_smoke
+
+    by_name = {r[0]: r for r in _MESH_SERVED}
+    assert by_name["mesh twin ensembleN (4 folded)"][4] == 4 * 8_192
+    for m in (8, 2, 1):
+        assert by_name[f"mesh twin search64 ({m} folded)"][4] == m * 4_096
+    kill = by_name["mesh twin policies-1000svc-kill"]
+    assert kill[4] == min(kill[1].default_block_size(), 10_000 // 8)
+    assert kill[1]._policies is not None
+    assert len(_MESH_SERVED) == 11
+    for name, sim, _, _, block in _MESH_SERVED:
+        shapes = chip_smoke.census_calls(sim, block)
+        assert shapes and set(shapes) <= set(_SHAPES), name
 
 
 def test_chip_smoke_covers_the_runner_suite():

@@ -501,7 +501,7 @@ def test_fleet_grid_collapses_same_shape_cells(tmp_path, capsys):
 def test_unported_options_raise(tmp_path, monkeypatch):
     """A mesh the one-process world cannot hold raises the reference's
     key-pathed message, and ``--mesh auto`` (through ``$ISOTOPE_MESH``)
-    names item 11b, both before anything simulates; a 1x1 mesh and
+    names item 11b.5, both before anything simulates; a 1x1 mesh and
     ``overlap`` run the plain path."""
     cfg = load_toml(grid(tmp_path, qps=(300,), n=500))
     out = tmp_path / "out"
@@ -511,7 +511,7 @@ def test_unported_options_raise(tmp_path, monkeypatch):
                        out_dir=str(out), device="cpu")
     assert not out.exists()
     monkeypatch.setenv("ISOTOPE_MESH", "auto")
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(NotImplementedError, match=r"item 11b\.5"):
         run_experiment(cfg, device="cpu")
     monkeypatch.setenv("ISOTOPE_MESH", "1x1")
     plain = run_experiment(cfg, device="cpu")
@@ -582,5 +582,5 @@ def test_cli_accepts_every_flag_of_the_jax_command(command):
 def test_cli_sweep_refuses_the_unported_flags(tmp_path):
     cfg = grid(tmp_path)
     with pytest.raises(NotImplementedError,
-                       match="--mesh auto .*item 11b"):
+                       match=r"--mesh auto .*item 11b\.5"):
         cli.main(["sweep", str(cfg), "--mesh", "auto", "--device", "cpu"])

@@ -10,6 +10,7 @@ flat row is held to the JAX ``run_experiment``'s on 8 virtual CPU
 devices with ``tests/test_torch_runner.py``'s ``flat_close`` (strings,
 booleans and counts equal, floats within rtol 1e-5 / atol 1e-9)."""
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -24,6 +25,7 @@ from isotope_tpu_torch.sim.draws import RootedSource
 from test_torch_replay import JaxReplayDraws
 from test_torch_runner import flat_close
 from torch_mesh_runner_world import CASE, config, launch
+from torch_mesh_fleet_world import STORM
 from torch_mesh_world import FORK, Recording
 
 #: the world's processes are killed past this many seconds
@@ -35,6 +37,7 @@ def world(tmp_path_factory):
     work = tmp_path_factory.mktemp("runner-world")
     topo = work / "t.yaml"
     topo.write_text(FORK)
+    (work / "storm.yaml").write_text(STORM)
     # the case's draws, recorded through the port's twin of it: the
     # runner's Simulator, request count and block
     cfg = config(topo)
@@ -142,7 +145,76 @@ def test_overlap_config_round_trip(world):
 
 
 def test_mesh_auto_and_a_mesh_served_fleet_name_item_11b(world):
+    """``--mesh auto`` (the layout search) still raises, naming item
+    11b.5, on every rank; a mesh-served fleet is served (the refusal
+    naming item 11b is lifted: ``test_mesh_served_fleets_equal_one_
+    device``)."""
     for out in world["ranks"]:
-        for name in ("auto", "fleet"):
-            assert out[name]["error"] == "NotImplementedError", name
-            assert "item 11b" in out[name]["message"], name
+        assert out["auto"]["error"] == "NotImplementedError"
+        assert "item 11b.5" in out["auto"]["message"]
+        assert "error" not in out["ensemble@2x2x2"]
+        assert _flat(out, "ensemble@2x2x2")["_ensemble"] == 4
+
+
+def _docs(world, case, suffix):
+    """Rank 0's ``*.<suffix>.json`` documents of a case's sweep."""
+    return [json.loads(p.read_text()) for p in
+            sorted((world["work"] / case).glob(f"*.{suffix}.json"))]
+
+
+def _without(row, *keys):
+    return {k: v for k, v in row.items() if k not in keys}
+
+
+@pytest.mark.parametrize("case", ["ensemble", "split"])
+def test_mesh_served_fleets_equal_one_device(world, case):
+    """A fleet (and its splitting pass) swept at ``--mesh 2x2x2``: the
+    members spread over the 8 ranks, their stacks gathered; every
+    rank's row, and rank 0's ensemble document but its chunk, equal the
+    same sweep at ``--mesh 1x1``."""
+    solo = _flat(world["ranks"][0], f"{case}@1x1")
+    assert "_mesh_layout" not in solo
+    for out in world["ranks"]:
+        mesh = _flat(out, f"{case}@2x2x2")
+        assert mesh["_mesh_layout"] == "data=2,svc=2,slice=2"
+        assert (_without(mesh, "_mesh_layout", "StartTime")
+                == _without(solo, "StartTime"))
+    (got,), (want,) = (_docs(world, f"{case}@{m}", "ensemble")
+                       for m in ("2x2x2", "1x1"))
+    # the members a rank folds at a time: 4 members over 8 ranks
+    assert (got.pop("chunk"), want.pop("chunk")) == (1, 4)
+    assert got == want
+    if case == "split":
+        assert got["splitting"]["schema"].startswith("isotope-splitting")
+
+
+def test_mesh_served_bracket_equals_one_device(world):
+    """The search bracket of a case on the mesh: the same lineage (every
+    rung's candidates, severities and survivors) and winner as at
+    ``--mesh 1x1``; only each rung's chunk (the mesh's width a rank)
+    differs."""
+    (got,), (want,) = (_docs(world, f"search@{m}", "search")
+                       for m in ("2x2x2", "1x1"))
+    for doc in (got, want):
+        for rung in doc["lineage"]:
+            rung.pop("chunk")
+    assert got == want and len(got["lineage"]) == 2
+    for out in world["ranks"]:
+        assert _flat(out, "search@2x2x2")["_search"] == 8
+
+
+def test_protected_case_on_a_svc_mesh_falls_back_to_one_device(world):
+    """svc=2 splits the per-service layout the replicated control state
+    needs: the case runs the single-device scan, with the reference's
+    warning (printed by rank 0, as every line of a mesh sweep), and its
+    row equals the one-device sweep's on every rank."""
+    solo = _flat(world["ranks"][0], "policies@1x1")
+    assert solo["_policies"] is True
+    warning = ("warning: the protected co-sim falls back to the "
+               "single-device scan")
+    for r, out in enumerate(world["ranks"]):
+        got = out["policies@2x2x2"]
+        assert (warning in got["stderr"]) == (r == 0), r
+        mesh = _flat(out, "policies@2x2x2")
+        assert (_without(mesh, "_mesh_layout", "StartTime")
+                == _without(solo, "StartTime"))

@@ -488,7 +488,8 @@ def test_cli_protected_run_matches_reference_number_for_number(tmp_path,
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--mesh", "auto"], NotImplementedError, "--mesh auto .*item 11b"),
+    (["--mesh", "auto"], NotImplementedError,
+     r"--mesh auto .*item 11b\.5"),
     (["--overlap", "--mesh", "2x1"], ValueError,
      "mesh: mesh data=2,svc=1 needs 2 devices, have 1"),
 ], ids=["--mesh", "--overlap"])

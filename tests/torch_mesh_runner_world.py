@@ -32,6 +32,21 @@ WORLD = 8
 CASE = dict(qps=(500.0,), connections=(8,), duration_s=2.0,
             load_kind="open", num_requests=2048)
 
+#: the mesh-served cases of the runner's pins: a fleet, a protected
+#: run (its svc-sharded mesh falls back to one device), a search bracket
+#: and a fleet's splitting pass
+MESH_SERVED = {
+    "ensemble": dict(ensemble=4, ensemble_qps_jitter=0.1),
+    "policies": dict(policies=True, topology="storm.yaml"),
+    # blocks of 250 requests: the bracket's rungs need several blocks
+    # (the runner's memory-sized block would hold the whole case)
+    "search": dict(search_candidates=8, search_eta=2, search_rungs=2,
+                   search_jitter="qps=0.2,cpu=0.1", block=250),
+    "split": dict(ensemble=4, ensemble_split=(
+        "levels=2,members=4,keep=0.5,threshold=0.05,sev=err_share"),
+        ensemble_split_horizon=0.5),
+}
+
 TOML = """
 topology_paths = ["{topo}"]
 environments = ["NONE"]
@@ -75,11 +90,13 @@ def rank_main(workdir: str) -> None:
     import isotope_tpu_torch.sim
     from isotope_tpu_torch import cli
     from isotope_tpu_torch.runner.run import run_experiment
+    from isotope_tpu_torch.sim import Simulator
 
     torch.set_num_threads(1)
     work = pathlib.Path(workdir)
     rank = int(os.environ["RANK"])
     arrays = np.load(work / "draws.npz")
+    real_draws = isotope_tpu_torch.sim.TorchDraws
     isotope_tpu_torch.sim.TorchDraws = (
         lambda seed, device: NpzDraws(arrays)
     )
@@ -102,7 +119,33 @@ def rank_main(workdir: str) -> None:
     run("overlap_on", cfg=dict(mesh_spec="2x2x2", overlap=True))
     run("overlap_off", cfg=dict(mesh_spec="2x2x2"))
     run("auto", cfg=dict(mesh_spec="auto"))
-    run("fleet", cfg=dict(mesh_spec="2x2x2", ensemble=2))
+    # the mesh-served cases, each beside the same sweep at --mesh 1x1 on
+    # the port's own draws (the mesh and the one device run the same
+    # members, candidates and levels)
+    isotope_tpu_torch.sim.TorchDraws = real_draws
+    for mesh in ("2x2x2", "1x1"):
+        for name, kw in MESH_SERVED.items():
+            kw = dict(kw)
+            topo_name = kw.pop("topology", "t.yaml")
+            block = kw.pop("block", None)
+            sizing = Simulator.default_block_size
+            if block is not None:
+                Simulator.default_block_size = (
+                    lambda self, budget_elems=0: block
+                )
+            err = io.StringIO()
+            try:
+                with redirect_stderr(err):
+                    out[f"{name}@{mesh}"] = _call(lambda: run_experiment(
+                        config(work / topo_name, mesh_spec=mesh, **kw),
+                        device="cpu", out_dir=str(work / f"{name}@{mesh}"),
+                    ))
+            finally:
+                Simulator.default_block_size = sizing
+            out[f"{name}@{mesh}"]["stderr"] = err.getvalue()
+    isotope_tpu_torch.sim.TorchDraws = (
+        lambda seed, device: NpzDraws(arrays)
+    )
     # the command line, as `torchrun ... -m isotope_tpu_torch sweep`
     toml = work / "sweep.toml"
     if rank == 0:

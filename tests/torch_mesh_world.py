@@ -329,11 +329,13 @@ def rank_main(world: str, rank: int, size: int, workdir: str) -> None:
     close_world()
 
 
-def launch(world: str, workdir: pathlib.Path, timeout_s: float) -> list:
-    """Run ``world``'s ranks as processes of their own, each in its own
-    session; past ``timeout_s`` every one is killed.  Returns each
-    rank's saved results; raises with the failing ranks' output."""
-    size = int(np.prod(WORLDS[world][0]))
+def launch(world: str, workdir: pathlib.Path, timeout_s: float,
+           script: str = __file__, size: int = 0) -> list:
+    """Run ``world``'s ranks (``size`` of them; default: its mesh's) as
+    processes of their own running ``script``, each in its own session;
+    past ``timeout_s`` every one is killed.  Returns each rank's saved
+    results; raises with the failing ranks' output."""
+    size = size or int(np.prod(WORLDS[world][0]))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     env.pop("RANK", None)
@@ -341,7 +343,7 @@ def launch(world: str, workdir: pathlib.Path, timeout_s: float) -> list:
     for r in range(size):
         log = open(workdir / f"rank{r}.log", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, __file__, world, str(r), str(size),
+            [sys.executable, script, world, str(r), str(size),
              str(workdir)],
             env=env, stdout=log, stderr=subprocess.STDOUT,
             start_new_session=True,
