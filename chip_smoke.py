@@ -266,7 +266,8 @@ any failure exits non-zero and nothing is caught:
    entry points in this process (``cli.main``; path ``vet-cli``):
    ``vet canonical.yaml --grad --json`` with the card's capacity beside
    its ``--device cpu`` twin at that capacity (the documents equal but
-   for their timings), ``simulate canonical.yaml --vet`` (open 1,000
+   for their timings; its ``mesh_layout`` block the layout search's
+   ``data=1,svc=1`` with its cost rows), ``simulate canonical.yaml --vet`` (open 1,000
    qps for 2 s), its document equal to the un-vetted run's, and the
    same under ``ISOTOPE_VET_DEVICE_BYTES=65536``, which must exit 1
    with ``error: vet found`` (VET-M001) before a block runs.
@@ -291,8 +292,12 @@ any failure exits non-zero and nothing is caught:
    requests card against CPU (phase 4's tolerances); the degradation
    ladder under ``oom:sharded.gather:2`` on the world-of-one mesh, which
    must end on ``single-device`` within one float32 spacing of the clean
-   run; and ``simulate --mesh 2x1`` in this process, which must exit 1
-   with the reference's ``needs 2 devices, have 1`` before a block runs.
+   run; ``--mesh auto`` through ``run_experiment`` (path ``mesh auto``:
+   2 blocks of the tree), which must resolve to ``data=1,svc=1`` in the
+   world of one and equal the explicit ``1x1`` run (documents but
+   StartTime, census launches exactly); and ``simulate --mesh 2x1`` in
+   this process, which must exit 1 with the reference's ``needs 2
+   devices, have 1`` before a block runs.
    Phase 3 holds the census at the phase's shapes (its blocks, the
    half-block rung's 16,384, the tail pilot's 8,192, the CPU twin's
    2,048; ``mesh_census_runs``, ``mesh_extra_shapes``).  Then the
@@ -308,7 +313,9 @@ any failure exits non-zero and nothing is caught:
    ``run_rollouts`` on rollouts-multitier-1000-bad, 3 windows deep, over
    the world of one (bit-equal to its twin, timed beside the solo run a
    block) and the emulated ``MeshSpec(4, 1, 2)`` twin (blocks of
-   ``protected_window_block(..., shards=8)``); svc1000-chaosfleet's
+   ``protected_window_block(..., shards=8)``), whose own peak must stay
+   within 1.1x of one shard's (the 1x1 twin at the same block: the
+   ladder's ``single-device`` rung fits where a shard fits); svc1000-chaosfleet's
    protected fleet and its splitting estimate over the world of one
    (equal to the solo fleet and the solo estimate).  Each twin is held
    to its CPU twin at a small size within phase 4's tolerances
@@ -5634,10 +5641,18 @@ def vet_cli(port, checked):
                              f" != the card's {cap}")
     if card != cpu:
         raise AssertionError("vet --grad --json: card != CPU")
+    layout = meta.get("mesh_layout", {})
+    if (set(layout) != {"mesh", "score_s", "pad_fraction", "comm"}
+            or layout["mesh"] != "data=1,svc=1"
+            or [r["collective"] for r in layout["comm"]]
+            != ["psum_replicated", "psum_scatter_svc"]):
+        raise AssertionError(f"vet --json: mesh_layout {layout!r}")
     log(f"cli vet canonical.yaml --grad --json: exit {rc}, {wall:.3f} s on "
         f"the card, {wall_cpu:.3f} s on the CPU; {card['summary']}; "
         f"capacity {cap:.6e} B; grad classes {meta['grad']['classes']}; "
-        f"card == cpu (the document but its timings)")
+        f"mesh_layout {layout['mesh']} (score {layout['score_s']:g} s, "
+        f"{len(layout['comm'])} cost rows); card == cpu (the document but "
+        f"its timings)")
     rc, vetted, err = _port_out(simulate + ["--vet"])
     if rc != 0 or _fortio(vetted) != _fortio(plain):
         raise AssertionError(f"simulate --vet: exit {rc}, document "
@@ -6085,6 +6100,7 @@ def mesh_phase(port, runs, prot, chaos_sim):
         f"in {wall:.3f} s, summary within {worst:.1f} float32 spacings of "
         f"the clean run")
 
+    by_path["mesh auto"] = mesh_auto_run(port)
     by_path.update(mesh_served_runs(port, mesh, runs, prot, chaos_sim))
 
     # the command line: a mesh the world cannot hold, before a block
@@ -6138,6 +6154,76 @@ def _path(port, fn):
     if launches <= 0:
         raise AssertionError("a mesh-served path launched no census")
     return out, launches, wall, peak
+
+
+def mesh_auto_run(port):
+    """``--mesh auto`` as a user sweeps it: ``run_experiment`` of the
+    1,024-service tree (open 500 qps, ``MESH_BLOCKS`` blocks of
+    ``MESH_BLOCK``) in the world of one, which must resolve to
+    ``data=1,svc=1`` and equal the explicit ``1x1`` run: its flat row,
+    Fortio document and Prometheus text (but StartTime) and its census
+    launches, exactly.  Returns the auto run's launches (path ``mesh
+    auto``)."""
+    import io
+    from contextlib import redirect_stderr
+
+    import yaml
+
+    from isotope_tpu_torch.models.generators import tree_topology
+    from isotope_tpu_torch.runner.config import (
+        DEFAULT_ENVIRONMENTS,
+        ExperimentConfig,
+    )
+    from isotope_tpu_torch.runner.run import run_experiment
+
+    n = MESH_BLOCKS * MESH_BLOCK
+    with tempfile.TemporaryDirectory() as tmp:
+        topo = pathlib.Path(tmp) / "mesh-1024svc.yaml"
+        topo.write_text(yaml.safe_dump(tree_topology(
+            num_branches=4, num_services=MESH_SERVICES)))
+
+        def sweep(spec):
+            err = io.StringIO()
+            with redirect_stderr(err):
+                (res,) = run_experiment(ExperimentConfig(
+                    topology_paths=(str(topo),),
+                    environments=(DEFAULT_ENVIRONMENTS["NONE"],),
+                    qps=(MESH_QPS,), connections=(8,),
+                    duration_s=n / MESH_QPS, load_kind="open",
+                    num_requests=n, mesh_spec=spec,
+                ))
+            return res, err.getvalue()
+
+        sweep("1x1")  # unmeasured: the allocator's growth, warm caches
+        (auto, text), launches, wall, peak = _path(
+            port, lambda: sweep("auto"))
+        (plain, _), plain_launches, plain_wall, _ = _path(
+            port, lambda: sweep("1x1"))
+    line = f"mesh auto: {topo} -> data=1,svc=1 (score 0s/merge)"
+    if line not in text:
+        raise AssertionError(f"mesh auto: {text!r}")
+    if auto.failed or plain.failed or "_mesh_layout" in auto.flat:
+        raise AssertionError(f"mesh auto: {auto.error or plain.error}")
+
+    def doc(res):
+        return (dict(res.flat, StartTime=None),
+                dict(res.fortio_json, StartTime=None), res.prometheus_text)
+
+    if doc(auto) != doc(plain):
+        raise AssertionError("mesh auto: not the explicit 1x1 run")
+    # the runner's memory-sized block (the tree's: MESH_BLOCK)
+    sim = port.Simulator(mesh_compiled(port), device="cuda")
+    block = min(sim.default_block_size(), n)
+    want = -(-n // block) * len(sim.census_shapes(block))
+    if launches != plain_launches or launches != want:
+        raise AssertionError(f"mesh auto: {launches} census launches, the "
+                             f"1x1 run {plain_launches}, expected {want}")
+    log(f"mesh auto (run_experiment, {n} requests of the {MESH_SERVICES}-"
+        f"service tree): '{line}', {wall:.3f} s (explicit 1x1 "
+        f"{plain_wall:.3f} s), own peak {peak:.3f} GiB, census launches "
+        f"{launches} (exact, the 1x1 run's); flat row, Fortio document "
+        f"and Prometheus text equal to the 1x1 run's (but StartTime)")
+    return launches
 
 
 def mesh_served_cpu(port, sims):
@@ -6361,6 +6447,13 @@ def mesh_served_runs(port, mesh, runs, prot, chaos_sim):
             raise AssertionError(
                 f"mesh {key} emulated: {by_path[f'mesh {key} emulated']} "
                 f"census launches, expected {want}")
+        # one shard's own peak at the twin's shard block: the 1x1 twin
+        # over the same requests and windows, blocks of b8
+        _, _, _, one_peak = _path(port, lambda: call(twin1, "_emulated", b8))
+        if t_peak > MESH_PEAK_RATIO * one_peak:
+            raise AssertionError(
+                f"mesh {key} emulated: own peak {t_peak:.3f} GiB > "
+                f"{MESH_PEAK_RATIO} x one shard's {one_peak:.3f} GiB")
         for out, what in ((got, "world of one"), (tw, "4x1x2 twin")):
             if int(out[0].count) < n or int(out[1].arrivals.sum()) != int(
                     out[0].count):
@@ -6377,7 +6470,9 @@ def mesh_served_runs(port, mesh, runs, prot, chaos_sim):
             f"twin; the {prot_mesh!r} twin (blocks of {b8} a shard) "
             f"{t_wall * 1e3:.2f} ms, census launches "
             f"{by_path[f'mesh {key} emulated']} "
-            f"(exact), own peak {t_peak:.3f} GiB")
+            f"(exact), own peak {t_peak:.3f} GiB = "
+            f"{t_peak / max(one_peak, 1e-12):.4f} x one shard's at blocks "
+            f"of {b8} ({one_peak:.3f} GiB; gate {MESH_PEAK_RATIO}x)")
 
     # -- the protected fleet and its splitting estimate ------------------------
     cf = CHAOSFLEET

@@ -29,10 +29,13 @@ rows, control laws, recorder and blame reductions), extrapolated point
 by point to the block as the run's estimate is.  The plan-only peak
 (:func:`peak_bytes_at_block`) is the reference's law, kept where no
 pilot can be recorded (no load given); a chunk never changes a
-result.  The reference's collective cost rows
-(``comm_table``, its ICI/DCN constants) are TPU numbers and are not
-copied: they come with ``--mesh auto``'s layout search (ROADMAP item
-11b.5), measured on a machine with several cards.
+result.
+
+The collective cost rows (:func:`comm_table`) price a mesh layout's
+summary merge for ``--mesh auto``'s layout search
+(``parallel/layout.py``) with the port's own link constants: the
+reference's rows, keys and link names, priced for NVLink inside a host
+and a NIC between hosts.
 """
 from __future__ import annotations
 
@@ -62,6 +65,20 @@ CAPACITY_FILL = 0.85
 
 #: the port's ladder (``resilience/supervisor.rung_blocks``)
 RUNG_NAMES = ("scan", "half-block")
+
+# -- collective cost constants (parallel/layout.py feeds on these) -------
+#
+# Per-link bandwidth and latency that :func:`comm_table` prices the
+# summary-merge collectives with: inside a host, NVLink 4 between NVIDIA
+# H100 80GB HBM3 (SXM, 700 W) cards (450 GB/s a direction); between
+# hosts, a 400 Gb/s NIC.  Unmeasured assumptions, not measurements:
+# calibrating them needs a machine with several cards.  Only their
+# ordering steers the layout search (the link between hosts is ~10x
+# slower and has ~5x the latency), and that ordering is robust.
+IN_HOST_BANDWIDTH_BYTES_S = 4.5e11
+CROSS_HOST_BANDWIDTH_BYTES_S = 5.0e10
+IN_HOST_LATENCY_S = 2e-6
+CROSS_HOST_LATENCY_S = 1e-5
 
 #: ops costed at zero flops: data movement, not arithmetic
 _FREE_OPS = frozenset({
@@ -309,6 +326,128 @@ def search_carry_bytes(connections: int) -> float:
     the block offset (int32) plus the ``(t0, conn_t0, req_off)`` clocks
     (float32; ``conn_t0`` holds one slot a closed-loop connection)."""
     return 4.0 * (3 + max(int(connections), 1))
+
+
+def summary_bytes(num_services: int,
+                  num_edges: Optional[int] = None) -> dict:
+    """Byte sizes of one RunSummary's collective-merged leaf groups,
+    split by how the sharded merge moves them (``parallel/sharded.py``):
+
+    - ``replicated``: the scalars, the two fine latency histograms and
+      the per-service series that are not svc-sharded, summed over
+      every axis (every shard ends with a full copy);
+    - ``scattered``: the per-service duration / response-size
+      histograms, summed over the request axes and reduce-scattered
+      over ``svc`` (each shard keeps a 1/svc tile).
+
+    The shapes are ``metrics/prometheus.py``'s (duration histogram (S,
+    2, len(DURATION_BUCKETS) + 1), size histograms (., len(SIZE_BUCKETS)
+    + 1)) and ``metrics/histogram.py``'s ``NUM_BUCKETS``; ``num_edges``
+    defaults to ``num_services`` (a tree has ~1 inbound edge a
+    service)."""
+    from isotope_tpu_torch.metrics.histogram import NUM_BUCKETS
+    from isotope_tpu_torch.metrics.prometheus import (
+        DURATION_BUCKETS,
+        SIZE_BUCKETS,
+    )
+
+    s = max(int(num_services), 1)
+    e = int(num_edges) if num_edges else s
+    nsb = len(SIZE_BUCKETS) + 1
+    nb = len(DURATION_BUCKETS) + 1
+    replicated = 4.0 * (
+        14                      # RunSummary scalars
+        + 2 * NUM_BUCKETS       # latency_hist + win_latency_hist
+        + s                     # incoming_total
+        + e * (2 + nsb)         # outgoing_total / size_sum / size_hist
+        + s * 2 * 2             # duration_sum + response_size_sum
+        + 2 * s                 # utilization + unstable
+    )
+    scattered = 4.0 * (s * 2 * nb + s * 2 * nsb)
+    return {"replicated": replicated, "scattered": scattered}
+
+
+def _collective_s(bytes_: float, participants: int, link: str,
+                  scatter: bool = False) -> float:
+    """A ring collective's time: the link's latency a step plus the
+    wire bytes (an all-reduce moves ``2 (p - 1) / p`` of the payload
+    over each link, a reduce-scatter half that); one participant is
+    free.  ``link`` is ``"ici"`` (inside a host) or ``"dcn"`` (between
+    hosts)."""
+    p = max(int(participants), 1)
+    if p == 1:
+        return 0.0
+    lat, bw = (
+        (CROSS_HOST_LATENCY_S, CROSS_HOST_BANDWIDTH_BYTES_S)
+        if link == "dcn"
+        else (IN_HOST_LATENCY_S, IN_HOST_BANDWIDTH_BYTES_S)
+    )
+    factor = (p - 1) / p if scatter else 2.0 * (p - 1) / p
+    return lat * (p - 1) + factor * bytes_ / bw
+
+
+def comm_table(
+    num_services: int,
+    data: int,
+    svc: int,
+    slices: int = 1,
+    num_edges: Optional[int] = None,
+    num_merges: int = 1,
+) -> List[dict]:
+    """Cost rows of one mesh layout's summary merge, the reference's:
+    the replicated sum over the in-host axes (``psum_replicated``), the
+    per-service sum over ``data`` feeding the reduce-scatter over
+    ``svc`` (``psum_scatter_svc``), and on a layout with a slice axis
+    the sum between hosts of the replicated group and the 1/svc tile
+    (``psum_dcn``, issued last, so the link between hosts carries 1/svc
+    of the per-service state).  ``link`` keeps the reference's names:
+    ``"ici"`` means inside a host (NVLink) here, ``"dcn"`` between
+    hosts.  ``num_merges`` scales every row (1: the merge after the
+    loop; the overlap merges once a block).
+
+    ``bytes`` is a shard's payload, ``time_s`` the row priced with the
+    link constants above.  The port's merge issues collectives these
+    rows do not price (ROADMAP queue 3): the extremes' MAX buffer and
+    the Welford term's sum."""
+    sizes = summary_bytes(num_services, num_edges)
+    s = max(int(num_services), 1)
+    s_pad = -(-s // max(svc, 1)) * max(svc, 1)
+    scat = sizes["scattered"] * (s_pad / s)     # the svc padding rides too
+    tile = scat / max(svc, 1)
+    rows = [
+        {
+            "collective": "psum_replicated",
+            "link": "ici",
+            "participants": data * svc,
+            "bytes": sizes["replicated"],
+            "time_s": _collective_s(
+                sizes["replicated"], data * svc, "ici"
+            ),
+        },
+        {
+            "collective": "psum_scatter_svc",
+            "link": "ici",
+            "participants": svc,
+            "bytes": scat,
+            "time_s": (
+                _collective_s(scat, svc, "ici", scatter=True)
+                # the request axis's sum feeding the scatter
+                + _collective_s(scat, data, "ici")
+            ),
+        },
+    ]
+    if slices > 1:
+        cross = sizes["replicated"] + tile
+        rows.append({
+            "collective": "psum_dcn",
+            "link": "dcn",
+            "participants": slices,
+            "bytes": cross,
+            "time_s": _collective_s(cross, slices, "dcn"),
+        })
+    for r in rows:
+        r["time_s"] *= max(int(num_merges), 1)
+    return rows
 
 
 def ensemble_chunk(

@@ -51,8 +51,8 @@ The port of ``isotope-tpu``'s commands (``suite``, ``report``,
   ranks (``parallel/``), launched as ``torchrun --standalone
   --nproc-per-node N -m isotope_tpu_torch ...``; only rank 0 prints.
   ``--overlap`` pipelines the mesh's metric merge behind the next
-  block.  ``--mesh auto`` raises ``NotImplementedError`` naming ROADMAP
-  item 11b.5.
+  block.  ``--mesh auto`` picks each topology's factorization by the
+  layout search (``parallel/layout.py``) and prints it to stderr.
 - ``sweep``: a TOML grid of topology x environment x load through
   ``run_experiment`` (checkpointed, resumable; ``--fresh``,
   ``--profile``, ``--export``; ``--mesh`` / ``--overlap`` as in
@@ -100,8 +100,10 @@ def _add_mesh_args(parser) -> None:
              "device (torchrun --standalone --nproc-per-node N -m "
              "isotope_tpu_torch ...): 'DATAxSVC[xSLICE]' (e.g. 4x2 or "
              "2x2x2 — the slice axis crosses hosts), or "
-             "'data=4,svc=2,slice=1'; 'auto' (the layout search) is "
-             "not ported.  Also env $ISOTOPE_MESH; default: the TOML "
+             "'data=4,svc=2,slice=1', or 'auto' (the layout search "
+             "over the world's devices and hosts, against each "
+             "topology's service count).  Also env $ISOTOPE_MESH; "
+             "default: the TOML "
              "mesh_data/mesh_svc keys, else every rank on the data "
              "axis")
     parser.add_argument(

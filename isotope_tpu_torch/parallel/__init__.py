@@ -8,22 +8,29 @@ reduce-scatter leaving per-service histogram state tiled over ``svc``,
 and a final cross-``slice`` sum on multi-host meshes.
 
 The mesh comes from an explicit spec (``--mesh`` / ``$ISOTOPE_MESH``)
-or an :class:`EmulatedMesh` that replays any host count on one device.
-The mesh serves the solo runs (plain, attributed, recorded and
-protected: request-sharded), the fleets and the search brackets (the
-member axis spread over the ranks, the member stacks gathered) and the
-splitting passes.  Not ported yet (ROADMAP item 11b.5): ``--mesh auto``
-and its layout search (``parallel/layout.py``).
+(or ``--mesh auto``: the layout search of ``parallel/layout.py``, which
+prices each factorization's merge) or an :class:`EmulatedMesh` that
+replays any host count on one device.  The mesh serves the solo runs
+(plain, attributed, recorded and protected: request-sharded), the
+fleets and the search brackets (the member axis spread over the ranks,
+the member stacks gathered) and the splitting passes.
 """
 from isotope_tpu_torch.parallel.mesh import (
     EmulatedMesh,
     MeshSpec,
     build_mesh,
     default_mesh,
+    host_count,
     make_mesh,
     make_multislice_mesh,
     mesh_spec_from_env,
     parse_mesh_spec,
+)
+from isotope_tpu_torch.parallel.layout import (
+    LayoutScore,
+    choose_layout,
+    enumerate_specs,
+    score_layout,
 )
 
 #: the sharded runner's names, imported on first use: ``parallel.mesh``
@@ -40,14 +47,19 @@ def __getattr__(name):
 
 __all__ = [
     "EmulatedMesh",
+    "LayoutScore",
     "MeshFault",
     "MeshSpec",
     "build_mesh",
+    "choose_layout",
     "default_mesh",
+    "enumerate_specs",
+    "host_count",
     "make_mesh",
     "make_multislice_mesh",
     "mesh_spec_from_env",
     "parse_mesh_spec",
+    "score_layout",
     "ShardedSimulator",
     "ShardedSummary",
 ]

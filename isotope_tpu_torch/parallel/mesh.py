@@ -19,8 +19,8 @@ A mesh can come from three places, in priority order (runner/run.py):
 
 1. an explicit spec — CLI ``--mesh`` or env ``$ISOTOPE_MESH`` —
    positional ``"DATAxSVC[xSLICE]"`` (e.g. ``4x2`` or ``2x2x2``) or
-   named ``"data=4,svc=2,slice=1"`` (``"auto"`` parses; the layout
-   search is not ported and the runner refuses it);
+   named ``"data=4,svc=2,slice=1"``, or ``"auto"``: the layout search
+   (``parallel/layout.py``) over the world's devices and hosts;
 2. the legacy ``[sim] mesh_data`` / ``mesh_svc`` TOML keys;
 3. every rank of the world on the data axis.
 
@@ -255,6 +255,16 @@ def world_size() -> int:
     if dist is not None:
         return dist.get_world_size()
     return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def host_count() -> int:
+    """Hosts of the world: ``torchrun`` announces the ranks of a host
+    (``$LOCAL_WORLD_SIZE``), so the world's ranks over those; 1 outside
+    a launcher."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+    if local < 1:
+        return 1
+    return max(world_size() // local, 1)
 
 
 def world_rank() -> int:

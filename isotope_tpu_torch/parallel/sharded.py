@@ -1,9 +1,9 @@
 """Sharded simulation over a device mesh, with collective-merged metrics.
 
-The port of ``isotope_tpu.parallel.sharded`` but ``--mesh auto``: the
-plain run (with the collective/compute overlap), the attributed, the
-recorded and the protected runs, the fleets, the search brackets, and
-the emulated twin of each.  One process per device (a
+The port of ``isotope_tpu.parallel.sharded``: the plain run (with the
+collective/compute overlap), the attributed, the recorded and the
+protected runs, the fleets, the search brackets, and the emulated twin
+of each.  One process per device (a
 ``torch.distributed`` rank); global rank ``r`` is shard ``r``
 (``parallel/mesh.py``).  Every shard simulates a disjoint slice of the
 request stream in memory-bounded blocks — the Simulator's own block loop

@@ -172,21 +172,24 @@ def resolve_mesh_request(config):
 def _mesh_spec(config, mesh_req):
     """The factorization a sweep runs on: an explicit spec, else
     ``mesh_data`` x ``mesh_svc`` (``mesh_data`` 0 = the world's ranks
-    over ``mesh_svc``).  ``--mesh auto`` (the layout search) raises
-    ``NotImplementedError``; a spec the world cannot hold raises the
-    key-pathed config error — both before anything simulates."""
+    over ``mesh_svc``), or ``"auto"``, which each topology resolves
+    against its service count (:meth:`_LazyTopology.spec`).  A spec the
+    world cannot hold, or a world whose devices do not divide over its
+    hosts (``auto``), raises the key-pathed config error before
+    anything simulates."""
+    from isotope_tpu_torch.models.errors import config_path
+    from isotope_tpu_torch.parallel.layout import enumerate_specs
     from isotope_tpu_torch.parallel.mesh import (
         MeshSpec,
         check_world,
+        host_count,
         world_size,
     )
 
     if mesh_req == "auto":
-        raise NotImplementedError(
-            "--mesh auto (the layout search, parallel/layout.py) is not "
-            "ported to isotope_tpu_torch yet (ROADMAP.md queue 1: item "
-            "11b.5)"
-        )
+        with config_path("mesh"):
+            enumerate_specs(world_size(), 1, max_slices=host_count())
+        return mesh_req
     if isinstance(mesh_req, MeshSpec):
         spec = mesh_req
     else:
@@ -296,9 +299,11 @@ class _LazyTopology:
         self.path = topo_path
         self.config = config
         self.device = device
-        # the mesh the sweep runs on (a MeshSpec; size 1: no mesh)
+        # the mesh the sweep runs on (a MeshSpec, size 1: no mesh; or
+        # "auto", resolved by spec())
         self.mesh_spec = mesh_spec
         self.mesh_layout = None
+        self.mesh_layout_score = None
         self._sharded = {}
         self._compiled = None
         self._collector = None
@@ -388,11 +393,30 @@ class _LazyTopology:
             )
         return self._sims[env.name]
 
+    def spec(self):
+        """The sweep's factorization for this topology: ``"auto"`` runs
+        the layout search (``parallel/layout.py``) over the world's
+        devices and hosts against the compiled service count, once."""
+        if self.mesh_spec == "auto":
+            from isotope_tpu_torch.parallel.layout import choose_layout
+            from isotope_tpu_torch.parallel.mesh import (
+                host_count,
+                world_size,
+            )
+
+            chosen = choose_layout(world_size(), self.compiled.num_services,
+                                   max_slices=host_count())
+            self.mesh_spec = chosen.spec
+            self.mesh_layout_score = chosen.score_s
+            print(f"mesh auto: {self.path} -> {chosen.spec.describe()} "
+                  f"(score {chosen.score_s:.3g}s/merge)", file=sys.stderr)
+        return self.mesh_spec
+
     def sharded(self, env):
         """The environment's ``ShardedSimulator`` over the sweep's mesh
         (sharing :meth:`sims`' Simulator), or None when the mesh has
         one rank."""
-        spec = self.mesh_spec
+        spec = self.spec()
         if spec is None or spec.size == 1:
             return None
         if env.name not in self._sharded:
@@ -1247,9 +1271,10 @@ def run_experiment(
     the splitting passes (``parallel/sharded.py``) in a world of as
     many ranks (``torchrun``): every rank runs the sweep and returns the
     same results, rank 0 alone writes, and a barrier ends the sweep.
-    ``--mesh auto`` raises ``NotImplementedError`` naming ROADMAP item
-    11b.5; a spec the
-    world cannot hold raises the key-pathed config error before
+    ``--mesh auto`` resolves each topology's factorization by the
+    layout search (``parallel/layout.py``: the world's devices and
+    hosts, the compiled service count) and prints it to stderr; a spec
+    the world cannot hold raises the key-pathed config error before
     anything simulates."""
     from isotope_tpu_torch.analysis.vet import vet_mode
     from isotope_tpu_torch.parallel import mesh as mesh_mod

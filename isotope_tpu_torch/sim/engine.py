@@ -2411,7 +2411,12 @@ class Simulator:
                 control.observe(
                     res, conn_t0.min() if load.kind == CLOSED_LOOP else t0
                 )
-            yield res
+            # hand the block over without keeping it in this frame: the
+            # lockstep twin (parallel/sharded.py) suspends every shard's
+            # loop here, and each must hold its carries, not its block
+            box = [res]
+            del res
+            yield box.pop()
 
     def run_summary(
         self,

@@ -373,6 +373,26 @@ def test_chip_smoke_covers_the_mesh_path():
     assert chip_smoke._pilot_blocks(2 * 32_768) == (8_192, 8_192)
 
 
+def test_chip_smoke_covers_the_mesh_auto_sweep():
+    """Phase 11's ``--mesh auto`` sweep (``mesh_auto_run``) runs the
+    1,024-service tree at the runner's memory-sized block: one shard's
+    32,768 rows, the shapes above, in ``MESH_BLOCKS`` blocks."""
+    from types import SimpleNamespace
+
+    import chip_smoke
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator
+
+    port = SimpleNamespace(
+        compile_graph=compile_graph, ServiceGraph=ServiceGraph,
+        LoadModel=LoadModel, SimParams=SimParams, Simulator=Simulator)
+    (run,) = chip_smoke.mesh_census_runs(port, device="cpu")
+    n = chip_smoke.MESH_BLOCKS * chip_smoke.MESH_BLOCK
+    assert min(run[1].default_block_size(), n) == chip_smoke.MESH_BLOCK
+    assert set(run[1].census_shapes(chip_smoke.MESH_BLOCK)) <= set(_SHAPES)
+
+
 def test_chip_smoke_covers_the_mesh_served_paths():
     """Phase 11's mesh-served twins: the 2x2x2 twin folds ensembleN 4
     members a shard (4 x 8,192 rows) and search64's rungs 8 / 2 / 1

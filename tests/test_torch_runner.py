@@ -498,11 +498,12 @@ def test_fleet_grid_collapses_same_shape_cells(tmp_path, capsys):
     assert flat == results[2].flat
 
 
-def test_unported_options_raise(tmp_path, monkeypatch):
+def test_unported_options_raise(tmp_path, monkeypatch, capsys):
     """A mesh the one-process world cannot hold raises the reference's
-    key-pathed message, and ``--mesh auto`` (through ``$ISOTOPE_MESH``)
-    names item 11b.5, both before anything simulates; a 1x1 mesh and
-    ``overlap`` run the plain path."""
+    key-pathed message before anything simulates; ``--mesh auto``
+    (through ``$ISOTOPE_MESH``) resolves to 1x1 in the one-process
+    world and prints its choice; auto, a 1x1 mesh and ``overlap`` run
+    the plain path, row for row."""
     cfg = load_toml(grid(tmp_path, qps=(300,), n=500))
     out = tmp_path / "out"
     with pytest.raises(ValueError,
@@ -511,15 +512,18 @@ def test_unported_options_raise(tmp_path, monkeypatch):
                        out_dir=str(out), device="cpu")
     assert not out.exists()
     monkeypatch.setenv("ISOTOPE_MESH", "auto")
-    with pytest.raises(NotImplementedError, match=r"item 11b\.5"):
-        run_experiment(cfg, device="cpu")
+    capsys.readouterr()
+    auto = run_experiment(cfg, device="cpu")
+    assert (f"mesh auto: {cfg.topology_paths[0]} -> data=1,svc=1 (score "
+            "0s/merge)") in capsys.readouterr().err
     monkeypatch.setenv("ISOTOPE_MESH", "1x1")
     plain = run_experiment(cfg, device="cpu")
     over = run_experiment(dataclasses.replace(cfg, overlap=True),
                           device="cpu")
-    for a, b in zip(plain, over):
+    for a, b, c in zip(plain, over, auto):
         assert "_mesh_layout" not in a.flat
         assert dict(a.flat, StartTime=0) == dict(b.flat, StartTime=0)
+        assert dict(a.flat, StartTime=0) == dict(c.flat, StartTime=0)
 
 
 def test_duplicate_labels_rejected(tmp_path):
@@ -579,8 +583,22 @@ def test_cli_accepts_every_flag_of_the_jax_command(command):
     assert have - want == (set() if command == "report" else {"--device"})
 
 
-def test_cli_sweep_refuses_the_unported_flags(tmp_path):
+def test_cli_sweep_refuses_the_unported_flags(tmp_path, monkeypatch,
+                                              capsys):
+    """Every flag is ported; ``sweep --mesh auto`` on a world whose
+    devices do not divide over its hosts (5 ranks, 2 a host, as a
+    launcher would announce them) exits 1 with the key-pathed config
+    error before anything simulates or initializes a world."""
+    import isotope_tpu_torch.runner.run as run_mod
+
+    def no_sim(*args, **kwargs):
+        raise AssertionError("simulated before refusing")
+
+    monkeypatch.setattr(run_mod, "_execute", no_sim)
+    monkeypatch.setenv("WORLD_SIZE", "5")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     cfg = grid(tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match=r"--mesh auto .*item 11b\.5"):
-        cli.main(["sweep", str(cfg), "--mesh", "auto", "--device", "cpu"])
+    assert cli.main(["sweep", str(cfg), "--mesh", "auto",
+                     "--device", "cpu"]) == 1
+    assert ("mesh: 5 devices do not divide over 2 hosts"
+            in capsys.readouterr().err)

@@ -137,7 +137,7 @@ class _Worlds:
         spec = WORLDS[name][0]
         return SimpleNamespace(
             name=name, spec=spec, n_shards=int(np.prod(spec)), twin=twin,
-            ranks=ranks, seconds=seconds,
+            ranks=ranks, seconds=seconds, work=work,
             jax={s: _jax_run(s, mesh_spec_of(name, s))
                  for s in WORLDS[name][1]},
         )
@@ -264,6 +264,23 @@ def test_every_rank_returns_the_same_results(worlds, name):
                     assert torch.equal(x, y), (r, key)
                 else:
                     assert x == y, (r, key)
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_layout_search_resolves_in_the_world(worlds, name):
+    """``--mesh auto``'s search on every rank (the world's ranks, the
+    hosts its launcher announces: one a slice) equals the port's
+    ``choose_layout`` called outside the world."""
+    from isotope_tpu_torch.parallel import choose_layout
+
+    w = worlds.get(name)
+    services = compiled_from_arrays(dict(np.load(
+        w.work / "compiled.npz"))).num_services
+    want = choose_layout(w.n_shards, services,
+                         max_slices=w.spec[2]).to_dict()
+    assert want["mesh"].endswith(",slice=2") == (w.spec[2] == 2)
+    for out in w.ranks:
+        assert out["layout"] == want
 
 
 @pytest.mark.parametrize("name", ALL)

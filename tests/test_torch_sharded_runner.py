@@ -24,7 +24,7 @@ from isotope_tpu_torch.runner.run import _LazyTopology, num_requests
 from isotope_tpu_torch.sim.draws import RootedSource
 from test_torch_replay import JaxReplayDraws
 from test_torch_runner import flat_close
-from torch_mesh_runner_world import CASE, config, launch
+from torch_mesh_runner_world import CASE, auto_spec, config, launch
 from torch_mesh_fleet_world import STORM
 from torch_mesh_world import FORK, Recording
 
@@ -58,11 +58,12 @@ def world(tmp_path_factory):
                       trim=True)
     np.savez(work / "draws.npz", **store)
     ranks = launch(work, WORLD_TIMEOUT_S)
-    (jax_row,) = jax_run_experiment(JaxConfig(
+    (jax_row,), (jax_auto,) = (jax_run_experiment(JaxConfig(
         topology_paths=(str(topo),), environments=(JAX_ENVS["NONE"],),
-        mesh_spec="2x2x2", **CASE,
-    ))
-    return dict(work=work, ranks=ranks, jax=jax_row.flat)
+        mesh_spec=spec, **CASE,
+    )) for spec in ("2x2x2", auto_spec()))
+    return dict(work=work, ranks=ranks, jax=jax_row.flat,
+                jax_auto=jax_auto.flat, topo=topo)
 
 
 def _flat(out, name):
@@ -145,15 +146,25 @@ def test_overlap_config_round_trip(world):
 
 
 def test_mesh_auto_and_a_mesh_served_fleet_name_item_11b(world):
-    """``--mesh auto`` (the layout search) still raises, naming item
-    11b.5, on every rank; a mesh-served fleet is served (the refusal
-    naming item 11b is lifted: ``test_mesh_served_fleets_equal_one_
-    device``)."""
-    for out in world["ranks"]:
-        assert out["auto"]["error"] == "NotImplementedError"
-        assert "item 11b.5" in out["auto"]["message"]
+    """``--mesh auto`` runs the layout search on every rank (8 ranks on
+    one host, the topology's 4 services) and serves the case at the
+    chosen spec, the port's search called outside the world: rank 0
+    alone prints the choice, every rank's row equals the explicit run
+    at that spec, and rank 0's is held to the JAX runner's at that
+    spec with ``flat_close``.  A mesh-served fleet is served
+    (``test_mesh_served_fleets_equal_one_device``)."""
+    spec = auto_spec()
+    line = f"mesh auto: {world['topo']} -> {spec} (score "
+    for r, out in enumerate(world["ranks"]):
+        got = _flat(out, "auto")
+        assert got["_mesh_layout"] == spec
+        assert (line in out["auto"]["stderr"]) == (r == 0), r
+        assert (_without(got, "StartTime")
+                == _without(_flat(out, "auto_explicit"), "StartTime"))
         assert "error" not in out["ensemble@2x2x2"]
         assert _flat(out, "ensemble@2x2x2")["_ensemble"] == 4
+    assert world["jax_auto"]["_mesh_layout"] == spec
+    flat_close(_flat(world["ranks"][0], "auto"), world["jax_auto"], "auto")
 
 
 def _docs(world, case, suffix):

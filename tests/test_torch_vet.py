@@ -293,7 +293,8 @@ def test_cli_unreachable_fixture_names_its_rule(tmp_path, capsys):
 
 def test_cli_json_and_grad_json(tmp_path, capsys, jax_core_alias):
     """``--json`` prints the report (findings, per-path meta with the
-    cost model and the reason ``mesh_layout`` is omitted), and
+    cost model and the ``mesh_layout`` block: what ``--mesh auto``
+    would pick in this world, with its cost rows), and
     ``--grad-json`` writes ``isotope-gradaudit/v1`` with the reference's
     classes (exit 0: VET-G findings are warn/info)."""
     topo = write_topo(tmp_path, CHAIN, "chain.yaml")
@@ -305,7 +306,15 @@ def test_cli_json_and_grad_json(tmp_path, capsys, jax_core_alias):
     assert doc["findings"] == []
     meta = doc["meta"][str(cfg)][topo]
     assert meta["cost"]["peak_bytes_at_block"] > 0
-    assert "item 11" in meta["mesh_layout"]["note"]
+    layout = meta["mesh_layout"]
+    assert set(layout) == {"mesh", "score_s", "pad_fraction", "comm"}
+    # the one-process world: one device, one host
+    assert layout["mesh"] == "data=1,svc=1"
+    assert layout["score_s"] == 0.0 and layout["pad_fraction"] == 0.0
+    assert [r["collective"] for r in layout["comm"]] == [
+        "psum_replicated", "psum_scatter_svc"]
+    assert all(set(r) == {"collective", "link", "participants", "bytes",
+                          "time_s"} for r in layout["comm"])
     out, jax_out = tmp_path / "grad.json", tmp_path / "jax-grad.json"
     assert cli.main(["vet", "--grad-json", str(out), topo,
                      "--device", "cpu"]) == 0

@@ -74,6 +74,17 @@ def config(topo, **kw):
     )
 
 
+def auto_spec() -> str:
+    """The layout ``--mesh auto`` picks for the case's topology in the
+    world (one host of ``WORLD`` ranks), by the port's search."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.parallel import choose_layout
+
+    compiled = compile_graph(ServiceGraph.from_yaml(FORK))
+    return choose_layout(WORLD, compiled.num_services).spec.describe()
+
+
 def _call(fn):
     """``{"flats": [...]}`` of a run, or ``{"error": type, "message"}``."""
     try:
@@ -118,7 +129,11 @@ def rank_main(workdir: str) -> None:
     run("too_big", cfg=dict(mesh_spec="4x4"))
     run("overlap_on", cfg=dict(mesh_spec="2x2x2", overlap=True))
     run("overlap_off", cfg=dict(mesh_spec="2x2x2"))
-    run("auto", cfg=dict(mesh_spec="auto"))
+    err = io.StringIO()
+    with redirect_stderr(err):
+        run("auto", cfg=dict(mesh_spec="auto"))
+    out["auto"]["stderr"] = err.getvalue()
+    run("auto_explicit", cfg=dict(mesh_spec=auto_spec()))
     # the mesh-served cases, each beside the same sweep at --mesh 1x1 on
     # the port's own draws (the mesh and the one device run the same
     # members, candidates and levels)

@@ -325,6 +325,14 @@ def rank_main(world: str, rank: int, size: int, workdir: str) -> None:
             out[name] = _dcn(compiled, mesh, source)
         out[name]["seconds"] = time.monotonic() - t0
     out["coordinate"] = list(mesh.get_coordinate())
+    # the layout search in the world: its ranks, and the hosts a
+    # launcher would announce (one a slice of the world's mesh)
+    from isotope_tpu_torch.parallel import choose_layout, host_count
+    from isotope_tpu_torch.parallel.mesh import world_size
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(size // spec[2])
+    out["layout"] = choose_layout(world_size(), compiled.num_services,
+                                  max_slices=host_count()).to_dict()
     torch.save(out, work / f"rank{rank}.pt")
     close_world()
 
