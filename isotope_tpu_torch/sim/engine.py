@@ -1826,9 +1826,10 @@ class Simulator:
     def _draws(self, source, index, n: int, kind: str,
                saturated: bool = False, policy: bool = False,
                canary: bool = False) -> Draws:
-        spec = self.draw_spec(n, kind, saturated, policy, canary)
-        draws = source.draws(index, spec).to(self.device)
-        draws.check(spec)
+        with telemetry.span("engine.draws"):
+            spec = self.draw_spec(n, kind, saturated, policy, canary)
+            draws = source.draws(index, spec).to(self.device)
+            draws.check(spec)
         return draws
 
     # -- public entry points ----------------------------------------------
@@ -2383,34 +2384,35 @@ class Simulator:
             clock = _Clock.zero(self, local)
         per = block // max(local, 1)
         for _ in range(num_blocks):
-            pfx, rfx = (
-                control.effects() if control is not None else (None, None)
-            )
-            res, t0, conn_t0 = self._simulate_core(
-                block, load.kind, local,
-                self._draws(source, BLOCK_INDEX_BASE + clock.block, block,
-                            load.kind, sat, policy=pfx is not None,
-                            canary=rfx is not None),
-                offered_t, pace_t, arrival_t, clock.t0, clock.conn_t0,
-                visits_pc=visits_pc,
-                sat_conns=conns if sat else 0,
-                nominal_gap=nominal_t,
-                req_offset=clock.req_off,
-                phase_windows=windows,
-                policy_fx=pfx,
-                rollout_fx=rfx,
-                cpu_scale=cpu_scale,
-                err_scale=err_scale,
-            )
-            clock.t0, clock.conn_t0 = t0, conn_t0
-            clock.block += 1
-            clock.req_off += per
-            if control is not None:
-                # closed loop: a window is final only once the SLOWEST
-                # connection passed it
-                control.observe(
-                    res, conn_t0.min() if load.kind == CLOSED_LOOP else t0
+            with telemetry.span("engine.block"):
+                pfx, rfx = (
+                    control.effects() if control is not None else (None, None)
                 )
+                res, t0, conn_t0 = self._simulate_core(
+                    block, load.kind, local,
+                    self._draws(source, BLOCK_INDEX_BASE + clock.block, block,
+                                load.kind, sat, policy=pfx is not None,
+                                canary=rfx is not None),
+                    offered_t, pace_t, arrival_t, clock.t0, clock.conn_t0,
+                    visits_pc=visits_pc,
+                    sat_conns=conns if sat else 0,
+                    nominal_gap=nominal_t,
+                    req_offset=clock.req_off,
+                    phase_windows=windows,
+                    policy_fx=pfx,
+                    rollout_fx=rfx,
+                    cpu_scale=cpu_scale,
+                    err_scale=err_scale,
+                )
+                clock.t0, clock.conn_t0 = t0, conn_t0
+                clock.block += 1
+                clock.req_off += per
+                if control is not None:
+                    # closed loop: a window is final only once the SLOWEST
+                    # connection passed it
+                    control.observe(
+                        res, conn_t0.min() if load.kind == CLOSED_LOOP else t0
+                    )
             # hand the block over without keeping it in this frame: the
             # lockstep twin (parallel/sharded.py) suspends every shard's
             # loop here, and each must hold its carries, not its block
@@ -2506,13 +2508,17 @@ class Simulator:
                                    cpu_scale=cpu_scale,
                                    err_scale=err_scale, clock=clock,
                                    plan=plan, shards=shards):
-            parts.append(summary_mod.summarize(res, collector, window=win))
-            if attr:
-                a, ex = attribution.attribute_block(
-                    res, tables, tail_cut=tail_cut, top_k=top_k,
-                    ex_state=ex,
+            with telemetry.span("summary.block"):
+                parts.append(
+                    summary_mod.summarize(res, collector, window=win)
                 )
-                a_acc = attribution.accumulate(a_acc, a)
+            if attr:
+                with telemetry.span("attribution.block"):
+                    a, ex = attribution.attribute_block(
+                        res, tables, tail_cut=tail_cut, top_k=top_k,
+                        ex_state=ex,
+                    )
+                    a_acc = attribution.accumulate(a_acc, a)
             del res
             yield
         summary = summary_mod.reduce_stacked(summary_mod.stack(parts))
@@ -2563,14 +2569,17 @@ class Simulator:
             else self.params.attribution_tail_quantile
         )
         pilot_n = max(1, min(num_requests, 8_192))
-        pilot = self.run_summary(
-            load, pilot_n, RootedSource(source, TAIL_PILOT_INDEX),
-            block_size=(
-                min(block_size, pilot_n) if load.kind == OPEN_LOOP
-                else block_size
-            ),
-        )
-        return float(quantile_from_histogram(pilot.latency_hist, [q])[0])
+        with telemetry.span("attribution.tail_pilot"):
+            pilot = self.run_summary(
+                load, pilot_n, RootedSource(source, TAIL_PILOT_INDEX),
+                block_size=(
+                    min(block_size, pilot_n) if load.kind == OPEN_LOOP
+                    else block_size
+                ),
+            )
+            return float(
+                quantile_from_histogram(pilot.latency_hist, [q])[0]
+            )
 
     def run_attributed(
         self,
@@ -4810,189 +4819,194 @@ class Simulator:
         # segment i's output (the port sweeps every level on its own:
         # segment i is level i) so the numeric sentinels are testable
         nan_seg = faults.nan_segment()
-        telemetry.fence_reset()
-        for d in reversed(range(L)):
-            lvl = self._levels[d]
-            sl = slice(lvl.offset, lvl.offset + lvl.size)
-            err_lvl = (
-                err_coin[:, sl].contiguous() if err_coin is not None else None
-            )
-            P = lvl.pmax
-            fail_step = None
-            if lvl.num_children > 0:
-                nxt = self._levels[d + 1]
-                csl = slice(nxt.offset, nxt.offset + nxt.size)
-                C = lvl.num_children
-                timeout = lvl.call_timeout if lvl.finite_timeout else None
-                down_child = down[:, csl] if down is not None else None
-                att_off = None
-                if lvl.ident_attempts:
-                    # single attempt, call k <-> child k: elementwise
-                    tt = lvl.child_rtt + lat_lvls[d + 1]  # (N, C)
-                    if tax is not None:
-                        tt = tt + 2.0 * tax[:, None]
-                    transport_a, dur_a = _call_outcome(
-                        tt, timeout, down_child
-                    )
-                    if self._need_send:
-                        prob = lvl.child_send_prob
-                        if churn_w is not None:
-                            prob = prob * churn_w[:, lvl.child_churn_entry]
-                        coin = u_send[:, csl] < prob
-                        used_lvls[d] = coin
-                        dur_call = torch.where(coin, dur_a, zero)
-                        # an unsent call cannot fail anything
-                        final_transport = (
-                            coin & transport_a
-                            if transport_a is not None
+        with telemetry.span("engine.sweep"):
+            telemetry.fence_reset()
+            for d in reversed(range(L)):
+                lvl = self._levels[d]
+                sl = slice(lvl.offset, lvl.offset + lvl.size)
+                err_lvl = (
+                    err_coin[:, sl].contiguous()
+                    if err_coin is not None else None
+                )
+                P = lvl.pmax
+                fail_step = None
+                if lvl.num_children > 0:
+                    nxt = self._levels[d + 1]
+                    csl = slice(nxt.offset, nxt.offset + nxt.size)
+                    C = lvl.num_children
+                    timeout = lvl.call_timeout if lvl.finite_timeout else None
+                    down_child = down[:, csl] if down is not None else None
+                    att_off = None
+                    if lvl.ident_attempts:
+                        # single attempt, call k <-> child k: elementwise
+                        tt = lvl.child_rtt + lat_lvls[d + 1]  # (N, C)
+                        if tax is not None:
+                            tt = tt + 2.0 * tax[:, None]
+                        transport_a, dur_a = _call_outcome(
+                            tt, timeout, down_child
+                        )
+                        if self._need_send:
+                            prob = lvl.child_send_prob
+                            if churn_w is not None:
+                                prob = prob * churn_w[:, lvl.child_churn_entry]
+                            coin = u_send[:, csl] < prob
+                            used_lvls[d] = coin
+                            dur_call = torch.where(coin, dur_a, zero)
+                            # an unsent call cannot fail anything
+                            final_transport = (
+                                coin & transport_a
+                                if transport_a is not None
+                                else None
+                            )
+                        else:
+                            dur_call = dur_a
+                            final_transport = transport_a
+                    else:
+                        # general path: serial retry attempts; dummy column C
+                        # absorbs invalid attempt slots (the only duplicate
+                        # indices of the attempt scatters, sliced off below)
+                        lat_child = F.pad(lat_lvls[d + 1], (0, 1))
+                        child_err = err_lvls[d + 1]
+                        err_child = (
+                            F.pad(child_err, (0, 1))
+                            if child_err is not None
                             else None
                         )
-                    else:
-                        dur_call = dur_a
-                        final_transport = transport_a
-                else:
-                    # general path: serial retry attempts; dummy column C
-                    # absorbs invalid attempt slots (the only duplicate
-                    # indices of the attempt scatters, sliced off below)
-                    lat_child = F.pad(lat_lvls[d + 1], (0, 1))
-                    child_err = err_lvls[d + 1]
-                    err_child = (
-                        F.pad(child_err, (0, 1))
-                        if child_err is not None
-                        else None
-                    )
-                    down_pad = (
-                        F.pad(down_child, (0, 1))
-                        if down_child is not None
-                        else None
-                    )
-                    rtt_child = F.pad(lvl.child_rtt, (0, 1))
-                    a0 = lvl.att_child[0]
-                    if self._need_send:
-                        prob = lvl.child_send_prob[a0]
-                        if churn_w is not None:
-                            # the current schedule weight scales the send
-                            # probability
-                            prob = prob * churn_w[
-                                :, lvl.child_churn_entry[a0]
-                            ]
-                        coin = u_send[:, csl][:, a0] < prob
-                    else:
-                        coin = torch.ones(
-                            (n, lvl.num_calls), dtype=torch.bool, device=dev
+                        down_pad = (
+                            F.pad(down_child, (0, 1))
+                            if down_child is not None
+                            else None
                         )
-                    dur_call = torch.zeros((n, lvl.num_calls), dtype=F32,
+                        rtt_child = F.pad(lvl.child_rtt, (0, 1))
+                        a0 = lvl.att_child[0]
+                        if self._need_send:
+                            prob = lvl.child_send_prob[a0]
+                            if churn_w is not None:
+                                # the current schedule weight scales the send
+                                # probability
+                                prob = prob * churn_w[
+                                    :, lvl.child_churn_entry[a0]
+                                ]
+                            coin = u_send[:, csl][:, a0] < prob
+                        else:
+                            coin = torch.ones(
+                                (n, lvl.num_calls), dtype=torch.bool,
+                                device=dev,
+                            )
+                        dur_call = torch.zeros((n, lvl.num_calls), dtype=F32,
+                                               device=dev)
+                        final_transport = (
+                            torch.zeros((n, lvl.num_calls), dtype=torch.bool,
+                                        device=dev)
+                            if lvl.finite_timeout or down_pad is not None
+                            else None
+                        )
+                        used = torch.zeros((n, C + 1), dtype=torch.bool,
                                            device=dev)
-                    final_transport = (
-                        torch.zeros((n, lvl.num_calls), dtype=torch.bool,
-                                    device=dev)
-                        if lvl.finite_timeout or down_pad is not None
-                        else None
-                    )
-                    used = torch.zeros((n, C + 1), dtype=torch.bool,
-                                       device=dev)
-                    att_off = torch.zeros((n, C + 1), dtype=F32, device=dev)
-                    # retry-budget gate (sim/policies.py): attempt >= 1
-                    # runs only when its budget coin admits it; a
-                    # suppressed retry surfaces the previous attempt's
-                    # failure to the caller
-                    retry_gate = None
-                    if retry_coin is not None and len(lvl.att_child) > 1:
-                        retry_gate = F.pad(retry_coin[:, csl], (0, 1))
-                    used_a = coin
-                    for a, (idx, valid) in enumerate(
-                        zip(lvl.att_child, lvl.att_valid)
-                    ):
-                        use = used_a & valid
-                        if retry_gate is not None and a > 0:
-                            use = use & retry_gate[:, idx]
-                        t = rtt_child[idx] + lat_child[:, idx]
-                        if tax is not None:
-                            t = t + 2.0 * tax[:, None]
-                        transport_a, dur_a = _call_outcome(
-                            t, timeout,
-                            down_pad[:, idx] if down_pad is not None
-                            else None,
-                        )
-                        failed_a = transport_a
-                        if err_child is not None:
-                            ec = err_child[:, idx]
-                            failed_a = (
-                                ec if failed_a is None else failed_a | ec
+                        att_off = torch.zeros((n, C + 1), dtype=F32,
+                                              device=dev)
+                        # retry-budget gate (sim/policies.py): attempt >= 1
+                        # runs only when its budget coin admits it; a
+                        # suppressed retry surfaces the previous attempt's
+                        # failure to the caller
+                        retry_gate = None
+                        if retry_coin is not None and len(lvl.att_child) > 1:
+                            retry_gate = F.pad(retry_coin[:, csl], (0, 1))
+                        used_a = coin
+                        for a, (idx, valid) in enumerate(
+                            zip(lvl.att_child, lvl.att_valid)
+                        ):
+                            use = used_a & valid
+                            if retry_gate is not None and a > 0:
+                                use = use & retry_gate[:, idx]
+                            t = rtt_child[idx] + lat_child[:, idx]
+                            if tax is not None:
+                                t = t + 2.0 * tax[:, None]
+                            transport_a, dur_a = _call_outcome(
+                                t, timeout,
+                                down_pad[:, idx] if down_pad is not None
+                                else None,
                             )
-                        att_off[:, idx] = torch.where(use, dur_call, zero)
-                        used[:, idx] = use
-                        dur_call = dur_call + torch.where(use, dur_a, zero)
-                        if final_transport is not None:
-                            final_transport = torch.where(
-                                use, transport_a, final_transport
+                            failed_a = transport_a
+                            if err_child is not None:
+                                ec = err_child[:, idx]
+                                failed_a = (
+                                    ec if failed_a is None else failed_a | ec
+                                )
+                            att_off[:, idx] = torch.where(use, dur_call, zero)
+                            used[:, idx] = use
+                            dur_call = dur_call + torch.where(use, dur_a, zero)
+                            if final_transport is not None:
+                                final_transport = torch.where(
+                                    use, transport_a, final_transport
+                                )
+                            used_a = (
+                                use & failed_a
+                                if failed_a is not None
+                                else torch.zeros_like(use)
                             )
-                        used_a = (
-                            use & failed_a
-                            if failed_a is not None
-                            else torch.zeros_like(use)
-                        )
-                    used_lvls[d] = used[:, :C]
+                        used_lvls[d] = used[:, :C]
 
-                # -- aggregate calls into (parent, step) slots -------------
-                if lvl.sparse is not None or lvl.tiled is not None:
-                    # skewed wide level: tiles + sparse residual, or the
-                    # pure sparse call-slot sweep; the 500 mask applies
-                    # to busy after the sweep
-                    if lvl.tiled is not None:
-                        busy, fail_step, off = self._tiled_sweep(
-                            lvl, n, dur_call, final_transport, err_lvl
-                        )
+                    # -- aggregate calls into (parent, step) slots ---------
+                    if lvl.sparse is not None or lvl.tiled is not None:
+                        # skewed wide level: tiles + sparse residual, or the
+                        # pure sparse call-slot sweep; the 500 mask applies
+                        # to busy after the sweep
+                        if lvl.tiled is not None:
+                            busy, fail_step, off = self._tiled_sweep(
+                                lvl, n, dur_call, final_transport, err_lvl
+                            )
+                        else:
+                            busy, fail_step, off = _sparse_level_sweep(
+                                lvl.sparse, n, P, lvl.size, dur_call,
+                                final_transport, err_lvl,
+                                lvl.child_parent_local, lvl.child_step,
+                            )
+                        if err_lvl is not None:
+                            busy = busy * ~err_lvl
+                        if att_off is not None:
+                            off = off + used_lvls[d] * att_off[:, :C]
+                        off_lvls[d] = off
                     else:
-                        busy, fail_step, off = _sparse_level_sweep(
-                            lvl.sparse, n, P, lvl.size, dur_call,
-                            final_transport, err_lvl,
-                            lvl.child_parent_local, lvl.child_step,
+                        agg = _slot_max(
+                            dur_call, n, lvl.size, P, lvl.call_seg,
+                            lvl.uniform_calls,
                         )
+                        if final_transport is not None:
+                            fail_step = _fail_min(
+                                final_transport, lvl.call_step, lvl.call_hop,
+                                n, lvl.size, P, P, lvl.uniform_calls,
+                            )
+                        # fused census join (native/census.py): max + mask +
+                        # fail/err truncation + row sum + exclusive prefix
+                        busy, excl = census(
+                            lvl.step_base, lvl.step_mask, agg.contiguous(),
+                            fail_step, err_lvl,
+                        )
+                        off = excl.reshape(n, -1)[:, lvl.child_seg]
+                        if att_off is not None:
+                            off = off + used_lvls[d] * att_off[:, :C]
+                        off_lvls[d] = off
+                else:
+                    # call-free level: busy time is fully static; an
+                    # errorRate 500 skips the whole script
+                    busy = lvl.leaf_busy.expand(n, lvl.size)
                     if err_lvl is not None:
                         busy = busy * ~err_lvl
-                    if att_off is not None:
-                        off = off + used_lvls[d] * att_off[:, :C]
-                    off_lvls[d] = off
-                else:
-                    agg = _slot_max(
-                        dur_call, n, lvl.size, P, lvl.call_seg,
-                        lvl.uniform_calls,
-                    )
-                    if final_transport is not None:
-                        fail_step = _fail_min(
-                            final_transport, lvl.call_step, lvl.call_hop,
-                            n, lvl.size, P, P, lvl.uniform_calls,
-                        )
-                    # fused census join (native/census.py): max + mask +
-                    # fail/err truncation + row sum + exclusive prefix
-                    busy, excl = census(
-                        lvl.step_base, lvl.step_mask, agg.contiguous(),
-                        fail_step, err_lvl,
-                    )
-                    off = excl.reshape(n, -1)[:, lvl.child_seg]
-                    if att_off is not None:
-                        off = off + used_lvls[d] * att_off[:, :C]
-                    off_lvls[d] = off
-            else:
-                # call-free level: busy time is fully static; an
-                # errorRate 500 skips the whole script
-                busy = lvl.leaf_busy.expand(n, lvl.size)
-                if err_lvl is not None:
-                    busy = busy * ~err_lvl
-            fail_lvls[d] = fail_step
-            lat_lvls[d] = wait[:, sl] + svc_time[:, sl] + busy
-            if nan_seg == d:
-                lat_lvls[d][:, 0] = float("nan")
-            telemetry.segment_fence(f"up.lvl[{d}]", lat_lvls[d])
-            # this hop's own response status: 500 iff errorRate coin or a
-            # transport-failed step
-            if err_lvl is not None and fail_step is not None:
-                err_lvls[d] = err_lvl | (fail_step < P)
-            elif err_lvl is not None:
-                err_lvls[d] = err_lvl
-            elif fail_step is not None:
-                err_lvls[d] = fail_step < P
+                fail_lvls[d] = fail_step
+                lat_lvls[d] = wait[:, sl] + svc_time[:, sl] + busy
+                if nan_seg == d:
+                    lat_lvls[d][:, 0] = float("nan")
+                if telemetry.detail_enabled():
+                    telemetry.segment_fence(f"up.lvl[{d}]", lat_lvls[d])
+                # this hop's own response status: 500 iff errorRate coin or a
+                # transport-failed step
+                if err_lvl is not None and fail_step is not None:
+                    err_lvls[d] = err_lvl | (fail_step < P)
+                elif err_lvl is not None:
+                    err_lvls[d] = err_lvl
+                elif fail_step is not None:
+                    err_lvls[d] = fail_step < P
 
         # ---- downward pass: which hops actually execute ------------------
         # a down ENTRY service refuses the client's connection itself
@@ -5084,7 +5098,8 @@ class Simulator:
         telemetry.fence_reset()
         for d, lvl in enumerate(self._levels):
             start_chunks.append(start_cur)
-            telemetry.segment_fence(f"start.lvl[{d}]", start_cur)
+            if telemetry.detail_enabled():
+                telemetry.segment_fence(f"start.lvl[{d}]", start_cur)
             if d == L - 1:
                 break
             sl = slice(lvl.offset, lvl.offset + lvl.size)

@@ -28,6 +28,7 @@ from isotope_tpu_torch.telemetry.core import (  # noqa: F401
     segment_fence,
     set_meta,
     snapshot,
+    span,
     summary_block,
     summary_line,
     validate_jsonl,

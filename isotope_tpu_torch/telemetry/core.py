@@ -9,6 +9,11 @@ always-on instrumentation layer the ENGINE reports through:
   device op).  Instrumented code calls :func:`counter_inc`,
   :func:`gauge_set` / :func:`gauge_max`, and ``with phase("name"):``
   unconditionally.
+- **Spans** (:func:`span`) name a stretch of host code on the
+  profiler's timeline, the clock its device trace shares, so device
+  time and idle time can be put down to the code that launched or
+  awaited it.  With no profiler recording a span is one check: no op,
+  no registry update.  ``phase`` opens one around its body.
 - **Detail mode** (:func:`enable` with ``detail=True``) additionally
   arms :func:`segment_fence`: the engine synchronizes the card at each
   level of its upward and start-time sweeps, so each level gets its
@@ -35,6 +40,9 @@ import dataclasses
 import json
 import time
 from typing import Any, Dict, Iterator, List, Optional, Set
+
+import torch
+from torch._C._autograd import _profiler_enabled
 
 SCHEMA = "isotope-engine-telemetry/v1"
 
@@ -142,17 +150,40 @@ def phase_seconds(name: str) -> float:
     return _STATE.phases.get(name, 0.0)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range ``name`` on the profiler's timeline while a profiler
+    records (``torch.profiler.record_function``), nested in whatever
+    range the host thread is in; otherwise a context that does nothing.
+
+    The gate is one check, so spans may sit on the block path.  Close a
+    span before a generator yields: the lockstep twins
+    (``parallel/sharded.py``) suspend the block loops between blocks,
+    and a span left open would swallow the other loops' work.
+    """
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def phase(name: str) -> Iterator[None]:
-    """Accumulating wall-clock phase timer.
+    """Accumulating wall-clock phase timer, and a :func:`span` of the
+    same name.
 
-    Re-entering the same name sums; nested phases time independently,
-    so an enclosing phase's seconds include its children's (each name
-    is its own accumulator — there is no implicit hierarchy).
+    Its seconds are host wall time with no device sync: on the card,
+    the time to enqueue the body's work, not to run it (the span shows
+    the work on a profiler's trace).  Re-entering the same name sums;
+    nested phases time independently, so an enclosing phase's seconds
+    include its children's (each name is its own accumulator — there is
+    no implicit hierarchy).
     """
     t0 = time.perf_counter()
     try:
-        yield
+        with span(name):
+            yield
     finally:
         phase_add(name, time.perf_counter() - t0)
 
@@ -165,7 +196,8 @@ def fence_reset() -> None:
 
 
 def segment_fence(label: str, value) -> None:
-    """Detail-mode-only fence at a segment boundary.
+    """Detail-mode-only fence at a segment boundary (callers on the
+    block path build ``label`` only when :func:`detail_enabled`).
 
     Records the wall time since the previous fence (launch + device
     execution of this segment) under ``segment.<label>``, synchronizing
@@ -175,8 +207,6 @@ def segment_fence(label: str, value) -> None:
     """
     if not _STATE.detail or value is None:
         return
-    import torch
-
     t_prev = _STATE.last_fence_t
     if t_prev is None:
         t_prev = time.perf_counter()
@@ -203,8 +233,6 @@ def record_device_memory() -> Optional[float]:
     Returns the max peak bytes across devices, or ``None`` without an
     initialized CUDA device (the CPU has no such statistic).
     """
-    import torch
-
     if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
         return None
     peak = None
@@ -342,8 +370,6 @@ class RunTelemetry:
 def snapshot(label: Optional[str] = None) -> RunTelemetry:
     """Freeze the current registry (refreshing device-memory gauges)."""
     record_device_memory()
-    import torch
-
     meta: Dict[str, Any] = {"unix_time": time.time()}
     cuda = torch.cuda.is_available()
     meta["backend"] = "cuda" if cuda else "cpu"

@@ -9,13 +9,19 @@ With telemetry off the block loop gains no torch op and no card fence
 (a ``TorchDispatchMode`` count over a run with telemetry off and on);
 ``detail`` fences every level of the upward and start-time sweeps.
 These mirror ``tests/test_telemetry.py`` (less its XLA hooks, which
-have no counterpart in the port).
+have no counterpart in the port).  The port's spans (``span``, no
+counterpart in the reference) dispatch nothing with no profiler
+running, nest as documented under one, and never stay open across a
+block loop's ``yield``.
 """
+import contextlib
 import json
 import pathlib
 import re
 
 import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 from isotope_tpu import telemetry as jax_telemetry
 from isotope_tpu_torch import cli, telemetry
@@ -27,7 +33,7 @@ from isotope_tpu_torch.runner.config import (
     ExperimentConfig,
 )
 from isotope_tpu_torch.runner.run import run_experiment
-from isotope_tpu_torch.sim import LoadModel, Simulator, TorchDraws
+from isotope_tpu_torch.sim import LoadModel, SimParams, Simulator, TorchDraws
 from tools.torch_op_count import OpLog
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -91,6 +97,18 @@ def test_phase_timers_nest_and_sum():
         with telemetry.phase("raising"):
             raise KeyError("x")
     assert telemetry.phase_seconds("raising") > 0.0
+
+
+def test_a_phase_is_a_span_on_the_profilers_timeline():
+    def body():
+        with telemetry.phase("outer"):
+            with telemetry.phase("inner"):
+                torch.ones(4).sum()
+
+    spans = _profiled_spans(body)
+    assert [s[0] for s in spans] == ["outer", "inner"]
+    assert _within(spans[1], spans[0])
+    assert telemetry.phase_seconds("inner") > 0.0
 
 
 def test_run_telemetry_jsonl_round_trip(tmp_path):
@@ -174,9 +192,9 @@ def test_arm_telemetry_composes_detail():
 # -- the engine ----------------------------------------------------------------
 
 
-def _canonical_sim():
+def _canonical_sim(**params):
     return Simulator(compile_graph(ServiceGraph.from_yaml_file(CANONICAL)),
-                     device="cpu")
+                     device="cpu", params=SimParams(**params))
 
 
 def _run_ops(sim):
@@ -204,6 +222,24 @@ def test_telemetry_off_and_on_add_no_op(monkeypatch):
     assert torch.equal(s_on.latency_hist, s_off.latency_hist)
     assert telemetry.counter_get("engine_fences") == 0.0
     assert syncs == []
+    # the spans, reached on every block, dispatch nothing with no
+    # profiler running: the same ops and outputs as with no spans
+    reached = []
+    real = telemetry.span
+
+    def counted(name):
+        reached.append(name)
+        return real(name)
+
+    monkeypatch.setattr(telemetry, "span", counted)
+    spans, s_spans = _run_ops(sim)
+    monkeypatch.setattr(telemetry, "span",
+                        lambda name: contextlib.nullcontext())
+    bare, s_bare = _run_ops(sim)
+    assert spans == bare == off
+    assert torch.equal(s_spans.latency_hist, s_bare.latency_hist)
+    assert reached.count("engine.block") == 2
+    assert isinstance(real("engine.block"), contextlib.nullcontext)
 
 
 def test_detail_mode_fences_every_level():
@@ -219,6 +255,97 @@ def test_detail_mode_fences_every_level():
         assert f"segment.up.lvl[{d}]" in phases
         assert f"segment.start.lvl[{d}]" in phases
     assert telemetry.counter_get("numeric_sentinel_violations") == 0.0
+
+
+def _profiled_spans(fn):
+    """``(name, start, end)`` of the program's spans in ``fn``'s run
+    under a CPU profiler, in start order."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted(((e.name(), e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.is_user_annotation()), key=lambda s: s[1])
+
+
+def _within(inner, outer) -> bool:
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def _blocks(spans):
+    """Each ``engine.block`` with the spans that start inside it."""
+    blocks = [s for s in spans if s[0] == "engine.block"]
+    return [(b, [s for s in spans if s is not b and b[1] <= s[1] < b[2]])
+            for b in blocks]
+
+
+def test_summary_run_spans_each_block_in_order():
+    sim = _canonical_sim()
+    spans = _profiled_spans(lambda: sim.run_summary(
+        LoadModel(kind="open", qps=1000.0), 512, TorchDraws(0, "cpu"),
+        block_size=256))
+    names = [s[0] for s in spans]
+    assert names == ["engine.block", "engine.draws", "engine.sweep",
+                     "summary.block"] * 2
+    for block, inner in _blocks(spans):
+        assert [s[0] for s in inner] == ["engine.draws", "engine.sweep"]
+        assert all(_within(s, block) for s in inner)
+    # each block's summary runs after its block span closed
+    blocks = [s for s in spans if s[0] == "engine.block"]
+    summaries = [s for s in spans if s[0] == "summary.block"]
+    assert all(b[2] <= m[1] for b, m in zip(blocks, summaries))
+
+
+def test_attributed_tail_run_spans_its_pilot_and_each_blame_block():
+    sim = _canonical_sim(attribution=True)
+    spans = _profiled_spans(lambda: sim.run_attributed(
+        LoadModel(kind="open", qps=1000.0), 1024, TorchDraws(0, "cpu"),
+        block_size=512, tail=True))
+    (pilot,) = [s for s in spans if s[0] == "attribution.tail_pilot"]
+    in_pilot = [s for s in spans if s is not pilot and _within(s, pilot)]
+    after = [s for s in spans if s[1] >= pilot[2]]
+    # the pilot's 1,024 requests run in blocks of 512, the run in two
+    assert [s[0] for s in in_pilot].count("engine.block") == 2
+    assert "attribution.block" not in [s[0] for s in in_pilot]
+    assert [s[0] for s in after] == [
+        "engine.block", "engine.draws", "engine.sweep", "summary.block",
+        "attribution.block"] * 2
+    assert len(in_pilot) + len(after) + 1 == len(spans)
+
+
+def test_no_span_stays_open_across_a_block_loops_yield(monkeypatch):
+    """The lockstep twins suspend ``run_blocks`` and ``_summary_steps``
+    at each ``yield``: every span the engine opened is closed there."""
+    open_spans, entered = [], []
+
+    @contextlib.contextmanager
+    def tracked(name):
+        open_spans.append(name)
+        entered.append(name)
+        try:
+            yield
+        finally:
+            open_spans.remove(name)
+
+    monkeypatch.setattr(telemetry, "span", tracked)
+    sim = _canonical_sim(attribution=True)
+    load = LoadModel(kind="open", qps=1000.0)
+    seen = 0
+    for _ in sim.run_blocks(load, 512, TorchDraws(0, "cpu"),
+                            block_size=256):
+        assert open_spans == []
+        seen += 1
+    steps = sim._summary_steps(load, 512, TorchDraws(0, "cpu"), 256,
+                               None, False, attr=True, tail_cut=0.01)
+    while True:
+        try:
+            next(steps)
+        except StopIteration:
+            break
+        assert open_spans == []
+        seen += 1
+    assert seen == 4
+    assert entered.count("engine.block") == 4
+    assert entered.count("attribution.block") == 2
 
 
 def test_engine_build_and_run_series():
