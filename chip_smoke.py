@@ -40,7 +40,12 @@ any failure exits non-zero and nothing is caught:
    (``torch.profiler``'s device time for the kernel's own name, L2
    flushed before every launch), its bound and share of bound, the
    wrapper's host cost (host clock over a few hundred enqueues) and the
-   plain version's time, and per block the sums;
+   plain version's time, and per block the sums; then every level on
+   the ragged census (a dense level more than 4x padded: star-10k's
+   levels 2 and 3, the realistic topologies' wide levels) at its block,
+   the ragged kernel against the dense site's chain on the card bit for
+   bit, its device time beside its bound, the chain's time and the
+   plain version's;
 4. in situ: one block of the flagship tree (1000 qps), of the
    retry/timeout/error topology (500 qps) and of
    ``realistic-powerlaw-100.yaml`` (6,500 qps), 16,384 requests each, of
@@ -1088,7 +1093,8 @@ def kernel_phase(census_mod, runs, census_only, extra=()):
     per_block = []
     for name, sim, block in blocks + list(census_only):
         ms = plain_ms = bound_ms = 0.0
-        for shape in census_calls(sim, block):
+        calls = dense_calls(sim, block)
+        for shape in calls:
             args = census_inputs(*shape, seed=1)
             k = device_ms(lambda: census_mod.census(*args), flush)
             host = host_us(lambda: census_mod.census(*args))
@@ -1105,7 +1111,7 @@ def kernel_phase(census_mod, runs, census_only, extra=()):
             plain_ms += r
             bound_ms += bd
         log(f"kernel time per {name} block "
-            f"({len(census_calls(sim, block))} calls): device {ms:.4f} ms,"
+            f"({len(calls)} calls): device {ms:.4f} ms,"
             f" bound {bound_ms:.4f} ms, {bound_ms / ms:.1%} of bound; "
             f"plain {plain_ms:.4f} ms")
         per_block.append((name, ms, plain_ms, bound_ms))
@@ -1114,6 +1120,110 @@ def kernel_phase(census_mod, runs, census_only, extra=()):
                 bound_ms=bound_ms,
                 ms_per_block={name: t for name, t, _, _ in per_block},
                 bound_per_block={name: b for name, _, _, b in per_block})
+
+
+def ragged_bound_ms(plan, n, with_fail, with_err):
+    """Least time of one ragged census call: the calls' durations (and
+    transport flags) and the error flags read once, busy (and the fail
+    step) and the children's offsets written once, over the HBM rate."""
+    nbytes = n * plan.num_calls * (4 + with_fail)
+    nbytes += n * plan.size * (4 + 4 * with_fail + with_err)
+    nbytes += 4 * n * plan.num_children
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def ragged_inputs(plan, n, with_fail, with_err, seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    kw = dict(device="cuda", generator=g)
+    dur = torch.rand((n, plan.num_calls), **kw) * 2.0
+    transport = (torch.rand((n, plan.num_calls), **kw) < 0.05
+                 if with_fail else None)
+    err = torch.rand((n, plan.size), **kw) < 0.2 if with_err else None
+    return dur, transport, err
+
+
+def dense_calls(sim, block):
+    """``census_calls`` without the levels on the ragged census, whose
+    launches :func:`ragged_phase` times."""
+    calls = census_calls(sim, block)
+    for d, shape in level_calls(sim, block).items():
+        if sim._levels[d].ragged is not None:
+            calls.remove(shape)
+    return calls
+
+
+def level_calls(sim, block):
+    """The census call of each dense level with children, by level:
+    ``census_calls`` without the tiles' calls."""
+    calls = iter(census_calls(sim, block))
+    out = {}
+    for d in reversed(range(len(sim._levels))):
+        lvl = sim._levels[d]
+        if not lvl.num_children or lvl.sparse is not None:
+            continue
+        if lvl.tiled is None:
+            out[d] = next(calls)
+        else:
+            for tile in lvl.tiled.tiles:
+                if tile.num_calls:
+                    next(calls)
+    return out
+
+
+def ragged_phase(census_mod, runs, census_only, timing):
+    """Every level on the ragged census among ``runs`` and
+    ``census_only``, at its block: the kernel against the dense site's
+    chain on the card (``_slot_max``, ``_fail_min``, the sequential join,
+    the children's gather) bit for bit, then its device time (L2 flushed
+    before each launch) beside its bound, the dense chain's time with the
+    census kernel as its join and the plain version's (CUDA events) and
+    its wrapper's host cost.  Adds each configuration's device time and
+    bound to :func:`kernel_phase`'s per block (``timing``)."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    seen = set()
+    per_block = timing["ms_per_block"]
+    bound_per_block = timing["bound_per_block"]
+    for name, sim, block in ([(r[0], r[1], r[4]) for r in runs]
+                             + list(census_only)):
+        if (id(sim), block) in seen:
+            continue
+        seen.add((id(sim), block))
+        shapes = level_calls(sim, block)
+        for d, lvl in enumerate(sim._levels):
+            plan = lvl.ragged
+            if plan is None:
+                continue
+            n, _, _, with_fail, with_err = shapes[d]
+            args = ragged_inputs(plan, n, with_fail, with_err)
+            got = census_mod.census_ragged(plan, *args)
+            want = census_mod.census_ragged_reference(
+                plan, *args, join=census_mod.census_sequential)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    raise AssertionError(
+                        f"ragged {name} level {d}: differs from the dense "
+                        f"chain")
+            k = device_ms(lambda: census_mod.census_ragged(plan, *args),
+                          flush)
+            chain = time_ms(lambda: census_mod.census_ragged_reference(
+                plan, *args, join=census_mod.census), flush, reps=5)
+            plain = time_ms(lambda: census_mod.census_ragged_reference(
+                plan, *args), flush, reps=5)
+            host = host_us(lambda: census_mod.census_ragged(plan, *args))
+            bd = ragged_bound_ms(plan, n, with_fail, with_err)
+            per_block[name] = per_block.get(name, 0.0) + k
+            bound_per_block[name] = bound_per_block.get(name, 0.0) + bd
+            log(f"ragged ok {name} level {d}: {n} x {plan.size} x "
+                f"{plan.pmax}, {plan.num_steps} real steps, "
+                f"{plan.num_calls} calls, {plan.num_children} children, "
+                f"fail={with_fail} err={with_err} (bit-equal to the dense "
+                f"chain); device {k:.4f} ms (profiler), bound {bd:.4f} ms "
+                f"(bytes), {bd / k:.1%} of bound; dense chain {chain:.4f} "
+                f"ms, plain {plain:.4f} ms (events); host {host:.1f} us "
+                f"per call")
 
 
 # -- phase 4: in situ, card against CPU ---------------------------------------
@@ -6609,6 +6719,7 @@ def main() -> int:
         vet_cli_shapes(port), []) + fleet_pilot_shapes(
             port, runs, chaos_sim, storm) + mesh_extra_shapes(census_runs)
     timing = kernel_phase(census_mod, census_runs, census_only, vet_shapes)
+    ragged_phase(census_mod, census_runs, census_only, timing)
     checked = census_check_shapes(census_runs, census_only, vet_shapes)
 
     def plain(graph):

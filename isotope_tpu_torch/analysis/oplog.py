@@ -21,12 +21,15 @@ bytes' high-water is the eager program's own; storages the pilot reads
 but did not allocate (the Simulator's tables) are counted apart, as
 ``external_bytes``.
 
-The census kernel is launched through ctypes, so a dispatch mode would
-see its two ``torch.empty`` calls and not the kernel (and on the CPU the
-plain version's inner ops).  ``native/census.py`` calls
-:attr:`OpLog.census_hook` while a log records: the census is one entry,
-``census``, on both devices, with inputs ``step_base``, ``step_mask``,
-``agg``, ``fail_step`` and ``err`` and outputs ``busy`` and ``excl``.
+The census kernels are launched through ctypes, so a dispatch mode would
+see their ``torch.empty`` calls and not the kernels (and on the CPU the
+plain versions' inner ops).  ``native/census.py`` calls
+:attr:`OpLog.census_hook` while a log records: each census call is one
+entry, ``census``, on both devices: the dense join with inputs
+``step_base``, ``step_mask``, ``agg`` and the given ``fail_step`` and
+``err`` and outputs ``busy`` and ``excl``; the ragged census with
+inputs ``dur_call`` and the given ``final_transport`` and ``err`` and
+outputs ``busy``, the fail step where transport is given, and ``off``.
 With no log recording, the hook costs the census one global test.
 
 The saturated ``-qps max`` program is replaced by the plain closed loop,
@@ -58,9 +61,6 @@ TRACE_REQUESTS = 8
 CENSUS = "census"
 #: the join of two versions of one storage (a write through an alias)
 ALIAS = "alias"
-
-_CENSUS_INPUTS = ("step_base", "step_mask", "agg", "fail_step", "err")
-
 
 @dataclasses.dataclass
 class Op:
@@ -285,26 +285,25 @@ class OpLog:
         ))
         return out
 
-    def census_hook(self, step_base, step_mask, agg, fail_step=None,
-                    err=None):
-        """The census as one entry (``native/census.py`` calls this
-        while the log records)."""
+    def census_hook(self, fn, *args):
+        """A census call, ``fn(*args)`` (``native/census.py``'s
+        ``census`` or ``census_ragged``, which call this while the log
+        records), as one entry: its tensor arguments in, its tensor
+        results out."""
         from isotope_tpu_torch.native import census as census_mod
 
-        named = dict(zip(_CENSUS_INPUTS,
-                         (step_base, step_mask, agg, fail_step, err)))
-        in_ts = [t for t in named.values() if t is not None]
+        in_ts = [t for t in args if isinstance(t, torch.Tensor)]
         ins = tuple(self.read(t) for t in in_ts)
         self._paused = True
         census_mod.AUDIT = None
         try:
-            busy, excl = census_mod.census(step_base, step_mask, agg,
-                                           fail_step, err)
+            result = fn(*args)
         finally:
             census_mod.AUDIT = self.census_hook
             self._paused = False
+        out_ts = [t for t in result if t is not None]
         outs, new_bytes = [], 0
-        for t in (busy, excl):
+        for t in out_ts:
             vid, nb = self._write(t, True)
             outs.append(vid)
             new_bytes += nb
@@ -312,10 +311,10 @@ class OpLog:
         self.ops.append(Op(
             CENSUS, _site(3), ins, tuple(outs),
             tuple(tuple(t.shape) for t in in_ts),
-            (tuple(busy.shape), tuple(excl.shape)),
-            (busy.dtype, excl.dtype), new_bytes,
+            tuple(tuple(t.shape) for t in out_ts),
+            tuple(t.dtype for t in out_ts), new_bytes,
         ))
-        return busy, excl
+        return result
 
     def record(self):
         return _Recording(self)

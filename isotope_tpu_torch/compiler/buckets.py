@@ -28,6 +28,9 @@ import numpy as np
 
 #: padded-elements / real-elements budget for one bucket (see plan_segments)
 DEFAULT_WASTE = 1.6
+#: a dense (hops x Pmax) step grid past this many cells per real slot is
+#: padding more than work
+PADDED_GRID = 4
 
 #: a bucket shorter than this runs unrolled (no padding, no scan overhead)
 MIN_SCAN_LEVELS = 2
@@ -438,7 +441,7 @@ def level_encoding(
     encoding (tiny fully-skewed levels, e.g. one hub hop).
     """
     dense_elems = size * pmax
-    if dense_elems <= max(4 * n_slots, sparse_level_elems):
+    if dense_elems <= max(PADDED_GRID * n_slots, sparse_level_elems):
         return "dense", None
     if not tiling:
         return "sparse", None

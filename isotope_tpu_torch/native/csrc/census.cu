@@ -69,6 +69,15 @@
 //
 // C interface, loaded with ctypes: pointers as void*, sizes as int64,
 // the launch plan as an int32 array (layout: `Plan` below).
+//
+// The ragged census (`census_ragged_kernel`, launched by
+// census_ragged_launch) replaces no Pallas kernel: the JAX reference
+// computes every level on its padded (hops x Pmax) grid.  It is a new
+// design of the dense call site for a level whose grid is mostly
+// padding, where the chain scatter-max -> scatter-min -> tile kernel ->
+// child gather moved the whole (N, L, P) grid through device memory
+// twice for a few real steps (star-10k's 4,641 x 38 level: 534 cells a
+// real step).  See its own note below.
 
 #include <cstdint>
 #include <cstring>
@@ -526,6 +535,168 @@ __global__ void __launch_bounds__(256, 4)
   }
 }
 
+// -- the ragged census: every step of a mostly padded level at once ----------
+
+// For each (request n, hop h) row the kernel walks h's real steps from
+// the plan's compact list (hop_ptr, then per step its index, sleep
+// floor, calls and children), and for each step:
+//
+//   agg  = max of the step's call durations, over 0 as the dense site's
+//          scatter-max (include_self) has it, or over the calls alone on
+//          its uniform reshape-reduce; a NaN duration enters the max where
+//          the card's scatter carries one (keep_nan, probed by the wrapper)
+//          and always on the uniform path (amax propagates it)
+//   fail = min(fail, q) if one of the step's calls transport-failed: with
+//          steps walked in order this is the dense site's scatter-min by
+//          the time any later step reads it
+//   d    = step_dur(floor, agg, 1, ...), run += d, and each child of the
+//          step takes run - d as its offset
+//
+// A padded step of the dense grid adds max(floor, 0) * 0 = +0.0 to the
+// running sum (the plan admits a level only when every padded floor is
+// finite), and run + 0.0 == run for every run this sum can hold (it
+// starts at +0.0, so never reaches -0.0): skipping padded steps leaves
+// busy, the fail step and every child's offset bit for bit as the dense
+// chain computes them.
+//
+// What bounds it: bytes.  Per row it reads the error flag (1 byte) and
+// writes busy (4) and the fail step (4); per real step it reads its
+// calls' durations and transport flags and writes its children's
+// offsets.  One thread per (n, h) row, hops fastest, keeps every access
+// of a row coalesced.  But a step waits on a dependent chain of loads
+// (its call range, its call's column, the duration), and where hops with
+// steps are rare a warp of 32 neighbouring hops of one row that holds
+// one long hop keeps the other lanes idle through all of its steps
+// (star-10k's level 2: 68 of 4,641 hops have steps, one of them 38).  So
+// where at most one hop in RAGGED_SPLIT has a step (the wrapper decides
+// from the plan, `ragged_blocks`) the grid is split in two:
+//
+// - blocks [0, walk_blocks): one thread per (n, hop with steps), rows
+//   fastest, so the 32 lanes of a warp walk the same hop's steps for 32
+//   rows in lockstep: the plan's loads are one broadcast each, the warp
+//   has no divergence, and its 32 duration loads are in flight at once
+//   (each from its own row: strided, which is why denser levels keep the
+//   coalesced walk); these long blocks are dispatched first;
+// - the rest: one thread per (n, h) row, hops fastest, writing busy +0.0
+//   and the fail step P of each hop without a step with coalesced stores,
+//   and walking each hop with steps itself when walk_blocks is 0.
+//
+// The plan's tables are small and stay in L1/L2 through the read-only
+// path; no (N, L, P) grid is read, written or allocated.  Each thread
+// steps its indices by the grid stride instead of dividing per item.
+struct RaggedArgs {
+  const int32_t* hop_ptr;     // (L + 1)
+  const int32_t* walk_hops;   // (W): the hops with at least one step
+  const int32_t* step_q;      // (S)
+  const float* step_floor;    // (S)
+  const int32_t* call_ptr;    // (S + 1)
+  const int32_t* call_col;    // (K)
+  const int32_t* child_ptr;   // (S + 1)
+  const int32_t* child_col;   // (C)
+  const float* dur;           // (N, K)
+  const uint8_t* transport;   // (N, K) or null
+  const uint8_t* err;         // (N, L) or null
+  float* busy;                // (N, L)
+  int32_t* fail;              // (N, L), null when transport is
+  float* off;                 // (N, C)
+  int64_t n;
+  int32_t l, w, k, c, p;
+  int32_t uniform;            // no zero in the max (reshape-reduce path)
+  int32_t keep_nan;           // the scatter's max carries a NaN
+  int32_t walk_blocks;        // blocks of the first part
+};
+
+// the steps of hop h for request n
+__device__ __forceinline__ void ragged_walk(const RaggedArgs& a, int64_t n,
+                                            int32_t h) {
+  const int64_t r = n * a.l + h;
+  const bool has_fail = a.transport != nullptr;
+  const bool has_err = a.err != nullptr;
+  const float keep_row = (has_err && a.err[r] != 0) ? 0.0f : 1.0f;
+  const float* dur = a.dur + n * a.k;
+  const uint8_t* tr = has_fail ? a.transport + n * a.k : nullptr;
+  float* off = a.off + n * a.c;
+  int32_t fail = a.p;
+  float run = 0.0f;
+  const int32_t s1 = __ldg(a.hop_ptr + h + 1);
+  for (int32_t s = __ldg(a.hop_ptr + h); s < s1; ++s) {
+    const int32_t q = __ldg(a.step_q + s);
+    int32_t j = __ldg(a.call_ptr + s);
+    const int32_t j1 = __ldg(a.call_ptr + s + 1);
+    float agg = 0.0f;
+    if (a.uniform && j < j1) {
+      const int32_t col = __ldg(a.call_col + j);
+      agg = dur[col];
+      if (has_fail && tr[col] != 0) fail = min(fail, q);
+      ++j;
+    }
+    for (; j < j1; ++j) {
+      const int32_t col = __ldg(a.call_col + j);
+      const float x = dur[col];
+      agg = (a.uniform || a.keep_nan) ? nan_max(x, agg) : fmaxf(x, agg);
+      if (has_fail && tr[col] != 0) fail = min(fail, q);
+    }
+    const float d = step_dur(__ldg(a.step_floor + s), agg, 1.0f, has_fail,
+                             q <= fail, has_err, keep_row);
+    run = __fadd_rn(run, d);
+    const float e = __fsub_rn(run, d);
+    const int32_t c1 = __ldg(a.child_ptr + s + 1);
+    for (int32_t i = __ldg(a.child_ptr + s); i < c1; ++i)
+      off[__ldg(a.child_col + i)] = e;
+  }
+  a.busy[r] = run;
+  if (has_fail) a.fail[r] = fail;
+}
+
+__global__ void __launch_bounds__(256) census_ragged_kernel(RaggedArgs a) {
+  const bool walk = static_cast<int32_t>(blockIdx.x) < a.walk_blocks;
+  const int64_t block = walk ? blockIdx.x : blockIdx.x - a.walk_blocks;
+  const int64_t blocks = walk ? a.walk_blocks : gridDim.x - a.walk_blocks;
+  const int64_t first = block * blockDim.x + threadIdx.x;
+  const int64_t stride = blocks * blockDim.x;
+  if (walk) {
+    // item t = (hop j of walk_hops) * N + row n
+    const int64_t items = a.n * a.w;
+    if (first >= items) return;
+    const int64_t dj = stride / a.n;
+    const int64_t dn = stride - dj * a.n;
+    int64_t j = first / a.n;
+    int64_t n = first - j * a.n;
+    for (int64_t t = first; t < items; t += stride) {
+      ragged_walk(a, n, __ldg(a.walk_hops + j));
+      j += dj;
+      n += dn;
+      if (n >= a.n) {
+        n -= a.n;
+        ++j;
+      }
+    }
+    return;
+  }
+  // item r = row n * L + hop h: the hops without a step
+  const int64_t rows = a.n * a.l;
+  if (first >= rows) return;
+  const int64_t dn = stride / a.l;
+  const int32_t dh = static_cast<int32_t>(stride - dn * a.l);
+  int64_t n = first / a.l;
+  int32_t h = static_cast<int32_t>(first - n * a.l);
+  const bool has_fail = a.transport != nullptr;
+  for (int64_t r = first; r < rows; r += stride) {
+    if (__ldg(a.hop_ptr + h) == __ldg(a.hop_ptr + h + 1)) {
+      a.busy[r] = 0.0f;
+      if (has_fail) a.fail[r] = a.p;
+    } else if (a.walk_blocks == 0) {
+      ragged_walk(a, n, h);
+    }
+    h += dh;
+    n += dn;
+    if (h >= a.l) {
+      h -= a.l;
+      ++n;
+    }
+  }
+}
+
 // -- launch -------------------------------------------------------------------
 
 // raise the kernel's dynamic shared-memory limit to the plan's size
@@ -611,6 +782,35 @@ extern "C" int census_launch(const void* base, const void* mask,
     case 1: return launch_tile_aligned<1>(a, pl, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+extern "C" int census_ragged_launch(
+    const void* hop_ptr, const void* walk_hops, const void* step_q,
+    const void* step_floor, const void* call_ptr, const void* call_col,
+    const void* child_ptr, const void* child_col, const void* dur,
+    const void* transport, const void* err, void* busy, void* fail,
+    void* off, int64_t n, int32_t l, int32_t w, int32_t k, int32_t c,
+    int32_t p, int32_t uniform, int32_t keep_nan, int32_t walk_blocks,
+    int32_t row_blocks, int32_t threads, void* stream) {
+  if (n * l <= 0) return 0;
+  const RaggedArgs a{static_cast<const int32_t*>(hop_ptr),
+                     static_cast<const int32_t*>(walk_hops),
+                     static_cast<const int32_t*>(step_q),
+                     static_cast<const float*>(step_floor),
+                     static_cast<const int32_t*>(call_ptr),
+                     static_cast<const int32_t*>(call_col),
+                     static_cast<const int32_t*>(child_ptr),
+                     static_cast<const int32_t*>(child_col),
+                     static_cast<const float*>(dur),
+                     static_cast<const uint8_t*>(transport),
+                     static_cast<const uint8_t*>(err),
+                     static_cast<float*>(busy),
+                     static_cast<int32_t*>(fail),
+                     static_cast<float*>(off),
+                     n, l, w, k, c, p, uniform, keep_nan, walk_blocks};
+  census_ragged_kernel<<<walk_blocks + row_blocks, threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* census_error_string(int code) {

@@ -80,7 +80,13 @@ import torch.nn.functional as F
 from isotope_tpu_torch import telemetry
 from isotope_tpu_torch.compiler import buckets
 from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
-from isotope_tpu_torch.native.census import census
+from isotope_tpu_torch.native.census import (
+    RaggedPlan,
+    census,
+    census_ragged,
+    ragged_engages,
+    ragged_plan,
+)
 from isotope_tpu_torch.resilience import faults
 from isotope_tpu_torch.sim import closed, queueing
 from isotope_tpu_torch.sim import lb as lb_mod
@@ -200,6 +206,9 @@ class _Level:
     sparse: Optional["_SparseSteps"] = None
     # dense-blocked tiling of a skewed wide level; exclusive with sparse
     tiled: Optional["_TiledSteps"] = None
+    # a dense level whose grid is mostly padding: its real steps, for the
+    # ragged census (native/census.py); None = the dense census
+    ragged: Optional[RaggedPlan] = None
     # (C,) i64 churn-weight column of each child (sentinel E: weight 1);
     # None without traffic splits
     child_churn_entry: Optional[torch.Tensor] = None
@@ -1405,6 +1414,16 @@ class Simulator:
                     ),
                 )
             )
+            # a dense grid that is mostly padding takes the ragged census,
+            # which walks the real steps alone (native/census.py)
+            if dense and n_calls and ragged_engages(
+                lvl.step_base[:, :pmax], lvl.step_is_real[:, :pmax]
+            ):
+                lv = levels[-1]
+                levels[-1] = dataclasses.replace(lv, ragged=ragged_plan(
+                    lv.step_base, lv.step_mask, lv.call_seg, lv.call_hop,
+                    lv.call_step, lv.child_seg, lv.uniform_calls,
+                ))
             offset += lvl.num_hops
         self._levels: Tuple[_Level, ...] = tuple(levels)
 
@@ -4012,7 +4031,9 @@ class Simulator:
         tile of a tiled level that holds calls, ``(N, T, W)``, with the
         level's fail step and no error coins.  ``members``: a folded
         fleet block of that many members (``"vmap"``), whose calls take
-        ``members * n`` rows."""
+        ``members * n`` rows.  A level on the ragged census
+        (``_Level.ragged``) keeps its dense shape here: its one launch
+        counts in ``census.launches`` as the dense call did."""
         spec = self.draw_spec(n, OPEN_LOOP, policy=policy)
         n = n * members
         err = spec.need_err or spec.panic or spec.shed
@@ -4964,6 +4985,18 @@ class Simulator:
                             )
                         if err_lvl is not None:
                             busy = busy * ~err_lvl
+                        if att_off is not None:
+                            off = off + used_lvls[d] * att_off[:, :C]
+                        off_lvls[d] = off
+                    elif lvl.ragged is not None:
+                        # a mostly padded grid: the real steps alone, one
+                        # kernel from the calls to the children's offsets
+                        busy, fail_step, off = census_ragged(
+                            lvl.ragged, dur_call.contiguous(),
+                            final_transport.contiguous()
+                            if final_transport is not None else None,
+                            err_lvl,
+                        )
                         if att_off is not None:
                             off = off + used_lvls[d] * att_off[:, :C]
                         off_lvls[d] = off

@@ -19,6 +19,12 @@ import torch
 
 from isotope_tpu.native import census_pallas
 from isotope_tpu_torch.native import census as census_mod
+from test_torch_census_cuda import (
+    ragged_inputs,
+    ragged_level,
+    same_bits,
+    star10k_sim,
+)
 
 # The Pallas kernel (interpret mode) and the torch chain take the same
 # float32 max / mask multiplies; only the step-axis prefix sum may
@@ -546,3 +552,126 @@ def test_launch_plan_matches_the_kernels_plan_layout():
     assert values["path"] == 1 and values["vec"] == plan.vec
     assert values["stage_bytes"] == plan.stage_bytes
     assert values["opt_in"] == int(plan.smem_bytes > 48 * 1024)
+
+
+# -- the ragged census: the dense site of a mostly padded level --------------
+
+
+@pytest.mark.parametrize("kind", ["scatter", "uniform"])
+@pytest.mark.parametrize("fail,err", [(False, False), (True, True),
+                                      (True, False)])
+@pytest.mark.parametrize("nan", [0.0, 0.02])
+def test_ragged_plain_version_is_the_dense_composition(kind, fail, err, nan):
+    """On the CPU ``census_ragged`` is the dense site's own chain
+    (``_slot_max``, ``_fail_min``, the census, the children's gather) bit
+    for bit; the kernel's order of operations (``census_ragged_sequential``,
+    padded steps skipped, the fail step found on the walk) equals that
+    chain with the sequential join bit for bit."""
+    from isotope_tpu_torch.sim.engine import _fail_min, _slot_max
+
+    plan = census_mod.ragged_plan(*ragged_level(
+        3, uniform=None if kind == "scatter" else 2, device="cpu"))
+    args = ragged_inputs(plan, 64, fail, err, nan, seed=5)
+    dur, ft, e = args
+    n, size, p = 64, plan.size, plan.pmax
+    agg = _slot_max(dur, n, size, p, plan.call_seg, plan.uniform)
+    fs = None if ft is None else _fail_min(
+        ft, plan.call_step, plan.call_hop, n, size, p, p, plan.uniform)
+    busy, excl = census_mod.census(plan.step_base, plan.step_mask,
+                                   agg.contiguous(), fs, e)
+    same_bits(census_mod.census_ragged(plan, *args),
+              (busy, fs, excl.reshape(n, -1)[:, plan.child_seg]))
+    same_bits(census_mod.census_ragged_sequential(plan, *args),
+              census_mod.census_ragged_reference(
+                  plan, *args, join=census_mod.census_sequential))
+
+
+def test_ragged_plan_walks_the_real_steps():
+    """The compact list: each hop's real steps in step order, each
+    step's calls and children, every call and child once."""
+    level = ragged_level(9, size=30, pmax=7, device="cpu")
+    plan = census_mod.ragged_plan(*level)
+    mask = level[1].numpy() != 0
+    hops, qs = np.nonzero(mask)
+    assert plan.hop_ptr.tolist() == [0] + np.cumsum(mask.sum(1)).tolist()
+    assert plan.walk_hops.tolist() == np.flatnonzero(mask.any(1)).tolist()
+    assert plan.step_q.tolist() == qs.tolist()
+    assert torch.equal(plan.step_floor, level[0][hops, qs])
+    flat = {(h, q): s for s, (h, q) in enumerate(zip(hops, qs))}
+    for ptr, col, seg in ((plan.call_ptr, plan.call_col, level[2]),
+                          (plan.child_ptr, plan.child_col, level[5])):
+        assert sorted(col.tolist()) == list(range(len(seg)))
+        for s in range(plan.num_steps):
+            for k in col[ptr[s]:ptr[s + 1]].tolist():
+                assert flat[divmod(int(seg[k]), plan.pmax)] == s
+    with pytest.raises(ValueError, match="padded step"):
+        census_mod.ragged_plan(level[0], torch.zeros_like(level[1]),
+                               *level[2:])
+
+
+def _ragged_levels(sim):
+    return [d for d, lvl in enumerate(sim._levels) if lvl.ragged is not None]
+
+
+def test_ragged_predicate_picks_star10k_levels_2_and_3():
+    """The shape decides: star10k's levels 2 (4,641 x 38, 330 real steps)
+    and 3 (330 x 3, 7) take the ragged census; its 1 x 5,021 root, level
+    1's tiles and every tree121 level (P = 1, all real) do not."""
+    import json
+
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import Simulator
+
+    star = star10k_sim("cpu")
+    assert _ragged_levels(star) == [2, 3]
+    assert star._levels[1].tiled is not None
+    lvl = star._levels[2]
+    assert (lvl.size, lvl.pmax, lvl.ragged.num_steps) == (4641, 38, 330)
+    assert star._levels[3].ragged.num_steps == 7
+    tree = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                       / "portbench" / "configs" / "tree121.json")
+                      .read_text())
+    sim = Simulator(compile_graph(ServiceGraph.from_yaml(
+        json.dumps(tree["topology"]))), device="cpu")
+    assert [lvl.pmax for lvl in sim._levels if lvl.num_children] == [1] * 4
+    assert _ragged_levels(sim) == []
+
+
+def test_ragged_predicate_keeps_a_nonfinite_padded_floor_dense():
+    """A padded step adds max(floor, 0) * 0 to the running sum: +0.0 only
+    for a finite floor, so a level with a non-finite padded floor keeps
+    the dense census; a non-finite floor on a real step does not
+    matter, and a grid at most 4x its real steps stays dense."""
+    base, mask = ragged_level(4, size=20, pmax=6, device="cpu")[:2]
+    base, mask = base.numpy().copy(), mask.numpy()
+    assert mask.size > 4 * mask.sum()
+    assert census_mod.ragged_engages(base, mask)
+    real = np.argwhere(mask != 0)[0]
+    pad = np.argwhere(mask == 0)[0]
+    base[tuple(real)] = np.inf
+    assert census_mod.ragged_engages(base, mask)
+    for bad in (np.inf, -np.inf, np.nan):
+        b = base.copy()
+        b[tuple(pad)] = bad
+        assert not census_mod.ragged_engages(b, mask)
+    full = np.ones((4, 5), np.float32)
+    full[:, 4] = 0.0          # 20 cells, 16 real
+    assert not census_mod.ragged_engages(full, full)
+
+
+@pytest.mark.parametrize("n,size,walk,want", [
+    (3355, 4641, 68, (892, 1056)),     # star10k's level 2: walkers first
+    (3355, 330, 3, (40, 1056)),        # its level 3
+    (524288, 46, 1, (1056, 1056)),     # realistic-star-50's hub level
+    (524288, 19, 5, (0, 1056)),        # realistic-star-auxiliary-50's
+    (335544, 25, 21, (0, 1056)),       # realistic-powerlaw-100's
+    (1, 16, 1, (1, 1)),
+    (1, 15, 1, (0, 1)),
+])
+def test_ragged_blocks(n, size, walk, want):
+    """The ragged kernel's two parts: one thread per (row, hop with
+    steps) where at most one hop in 16 has a step, then one per (row,
+    hop), each capped at a card of resident blocks (8 x 256 threads an
+    SM)."""
+    assert census_mod.ragged_blocks(n, size, walk) == want

@@ -5,6 +5,8 @@ CPU mode).  They import nothing of JAX, so they also run on a machine
 without it: ``python -m pytest --noconftest -m cuda
 tests/test_torch_census_cuda.py``.
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -309,3 +311,201 @@ def test_folded_bracket_rung_on_the_kernel_matches_the_cpu(card):
             torch.testing.assert_close(getattr(a.summaries, name),
                                        getattr(b.summaries, name),
                                        rtol=RTOL, atol=1e-9)
+
+
+# -- the ragged census: the dense site of a mostly padded level --------------
+
+STAR10K = (pathlib.Path(__file__).resolve().parents[1] / "portbench"
+           / "configs" / "star10k.json")
+
+
+def ragged_level(seed, size=40, pmax=9, empty=0.8, sleep=0.3, calls=3,
+                 uniform=None, device="cuda"):
+    """A random dense level's tables as the engine holds them, as
+    ``(step_base, step_mask, call_seg, call_hop, call_step, child_seg,
+    uniform)``: ``size`` hops of at most ``pmax`` steps, a share
+    ``empty`` of them without a step, real steps at random places, a
+    share ``sleep`` of those pure sleeps and the rest with 1 to
+    ``calls`` calls, calls and children (one a call) in shuffled level
+    order.  ``uniform``: every step real with that many calls in order
+    (the dense site's reshape-reduce path)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 1, (size, pmax)).astype(np.float32)
+    if uniform is not None:
+        mask = np.ones((size, pmax), bool)
+        seg = np.repeat(np.arange(size * pmax), uniform)
+        child = seg
+    else:
+        mask = np.zeros((size, pmax), bool)
+        for h in range(size):
+            if h == 0 or rng.uniform() >= empty:
+                w = int(rng.integers(1, pmax + 1))
+                mask[h, rng.choice(pmax, w, replace=False)] = True
+        real = np.flatnonzero(mask)
+        per = np.where(rng.uniform(size=len(real)) < sleep, 0,
+                       rng.integers(1, calls + 1, len(real)))
+        per[0] = max(per[0], 1)
+        seg = rng.permutation(np.repeat(real, per))
+        child = rng.permutation(seg)
+
+    def t(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return (t(base, torch.float32), t(mask, torch.float32),
+            t(seg, torch.int64), t(seg // pmax, torch.int64),
+            t(seg % pmax, torch.int32), t(child, torch.int64), uniform)
+
+
+def ragged_inputs(plan, n, fail, err, nan=0.0, seed=0):
+    """``(dur_call, final_transport, err)`` of ``n`` rows, on the plan's
+    device: durations in [0, 2) with a share ``nan`` of NaNs, 5% of the
+    calls transport-failed, 20% of the rows 500ing."""
+    rng = np.random.default_rng(seed)
+    dev = plan.step_base.device
+    dur = rng.uniform(0, 2, (n, plan.num_calls)).astype(np.float32)
+    dur[rng.uniform(size=dur.shape) < nan] = np.nan
+    return (
+        torch.from_numpy(dur).to(dev),
+        torch.from_numpy(rng.uniform(size=dur.shape) < 0.05).to(dev)
+        if fail else None,
+        torch.from_numpy(rng.uniform(size=(n, plan.size)) < 0.2).to(dev)
+        if err else None,
+    )
+
+
+def same_bits(got, want):
+    """Equal bit for bit, NaN where NaN (a NaN's payload aside)."""
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            assert a is None and b is None
+            continue
+        if a.dtype.is_floating_point:
+            nan = torch.isnan(a)
+            assert torch.equal(nan, torch.isnan(b))
+            a = torch.where(nan, 0.0, a).view(torch.int32)
+            b = torch.where(nan, 0.0, b).view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _ragged_against_the_dense_chain(plan, args):
+    """The kernel against the dense site's chain on the card, with the
+    sequential join and with the dense kernel, bit for bit; each launch
+    counts once in both counters."""
+    before = (census_mod.census.launches, census_mod.census_ragged.launches)
+    got = census_mod.census_ragged(plan, *args)
+    torch.cuda.synchronize()
+    assert (census_mod.census.launches,
+            census_mod.census_ragged.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = census_mod.census_ragged_reference(
+        plan, *args, join=census_mod.census_sequential)
+    same_bits(got, want)
+    same_bits(got, census_mod.census_ragged_reference(
+        plan, *args, join=census_mod.census))
+    same_bits(got, census_mod.census_ragged_sequential(
+        plan, *args, keep_nan=census_mod._scatter_keeps_nan(
+            args[0].device)))
+    return got
+
+
+RAGGED_KINDS = {
+    "scatter": dict(),
+    # at most one hop in 16 with steps: the kernel walks them apart
+    "rare": dict(size=400, empty=0.99),
+    "uniform": dict(uniform=2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 37, 3355])
+@pytest.mark.parametrize("kind", sorted(RAGGED_KINDS))
+@pytest.mark.parametrize("fail,err", [(False, False), (True, False),
+                                      (False, True), (True, True)])
+@pytest.mark.parametrize("nan", [0.0, 0.01])
+def test_ragged_kernel_equals_the_dense_chain(card, rows, kind, fail, err,
+                                              nan):
+    """Random levels (hops without a step, pure sleeps, several calls a
+    step; the scatter and the uniform reshape-reduce paths; hops with
+    steps rare enough that the kernel walks them apart) with fail steps,
+    error flags and NaN durations."""
+    plan = census_mod.ragged_plan(*ragged_level(rows, **RAGGED_KINDS[kind]))
+    walkers, _ = census_mod.ragged_blocks(rows, plan.size,
+                                          len(plan.walk_hops))
+    assert (walkers > 0) == (kind == "rare")
+    _ragged_against_the_dense_chain(
+        plan, ragged_inputs(plan, rows, fail, err, nan, seed=rows))
+
+
+def star10k_sim(device):
+    import json
+
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import Simulator
+
+    config = json.loads(STAR10K.read_text())
+    return Simulator(compile_graph(ServiceGraph.from_yaml(
+        json.dumps(config["topology"]))), device=device)
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_on_star10k_levels(card):
+    """star10k's levels 2 (4,641 x 38, 330 real steps) and 3 (330 x 3, 7
+    real steps) at the cell's 3,355 rows, with fail steps (30 s
+    timeouts), error flags and NaNs."""
+    sim = star10k_sim("cuda")
+    assert [d for d, lvl in enumerate(sim._levels)
+            if lvl.ragged is not None] == [2, 3]
+    for d in (2, 3):
+        plan = sim._levels[d].ragged
+        _ragged_against_the_dense_chain(
+            plan, ragged_inputs(plan, 3355, True, True, 0.001, seed=d))
+
+
+RAGGED_YAML = SKEWED.replace(
+    "  - [{call: hub}, {call: s0}, {call: s1}, {call: s2}]\n",
+    "  - [{call: hub}, {call: s0}, {call: s1}, {call: s2}, {call: s3}]\n",
+).replace("- name: s2\n", "- name: s2\n- name: s3\n").replace(
+    "  - call: w3\n", "  - call: {service: w3, timeout: 4ms, retries: 2}\n")
+
+
+def _dense_twin(sim):
+    """``sim`` with every level on the dense census."""
+    import dataclasses
+
+    sim._levels = tuple(dataclasses.replace(lvl, ragged=None)
+                        for lvl in sim._levels)
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["star10k", "errors-retries"])
+def test_ragged_run_equals_the_dense_run(card, case):
+    """A whole block on the card with its padded levels on the ragged
+    census equals the same block on the dense census, bit for bit:
+    star10k (3,355 rows, 30 s timeouts) and a 5 x 7 level with a 30%
+    error rate, a timeout that fires mid-script and retries."""
+    from isotope_tpu_torch.compiler import compile_graph
+    from isotope_tpu_torch.models.graph import ServiceGraph
+    from isotope_tpu_torch.sim import LoadModel, Simulator, TorchDraws
+
+    if case == "star10k":
+        sims = [star10k_sim("cuda") for _ in range(2)]
+        n, qps = 3355, 1000.0
+    else:
+        compiled = compile_graph(ServiceGraph.from_yaml(RAGGED_YAML))
+        sims = [Simulator(compiled, device="cuda") for _ in range(2)]
+        n, qps = 4096, 1000.0
+    ragged, dense = sims[0], _dense_twin(sims[1])
+    assert any(lvl.ragged is not None for lvl in ragged._levels)
+    load = LoadModel(kind="open", qps=qps)
+    before = census_mod.census_ragged.launches
+    got = ragged.run(load, n, TorchDraws(7, "cuda"))
+    assert census_mod.census_ragged.launches > before
+    want = dense.run(load, n, TorchDraws(7, "cuda"))
+    torch.cuda.synchronize()
+    if case != "star10k":
+        assert bool(want.hop_error.any())
+    for name in ("hop_sent", "hop_error", "client_error", "client_latency",
+                 "hop_latency", "hop_start", "client_start"):
+        same_bits([getattr(got, name)], [getattr(want, name)])

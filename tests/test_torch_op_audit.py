@@ -167,17 +167,32 @@ def test_injected_defects_are_found(kind, rule, monkeypatch):
 def test_census_is_one_entry_with_its_named_inputs(name):
     """Each census call is one ``census`` entry, with the call's shapes
     (``Simulator.census_shapes`` at the pilot's size) and its outputs
-    ``busy`` and ``excl``; the plain version's inner ops are not
+    ``busy`` and ``excl``, or, on a level that takes the ragged census,
+    its calls' durations in and ``busy``, the fail step and the
+    children's offsets out; the plain versions' inner ops are not
     logged."""
     sim = example_sim(name)
     pilot = oplog.run_pilot(sim, OPEN)
     entries = [op for op in pilot.log.ops if op.name == oplog.CENSUS]
     shapes = sim.census_shapes(pilot.n)
     assert len(entries) == len(shapes) == pilot.log.census_calls
-    for op, (n, b, p, fail, err) in zip(entries, shapes):
-        assert op.out_shapes == ((n, b), (n, b, p))
-        assert op.in_shapes[:3] == ((b, p), (b, p), (n, b, p))
-        assert len(op.ins) == 3 + fail + err
+    plans = []
+    for lvl in reversed(sim._levels):
+        if lvl.num_children and lvl.sparse is None:
+            plans += [lvl.ragged] if lvl.tiled is None else [None] * sum(
+                1 for tile in lvl.tiled.tiles if tile.num_calls)
+    # the realistic topologies each have a level more than 4x padded
+    assert any(plans) == (name != "canonical.yaml")
+    for op, (n, b, p, fail, err), plan in zip(entries, shapes, plans):
+        if plan is None:
+            assert op.out_shapes == ((n, b), (n, b, p))
+            assert op.in_shapes[:3] == ((b, p), (b, p), (n, b, p))
+            assert len(op.ins) == 3 + fail + err
+        else:
+            assert op.out_shapes == (
+                ((n, b),) * (1 + fail) + ((n, plan.num_children),))
+            assert op.in_shapes[0] == (n, plan.num_calls)
+            assert len(op.ins) == 1 + fail + err
     assert not any(op.site.startswith("native/census.py")
                    for op in pilot.log.ops)
     assert {op.site for op in entries} <= {
