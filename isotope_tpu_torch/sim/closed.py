@@ -50,18 +50,40 @@ equicorrelation approximation; the measured envelope is gated in
 tests/test_oracle.py.
 
 A copy of ``isotope_tpu.sim.closed`` (numpy and scipy only): the
-port's saturated closed loop builds its tables with it.
+port's saturated closed loop builds its tables with it.  The port adds
+a solve that scales: the convolution costs O(S * N^2), and its
+normalised products lose terms past a hundred or so connections on wide
+chains (a throughput 11% low on 1,000 stations at 256) and underflow
+past a few thousand.  :func:`log_convolution_marginals` holds the same
+constants in log space, with a closed-form census for single-server
+stations, in O(S * N); :func:`quantile_tables` fits every distinct
+station at once.  ``closed_network_tables`` takes them past
+``CONVOLUTION_MAX_POPULATION``.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
-from scipy.special import gammainc
+from scipy.special import gammainc, gammaln
 
 # shared wait-quantile polynomial degree (tables_from_pi and the
 # engine's degenerate-row stubs must agree on the coefficient count)
 DEFAULT_QUANTILE_DEGREE = 10
+#: populations up to this (the reference's default of 64 connections)
+#: are solved by :func:`convolution_marginals` and fit by
+#: :func:`tables_from_pi`, the JAX package's own path, whose tables the
+#: port's equal bit for bit; larger ones by :func:`log_convolution_marginals`
+#: and :func:`quantile_tables`.  Past it the convolution's normalised
+#: products lose terms before they underflow: 1,000 stations of visit
+#: ratios 0.2-3 at 256 connections read a throughput 11% low
+CONVOLUTION_MAX_POPULATION = 64
+#: stages of a wait mixture beyond which less than this much mass lies
+#: are left out of the quantile fit: below float64's resolution of the
+#: fitted probabilities (u' <= 1 - 1.1e-7)
+STAGE_TAIL_MASS = 1e-18
+#: elements of one (stations, grid, stages) block of the fit's bisection
+FIT_CHUNK_ELEMS = 1 << 22
 
 
 class ClosedTables(NamedTuple):
@@ -526,6 +548,239 @@ def tables_from_pi(
     return p_zero, coef, mean_wait
 
 
+def _log_shift(lg: np.ndarray, j: int) -> np.ndarray:
+    """``lg`` moved ``j`` places up: ``out[n] = lg[n - j]``, ``-inf``
+    below ``j``."""
+    out = np.full_like(lg, -np.inf)
+    if j < len(lg):
+        out[j:] = lg[: len(lg) - j]
+    return out
+
+
+def _log_geometric(lg: np.ndarray, lr: float) -> np.ndarray:
+    """log of ``G (*) r^j``: ``sum_{i <= n} r^(n - i) G(i)`` from ``lg =
+    log G`` and ``lr = log r``, one cumulative log-sum in O(N)."""
+    n = np.arange(len(lg), dtype=np.float64)
+    return n * lr + np.logaddexp.accumulate(lg - n * lr)
+
+
+def _log_station_conv(lg: np.ndarray, lx: float, k: int) -> np.ndarray:
+    """log of ``G (*) f`` for a station of ``k`` servers, ``f(j) =
+    prod_{i <= j} x / min(i, k)`` and ``lx = log x``, re-centred on its
+    largest term: ``f`` is geometric from ``j = k`` on, so the product is
+    ``k`` shifted terms and one geometric sum, O(k * N)."""
+    size = len(lg)
+    lf = _log_station_factor(lx, k, min(k, size - 1) + 1)
+    out = (
+        lf[k] + _log_shift(_log_geometric(lg, lx - np.log(k)), k)
+        if k < size else np.full(size, -np.inf)
+    )
+    for j in range(min(k, size)):
+        out = np.logaddexp(out, lf[j] + _log_shift(lg, j))
+    return out - out.max()
+
+
+def _log_station_factor(lx: float, k: int, size: int) -> np.ndarray:
+    """``log f(j)``, ``j = 0 .. size - 1``, of a ``k``-server station."""
+    j = np.arange(1, size, dtype=np.float64)
+    return np.concatenate([[0.0], np.cumsum(lx - np.log(np.minimum(j, k)))])
+
+
+def log_convolution_marginals(
+    visits: np.ndarray,
+    replicas: np.ndarray,
+    mu: float,
+    delay_s: float,
+    population: int,
+) -> Tuple[float, np.ndarray, np.ndarray]:
+    """:func:`convolution_marginals` in log space, for any population.
+
+    Returns ``(lambda(N), pi, pi_delay)``, the same law: Buzen's
+    normalising constants ``G(n)``, ``n = 0 .. N``, held as logs
+    re-centred after every factor, so no term underflows however far
+    ``G(N)`` lies from ``G(0)``.  Each factor joins in O(k * N)
+    (:func:`_log_station_conv`): ``G`` grows from the delay station's
+    ``(beta Z)^j / j!`` one station at a time.
+
+    - A single-server station's arriving census is closed-form (arrival
+      theorem at ``n = N - 1``): ``P(n_s >= j) = x_s^j G(n - j) / G(n)``
+      with ``x_s = beta v_s / mu``, one (S1, N) array for all of them,
+      and ``pi_s(j) = P(n_s >= j) - P(n_s >= j + 1)``.
+    - A station of ``k > 1`` servers needs ``G`` without itself:
+      leave-one-out products over a halving tree of those stations,
+      from the delay and the single-server stations' product, so each
+      joins O(log K) times.
+    - The delay station's census needs the stations' product alone, a
+      second pass from ``G = 1``.
+
+    O(S * N) for single-server networks (the (S, N) census dominates),
+    against the convolution's O(S * N^2).
+    """
+    v = np.asarray(visits, np.float64)
+    k = np.asarray(replicas, np.float64)
+    S = len(v)
+    N = int(population)
+    if N < 1:
+        raise ValueError("population must be >= 1")
+    z = max(float(delay_s), 1e-12)
+    active = np.nonzero(v > 1e-15)[0]
+    beta = max(float((k * mu).max(initial=1.0)), 1.0 / z)
+    lx = np.log(beta * v[active] / mu)
+    ka = k[active].astype(np.int64)
+    size = N + 1
+    j = np.arange(size, dtype=np.float64)
+    lg_delay = j * np.log(beta * z) - gammaln(j + 1.0)
+
+    def join(lg, idx):
+        for i in idx:
+            lg = _log_station_conv(lg, float(lx[i]), int(ka[i]))
+        return lg
+
+    def leave_one_out(lg, idx):
+        """``{i: log G without station i}`` over the stations ``idx``."""
+        if len(idx) == 1:
+            return {int(idx[0]): lg}
+        half = len(idx) // 2
+        return {**leave_one_out(join(lg, idx[half:]), idx[:half]),
+                **leave_one_out(join(lg, idx[:half]), idx[half:])}
+
+    singles = np.nonzero(ka == 1)[0]
+    multis = np.nonzero(ka > 1)[0]
+    lg_base = join(lg_delay - lg_delay.max(), singles)
+    lg = join(lg_base, multis)
+    lam = beta * float(np.exp(lg[N - 1] - lg[N]))
+
+    n = N - 1
+    pi = np.zeros((S, N))
+    pi[:, 0] = 1.0
+    if len(singles):
+        # log P(n_s >= j), j = 0 .. n; P(n_s >= n + 1) = 0
+        lg_rev = lg[n::-1] - lg[n]
+        tail = np.exp(lx[singles, None] * j[None, :n + 1] + lg_rev[None, :])
+        pi[active[singles]] = tail - np.concatenate(
+            [tail[:, 1:], np.zeros((len(singles), 1))], axis=1)
+
+    def census(lf, lg_rest):
+        raw = lf[: n + 1] + lg_rest[n::-1]
+        p = np.exp(raw - raw.max())
+        return p / p.sum()
+
+    if len(multis):
+        for i, lg_rest in leave_one_out(lg_base, multis).items():
+            pi[active[i]] = census(
+                _log_station_factor(float(lx[i]), int(ka[i]), size), lg_rest)
+    lg_stations = join(np.where(j == 0, 0.0, -np.inf), range(len(active)))
+    pi_d = census(lg_delay, lg_stations)
+    return lam, pi, pi_d
+
+
+def quantile_tables(
+    pi: np.ndarray,
+    replicas: np.ndarray,
+    mu: float,
+    degree: int = DEFAULT_QUANTILE_DEGREE,
+    v_max: float = 16.0,
+    scv: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`tables_from_pi` with the fit vectorised over stations.
+
+    The same tables: stations whose wait mixtures agree to 12 decimals
+    share one fit, and each fit is the least-squares polynomial through
+    the mixture's quantiles on the same grid, found by the same
+    bisection on its CDF.  The bisection runs for every distinct
+    station at once, in blocks of ``FIT_CHUNK_ELEMS``, over each
+    mixture's stages up to the last that leaves ``STAGE_TAIL_MASS``
+    beyond it.
+    """
+    S = pi.shape[0]
+    k = np.asarray(replicas, int)
+    p_zero = np.ones(S)
+    coef = np.zeros((degree + 1, S))
+    mean_wait = np.zeros(S)
+    v_grid = np.linspace(0.0, v_max, 257)[1:]
+    u = -np.expm1(-v_grid)
+    scv_c = min(max(float(scv), 1e-3), 25.0)
+    keys: Dict[bytes, int] = {}
+    mixes = []          # (weights, rate) of each distinct station
+    which = np.full(S, -1)
+    for s in range(S):
+        ks = int(k[s])
+        w = pi[s, ks:]
+        wsum = float(w.sum())
+        if wsum <= 1e-12:
+            continue
+        w = w / wsum
+        key = np.round(w, 12).tobytes() + bytes([ks & 0xFF])
+        if key not in keys:
+            keys[key] = len(mixes)
+            mixes.append((w, ks * mu))
+        which[s] = keys[key]
+        p_zero[s] = float(pi[s, :ks].sum())
+    # each mixture up to its last stage with STAGE_TAIL_MASS beyond it;
+    # blocks of like length, padded with zero weights
+    lens = [int(np.nonzero(np.cumsum(w[::-1])[::-1] >= STAGE_TAIL_MASS)[0]
+                .max(initial=0)) + 1 for w, _ in mixes]
+    G = len(v_grid)
+    quantiles: Dict[int, np.ndarray] = {}
+    order = sorted(range(len(mixes)), key=lens.__getitem__)
+    while order:
+        take = 1
+        while (take < len(order)
+               and (take + 1) * G * lens[order[take]] <= FIT_CHUNK_ELEMS):
+            take += 1
+        block, order = order[:take], order[take:]
+        M = lens[block[-1]]
+        W = np.zeros((len(block), M))
+        for r, i in enumerate(block):
+            W[r, :lens[i]] = mixes[i][0][:lens[i]]
+        rate = np.asarray([mixes[i][1] for i in block])
+        quantiles.update(zip(block, _mixture_quantiles(W, rate, v_grid, u,
+                                                       scv_c)))
+    fits = []
+    for i, (w, rate) in enumerate(mixes):
+        c = np.polynomial.polynomial.polyfit(v_grid, quantiles[i],
+                                              degree)
+        m = np.arange(1, len(w) + 1)
+        fits.append((c, float((w * m).sum()) / rate))
+    for s in np.nonzero(which >= 0)[0]:
+        c, cond_mean = fits[which[s]]
+        coef[:, s] = c
+        mean_wait[s] = (1.0 - p_zero[s]) * cond_mean
+    return p_zero, coef, mean_wait
+
+
+def _mixture_quantiles(W: np.ndarray, rate: np.ndarray, v_grid: np.ndarray,
+                       u: np.ndarray, scv: float) -> np.ndarray:
+    """(R, G) quantiles of R wait mixtures (weights ``W`` (R, M) over
+    ``m = 1 .. M`` stages at rates ``rate`` (R,)) at the grid's
+    probabilities ``u``, by :func:`_erlang_mixture_quantiles`' bisection
+    run for all of them at once."""
+    m = np.arange(1, W.shape[1] + 1, dtype=np.float64)
+    shape = m / scv
+    rate_g = rate / scv
+
+    def cdf(t):
+        return (W[:, None, :] * gammainc(
+            shape[None, None, :], rate_g[:, None, None] * t[:, :, None]
+        )).sum(axis=2)
+
+    mean = (W * m).sum(axis=1) / rate
+    hi = np.broadcast_to(np.maximum(mean * 4.0, 1.0 / rate)[:, None],
+                         (len(rate), len(v_grid))).copy()
+    while True:
+        below = cdf(hi) < u
+        if not below.any():
+            break
+        hi = np.where(below, hi * 2.0, hi)
+    lo = np.zeros_like(hi)
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        below = cdf(mid) < u
+        lo = np.where(below, mid, lo)
+        hi = np.where(below, hi, mid)
+    return 0.5 * (lo + hi)
+
+
 def closed_network_tables(
     visits: np.ndarray,
     cycle_visits: np.ndarray,
@@ -543,17 +798,18 @@ def closed_network_tables(
     source of cycle reweighting, and concurrent graphs use the
     engine's self-consistent fixed point over ``repairman_marginals``
     instead: the single-token population constraint, and with it the
-    variance identity, doesn't survive forks).
+    variance identity, doesn't survive forks).  Populations past
+    ``CONVOLUTION_MAX_POPULATION`` take the log-space solve and the
+    vectorised fit.
     """
-    lam, pi, pi_d = convolution_marginals(
-        visits, replicas, mu, delay_s, population
-    )
+    small = int(population) <= CONVOLUTION_MAX_POPULATION
+    solve = convolution_marginals if small else log_convolution_marginals
+    lam, pi, pi_d = solve(visits, replicas, mu, delay_s, population)
     if abs(scv - 1.0) > 1e-9:
         pi = np.stack([compress_census(row, scv) for row in pi])
         pi_d = compress_census(pi_d, scv)
-    p_zero, coef, mean_wait = tables_from_pi(
-        pi, replicas, mu, degree, v_max, scv
-    )
+    fit = tables_from_pi if small else quantile_tables
+    p_zero, coef, mean_wait = fit(pi, replicas, mu, degree, v_max, scv)
 
     if scv < 1.0 - 1e-9:
         # Low-variability limit: a deterministic closed network runs a

@@ -2142,6 +2142,11 @@ class Simulator:
         ``center_c``/``var_scale`` realize the population copula:
         z' = scale * (z - c * e * (e . z)) has exact unit marginals and
         pairwise correlation rho (sim/closed.py) among the active hops.
+
+        A build runs in the phase (and span) ``closed.tables``; it sets
+        the gauges ``closed_population`` (C) and ``closed_stations`` (the
+        stations with visits, summed over the rows) and counts
+        ``closed_table_builds``.
         """
         if connections not in self._closed_cache:
             if source is None:
@@ -2150,19 +2155,24 @@ class Simulator:
                     "solve_closed_rate (they need a draw source)"
                 )
             R = len(self._phase_starts) * self._num_combos
-            rows = [
-                self._closed_row(connections, r, R == 1, source)
-                for r in range(R)
-            ]
+            with telemetry.phase("closed.tables"):
+                rows = [
+                    self._closed_row(connections, r, R == 1, source)
+                    for r in range(R)
+                ]
 
-            def t(i):
-                return _const(np.stack([r[i] for r in rows]), F32,
-                              self.device)
+                def t(i):
+                    return _const(np.stack([r[i] for r in rows]), F32,
+                                  self.device)
 
-            self._closed_cache[connections] = (
-                np.asarray([r[0] for r in rows]), t(1), t(2), t(3),
-                np.asarray([r[4] for r in rows], np.float32), t(5),
-            )
+                self._closed_cache[connections] = (
+                    np.asarray([r[0] for r in rows]), t(1), t(2), t(3),
+                    np.asarray([r[4] for r in rows], np.float32), t(5),
+                )
+            telemetry.counter_inc("closed_table_builds")
+            telemetry.gauge_set("closed_population", connections)
+            telemetry.gauge_set("closed_stations", int(
+                (self._visits_pc_np[:R] > 1e-12).sum()))
         return self._closed_cache[connections]
 
     def _closed_row(self, connections: int, row: int, refine: bool,
@@ -4706,21 +4716,22 @@ class Simulator:
                 down_can = self._down_can_ph[phase_idx]
             down = torch.where(can_coin, down_can, down)
         if sat_conns:
-            if cfx is not None and cfx.sat_p0 is not None:
-                # each member's own finite-population tables
-                wait = self._saturated_wait(
-                    z_wait, sat_conns, None, q_idx,
-                    tables=(cfx.sat_p0.flatten(0, 1),
-                            cfx.sat_coef.flatten(0, 1),
-                            cfx.sat_e.flatten(0, 1),
-                            cfx.sat_c.reshape(-1),
-                            cfx.sat_scale.flatten(0, 1)),
-                )
-            else:
-                wait = self._saturated_wait(
-                    z_wait, sat_conns, sat_override,
-                    phase_idx if sat_override is None else None,
-                )
+            with telemetry.span("engine.sat_wait"):
+                if cfx is not None and cfx.sat_p0 is not None:
+                    # each member's own finite-population tables
+                    wait = self._saturated_wait(
+                        z_wait, sat_conns, None, q_idx,
+                        tables=(cfx.sat_p0.flatten(0, 1),
+                                cfx.sat_coef.flatten(0, 1),
+                                cfx.sat_e.flatten(0, 1),
+                                cfx.sat_c.reshape(-1),
+                                cfx.sat_scale.flatten(0, 1)),
+                    )
+                else:
+                    wait = self._saturated_wait(
+                        z_wait, sat_conns, sat_override,
+                        phase_idx if sat_override is None else None,
+                    )
         else:
             def per_hop(table):
                 if M:

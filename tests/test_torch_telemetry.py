@@ -358,6 +358,65 @@ def test_engine_build_and_run_series():
     assert telemetry.gauge_get("engine_num_blocks") == 2.0
 
 
+#: a chain of three services: the saturated closed loop's convolution path
+CHAIN3 = """
+services:
+- name: a
+  isEntrypoint: true
+  script: [{call: b}]
+- name: b
+  script: [{call: c}]
+- name: c
+"""
+SATURATED = dict(kind="closed", qps=None)
+
+
+def _chain_sim():
+    return Simulator(compile_graph(ServiceGraph.from_yaml(CHAIN3)),
+                     device="cpu")
+
+
+@pytest.mark.parametrize("connections", [8, 100])
+def test_closed_tables_build_in_their_phase_once_per_population(connections):
+    """Below and past ``CONVOLUTION_MAX_POPULATION``: one build a
+    population, timed in its phase, with its population and stations."""
+    sim = _chain_sim()
+    load = LoadModel(connections=connections, **SATURATED)
+    for _ in range(2):
+        sim.run_summary(load, 2 * connections, TorchDraws(0, "cpu"),
+                        block_size=connections)
+    assert telemetry.counter_get("closed_table_builds") == 1.0
+    assert telemetry.gauge_get("closed_population") == connections
+    assert telemetry.gauge_get("closed_stations") == 3.0
+    assert telemetry.phase_seconds("closed.tables") > 0.0
+    sim.run_summary(LoadModel(connections=16, **SATURATED), 32,
+                    TorchDraws(0, "cpu"), block_size=16)
+    assert telemetry.counter_get("closed_table_builds") == 2.0
+    assert telemetry.gauge_get("closed_population") == 16.0
+
+
+def test_saturated_run_spans_its_tables_and_each_blocks_waits():
+    sim = _chain_sim()
+    spans = _profiled_spans(lambda: sim.run_summary(
+        LoadModel(connections=8, **SATURATED), 32, TorchDraws(0, "cpu"),
+        block_size=16))
+    names = [s[0] for s in spans]
+    # the tables first, outside any block, then each block's draws, its
+    # waits under the finite-population law and its level sweep
+    assert names == ["closed.tables"] + [
+        "engine.block", "engine.draws", "engine.sat_wait", "engine.sweep",
+        "summary.block"] * 2
+    for block, inner in _blocks(spans):
+        assert [s[0] for s in inner] == ["engine.draws", "engine.sat_wait",
+                                         "engine.sweep"]
+        assert all(_within(s, block) for s in inner)
+    # an open loop has no saturated waits
+    spans = _profiled_spans(lambda: sim.run_summary(
+        LoadModel(kind="open", qps=1000.0), 32, TorchDraws(0, "cpu"),
+        block_size=16))
+    assert "engine.sat_wait" not in [s[0] for s in spans]
+
+
 # -- the runner and the commands -----------------------------------------------
 
 
