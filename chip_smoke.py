@@ -7,9 +7,10 @@ CUDA card of compute capability 9.0 with ``nvcc``).  Phases, in order;
 any failure exits non-zero and nothing is caught:
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: compile the census kernel (``isotope_tpu_torch/native/csrc``)
-   with ``nvcc`` for ``sm_90a`` and print what ``ptxas -v`` says of
-   each kernel (registers, shared memory, spills);
+2. build: compile the census and wait kernels
+   (``isotope_tpu_torch/native/csrc``) with ``nvcc`` for ``sm_90a`` and
+   print what ``ptxas -v`` says of each kernel (registers, shared
+   memory, spills);
 3. kernel: hold the kernel against its plain torch version on the card
    at every census shape of the main path (each dense level with
    children and each tile holding calls of the eleven runs of phase 5,
@@ -45,7 +46,16 @@ any failure exits non-zero and nothing is caught:
    levels 2 and 3, the realistic topologies' wide levels) at its block,
    the ragged kernel against the dense site's chain on the card bit for
    bit, its device time beside its bound, the chain's time and the
-   plain version's;
+   plain version's; (after phase 5's runs, whose saturated runs each
+   launch the finite-population wait kernel once a block, counted
+   exactly) the wait kernel (``native/satwait.py``) at multitier1k's
+   30,000 x 1,000 block with 11 coefficients (synthetic tables) and at
+   the calls of the saturated runs (``canonical-qps-max``'s blocks and
+   fork-join pilots, canonical-2r-qps-max-bounce's phased blocks, with
+   their own tables and rows): bit for bit against
+   ``saturated_wait_sequential``, within rtol 1e-4 / atol 1e-5 s of the
+   plain chain (its largest difference printed), its device time beside
+   its bound (8 B a hop-row), the plain chain's time and its host cost;
 4. in situ: one block of the flagship tree (1000 qps), of the
    retry/timeout/error topology (500 qps) and of
    ``realistic-powerlaw-100.yaml`` (6,500 qps), 16,384 requests each, of
@@ -980,9 +990,9 @@ def time_ms(fn, flush, reps=20):
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def device_ms(fn, flush, reps=20, attempts=5):
+def device_ms(fn, flush, reps=20, attempts=5, kernel="census"):
     """Mean device-only time of the census kernel in ``fn``: the
-    profiler's device time for kernels whose name holds ``census``, over
+    profiler's device time for kernels whose name holds ``kernel``, over
     ``reps`` calls, each after an L2 flush.  A profiled pass that
     records fewer than its ``reps`` launches (seen a few times in a run
     of a few hundred passes, in bursts) is repeated; after ``attempts``
@@ -1002,7 +1012,7 @@ def device_ms(fn, flush, reps=20, attempts=5):
         kernels = [
             e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and "census" in e.key
+            and kernel in e.key
         ]
         count = sum(e.count for e in kernels)
         total_us = sum(
@@ -1012,7 +1022,7 @@ def device_ms(fn, flush, reps=20, attempts=5):
         )
         if count == reps and total_us > 0:
             return total_us / count / 1e3
-        log(f"profiled pass {attempt + 1} recorded {count} census "
+        log(f"profiled pass {attempt + 1} recorded {count} {kernel} "
             f"kernels with {total_us} us of device time, expected {reps}")
     ms = time_ms(fn, flush, reps)
     log(f"profiler recorded no full pass in {attempts}: {ms:.4f} ms "
@@ -1224,6 +1234,150 @@ def ragged_phase(census_mod, runs, census_only, timing):
                 f"(bytes), {bd / k:.1%} of bound; dense chain {chain:.4f} "
                 f"ms, plain {plain:.4f} ms (events); host {host:.1f} us "
                 f"per call")
+
+
+# -- phase 3, the saturated waits: the wait kernel against its chain ----------
+
+#: float operations a hop-row of the finite-population wait takes (erfc,
+#: log1p, the Horner pass's multiply-adds, a divide, the copula)
+SATWAIT_OPS = 80
+#: multitier1k's block under -qps max (``multitier1k.qps-max-c10k``)
+SATWAIT_CELL = (30_000, 1000, 11)
+
+
+def satwait_bound_ms(n, h):
+    """Least time of one wait call: ``z`` read once and the wait written
+    once, 8 B a hop-row, over the HBM rate (the tables stay in L2, and
+    the operations are far below the float32 rate)."""
+    return max(8 * n * h / HBM_BYTES_PER_S,
+               SATWAIT_OPS * n * h / F32_OPS_PER_S) * 1e3
+
+
+def satwait_tables(n, h, d, seed=0, device="cuda"):
+    """One row of tables shaped like the finite-population law's (zero-
+    wait masses in [0.05, 0.6]; quantile polynomials fitted over ``v`` in
+    [0, 16] to ``v / rate + a * log1p(v)``, an exponential tail of rate
+    200 to 2,000 per second bent by at most 2 ms, as ``sim/closed.py``
+    fits its waits' quantiles; a unit projection vector, its centre and
+    variance scale) and ``(n, h)`` normals."""
+    rng = np.random.default_rng(seed)
+    v = np.linspace(0.0, 16.0, 200)
+    w = (v[:, None] / rng.uniform(200.0, 2000.0, h)
+         + rng.uniform(0.0, 2e-3, h) * np.log1p(v)[:, None])
+    coef = np.polynomial.polynomial.polyfit(v, w, d - 1)[None]
+    e = np.abs(rng.normal(0, 1, (1, h)))
+    e /= np.sqrt((e**2).sum())
+    c = np.full(1, 0.5)
+    scale = 1.0 / np.sqrt(1.0 - (2 * c[0] - c[0] ** 2) * e**2)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                               device=device)
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    z = torch.randn((n, h), device=device, generator=g)
+    return z, None, tuple(t(x) for x in (
+        rng.uniform(0.05, 0.6, (1, h)), coef, e, c, scale)), True
+
+
+class SatwaitCalls:
+    """The wait kernel's calls as the engine makes them, recorded while
+    the context is open: the first call of each shape, with its rows,
+    tables and copula, under ``label``."""
+
+    def __init__(self):
+        self.calls = {}
+        self.label = ""
+
+    def __enter__(self):
+        from isotope_tpu_torch.sim import engine
+
+        self._engine, self._real = engine, engine.saturated_wait
+        engine.saturated_wait = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.saturated_wait = self._real
+
+    def _record(self, z, rows, *tables, copula=True):
+        key = (tuple(z.shape), rows is not None, copula,
+               tuple(tables[1].shape))
+        self.calls.setdefault(key, (self.label, rows, tables, copula))
+        return self._real(z, rows, *tables, copula=copula)
+
+
+def satwait_calls(port, runs, device="cuda"):
+    """The wait calls of the main path's saturated runs (each block, as
+    one block of the run makes it) and of the unphased ``-qps max`` run's
+    fork-join pilots (its tables solved again on a fresh Simulator)."""
+    rec = SatwaitCalls()
+    with rec:
+        for name, sim, load, n, block in runs:
+            if not sim._saturated(load):
+                continue
+            rec.label = f"{name} block"
+            sim.run_summary(load, block, port.TorchDraws(0, device),
+                            block_size=block)
+            if not sim.has_chaos:
+                rec.label = f"{name} pilot"
+                port.Simulator(sim.compiled, device=device).solve_closed_rate(
+                    load, n, port.TorchDraws(0, device))
+    torch.cuda.synchronize()
+    return [(label, shape, rows, tables, copula)
+            for (shape, *_), (label, rows, tables, copula)
+            in rec.calls.items()]
+
+
+def satwait_phase(satwait_mod, calls, device="cuda"):
+    """The wait kernel at multitier1k's block (synthetic tables) and at
+    each recorded call (the engine's own tables and rows, fresh normals):
+    bit for bit against ``saturated_wait_sequential``, within the
+    saturated runs' tolerance of the plain chain, then its device time
+    (L2 flushed before each launch) beside its bound, the plain chain's
+    time (CUDA events) and the wrapper's host cost.  Returns the numbers
+    of the kernel table at multitier1k's block."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=device)
+    cases = [("multitier1k block (synthetic tables)",
+              *satwait_tables(*SATWAIT_CELL, device=device))]
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    for label, shape, rows, tables, copula in calls:
+        cases.append((label, torch.randn(shape, device=device, generator=g),
+                      rows, tables, copula))
+    out = {}
+    max_err = 0.0
+    for label, z, rows, tables, copula in cases:
+        got = satwait_mod.saturated_wait(z, rows, *tables, copula=copula)
+        seq = satwait_mod.saturated_wait_sequential(z, rows, *tables, copula)
+        ref = satwait_mod.saturated_wait_reference(z, rows, *tables, copula)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), seq.view(torch.int32)):
+            raise AssertionError(
+                f"satwait {label}: differs from its sequential twin")
+        torch.testing.assert_close(got, ref, rtol=SAT_RTOL, atol=SAT_ATOL)
+        err = float((got - ref).abs().max())
+        max_err = max(max_err, err)
+        k = device_ms(lambda: satwait_mod.saturated_wait(
+            z, rows, *tables, copula=copula), flush, kernel="satwait")
+        plain = time_ms(lambda: satwait_mod.saturated_wait_reference(
+            z, rows, *tables, copula), flush, reps=5)
+        host = host_us(lambda: satwait_mod.saturated_wait(
+            z, rows, *tables, copula=copula))
+        n, h = z.shape
+        r, d = tables[1].shape[:2]
+        bd = satwait_bound_ms(n, h)
+        log(f"satwait ok {label}: {n} x {h}, D = {d}, {r} table rows"
+            f"{', rows gathered' if rows is not None else ''}, copula "
+            f"{copula}; max_abs_err {err:.3e} s against the plain chain "
+            f"(bit-equal to the sequential twin); device {k:.4f} ms "
+            f"(profiler), bound {bd:.4f} ms (bytes), {bd / k:.1%} of "
+            f"bound; plain chain {plain:.4f} ms (events); host "
+            f"{host:.1f} us per call")
+        if not out:
+            out = dict(ms=k, plain_ms=plain, bound_ms=bd)
+    out["max_abs_err"] = max_err
+    return out
 
 
 # -- phase 4: in situ, card against CPU ---------------------------------------
@@ -2054,9 +2208,11 @@ def census_only_configs(port, device="cuda"):
 def main_path_run(port, name, sim, load, n, block, census_ms=None):
     """One timed run; returns its summary and census launches.
     ``census_ms``: the census device time per block of phase 3, printed
-    when given."""
+    when given.  A saturated run launches the wait kernel once a
+    block."""
     torch.cuda.synchronize()
     port.census.launches = 0
+    port.saturated_wait.launches = 0
     t = time.perf_counter()
     summary = sim.run_summary(
         load, n, port.TorchDraws(0, "cuda"), block_size=block, trim=True
@@ -2064,8 +2220,13 @@ def main_path_run(port, name, sim, load, n, block, census_ms=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = port.census.launches
+    sat_launches = port.saturated_wait.launches
     count = int(summary.count)
     blocks = max(1, -(-n // block))
+    if sat_launches != (blocks if sim._saturated(load) else 0):
+        raise AssertionError(
+            f"{name}: {sat_launches} wait kernel launches in {blocks} "
+            f"blocks")
     hop_events = float(summary.hop_events)
     qs = summary.quantiles_s((0.5, 0.9, 0.99))
     # run_summary rounds the requests up to whole blocks
@@ -2094,7 +2255,8 @@ def main_path_run(port, name, sim, load, n, block, census_ms=None):
         f"{hop_events / wall:.4e} hop-events/s, p50/p90/p99 "
         f"{qs[0] * 1e3:.4f}/{qs[1] * 1e3:.4f}/{qs[2] * 1e3:.4f} ms, "
         f"{int(summary.error_count)} client errors, census launches "
-        f"{launches} ({per_block} per block)" + (
+        f"{launches} ({per_block} per block), wait kernel launches "
+        f"{sat_launches}" + (
             "" if census_ms is None
             else f", census device {census_ms:.4f} ms per block (phase 3)"
         ))
@@ -6649,6 +6811,7 @@ def main() -> int:
     )
     from isotope_tpu_torch.models.graph import ServiceGraph
     from isotope_tpu_torch.native import census as census_mod
+    from isotope_tpu_torch.native import satwait as satwait_mod
     from isotope_tpu_torch.runner.config import DEFAULT_ENVIRONMENTS
     from isotope_tpu_torch.runner.run import protected_window_block
     from isotope_tpu_torch.sim import policies as policies_mod
@@ -6672,6 +6835,7 @@ def main() -> int:
         ServiceGraph=ServiceGraph,
         LoadModel=LoadModel, Simulator=Simulator, TorchDraws=TorchDraws,
         census=census_mod.census, realistic_topology=realistic_topology,
+        saturated_wait=satwait_mod.saturated_wait,
         with_call_policy=with_call_policy, SimParams=SimParams,
         ChaosEvent=ChaosEvent, TrafficSplit=TrafficSplit,
         MtlsSchedule=MtlsSchedule, bounce_schedule=bounce_schedule,
@@ -6694,6 +6858,10 @@ def main() -> int:
     lib = census_mod.LIBRARY.build()
     log(f"build: {lib.name} in {time.perf_counter() - t:.2f} s")
     log(census_mod.LIBRARY.build_log.strip())
+    t = time.perf_counter()
+    lib = satwait_mod.LIBRARY.build()
+    log(f"build: {lib.name} in {time.perf_counter() - t:.2f} s")
+    log(satwait_mod.LIBRARY.build_log.strip())
 
     flagship_graph = ServiceGraph.decode(tree_topology(
         num_levels=5, num_branches=3, request_size=1024, response_size=1024,
@@ -6789,6 +6957,7 @@ def main() -> int:
                               walls)
     panic_share(port, *[run[1:5] for run in runs
                         if run[0] == "lb-10svc-100r-panic"][0])
+    sat_timing = satwait_phase(satwait_mod, satwait_calls(port, runs))
     # the protected runs: each its own main path, counts set to 0 just
     # before and read just after
     prot_launches, prot_walls = protected_phase(port, prot,
@@ -6851,6 +7020,20 @@ def main() -> int:
         "ms_per_block": timing["ms_per_block"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "satwait",
+        "route": "cuda",
+        "source": "isotope_tpu_torch/native/csrc/satwait.cu",
+        "replaces": None,
+        # the main path's saturated runs, checked run by run
+        "launches": sum(-(-n // block) for _, sim, load, n, block in runs
+                        if sim._saturated(load)),
+        "max_abs_err": sat_timing["max_abs_err"],
+        "ms": sat_timing["ms"],
+        "plain_ms": sat_timing["plain_ms"],
+        "bound_ms": sat_timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]

@@ -29,12 +29,7 @@ kernels' (``census_ragged.launches`` the ragged kernel's alone).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Optional, Tuple
@@ -43,14 +38,10 @@ import numpy as np
 import torch
 
 from isotope_tpu_torch.compiler.buckets import PADDED_GRID
+from isotope_tpu_torch.native.nvcc import NVCC_FLAGS, NvccLibrary  # noqa: F401
 
 _DIR = pathlib.Path(__file__).parent
 _SOURCE = _DIR / "csrc" / "census.cu"
-_BUILD_DIR = _DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 
 # -- launch geometry (csrc/census.cu takes it as given) --------------------
@@ -199,72 +190,23 @@ def _plan_array(n: int, b: int, p: int, aligned: bool, sms: int):
     return (ctypes.c_int32 * len(ints))(*ints)
 
 
-class _Library:
-    """The compiled kernel library, built and loaded on first use."""
-
-    def __init__(self):
-        self._lib: Optional[ctypes.CDLL] = None
-        # what ptxas said of each kernel (registers, shared memory,
-        # spills) in this process's build; empty if the library existed
-        self.build_log = ""
-
-    @staticmethod
-    def nvcc() -> str:
-        home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-        if home:
-            return str(pathlib.Path(home) / "bin" / "nvcc")
-        return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-
-    def path(self) -> pathlib.Path:
-        digest = hashlib.sha256(
-            _SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return _BUILD_DIR / f"libcensus-{digest}.so"
-
-    def build(self) -> pathlib.Path:
-        """Compile the kernel unless this source's library exists."""
-        out = self.path()
-        if out.exists():
-            return out
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [self.nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed building {_SOURCE.name}:\n{proc.stderr}"
-                )
-            self.build_log = proc.stderr
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return out
-
-    def get(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()))
-            lib.census_launch.argtypes = [ctypes.c_void_p] * 7 + [
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
-                ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            lib.census_launch.restype = ctypes.c_int
-            lib.census_ragged_launch.argtypes = (
-                [ctypes.c_void_p] * 14 + [ctypes.c_int64]
-                + [ctypes.c_int32] * 10 + [ctypes.c_void_p]
-            )
-            lib.census_ragged_launch.restype = ctypes.c_int
-            lib.census_error_string.argtypes = [ctypes.c_int]
-            lib.census_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.census_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.census_launch.restype = ctypes.c_int
+    lib.census_ragged_launch.argtypes = (
+        [ctypes.c_void_p] * 14 + [ctypes.c_int64]
+        + [ctypes.c_int32] * 10 + [ctypes.c_void_p]
+    )
+    lib.census_ragged_launch.restype = ctypes.c_int
+    lib.census_error_string.argtypes = [ctypes.c_int]
+    lib.census_error_string.restype = ctypes.c_char_p
 
 
-LIBRARY = _Library()
+#: the compiled kernel library, built and loaded on first use
+LIBRARY = NvccLibrary(_SOURCE, _bind)
 
 #: the recording op log's census hook (``analysis/oplog.py``), or None;
 #: called as ``AUDIT(fn, *args)`` for ``fn``, :func:`census` or

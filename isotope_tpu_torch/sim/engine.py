@@ -87,6 +87,7 @@ from isotope_tpu_torch.native.census import (
     ragged_engages,
     ragged_plan,
 )
+from isotope_tpu_torch.native.satwait import saturated_wait
 from isotope_tpu_torch.resilience import faults
 from isotope_tpu_torch.sim import closed, queueing
 from isotope_tpu_torch.sim import lb as lb_mod
@@ -1555,6 +1556,8 @@ class Simulator:
         # per connection count; squared coefficient of variation of the
         # service time, which scales the census-conditional wait
         self._closed_cache: Dict[int, tuple] = {}
+        # each cached row's copula centre c (R,) on the device
+        self._closed_center: Dict[int, torch.Tensor] = {}
         self._closed_in: Optional[tuple] = None
         if params.service_time == SERVICE_TIME_DETERMINISTIC:
             self._svc_scv = 0.0
@@ -2162,8 +2165,9 @@ class Simulator:
                 ]
 
                 def t(i):
-                    return _const(np.stack([r[i] for r in rows]), F32,
-                                  self.device)
+                    # row-major, as the wait kernel reads them
+                    return _const(np.ascontiguousarray(
+                        np.stack([r[i] for r in rows])), F32, self.device)
 
                 self._closed_cache[connections] = (
                     np.asarray([r[0] for r in rows]), t(1), t(2), t(3),
@@ -2243,7 +2247,8 @@ class Simulator:
         pilot = self._sat_pilot(connections, source)
 
         def t(x):
-            return _const(x, F32, self.device)
+            # row-major, as the wait kernel reads them
+            return _const(np.ascontiguousarray(x), F32, self.device)
 
         def census_at(c):
             # the repairman sweep is itself a per-station fixed
@@ -4182,67 +4187,35 @@ class Simulator:
 
     def _saturated_wait(self, z, sat_conns: int, sat_override, phase_idx,
                         tables=None):
-        """(N, H) waits under the finite-population law: the population
-        copula ``z' = scale * (z - c * e * (e . z))`` centres the normals
-        across hops (the in-flight census is fixed at C), then a per-hop
-        quantile polynomial in ``v = -log1p(-u')`` (Horner, coefficients
-        broadcast over the request axis) of the conditional uniform
-        ``u'`` above the zero-wait mass ``p0``.  ``phase_idx`` (N,)
-        selects each request's (chaos x churn) row of phased tables
-        (``None``: one row); ``tables`` = ``(p0, coef, e, c, scale)``
-        replaces the cached phased tables (a chaos fleet's members' rows,
-        ``phase_idx`` indexing them)."""
+        """(N, H) waits under the finite-population law
+        (``native/satwait.py``: the population copula ``z' = scale * (z -
+        c * e * (e . z))`` centres the normals across hops (the in-flight
+        census is fixed at C), then a per-hop quantile polynomial in ``v =
+        -log1p(-u')`` of the conditional uniform ``u'`` above the
+        zero-wait mass ``p0``), one kernel launch on the card.
+        ``phase_idx`` (N,) selects each request's (chaos x churn) row of
+        phased tables (``None``: one row, centred only where its ``c`` is
+        positive); ``tables`` = ``(p0, coef, e, c, scale)`` replaces the
+        cached phased tables (a chaos fleet's members' rows,
+        ``phase_idx`` indexing them); ``sat_override`` = ``(p0 (H,), coef
+        (D, H), e (H,), c (), scale (H,))``, one row, always centred (the
+        fork-join pilots)."""
+        copula = True
         if sat_override is not None:
             p0_h, coef_h, e_o, c_o, scale_o = sat_override
-            zproj = (z * e_o).sum(-1, keepdim=True)
-            z = (z - c_o * e_o * zproj) * scale_o
-            deg = coef_h.shape[0]
-
-            def coef(ci):
-                return coef_h[ci]
-        elif phase_idx is None:
+            tables = (p0_h[None], coef_h[None], e_o[None], c_o.reshape(1),
+                      scale_o[None])
+        elif tables is None:
             _, p0_r, coef_r, e_r, c_r, scale_r = self._closed_tables(
                 sat_conns
             )
-            p0_h = p0_r[0]
-            c_center = float(c_r[0])
-            if c_center > 0.0:
-                zproj = (z * e_r[0]).sum(-1, keepdim=True)
-                z = (z - c_center * e_r[0] * zproj) * scale_r[0]
-            coef_0 = coef_r[0]
-            deg = coef_0.shape[0]
-
-            def coef(ci):
-                return coef_0[ci]
-        else:
-            # per-phase rows gathered by each request's arrival phase
-            if tables is not None:
-                p0_r, coef_r, e_r, c_t, scale_r = tables
-            else:
-                _, p0_r, coef_r, e_r, c_r, scale_r = self._closed_tables(
-                    sat_conns
-                )
-                c_t = _const(c_r, F32, self.device)
-            p0_h = p0_r[phase_idx]
-            e_n = e_r[phase_idx]
-            c_n = c_t[:, None][phase_idx]
-            scale_n = scale_r[phase_idx]
-            zproj = (z * e_n).sum(-1, keepdim=True)
-            z = (z - c_n * e_n * zproj) * scale_n
-            deg = coef_r.shape[1]
-
-            def coef(ci):
-                return coef_r[:, ci, :][phase_idx]
-        u_sat = ndtr(z)
-        u_c = torch.clamp(
-            (u_sat - p0_h) / torch.clamp(1.0 - p0_h, min=1e-9),
-            0.0, 1.0 - 1e-7,
-        )
-        v = -torch.log1p(-u_c)
-        w = coef(deg - 1)
-        for ci in range(deg - 2, -1, -1):
-            w = w * v + coef(ci)
-        return torch.where(u_sat < p0_h, 0.0, torch.clamp(w, min=0.0))
+            if sat_conns not in self._closed_center:
+                self._closed_center[sat_conns] = _const(c_r, F32, self.device)
+            tables = (p0_r, coef_r, e_r, self._closed_center[sat_conns],
+                      scale_r)
+            copula = phase_idx is not None or float(c_r[0]) > 0.0
+        return saturated_wait(z.contiguous(), phase_idx, *tables,
+                              copula=copula)
 
     def _nominal_arrivals(self, n, connections, sat_conns, nominal_gap,
                           req_offset, members: int = 0, chaos_fx=None):
