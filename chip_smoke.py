@@ -1158,26 +1158,21 @@ def dense_calls(sim, block):
     launches :func:`ragged_phase` times."""
     calls = census_calls(sim, block)
     for d, shape in level_calls(sim, block).items():
-        if sim._levels[d].ragged is not None:
+        if sim._levels[d].join.kind == "ragged":
             calls.remove(shape)
     return calls
 
 
 def level_calls(sim, block):
-    """The census call of each dense level with children, by level:
+    """The census call of each dense or ragged level, by level:
     ``census_calls`` without the tiles' calls."""
     calls = iter(census_calls(sim, block))
     out = {}
     for d in reversed(range(len(sim._levels))):
-        lvl = sim._levels[d]
-        if not lvl.num_children or lvl.sparse is not None:
-            continue
-        if lvl.tiled is None:
-            out[d] = next(calls)
-        else:
-            for tile in lvl.tiled.tiles:
-                if tile.num_calls:
-                    next(calls)
+        join = sim._levels[d].join
+        mine = [next(calls) for _ in join.census_calls(block, False, False)]
+        if join.kind in ("dense", "ragged"):
+            out[d] = mine[0]
     return out
 
 
@@ -1201,9 +1196,9 @@ def ragged_phase(census_mod, runs, census_only, timing):
         seen.add((id(sim), block))
         shapes = level_calls(sim, block)
         for d, lvl in enumerate(sim._levels):
-            plan = lvl.ragged
-            if plan is None:
+            if lvl.join.kind != "ragged":
                 continue
+            plan = lvl.join.plan
             n, _, _, with_fail, with_err = shapes[d]
             args = ragged_inputs(plan, n, with_fail, with_err)
             got = census_mod.census_ragged(plan, *args)

@@ -233,37 +233,22 @@ def oplog_cost(log) -> OpLogCost:
 def segment_table(sim, block_requests: int) -> List[dict]:
     """Per-level static costs at ``block_requests`` requests: one row
     per level the port sweeps (it has no scan buckets), with the step
-    footprint of the level's encoding (the tiles' grids plus residual
-    slots, the sparse slots, the leaf busy vector, or the dense grid)
+    footprint of the level's join (``sim/joins.py``: the tiles' grids
+    plus residual slots, the sparse slots, the leaf busy vector, or the
+    dense grid, which a ragged level still reports as ``"unrolled"``)
     plus three per-hop columns and two per call attempt, multiplied by
     the request axis."""
     rows: List[dict] = []
     n = int(block_requests)
     for i, lvl in enumerate(sim._levels):
-        if lvl.tiled is not None:
-            kind = "tiled"
-            step_elems = sum(
-                len(t.hops) * t.width for t in lvl.tiled.tiles
-            ) + (
-                lvl.tiled.residual.n_slots
-                if lvl.tiled.residual is not None else 0
-            )
-        elif lvl.sparse is not None:
-            kind = "sparse"
-            step_elems = lvl.sparse.n_slots
-        elif lvl.leaf_busy is not None:
-            kind = "leaf"
-            step_elems = lvl.size
-        else:
-            kind = "unrolled"
-            step_elems = lvl.size * lvl.pmax
+        kind = lvl.join.kind
         elems = n * (
-            step_elems + 3 * lvl.size
+            lvl.join.step_elems + 3 * lvl.size
             + 2 * lvl.num_calls * len(lvl.att_child)
         )
         rows.append({
             "segment": i,
-            "kind": kind,
+            "kind": "unrolled" if kind in ("dense", "ragged") else kind,
             "levels": 1,
             "elems": elems,
             "bytes_f32": 4.0 * elems,

@@ -4,8 +4,8 @@ The port of ``isotope_tpu.analysis.jaxpr_audit``.  The reference walks
 the jaxpr its engine would jit; the port walks the op log of one pilot
 block (``analysis/oplog.py``: ``Simulator._simulate_core`` at the
 reference's trace size under a dispatch mode), so a site is an aten
-name and the frame that dispatched it (``aten.nonzero@sim/engine.py:
-_sparse_level_sweep``), not a jaxpr path:
+name and the frame that dispatched it (``aten.nonzero@sim/joins.py:
+slot_sweep``), not a jaxpr path:
 
 - **host sync points** (VET-J001): ``aten._local_scalar_dense`` (an
   ``.item()``, ``float()`` or ``bool()`` of a tensor), device-to-host

@@ -5,9 +5,10 @@ The port of ``isotope_tpu.compiler.buckets``.  Two decisions live here:
 
 - :func:`level_encoding` (with :func:`plan_tiles`) decides each
   call-bearing level's step encoding: dense, tiled or sparse.  The
-  engine executes all three (``sim/engine.py``: the dense census,
-  ``_tiled_sweep``, ``_sparse_level_sweep``), and the linter reports the
-  same choice (``analysis/topo_lint.lint_compiled``, VET-C006).
+  engine's ``sim/joins.level_join`` makes its whole choice from it
+  (and the ragged census of a padded dense grid after it), and the
+  linter reports the same choice (``analysis/topo_lint.lint_compiled``,
+  VET-C006).
 - :func:`plan_segments` packs consecutive depth levels whose shapes are
   close into scan buckets, each padded to its bounds, within ``waste``
   times the real element count (a critical-path DP over each run of
@@ -432,9 +433,11 @@ def level_encoding(
 ) -> Tuple[str, Optional[TilePlan]]:
     """Decide one call-bearing level's step encoding.
 
-    Returns ``("dense" | "tiled" | "sparse", tile_plan)`` — the single
-    decision point shared by the engine's lowering and the vet linter,
-    so the static analysis always reports the executor's real choice.
+    Returns ``("dense" | "tiled" | "sparse", tile_plan)``: the first
+    half of the engine's decision, which ``sim/joins.level_join`` alone
+    makes (it then asks whether a dense grid takes the ragged census),
+    and the vet linter's, so the static analysis reports the executor's
+    choice of encoding.
     A level leaves the dense grid when the grid is > 4x its real call
     slots (or past ``sparse_level_elems``); it then tiles when the
     dense-blocked plan halves the grid, else keeps the true sparse

@@ -15,12 +15,13 @@ the exclusive per-step prefix that places its children in time.
 - :func:`launch_plan` chooses the kernel's geometry (which of its two
   kernels, tile rows, shared-memory pitch and size, grid) from the
   shapes alone, in plain Python, so that the CPU tests can check it.
-- :func:`census_ragged` is the whole dense call site of a level whose
-  (hops x Pmax) step grid is mostly padding (:func:`ragged_engages`):
-  the per-step call census, the first failed step, the join and the
-  children's offsets (``sim/engine.py``'s dense site), in one
-  kernel that walks each hop's real steps (:class:`RaggedPlan`) and
-  never allocates the grid.  Its plain version is that composition.
+- :func:`census_ragged` is the whole dense join of a level whose
+  (hops x Pmax) step grid is mostly padding (:func:`ragged_engages`,
+  which ``sim/joins.level_join`` asks after the dense choice): the
+  per-step call census, the first failed step, the join and the
+  children's offsets (``sim/joins.DenseJoin.sweep``), in one kernel
+  that walks each hop's real steps (:class:`RaggedPlan`) and never
+  allocates the grid.  Its plain version is that composition.
 
 There is no fallback between the two: a CUDA input that the kernel
 cannot take raises.  ``census.launches`` counts kernel launches, both
@@ -455,12 +456,12 @@ def ragged_plan(step_base, step_mask, call_seg, call_hop, call_step,
 
 def census_ragged_reference(plan: RaggedPlan, dur_call, final_transport=None,
                             err=None, join=census_reference):
-    """The dense site's composition, its own ops (``sim/engine.py``):
+    """The dense site's composition, its own ops (``sim/joins.py``):
     ``_slot_max`` into the padded grid, ``_fail_min``, ``join``
     (:func:`census_reference`, or :func:`census_sequential` or
     :func:`census` on the card) and the children's gather.  Returns
     ``(busy, fail_step, off)``."""
-    from isotope_tpu_torch.sim.engine import _fail_min, _slot_max
+    from isotope_tpu_torch.sim.joins import _fail_min, _slot_max
 
     n = dur_call.shape[0]
     size, p = plan.size, plan.pmax

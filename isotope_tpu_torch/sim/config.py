@@ -130,7 +130,7 @@ class SimParams:
     # star-10k mitigation.  Lower it to force the non-dense path on
     # small graphs (tests).
     sparse_level_elems: int = 262_144
-    # Dense-blocked sparse levels (engine._TiledSteps): a level past
+    # Dense-blocked sparse levels (sim/joins.TiledJoin): a level past
     # the sparse threshold is partitioned into fixed-width dense tiles
     # (hops binned by script-width class, padded to the bin's widest
     # script — compiler/buckets.plan_tiles) executed with the exact

@@ -4,17 +4,12 @@ The port of ``isotope_tpu.sim.engine``'s main path.  One block of
 requests is one tensor program over a (request x hop) grid:
 
 - an upward sweep over the depth levels of the unrolled call tree
-  computes each hop's server-side duration: concurrent fan-outs join by
-  a scatter-max census per (parent, step) slot, serial retry attempts
-  sum, a finite timeout clamps and transport-fails an attempt, and the
-  census join (max with the sleep floor, step mask, fail/error
-  truncation, row sum, exclusive step prefix) runs in the hand-written
-  CUDA kernel of ``native/census.py`` on the card;
-- a level whose dense (hops x steps) grid is pathological (one wide hub
-  among thousands of short scripts) is tiled: hops binned by script
-  width run the dense census on fixed-width tiles, and scripts wider
-  than the tile cap keep the sparse call-slot encoding (packed segment
-  sums over the call-bearing steps only);
+  computes each hop's server-side duration: serial retry attempts sum,
+  a finite timeout clamps and transport-fails an attempt, and each
+  level's join (``sim/joins.py``: the dense step grid on the census
+  kernel of ``native/census.py``, the ragged census of a mostly padded
+  grid, the tiles and sparse call slots of a skewed wide level, or a
+  call-free level's static time) turns the calls into busy time;
 - a downward sweep decides which hops were actually sent, and a second
   one assigns absolute start times;
 - arrivals are a Poisson cumsum (open loop) or per-connection pacing
@@ -78,15 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from isotope_tpu_torch import telemetry
-from isotope_tpu_torch.compiler import buckets
 from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
-from isotope_tpu_torch.native.census import (
-    RaggedPlan,
-    census,
-    census_ragged,
-    ragged_engages,
-    ragged_plan,
-)
 from isotope_tpu_torch.native.satwait import saturated_wait
 from isotope_tpu_torch.resilience import faults
 from isotope_tpu_torch.sim import closed, queueing
@@ -112,6 +99,7 @@ from isotope_tpu_torch.sim.draws import (
     DrawSpec,
 )
 from isotope_tpu_torch.sim.feedback import RetryFeedback
+from isotope_tpu_torch.sim.joins import Join, level_join
 
 F32 = torch.float32
 
@@ -172,24 +160,18 @@ class SimResults(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class _Level:
-    """Device-resident constants for one depth level."""
+    """Device-resident constants for one depth level; ``join`` turns
+    its calls into its hops' busy time (``sim/joins.py``)."""
 
     offset: int                     # start of this level's slice in hop order
     size: int
-    pmax: int
-    # dense step grid; None for a tiled or sparse level, whose (L, Pmax)
-    # grid is exactly what those encodings avoid materializing
-    step_mask: Optional[torch.Tensor]  # (L, Pmax) f32 — 1 where a real step
-    step_base: Optional[torch.Tensor]  # (L, Pmax) f32
-    child_seg: torch.Tensor         # (C,) i64 — parent_local * Pmax + step
+    pmax: int                       # widest script; the fail-step sentinel
+    join: Join
     child_parent_local: torch.Tensor  # (C,) i64
     child_step: torch.Tensor        # (C,) i32 — step index within the parent
     child_rtt: torch.Tensor         # (C,) f32 — request + response wire time
     child_net_out: torch.Tensor     # (C,) f32 — one-way request wire time
     child_send_prob: torch.Tensor   # (C,) f32
-    call_seg: torch.Tensor          # (K,) i64 — parent_local * Pmax + step
-    call_hop: torch.Tensor          # (K,) i64 — parent_local
-    call_step: torch.Tensor         # (K,) i32
     call_timeout: torch.Tensor      # (K,) f32, +inf when none
     att_child: Tuple[torch.Tensor, ...]  # per attempt: (K,) i64 in [0, C]
     att_valid: Tuple[torch.Tensor, ...]  # per attempt: (K,) bool
@@ -198,29 +180,17 @@ class _Level:
     ident_attempts: bool = False
     # any call with a finite timeout (else timeouts can't fire)
     finite_timeout: bool = False
-    # c when call_seg == repeat(arange(size*pmax), c): the per-step
-    # aggregation is a reshape-reduce instead of a scatter
-    uniform_calls: Optional[int] = None
-    # call-free levels: busy time is fully static — (L,) seconds
-    leaf_busy: Optional[torch.Tensor] = None
-    # sparse call-slot step encoding of a skewed wide level; None = dense
-    sparse: Optional["_SparseSteps"] = None
-    # dense-blocked tiling of a skewed wide level; exclusive with sparse
-    tiled: Optional["_TiledSteps"] = None
-    # a dense level whose grid is mostly padding: its real steps, for the
-    # ragged census (native/census.py); None = the dense census
-    ragged: Optional[RaggedPlan] = None
     # (C,) i64 churn-weight column of each child (sentinel E: weight 1);
     # None without traffic splits
     child_churn_entry: Optional[torch.Tensor] = None
 
     @property
     def num_children(self) -> int:
-        return len(self.child_seg)
+        return len(self.child_parent_local)
 
     @property
     def num_calls(self) -> int:
-        return len(self.call_seg)
+        return len(self.call_timeout)
 
 
 def ndtr(x: torch.Tensor) -> torch.Tensor:
@@ -291,370 +261,6 @@ def _clock_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 def _const(x, dtype, device) -> torch.Tensor:
     """A host array as a constant tensor on ``device``."""
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-
-def _slot_max(dur_call, n, rows, width, call_seg, uniform):
-    """(n, rows, width) per-step census of concurrent calls: the max
-    duration of the calls at each (parent, step) slot, 0 where none."""
-    if uniform is not None:
-        # call_seg == repeat(arange(rows * width), c): reshape-reduce
-        return dur_call.reshape(n, rows, width, uniform).amax(-1)
-    return torch.zeros(
-        (n, rows * width), dtype=F32, device=dur_call.device
-    ).scatter_reduce_(
-        1, call_seg.expand(n, -1), dur_call, "amax", include_self=True,
-    ).reshape(n, rows, width)
-
-
-def _fail_min(final_transport, call_step, call_row, n, rows, width, P,
-              uniform):
-    """(n, rows) first transport-failed step of each row; sentinel ``P``
-    where no call failed."""
-    fail_contrib = torch.where(final_transport, call_step, P).to(torch.int32)
-    if uniform is not None:
-        return fail_contrib.reshape(n, rows, width * uniform).amin(-1)
-    return torch.full(
-        (n, rows), P, dtype=torch.int32, device=final_transport.device
-    ).scatter_reduce_(
-        1, call_row.expand(n, -1), fail_contrib, "amin", include_self=True,
-    )
-
-
-# -- non-dense step encodings of skewed wide levels ---------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class _SparseSteps:
-    """Call-slot step encoding for skewed wide levels.
-
-    One dynamic slot per CALL-BEARING step only: pure-sleep steps fold
-    into static per-hop totals and prefixes, per-hop busy times are
-    packed segment sums (cumsum minus segment starts — no (L x P)
-    tensor ever materializes) and child start offsets gather static
-    sleep prefixes plus the dynamic call prefix at their slot.
-
-    A transport failure can only originate at a call-bearing step, so
-    the first failing slot of a hop (a scatter-min over the slot axis)
-    is its truncation point: slots past it are zeroed before the packed
-    prefix sums, the executed pure-sleep part comes from a static
-    per-slot sleep prefix, and children past the fail step take the
-    parent's truncated busy time as their offset (the dense grid's flat
-    prefix past the failure).
-    """
-
-    n_slots: int
-    slot_base: torch.Tensor          # (S,) f32 sleep floor of each call step
-    call_slot: Optional[torch.Tensor]  # (K,) i64 call -> slot; None: identity
-    has_slots: torch.Tensor          # (L,) bool
-    seg_first: torch.Tensor          # (L,) i64 first slot of the hop (safe 0)
-    seg_last: torch.Tensor           # (L,) i64 last slot of the hop (safe 0)
-    sleep_total: torch.Tensor        # (L,) f32 static pure-sleep busy seconds
-    child_sleep_prefix: torch.Tensor  # (C,) f32 static sleep before the step
-    child_slot: torch.Tensor         # (C,) i64 slot of the child's step
-    child_seg_first: torch.Tensor    # (C,) i64 first slot of the parent
-    slot_hop: torch.Tensor           # (S,) i64 local hop index of each slot
-    slot_step: torch.Tensor          # (S,) i32 step index of each slot
-    slot_sleep_prefix: torch.Tensor  # (S,) f32 static sleep before the slot
-
-
-@dataclasses.dataclass(frozen=True)
-class _Tile:
-    """One dense sub-grid of a tiled level (see :class:`_TiledSteps`):
-    the level's step rows restricted to the tile's hops and truncated to
-    the tile width, so its census is the dense grid's on those rows."""
-
-    hops: np.ndarray                 # (T,) level-local hop indices, sorted
-    width: int                       # W — padded step width of the bin
-    step_mask: torch.Tensor          # (T, W) f32
-    step_base: torch.Tensor          # (T, W) f32
-    num_calls: int
-    call_sel: torch.Tensor           # (Kt,) i64 indices into level call order
-    call_pos: torch.Tensor           # (Kt,) i64 parent position within tile
-    call_step: torch.Tensor          # (Kt,) i32 step index within the parent
-    call_seg: torch.Tensor           # (Kt,) i64 call_pos * W + call_step
-    num_children: int
-    child_flat: torch.Tensor         # (Ct,) i64 child_pos * W + child_step
-    child_hop: torch.Tensor          # (Ct,) i64 level-local parent hop
-    uniform_calls: Optional[int]     # c when call_seg == repeat(arange, c)
-
-
-@dataclasses.dataclass(frozen=True)
-class _TiledSteps:
-    """Dense-blocked encoding of a skewed wide level.
-
-    Hops are binned by script-width class into fixed-width tiles
-    (``compiler/buckets.plan_tiles``) and each tile runs the dense census
-    restricted to its rows; only scripts wider than the tile cap keep
-    the sparse call-slot encoding as a ``residual``.  Per-part busy,
-    fail and offset columns are put back into level order by the static
-    ``hop_inv`` / ``child_inv`` gathers.
-    """
-
-    tiles: Tuple[_Tile, ...]
-    residual: Optional[_SparseSteps]       # over the residual hops only
-    res_size: int                          # R, residual hop count
-    res_hops: Optional[torch.Tensor]       # (R,) i64 level-local indices
-    res_call_sel: Optional[torch.Tensor]   # (Kr,) i64 level call indices
-    res_num_children: int
-    res_child_pos: Optional[torch.Tensor]  # (Cr,) i64 parent among residual
-    res_child_step: Optional[torch.Tensor]  # (Cr,) i32
-    hop_inv: torch.Tensor                  # (L,) i64 concat -> level order
-    child_inv: torch.Tensor                # (C,) i64 concat -> level order
-
-
-def _sparse_tables(
-    num_hops: int,
-    pmax: int,
-    sleep_real: np.ndarray,      # (L, >=pmax) f64 — step_is_real * base
-    step_base: np.ndarray,       # (L, >=pmax)
-    call_seg_p: np.ndarray,      # (K,) parent_local * pmax + step
-    parent_local: np.ndarray,    # (C,)
-    child_step: np.ndarray,      # (C,)
-    device,
-) -> _SparseSteps:
-    """The sparse call-slot tables of one (possibly restricted) hop set:
-    the pure sparse encoding's, or a tiled level's residual part (inputs
-    already renumbered to the restricted order)."""
-    slot_segs = np.unique(call_seg_p)  # sorted
-    n_slots = len(slot_segs)
-    slot_hop = slot_segs // pmax
-    slot_step = slot_segs % pmax
-    call_slot_np = np.searchsorted(slot_segs, call_seg_p)
-    # slots are sorted by hop: the first and last slot of each hop
-    # (0 for a hop without slots)
-    hops = np.arange(num_hops)
-    lo = np.searchsorted(slot_hop, hops, "left")
-    hi = np.searchsorted(slot_hop, hops, "right")
-    has = hi > lo
-    seg_first = np.where(has, lo, 0)
-    seg_last = np.where(has, hi - 1, 0)
-    has_call_step = np.zeros((num_hops, pmax), bool)
-    has_call_step[slot_hop, slot_step] = True
-    sleep_only = sleep_real[:, :pmax] * ~has_call_step
-    sleep_prefix = np.cumsum(sleep_only, 1) - sleep_only
-    child_slot_np = np.searchsorted(
-        slot_segs, parent_local * pmax + child_step
-    )
-
-    def t(x, dtype):
-        return _const(x, dtype, device)
-
-    return _SparseSteps(
-        n_slots=n_slots,
-        slot_base=t(step_base[slot_hop, slot_step], F32),
-        call_slot=(
-            None
-            if np.array_equal(call_slot_np, np.arange(len(call_seg_p)))
-            else t(call_slot_np, torch.int64)
-        ),
-        has_slots=t(has, torch.bool),
-        seg_first=t(seg_first, torch.int64),
-        seg_last=t(seg_last, torch.int64),
-        sleep_total=t(sleep_only.sum(1), F32),
-        child_sleep_prefix=t(sleep_prefix[parent_local, child_step], F32),
-        child_slot=t(child_slot_np, torch.int64),
-        child_seg_first=t(seg_first[parent_local], torch.int64),
-        slot_hop=t(slot_hop, torch.int64),
-        slot_step=t(slot_step, torch.int32),
-        slot_sleep_prefix=t(sleep_prefix[slot_hop, slot_step], F32),
-    )
-
-
-def _uniform_calls(call_seg: np.ndarray, slots: int) -> Optional[int]:
-    """c when ``call_seg == repeat(arange(slots), c)``: every slot holds c
-    calls in order, and the per-slot max is a reshape-reduce."""
-    n_calls = len(call_seg)
-    if n_calls == 0 or n_calls % slots:
-        return None
-    c = n_calls // slots
-    if np.array_equal(call_seg, np.repeat(np.arange(slots), c)):
-        return c
-    return None
-
-
-def _build_tiled_steps(
-    plan,                        # buckets.TilePlan
-    pmax: int,
-    step_is_real: np.ndarray,    # (L, >=pmax) bool
-    step_base: np.ndarray,       # (L, >=pmax)
-    sleep_real: np.ndarray,      # (L, >=pmax) f64
-    call_seg_p: np.ndarray,      # (K,)
-    parent_local: np.ndarray,    # (C,)
-    child_step: np.ndarray,      # (C,)
-    device,
-) -> _TiledSteps:
-    """Lower one level's tile plan into device constants."""
-
-    def t(x, dtype):
-        return _const(x, dtype, device)
-
-    call_parent = call_seg_p // pmax
-    call_step_all = call_seg_p % pmax
-    # one-pass hop -> part map: selecting each part's calls and children
-    # is then a vectorized compare
-    num_hops = len(step_is_real)
-    part_of_hop = np.full(num_hops, -1, np.int64)
-    for ti, (_, hop_idx) in enumerate(plan.tiles):
-        part_of_hop[hop_idx] = ti
-    if len(plan.residual):
-        part_of_hop[plan.residual] = len(plan.tiles)
-    part_of_call = part_of_hop[call_parent]
-    part_of_child = part_of_hop[parent_local]
-    tiles: List[_Tile] = []
-    hop_parts: List[np.ndarray] = []
-    child_parts: List[np.ndarray] = []
-    for ti, (w, hop_idx) in enumerate(plan.tiles):
-        w = int(w)
-        call_sel = np.nonzero(part_of_call == ti)[0]
-        call_pos = np.searchsorted(hop_idx, call_parent[call_sel])
-        cstep = call_step_all[call_sel]
-        call_seg_t = call_pos * w + cstep
-        child_sel = np.nonzero(part_of_child == ti)[0]
-        child_pos = np.searchsorted(hop_idx, parent_local[child_sel])
-        tiles.append(_Tile(
-            hops=hop_idx,
-            width=w,
-            step_mask=t(step_is_real[hop_idx, :w], F32),
-            step_base=t(step_base[hop_idx, :w], F32),
-            num_calls=len(call_sel),
-            call_sel=t(call_sel, torch.int64),
-            call_pos=t(call_pos, torch.int64),
-            call_step=t(cstep, torch.int32),
-            call_seg=t(call_seg_t, torch.int64),
-            num_children=len(child_sel),
-            child_flat=t(child_pos * w + child_step[child_sel], torch.int64),
-            child_hop=t(hop_idx[child_pos], torch.int64),
-            uniform_calls=_uniform_calls(call_seg_t, len(hop_idx) * w),
-        ))
-        hop_parts.append(hop_idx)
-        child_parts.append(child_sel)
-    residual = None
-    res_hops = res_call_sel = res_child_pos = res_child_step = None
-    res_num_children = 0
-    if len(plan.residual):
-        res = plan.residual
-        res_part = len(plan.tiles)
-        call_sel_r = np.nonzero(part_of_call == res_part)[0]
-        call_pos_r = np.searchsorted(res, call_parent[call_sel_r])
-        call_seg_r = call_pos_r * pmax + call_step_all[call_sel_r]
-        child_sel_r = np.nonzero(part_of_child == res_part)[0]
-        parent_r = np.searchsorted(res, parent_local[child_sel_r])
-        child_step_r = child_step[child_sel_r]
-        residual = _sparse_tables(
-            len(res), pmax, sleep_real[res], step_base[res],
-            call_seg_r, parent_r, child_step_r, device,
-        )
-        res_hops = t(res, torch.int64)
-        res_call_sel = t(call_sel_r, torch.int64)
-        res_num_children = len(child_sel_r)
-        res_child_pos = t(parent_r, torch.int64)
-        res_child_step = t(child_step_r, torch.int32)
-        hop_parts.append(res)
-        child_parts.append(child_sel_r)
-    return _TiledSteps(
-        tiles=tuple(tiles),
-        residual=residual,
-        res_size=len(plan.residual),
-        res_hops=res_hops,
-        res_call_sel=res_call_sel,
-        res_num_children=res_num_children,
-        res_child_pos=res_child_pos,
-        res_child_step=res_child_step,
-        hop_inv=t(np.argsort(np.concatenate(hop_parts)), torch.int64),
-        child_inv=t(np.argsort(np.concatenate(child_parts)), torch.int64),
-    )
-
-
-def _sparse_level_sweep(
-    sp: _SparseSteps,
-    n: int,
-    P: int,
-    size: int,
-    dur_call: torch.Tensor,                  # (n, K)
-    final_transport: Optional[torch.Tensor],  # (n, K) bool
-    err_par: Optional[torch.Tensor],          # (n, size) parent 500 coins
-    child_parent_local: torch.Tensor,         # (C,) parent in [0, size)
-    child_step: torch.Tensor,                 # (C,) i32
-):
-    """The sparse call-slot sweep over one hop set.
-
-    Returns ``(busy, fail_step, off)``: per-hop busy seconds (not yet
-    500-zeroed; the level applies the error mask), the per-hop fail step
-    (sentinel ``P`` = no transport failure; ``None`` when none can
-    occur), and per-child start offsets (fail- and error-adjusted,
-    before any retry attempt offset).
-    """
-    dev = dur_call.device
-    S = sp.n_slots
-    if S == 0:
-        # call-free hop set (pure-sleep scripts wider than the tile
-        # cap): busy is static, nothing can fail, no children
-        busy = sp.sleep_total.expand(n, size)
-        off = torch.zeros((n, child_step.shape[0]), dtype=F32, device=dev)
-        return busy, None, off
-    if sp.call_slot is None:
-        slot_agg = dur_call
-        slot_fail = final_transport
-    else:
-        idx = sp.call_slot.expand(n, -1)
-        slot_agg = torch.zeros((n, S), dtype=F32, device=dev).scatter_reduce_(
-            1, idx, dur_call, "amax", include_self=True
-        )
-        slot_fail = (
-            torch.zeros((n, S), dtype=torch.int32, device=dev)
-            .scatter_reduce_(
-                1, idx, final_transport.to(torch.int32), "amax",
-                include_self=True,
-            ) > 0
-            if final_transport is not None
-            else None
-        )
-    dyn = torch.maximum(sp.slot_base, slot_agg)
-    fail_step = None
-    if slot_fail is not None:
-        slots = torch.arange(S, dtype=torch.int32, device=dev)
-        fail_slot = torch.full(
-            (n, size), S, dtype=torch.int32, device=dev
-        ).scatter_reduce_(
-            1, sp.slot_hop.expand(n, -1), torch.where(slot_fail, slots, S),
-            "amin", include_self=True,
-        )
-        failed = fail_slot < S
-        safe = torch.clamp(fail_slot, max=S - 1).to(torch.int64)
-        fail_step = torch.where(failed, sp.slot_step[safe], P)
-        # slots past the hop's fail step do not execute
-        dyn = torch.where(
-            sp.slot_step[None, :] <= fail_step[:, sp.slot_hop], dyn, 0.0
-        )
-        sleep_exec = torch.where(
-            failed, sp.slot_sleep_prefix[safe], sp.sleep_total
-        )
-    else:
-        sleep_exec = sp.sleep_total
-    # packed segment sums: one cumsum over every slot of every hop
-    pcs = torch.cumsum(dyn, 1)
-    excl = pcs - dyn
-    seg_sum = torch.where(
-        sp.has_slots, pcs[:, sp.seg_last] - excl[:, sp.seg_first], 0.0
-    )
-    busy = sleep_exec + seg_sum
-    off = (
-        sp.child_sleep_prefix
-        + excl[:, sp.child_slot]
-        - excl[:, sp.child_seg_first]
-    )
-    if fail_step is not None:
-        # children past the fail step are not sent; the dense grid's
-        # prefix is flat there (== the truncated busy time)
-        off = torch.where(
-            child_step <= fail_step[:, child_parent_local],
-            off, busy[:, child_parent_local],
-        )
-    if err_par is not None:
-        # a 500ing parent runs no steps (dense zeroes the grid before
-        # the prefix)
-        off = off * ~err_par[:, child_parent_local]
-    return busy, fail_step, off
 
 
 def drain(steps):
@@ -1318,8 +924,10 @@ class Simulator:
             pmax = max(int(lvl.step_is_real.sum(1).max(initial=0)), 1)
             parent_local = lvl.child_seg // compiled.max_steps
             child_step = lvl.child_seg % compiled.max_steps
-            call_local = lvl.call_seg // compiled.max_steps
-            call_step = lvl.call_seg % compiled.max_steps
+            call_seg_p = (
+                lvl.call_seg // compiled.max_steps * pmax
+                + lvl.call_seg % compiled.max_steps
+            )
             n_calls = len(lvl.call_seg)
             ident = (
                 lvl.att_child.shape[0] == 1
@@ -1329,55 +937,14 @@ class Simulator:
                     lvl.att_child[0], np.arange(n_calls, dtype=np.int32)
                 )
             )
-            call_seg_p = call_local * pmax + call_step
-            sleep_real = lvl.step_is_real.astype(np.float64) * (
-                lvl.step_base
-            )
-            # a level whose dense (hops x Pmax) grid is pathological
-            # leaves the dense path: the dense-blocked tiling by default,
-            # the pure sparse call-slot encoding with tiling off (the
-            # decision is compiler/buckets.level_encoding, shared with
-            # the reference's vet linter)
-            leaf_busy = None
-            enc = "dense"
-            sparse = tiled = None
-            if n_calls == 0:
-                leaf_busy = tensor(sleep_real.sum(1), F32)
-            else:
-                enc, tile_plan = buckets.level_encoding(
-                    lvl.num_hops, pmax, len(np.unique(call_seg_p)),
-                    lvl.step_is_real[:, :pmax].sum(1),
-                    sparse_level_elems=params.sparse_level_elems,
-                    tiling=params.sparse_tiling,
-                    tile_pmax=params.sparse_tile_pmax,
-                )
-                if enc == "tiled":
-                    tiled = _build_tiled_steps(
-                        tile_plan, pmax, lvl.step_is_real,
-                        lvl.step_base, sleep_real, call_seg_p,
-                        parent_local, child_step, dev,
-                    )
-                elif enc == "sparse":
-                    sparse = _sparse_tables(
-                        lvl.num_hops, pmax, sleep_real, lvl.step_base,
-                        call_seg_p, parent_local, child_step, dev,
-                    )
-            dense = enc == "dense"
             levels.append(
                 _Level(
                     offset=offset,
                     size=lvl.num_hops,
                     pmax=pmax,
-                    step_mask=(
-                        tensor(lvl.step_is_real[:, :pmax], F32)
-                        if dense else None
-                    ),
-                    step_base=(
-                        tensor(lvl.step_base[:, :pmax], F32)
-                        if dense else None
-                    ),
-                    child_seg=tensor(
-                        parent_local * pmax + child_step, torch.int64
+                    join=level_join(
+                        lvl.step_is_real, lvl.step_base, pmax, call_seg_p,
+                        parent_local, child_step, params, dev,
                     ),
                     child_parent_local=tensor(parent_local, torch.int64),
                     child_step=tensor(child_step, torch.int32),
@@ -1388,9 +955,6 @@ class Simulator:
                     child_send_prob=tensor(
                         compiled.hop_send_prob[cids], F32
                     ),
-                    call_seg=tensor(call_seg_p, torch.int64),
-                    call_hop=tensor(call_local, torch.int64),
-                    call_step=tensor(call_step, torch.int32),
                     call_timeout=tensor(lvl.call_timeout, F32),
                     att_child=tuple(
                         tensor(a, torch.int64) for a in lvl.att_child
@@ -1402,29 +966,12 @@ class Simulator:
                     finite_timeout=bool(
                         np.isfinite(lvl.call_timeout).any()
                     ),
-                    uniform_calls=(
-                        _uniform_calls(call_seg_p, lvl.num_hops * pmax)
-                        if dense else None
-                    ),
-                    leaf_busy=leaf_busy,
-                    sparse=sparse,
-                    tiled=tiled,
                     child_churn_entry=(
                         tensor(self._hop_churn_entry[cids], torch.int64)
                         if churn else None
                     ),
                 )
             )
-            # a dense grid that is mostly padding takes the ragged census,
-            # which walks the real steps alone (native/census.py)
-            if dense and n_calls and ragged_engages(
-                lvl.step_base[:, :pmax], lvl.step_is_real[:, :pmax]
-            ):
-                lv = levels[-1]
-                levels[-1] = dataclasses.replace(lv, ragged=ragged_plan(
-                    lv.step_base, lv.step_mask, lv.call_seg, lv.call_hop,
-                    lv.call_step, lv.child_seg, lv.uniform_calls,
-                ))
             offset += lvl.num_hops
         self._levels: Tuple[_Level, ...] = tuple(levels)
 
@@ -4038,34 +3585,19 @@ class Simulator:
                       members: int = 1
                       ) -> List[Tuple[int, int, int, bool, bool]]:
         """``(N, B, P, fail, err)`` of each census call one block of ``n``
-        requests makes, in call order: one per dense level with children,
-        with a fail step where a call has a finite timeout or under
-        chaos (any callee may be down) and error coins where a hop has a
-        nonzero error rate, panic routing can fast-fail it or (``policy``:
-        a block under policy effects) a breaker can shed it, and one per
-        tile of a tiled level that holds calls, ``(N, T, W)``, with the
-        level's fail step and no error coins.  ``members``: a folded
-        fleet block of that many members (``"vmap"``), whose calls take
-        ``members * n`` rows.  A level on the ragged census
-        (``_Level.ragged``) keeps its dense shape here: its one launch
-        counts in ``census.launches`` as the dense call did."""
+        requests makes, in call order: each level's join's
+        ``census_calls``, deepest level first (``sim/joins.py``), with a
+        fail step where a call has a finite timeout or under chaos, and
+        error coins where a hop has a nonzero error rate, panic routing
+        can fast-fail it or (``policy``) a breaker can shed it.
+        ``members``: a folded fleet block of that many members, whose
+        calls take ``members * n`` rows."""
         spec = self.draw_spec(n, OPEN_LOOP, policy=policy)
         n = n * members
         err = spec.need_err or spec.panic or spec.shed
-        shapes = []
-        for lvl in reversed(self._levels):
-            if lvl.num_children == 0 or lvl.sparse is not None:
-                continue
-            fail = lvl.finite_timeout or self.has_chaos
-            if lvl.tiled is None:
-                shapes.append((n, lvl.size, lvl.pmax, fail, err))
-                continue
-            shapes += [
-                (n, len(tile.hops), tile.width, fail, False)
-                for tile in lvl.tiled.tiles
-                if tile.num_calls
-            ]
-        return shapes
+        return [call for lvl in reversed(self._levels)
+                for call in lvl.join.census_calls(
+                    n, lvl.finite_timeout or self.has_chaos, err)]
 
     def capacity_qps(self) -> float:
         """Saturation throughput: the bottleneck station's capacity."""
@@ -4098,90 +3630,6 @@ class Simulator:
         if kind == SERVICE_TIME_PARETO:
             return torch.exp(draw / p) * (mean * (p - 1.0) / p)
         return draw * mean
-
-    def _tiled_sweep(self, lvl: _Level, n: int, dur_call, final_transport,
-                     err_lvl):
-        """Dense tiles + sparse residual of one tiled level.
-
-        Every tile runs the dense census restricted to its rows (through
-        the census kernel on the card, with a fail step and no error
-        flags: the 500 mask is applied to busy by the caller and to the
-        offsets here); the residual keeps the sparse call-slot sweep.
-        Returns ``(busy, fail_step, off)`` in level order, as
-        :func:`_sparse_level_sweep` does.
-        """
-        tl = lvl.tiled
-        P = lvl.pmax
-        dev = self.device
-        transportable = final_transport is not None
-        busy_parts: List[torch.Tensor] = []
-        fail_parts: List[torch.Tensor] = []
-        off_parts: List[torch.Tensor] = []
-        for tile in tl.tiles:
-            T, W = len(tile.hops), tile.width
-            fail_t = None
-            if transportable:
-                fail_t = (
-                    _fail_min(
-                        final_transport[:, tile.call_sel], tile.call_step,
-                        tile.call_pos, n, T, W, P, tile.uniform_calls,
-                    )
-                    if tile.num_calls
-                    # call-free rows cannot transport-fail
-                    else torch.full((n, T), P, dtype=torch.int32,
-                                    device=dev)
-                )
-            if tile.num_calls:
-                agg = _slot_max(
-                    dur_call[:, tile.call_sel], n, T, W, tile.call_seg,
-                    tile.uniform_calls,
-                )
-                busy_t, excl = census(
-                    tile.step_base, tile.step_mask, agg.contiguous(),
-                    fail_t, None,
-                )
-            else:
-                # the dense grid's census of a call-free row
-                busy_t = (
-                    torch.maximum(tile.step_base, torch.zeros((), device=dev))
-                    * tile.step_mask
-                ).sum(-1).expand(n, T)
-            busy_parts.append(busy_t)
-            if transportable:
-                fail_parts.append(fail_t)
-            if tile.num_children:
-                off_t = excl.reshape(n, -1)[:, tile.child_flat]
-                if err_lvl is not None:
-                    # dense zeroes the grid of a 500ing parent before
-                    # the prefix
-                    off_t = off_t * ~err_lvl[:, tile.child_hop]
-                off_parts.append(off_t)
-        if tl.residual is not None:
-            busy_r, fail_r, off_r = _sparse_level_sweep(
-                tl.residual, n, P, tl.res_size,
-                dur_call[:, tl.res_call_sel],
-                final_transport[:, tl.res_call_sel] if transportable
-                else None,
-                err_lvl[:, tl.res_hops] if err_lvl is not None else None,
-                tl.res_child_pos, tl.res_child_step,
-            )
-            busy_parts.append(busy_r)
-            if transportable:
-                # a call-free residual cannot fail
-                fail_parts.append(
-                    fail_r if fail_r is not None
-                    else torch.full((n, tl.res_size), P, dtype=torch.int32,
-                                    device=dev)
-                )
-            if tl.res_num_children:
-                off_parts.append(off_r)
-        busy = torch.cat(busy_parts, 1)[:, tl.hop_inv]
-        fail_step = (
-            torch.cat(fail_parts, 1)[:, tl.hop_inv] if transportable
-            else None
-        )
-        off = torch.cat(off_parts, 1)[:, tl.child_inv]
-        return busy, fail_step, off
 
     # -- the tensor program ------------------------------------------------
 
@@ -4834,14 +4282,13 @@ class Simulator:
                     if err_coin is not None else None
                 )
                 P = lvl.pmax
-                fail_step = None
+                dur_call = final_transport = att_off = None
                 if lvl.num_children > 0:
                     nxt = self._levels[d + 1]
                     csl = slice(nxt.offset, nxt.offset + nxt.size)
                     C = lvl.num_children
                     timeout = lvl.call_timeout if lvl.finite_timeout else None
                     down_child = down[:, csl] if down is not None else None
-                    att_off = None
                     if lvl.ident_attempts:
                         # single attempt, call k <-> child k: elementwise
                         tt = lvl.child_rtt + lat_lvls[d + 1]  # (N, C)
@@ -4952,64 +4399,14 @@ class Simulator:
                             )
                         used_lvls[d] = used[:, :C]
 
-                    # -- aggregate calls into (parent, step) slots ---------
-                    if lvl.sparse is not None or lvl.tiled is not None:
-                        # skewed wide level: tiles + sparse residual, or the
-                        # pure sparse call-slot sweep; the 500 mask applies
-                        # to busy after the sweep
-                        if lvl.tiled is not None:
-                            busy, fail_step, off = self._tiled_sweep(
-                                lvl, n, dur_call, final_transport, err_lvl
-                            )
-                        else:
-                            busy, fail_step, off = _sparse_level_sweep(
-                                lvl.sparse, n, P, lvl.size, dur_call,
-                                final_transport, err_lvl,
-                                lvl.child_parent_local, lvl.child_step,
-                            )
-                        if err_lvl is not None:
-                            busy = busy * ~err_lvl
-                        if att_off is not None:
-                            off = off + used_lvls[d] * att_off[:, :C]
-                        off_lvls[d] = off
-                    elif lvl.ragged is not None:
-                        # a mostly padded grid: the real steps alone, one
-                        # kernel from the calls to the children's offsets
-                        busy, fail_step, off = census_ragged(
-                            lvl.ragged, dur_call.contiguous(),
-                            final_transport.contiguous()
-                            if final_transport is not None else None,
-                            err_lvl,
-                        )
-                        if att_off is not None:
-                            off = off + used_lvls[d] * att_off[:, :C]
-                        off_lvls[d] = off
-                    else:
-                        agg = _slot_max(
-                            dur_call, n, lvl.size, P, lvl.call_seg,
-                            lvl.uniform_calls,
-                        )
-                        if final_transport is not None:
-                            fail_step = _fail_min(
-                                final_transport, lvl.call_step, lvl.call_hop,
-                                n, lvl.size, P, P, lvl.uniform_calls,
-                            )
-                        # fused census join (native/census.py): max + mask +
-                        # fail/err truncation + row sum + exclusive prefix
-                        busy, excl = census(
-                            lvl.step_base, lvl.step_mask, agg.contiguous(),
-                            fail_step, err_lvl,
-                        )
-                        off = excl.reshape(n, -1)[:, lvl.child_seg]
-                        if att_off is not None:
-                            off = off + used_lvls[d] * att_off[:, :C]
-                        off_lvls[d] = off
-                else:
-                    # call-free level: busy time is fully static; an
-                    # errorRate 500 skips the whole script
-                    busy = lvl.leaf_busy.expand(n, lvl.size)
-                    if err_lvl is not None:
-                        busy = busy * ~err_lvl
+                # -- the level's join (sim/joins.py): busy (500-masked),
+                # fail step and the children's offsets within the script
+                busy, fail_step, off = lvl.join.sweep(
+                    n, dur_call, final_transport, err_lvl
+                )
+                if att_off is not None:
+                    off = off + used_lvls[d] * att_off[:, :C]
+                off_lvls[d] = off
                 fail_lvls[d] = fail_step
                 lat_lvls[d] = wait[:, sl] + svc_time[:, sl] + busy
                 if nan_seg == d:
@@ -5081,28 +4478,11 @@ class Simulator:
             root_lat = torch.where(
                 root_down, 2 * self._entry_one_way, root_lat
             )
-        if kind == CLOSED_LOOP and M:
-            arrivals, conn_end = self._folded_closed_clock(
-                root_lat.view(M, N), connections, pace_gap, conn_t0
+        if kind == CLOSED_LOOP:
+            arrivals, conn_end = self._closed_clock(
+                root_lat.view(M, N) if M else root_lat, connections,
+                pace_gap, conn_t0,
             )
-        elif kind == CLOSED_LOOP:
-            c = max(connections, 1)
-            per = n // c
-            rem = n - c * per
-            lat_conn = root_lat[: c * per].reshape(c, per)
-            spent = torch.maximum(lat_conn, pace_gap)
-            starts = conn_t0[:, None] + _clock_cumsum(spent, -1) - spent
-            conn_end = conn_t0 + spent.sum(-1)
-            if rem:
-                # remainder requests (n % c) continue on the first ``rem``
-                # connections — each starts when its connection frees up
-                arrivals = torch.cat([starts.reshape(-1), conn_end[:rem]])
-                spent_rem = torch.maximum(root_lat[c * per:], pace_gap)
-                conn_end = torch.cat(
-                    [conn_end[:rem] + spent_rem, conn_end[rem:]]
-                )
-            else:
-                arrivals = starts.reshape(-1)
         else:
             conn_end = conn_t0
 
@@ -5187,29 +4567,35 @@ class Simulator:
         return res, t_end, conn_end
 
     @staticmethod
-    def _folded_closed_clock(root_lat, connections, pace_gap, conn_t0):
-        """The closed loop's arrivals and connection clocks of a folded
-        block, per member: ``root_lat`` is (M, N), ``pace_gap`` (M,),
-        ``conn_t0`` (M, C); the solo law of :meth:`_simulate_core` on
-        each member's rows."""
-        M, N = root_lat.shape
+    def _closed_clock(root_lat, connections, pace_gap, conn_t0):
+        """The closed loop's arrivals, flat, and connection clocks of a
+        solo block (``root_lat`` (N,), ``pace_gap`` 0-d, ``conn_t0``
+        (C,)) or of M folded members ((M, N), (M,), (M, C)): each latency
+        takes the longer of itself and its gap on its connection from
+        ``conn_t0``; remainder requests (N % C) start as their connection
+        frees up.  The member axis's broadcasts and flatten apply only
+        where there is one: a solo block dispatches no extra view op."""
+        lead = root_lat.shape[:-1]
         c = max(connections, 1)
-        per = N // c
-        rem = N - c * per
-        lat_conn = root_lat[:, : c * per].reshape(M, c, per)
-        spent = torch.maximum(lat_conn, pace_gap[:, None, None])
-        starts = conn_t0[:, :, None] + _clock_cumsum(spent, -1) - spent
+        per = root_lat.shape[-1] // c
+        rem = root_lat.shape[-1] - c * per
+        lat_conn = root_lat.narrow(-1, 0, c * per).reshape(*lead, c, per)
+        spent = torch.maximum(
+            lat_conn, pace_gap[:, None, None] if lead else pace_gap
+        )
+        starts = conn_t0[..., None] + _clock_cumsum(spent, -1) - spent
         conn_end = conn_t0 + spent.sum(-1)
-        arrivals = starts.reshape(M, -1)
+        arrivals = starts.reshape(*lead, -1)
         if rem:
-            arrivals = torch.cat([arrivals, conn_end[:, :rem]], 1)
+            arrivals = torch.cat([arrivals, conn_end[..., :rem]], -1)
             spent_rem = torch.maximum(
-                root_lat[:, c * per:], pace_gap[:, None]
+                root_lat[..., c * per:],
+                pace_gap[:, None] if lead else pace_gap,
             )
             conn_end = torch.cat(
-                [conn_end[:, :rem] + spent_rem, conn_end[:, rem:]], 1
+                [conn_end[..., :rem] + spent_rem, conn_end[..., rem:]], -1
             )
-        return arrivals.reshape(-1), conn_end
+        return (arrivals.reshape(-1) if lead else arrivals), conn_end
 
     def _kill_resets(self, u_kill, hop_sent, hop_start, hop_lat, arrivals,
                      root_lat, client_error, rows=None):

@@ -330,11 +330,7 @@ def test_tiled_and_sparse_levels_match_reference(encoding):
     retried calls."""
     jc = jax_compile_graph(JaxGraph.from_yaml(SPARSE_CASES["timeout-retries"]))
     js, ps = scenario_pair(jc, dict(attribution=True, **ENCODINGS[encoding]))
-    assert encoding.split("-")[0] in {
-        "tiled" if l.tiled is not None
-        else "sparse" if l.sparse is not None else "dense"
-        for l in ps._levels
-    }
+    assert encoding.split("-")[0] in {l.join.kind for l in ps._levels}
     load = dict(kind="open", qps=300.0)
     s, a = ps.run_attributed(LoadModel(**load), 600,
                              JaxReplayDraws(KEY, js), block_size=300,

@@ -567,7 +567,7 @@ def test_ragged_plain_version_is_the_dense_composition(kind, fail, err, nan):
     for bit; the kernel's order of operations (``census_ragged_sequential``,
     padded steps skipped, the fail step found on the walk) equals that
     chain with the sequential join bit for bit."""
-    from isotope_tpu_torch.sim.engine import _fail_min, _slot_max
+    from isotope_tpu_torch.sim.joins import _fail_min, _slot_max
 
     plan = census_mod.ragged_plan(*ragged_level(
         3, uniform=None if kind == "scatter" else 2, device="cpu"))
@@ -610,7 +610,8 @@ def test_ragged_plan_walks_the_real_steps():
 
 
 def _ragged_levels(sim):
-    return [d for d, lvl in enumerate(sim._levels) if lvl.ragged is not None]
+    return [d for d, lvl in enumerate(sim._levels)
+            if lvl.join.kind == "ragged"]
 
 
 def test_ragged_predicate_picks_star10k_levels_2_and_3():
@@ -625,10 +626,10 @@ def test_ragged_predicate_picks_star10k_levels_2_and_3():
 
     star = star10k_sim("cpu")
     assert _ragged_levels(star) == [2, 3]
-    assert star._levels[1].tiled is not None
+    assert star._levels[1].join.kind == "tiled"
     lvl = star._levels[2]
-    assert (lvl.size, lvl.pmax, lvl.ragged.num_steps) == (4641, 38, 330)
-    assert star._levels[3].ragged.num_steps == 7
+    assert (lvl.size, lvl.pmax, lvl.join.plan.num_steps) == (4641, 38, 330)
+    assert star._levels[3].join.plan.num_steps == 7
     tree = json.loads((pathlib.Path(__file__).resolve().parents[1]
                        / "portbench" / "configs" / "tree121.json")
                       .read_text())

@@ -150,7 +150,7 @@ def test_tiled_level_on_the_kernel_matches_the_cpu(card, tile_pmax):
     compiled = compile_graph(ServiceGraph.from_yaml(SKEWED))
     params = SimParams(sparse_level_elems=1, sparse_tile_pmax=tile_pmax)
     card_sim = Simulator(compiled, params, device="cuda")
-    assert card_sim._levels[1].tiled is not None
+    assert card_sim._levels[1].join.kind == "tiled"
     load = LoadModel(kind="open", qps=1000.0)
     source = TorchDraws(5, "cuda")
     before = census_mod.census.launches
@@ -455,9 +455,9 @@ def test_ragged_kernel_on_star10k_levels(card):
     timeouts), error flags and NaNs."""
     sim = star10k_sim("cuda")
     assert [d for d, lvl in enumerate(sim._levels)
-            if lvl.ragged is not None] == [2, 3]
+            if lvl.join.kind == "ragged"] == [2, 3]
     for d in (2, 3):
-        plan = sim._levels[d].ragged
+        plan = sim._levels[d].join.plan
         _ragged_against_the_dense_chain(
             plan, ragged_inputs(plan, 3355, True, True, 0.001, seed=d))
 
@@ -470,10 +470,17 @@ RAGGED_YAML = SKEWED.replace(
 
 
 def _dense_twin(sim):
-    """``sim`` with every level on the dense census."""
+    """``sim`` with every level on the dense census (a ragged level on
+    the dense join of its own tables)."""
     import dataclasses
 
-    sim._levels = tuple(dataclasses.replace(lvl, ragged=None)
+    from isotope_tpu_torch.sim.joins import DenseJoin
+
+    def dense(join):
+        return join if join.kind != "ragged" else DenseJoin(*(
+            getattr(join, f.name) for f in dataclasses.fields(DenseJoin)))
+
+    sim._levels = tuple(dataclasses.replace(lvl, join=dense(lvl.join))
                         for lvl in sim._levels)
     return sim
 
@@ -497,7 +504,7 @@ def test_ragged_run_equals_the_dense_run(card, case):
         sims = [Simulator(compiled, device="cuda") for _ in range(2)]
         n, qps = 4096, 1000.0
     ragged, dense = sims[0], _dense_twin(sims[1])
-    assert any(lvl.ragged is not None for lvl in ragged._levels)
+    assert any(lvl.join.kind == "ragged" for lvl in ragged._levels)
     load = LoadModel(kind="open", qps=qps)
     before = census_mod.census_ragged.launches
     got = ragged.run(load, n, TorchDraws(7, "cuda"))

@@ -256,8 +256,8 @@ def test_down_service_across_tiles_matches_reference(down, encoding):
     sparse residual when the hub sits there)."""
     jax_sim, sim = _pair(SKEWED, ENCODINGS[encoding],
                          chaos=[_chaos(down, 0.05, 0.1)])
-    enc = sim._levels[1]
-    assert (enc.sparse if encoding == "sparse" else enc.tiled) is not None
+    assert sim._levels[1].join.kind == (
+        "sparse" if encoding == "sparse" else "tiled")
     assert all(s[3] for s in sim.census_shapes(8))
     got = run_both(jax_sim, sim, 2048, jax.random.PRNGKey(7), kind="open",
                    qps=0.4 * MU)

@@ -320,8 +320,8 @@ def test_sparse_level_raises():
         compiled, SimParams(sparse_level_elems=1, sparse_tiling=False),
         device="cpu",
     )
-    assert any(lvl.tiled is not None for lvl in tiled._levels)
-    assert any(lvl.sparse is not None for lvl in sparse._levels)
+    assert any(lvl.join.kind == "tiled" for lvl in tiled._levels)
+    assert any(lvl.join.kind == "sparse" for lvl in sparse._levels)
     load = LoadModel(kind="open", qps=100.0)
     a = tiled.run(load, 64, TorchDraws(7, "cpu"))
     b = sparse.run(load, 64, TorchDraws(7, "cpu"))

@@ -386,22 +386,22 @@ def test_folded_fleet_equals_map_and_reference(case, monkeypatch):
 def test_folded_block_census_call_takes_every_member():
     """A folded chaos fleet's block makes one census call a level over
     all M x N rows, with fail steps (down callees)."""
-    from isotope_tpu_torch.sim import engine
+    from isotope_tpu_torch.sim import joins
 
     _, sim = _build(BASE_YAML, chaos=(CHAOS,))
     pev, _ = _member_schedules(sim)
     rows = []
-    real = engine.census
+    real = joins.census
 
     def spy(step_base, step_mask, agg, fail_step=None, err=None):
         rows.append((agg.shape[0], fail_step is not None))
         return real(step_base, step_mask, agg, fail_step, err)
 
-    engine.census = spy
+    joins.census = spy
     try:
         sim.run_ensemble(LoadModel(**OPEN), BLOCK, TorchDraws(0, "cpu"),
                          ens.EnsembleSpec.of(MEMBERS, mode="vmap"),
                          block_size=BLOCK, member_chaos=pev)
     finally:
-        engine.census = real
+        joins.census = real
     assert rows and all(r == (MEMBERS * BLOCK, True) for r in rows)

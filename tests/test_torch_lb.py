@@ -473,7 +473,7 @@ def test_panic_under_chaos_matches_reference(tiling):
     _, jc, jt, pt = pair(topo)
     jax_sim, sim = scenario_pair(jc, params, chaos=chaos, lb=(jt, pt))
     if tiling != "dense":
-        assert any(lvl.tiled is not None for lvl in sim._levels)
+        assert any(lvl.join.kind == "tiled" for lvl in sim._levels)
     spec = sim.draw_spec(1024, "open")
     assert spec.panic
     got = run_both(jax_sim, sim, 1024, KEY, kind="open", qps=10_000.0)
@@ -482,14 +482,10 @@ def test_panic_under_chaos_matches_reference(tiling):
     # step and error flags; tiles take a fail step and no error flags
     shapes = iter(sim.census_shapes(1024))
     for lvl in reversed(sim._levels):
-        if not lvl.num_children or lvl.sparse is not None:
-            continue
-        if lvl.tiled is None:
-            assert next(shapes)[3:] == (True, True)
-        else:
-            for tile in lvl.tiled.tiles:
-                if tile.num_calls:
-                    assert next(shapes)[3:] == (True, False)
+        for call in lvl.join.census_calls(1024, True, True):
+            assert next(shapes) == call
+            assert call[3:] == ((True, False) if lvl.join.kind == "tiled"
+                                else (True, True))
     assert next(shapes, None) is None
 
 

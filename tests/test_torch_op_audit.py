@@ -178,9 +178,8 @@ def test_census_is_one_entry_with_its_named_inputs(name):
     assert len(entries) == len(shapes) == pilot.log.census_calls
     plans = []
     for lvl in reversed(sim._levels):
-        if lvl.num_children and lvl.sparse is None:
-            plans += [lvl.ragged] if lvl.tiled is None else [None] * sum(
-                1 for tile in lvl.tiled.tiles if tile.num_calls)
+        plan = lvl.join.plan if lvl.join.kind == "ragged" else None
+        plans += [plan] * len(lvl.join.census_calls(pilot.n, False, False))
     # the realistic topologies each have a level more than 4x padded
     assert any(plans) == (name != "canonical.yaml")
     for op, (n, b, p, fail, err), plan in zip(entries, shapes, plans):
@@ -195,8 +194,7 @@ def test_census_is_one_entry_with_its_named_inputs(name):
             assert len(op.ins) == 1 + fail + err
     assert not any(op.site.startswith("native/census.py")
                    for op in pilot.log.ops)
-    assert {op.site for op in entries} <= {
-        "sim/engine.py:_simulate_core", "sim/engine.py:_tiled_sweep"}
+    assert {op.site for op in entries} <= {"sim/joins.py:sweep"}
     assert census_mod.AUDIT is None
 
 

@@ -115,9 +115,9 @@ def _pair(yaml_text, **kw):
 
 
 def _encodings(sim):
+    """Each level's join, the ragged census and a leaf as dense."""
     return [
-        "tiled" if lvl.tiled is not None
-        else "sparse" if lvl.sparse is not None else "dense"
+        lvl.join.kind if lvl.join.kind in ("tiled", "sparse") else "dense"
         for lvl in sim._levels
     ]
 
@@ -141,7 +141,7 @@ def test_skewed_level_matches_reference(variant, encoding):
     enc = _encodings(sim)
     assert enc[1] == ("sparse" if encoding == "sparse" else "tiled")
     if encoding == "tiled-residual":
-        tl = sim._levels[1].tiled
+        tl = sim._levels[1].join
         assert tl.residual is not None and tl.res_size == 1  # the hub
     if variant == "firing-timeout":
         # the timeout fires on every request, mid-script: hub (hop 1)
@@ -155,7 +155,7 @@ def test_skewed_level_matches_reference(variant, encoding):
 def test_callfree_wide_hop_in_residual_matches_reference(encoding):
     sim, got = _check_against_reference(CALLFREE_WIDE, **ENCODINGS[encoding])
     if encoding == "tiled-residual":
-        tl = sim._levels[1].tiled
+        tl = sim._levels[1].join
         assert tl.residual is not None and tl.residual.n_slots == 0
     # the hub's timeout fires while 'slow' still runs whole
     assert bool(got.hop_error[:, 1].all())
@@ -172,7 +172,7 @@ def test_tiled_level_equals_dense_bitwise(variant):
                       device="cpu")
     assert _encodings(dense)[1] == "dense"
     assert _encodings(tiled)[1] == "tiled"
-    assert tiled._levels[1].tiled.residual is None
+    assert tiled._levels[1].join.residual is None
     load = LoadModel(kind="open", qps=QPS)
     a = dense.run(load, N, TorchDraws(3, "cpu"))
     b = tiled.run(load, N, TorchDraws(3, "cpu"))
@@ -203,7 +203,8 @@ def test_census_shapes_list_each_tile_with_calls():
     _, sim = _pair(VARIANTS["error-rates"].replace(
         "  - call: w0\n", "  - call: {service: w0, timeout: 3ms}\n"
     ), sparse_level_elems=1)
-    tiled = sim._levels[1].tiled
+    tiled = sim._levels[1].join
+    assert tiled.kind == "tiled"
     want = [(8, len(t.hops), t.width, True, False) for t in tiled.tiles
             if t.num_calls]
     assert want and set(want) <= set(sim.census_shapes(8))
@@ -222,8 +223,8 @@ def test_star10k_with_timeouts_matches_reference():
     sim = Simulator(port_compiled(jc), device="cpu")
     lvl = sim._levels[1]
     assert lvl.size == 5021 and lvl.pmax == 2217 and lvl.finite_timeout
-    assert lvl.tiled is not None and lvl.tiled.res_size == 8
-    assert sorted((len(t.hops), t.width) for t in lvl.tiled.tiles) == [
+    assert lvl.join.kind == "tiled" and lvl.join.res_size == 8
+    assert sorted((len(t.hops), t.width) for t in lvl.join.tiles) == [
         (10, 15), (14, 51), (16, 8), (23, 3), (4950, 1)
     ]
     assert sim.census_shapes(3355)[-1] == (3355, 1, 5021, True, False)

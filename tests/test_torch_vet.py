@@ -501,7 +501,7 @@ def test_gate_blocks_vet_m001_without_running(tmp_path, monkeypatch):
     can serve the case: VET-M001 blocks it (ladder armed or not) and the
     case is recorded FAILED without a block running."""
     topo = write_topo(tmp_path, CHAIN)
-    monkeypatch.setenv("ISOTOPE_VET_DEVICE_BYTES", "65536")
+    monkeypatch.setenv("ISOTOPE_VET_DEVICE_BYTES", "32768")
 
     def boom(*a, **k):  # pragma: no cover - must never run
         raise AssertionError("a blocked case ran")

@@ -8,8 +8,8 @@ Imports ``isotope_tpu_torch`` from ``DIR`` (default: this checkout),
 builds on one CUDA card the runs of ``chip_smoke.py`` phase 5 (the main
 path, the scenario runs and the lb runs) and its census-only
 topologies, runs the first block of each (``Simulator.run_blocks``,
-draws of seed 0) and writes, per run, the levels that take the ragged
-census (where the package has it) and the SHA-256 of every result
+draws of seed 0) and writes, per run, the levels on the ragged census
+(``DIR`` with ``sim/joins.py``) and the SHA-256 of every result
 field of the block.  ``--compare`` prints the runs whose digests differ
 and exits 1 if any does.  Needs a CUDA device; exits 1 without one.
 """
@@ -91,7 +91,7 @@ def digests(port, chip_smoke) -> dict:
             if isinstance(v, torch.Tensor)
         }
         ragged = [d for d, lvl in enumerate(sim._levels)
-                  if getattr(lvl, "ragged", None) is not None]
+                  if lvl.join.kind == "ragged"]
         out[name] = {"ragged_levels": ragged, "fields": fields}
         print(f"digest {name}: block {block}, ragged levels {ragged}, "
               + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
