@@ -2775,6 +2775,28 @@ def compare_exemplars(got, want, what):
         _same(a, getattr(want, name), f"{what} exemplars {name}")
 
 
+def blame_launches(what, before, expected):
+    """``expected`` blame_sweep launches since ``before``."""
+    from isotope_tpu_torch.native import blame
+
+    got = blame.blame_sweep.launches - before
+    if got != expected:
+        raise AssertionError(f"{what}: {got} blame_sweep launches, "
+                             f"expected {expected}")
+
+
+def same_blame_bits(got, want, what):
+    """Two AttributionSummaries of one block equal bit for bit (floats
+    as their bits; a zero's sign aside)."""
+    for name, a in got._replace(exemplars=None)._asdict().items():
+        b = getattr(want, name)
+        if a is None:
+            continue
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{what} {name}: the kernel differs from "
+                                 "blame_sweep_sequential")
+
+
 class AttributedBlocks:
     """Phase 4's attribution check of one run: each card block attributed
     on the card and, moved to the CPU, by the CPU's sweep: the same
@@ -2796,12 +2818,19 @@ class AttributedBlocks:
         self.acc, self.latency_sum = None, 0.0
 
     def block(self, res):
+        from isotope_tpu_torch.native import blame
+
         out = {}
+        before = blame.blame_sweep.launches
         for dev, r in (("cuda", res), ("cpu", _cpu(res))):
             out[dev], self.ex[dev] = self.attr.attribute_block(
                 r, self.tables[dev], tail_cut=self.cut, top_k=self.k,
                 ex_state=self.ex[dev],
             )
+        blame_launches(f"{self.what} block {self.blocks}", before, 1)
+        same_blame_bits(out["cuda"], self.attr.blame_sweep_sequential(
+            res, self.tables["cuda"], tail_cut=self.cut),
+            f"{self.what} block {self.blocks}")
         self.acc = self.attr.accumulate(self.acc, out["cuda"])
         self.latency_sum += float(res.client_latency.sum())
         self.worst = max(self.worst, compare_attribution(
@@ -2813,7 +2842,8 @@ class AttributedBlocks:
     def finish(self):
         compare_exemplars(self.ex["cuda"], self.ex["cpu"], self.what)
         log(f"in situ ok {self.what}: {self.blocks} block(s) attributed on "
-            f"the card and by the CPU's sweep on the card's results: "
+            f"the card (one blame_sweep launch each, bit for bit its "
+            f"sequential twin's) and by the CPU's sweep on the card's results: "
             f"counts and blame histograms equal ({self.crit} crit-path "
             f"hops), seconds within {self.worst:.3f} of rtol "
             f"{RESULT_RTOL:g} / atol {RESULT_ATOL:g} s, residuals within "
@@ -2851,11 +2881,14 @@ def attribution_in_situ(port, cases):
         for res in card.run_blocks(load, n, source, block_size=block):
             check.block(res)
         check.finish()
-        (s_a, a_a), (s_b, a_b) = (
-            sim.run_attributed(load, n, source, block_size=block,
-                               tail=tail, tail_cut=cut)
-            for sim in (card, cpu)
-        )
+        from isotope_tpu_torch.native import blame
+
+        before = blame.blame_sweep.launches
+        s_a, a_a = card.run_attributed(load, n, source, block_size=block,
+                                       tail=tail, tail_cut=cut)
+        blame_launches(f"attributed {name}", before, -(-n // block))
+        s_b, a_b = cpu.run_attributed(load, n, source, block_size=block,
+                                      tail=tail, tail_cut=cut)
         for f in ("count", "error_count", "hop_events"):
             _same(getattr(s_a, f), getattr(s_b, f), f"{name} summary {f}")
         _same(s_a.latency_sum, s_b.latency_sum, f"{name} latency_sum",
@@ -2930,6 +2963,9 @@ def attributed_phase(port, runs, walls, op_block=64):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         port.census.launches = 0
+        from isotope_tpu_torch.native import blame
+
+        sweeps = blame.blame_sweep.launches
         t0 = time.perf_counter()
         cut = (sim.estimate_tail_cut(load, n, src, block_size=block)
                if tail else None)
@@ -2940,6 +2976,7 @@ def attributed_phase(port, runs, walls, op_block=64):
         t2 = time.perf_counter()
         peak = torch.cuda.max_memory_allocated() / 2**30
         blocks = max(1, -(-n // block))
+        blame_launches(f"{name} attributed", sweeps, blocks)
         per_block = len(census_calls(sim, block))
         pilot_n = min(n, 8_192)
         pilot = (-(-pilot_n // min(block, pilot_n))
@@ -3963,6 +4000,12 @@ def observed_fleet_run(port, sim, chaos_sim):
 
     obs, _, launches = folded_twins(
         port, "ensembleN-observed", make, asim, 1, ENS_OBSERVED, calls)
+    from isotope_tpu_torch.native import blame
+
+    before = blame.blame_sweep.launches
+    folded = make("vmap")
+    blame_launches("ensembleN-observed folded", before,
+                   -(-ENS_OBSERVED // folded.chunk))
     launches.update(split_chunk_run(port, "ensembleN-observed", make, obs,
                                     1, calls))
     t = time.perf_counter()
@@ -6857,6 +6900,12 @@ def main() -> int:
     lib = satwait_mod.LIBRARY.build()
     log(f"build: {lib.name} in {time.perf_counter() - t:.2f} s")
     log(satwait_mod.LIBRARY.build_log.strip())
+    from isotope_tpu_torch.native import blame as blame_mod
+
+    t = time.perf_counter()
+    lib = blame_mod.LIBRARY.build()
+    log(f"build: {lib.name} in {time.perf_counter() - t:.2f} s")
+    log(blame_mod.LIBRARY.build_log.strip())
 
     flagship_graph = ServiceGraph.decode(tree_topology(
         num_levels=5, num_branches=3, request_size=1024, response_size=1024,
@@ -6937,6 +6986,26 @@ def main() -> int:
                                               device=dev),
          LoadModel(kind="open", qps=500.0), 16_384, 8_192, False),
     ])
+    # the main path's tail block: one block of 262,144 rows of the
+    # flagship tree, tail armed, as the tree121.blame-tail cell runs it
+    # (its 10,400 qps: at the flagship run's 1e5 qps the first block has
+    # no request past the pilot's p99), attributed on the card and by
+    # the CPU's sweep on the card's results
+    flagship_attr = Simulator(flagship_c, SimParams(**attr), device="cuda")
+    tail_load = LoadModel(kind="open", qps=10_400.0)
+    tail_block = runs[0][4]
+    tail_src = port.TorchDraws(13, "cuda")
+    check = AttributedBlocks(
+        port, flagship_attr, "attributed flagship tail block",
+        flagship_attr.estimate_tail_cut(tail_load, tail_block, tail_src,
+                                        block_size=tail_block))
+    for res in flagship_attr.run_blocks(tail_load, tail_block, tail_src,
+                                        block_size=tail_block):
+        check.block(res)
+    check.finish()
+    if int(check.acc.tail_count) == 0:
+        raise AssertionError("attributed flagship tail block: no request "
+                             "past the tail cut")
     # svc100k-chaos, the widest: its first two blocks, each attributed
     # on the card and by the CPU's sweep on the card's results
     big = make_big("cuda", attribution=True)

@@ -80,7 +80,7 @@ F64_ALLOWED = {
         "the blame sweep sums D in float64 and rounds it once, so the "
         "card's atomic order does not reach the float32 value"
     ),
-    "metrics/attribution.py:attribute_block": (
+    "metrics/attribution.py:_sweep": (
         "blame buckets take their log in float64: counts within one "
         "bucket of the reference's"
     ),

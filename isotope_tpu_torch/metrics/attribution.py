@@ -45,6 +45,13 @@ the same answer on the same :class:`SimResults`:
   the seconds-valued accumulators stay float32, as the reference's do;
 - exemplars are the first K of a stable sort of ``-latency``, which
   takes equal latencies lowest index first, as ``jax.lax.top_k`` does.
+
+On the card the sweep is one hand-written kernel, ``blame_sweep``
+(``native/blame.py``, ``native/csrc/blame.cu``), which reads the block's
+hop tensors once and adds its sums into the run's accumulator in a fixed
+order into an :func:`accumulator`; on the CPU it is the op chain
+:func:`_sweep`, and :func:`blame_sweep_sequential` is the chain with the
+kernel's order of summation.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ import numpy as np
 import torch
 
 from isotope_tpu_torch.compiler.program import CompiledGraph, hop_wire_times
+from isotope_tpu_torch.native import blame
 
 F32 = torch.float32
 I64 = torch.int64
@@ -216,6 +224,7 @@ class AttrTables:
     num_services: int
     root_net: float        # client->entry wire round trip
     refused_net: float     # refused-connect cost (down entry)
+    sweep: blame.SweepTables  # the same structure packed for the kernel
 
 
 def build_tables(compiled: CompiledGraph, net, device="cpu") -> AttrTables:
@@ -229,14 +238,29 @@ def build_tables(compiled: CompiledGraph, net, device="cpu") -> AttrTables:
     def t(x, dtype):
         return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
+    H = compiled.num_hops
+    # the kernel's packed tables: each hop's call-bearing steps (slots),
+    # each slot's calls in call order, each call's attempts in attempt
+    # order (masked attempts left out), as CSR over global hop ids
+    slots_of_hop = np.zeros(H, np.int64)
+    hop_bin = np.zeros(H, np.int64)
+    hop_rtt = np.zeros(H, np.float32)
+    hop_timeout = np.full(H, np.inf, np.float32)
+    level_timeout = []
+    slot_bases, calls_of_slot, atts_of_call, att_hops = [], [], [], []
+
     levels: List[_LevelTables] = []
     for d, lvl in enumerate(compiled.levels):
+        offset = int(lvl.hop_ids[0])
+        hop_bin[offset:offset + lvl.num_hops] = (
+            np.asarray(lvl.service, np.int64) * NUM_BLAME_BUCKETS
+        )
         common = dict(
-            offset=int(lvl.hop_ids[0]), size=lvl.num_hops,
-            svc_base=t(np.asarray(lvl.service, np.int64)
-                       * NUM_BLAME_BUCKETS, I64),
+            offset=offset, size=lvl.num_hops,
+            svc_base=t(hop_bin[offset:offset + lvl.num_hops], I64),
         )
         if lvl.num_children == 0:
+            level_timeout.append(False)
             levels.append(_LevelTables(
                 child_offset=0, child_size=0, parent_local=None,
                 call_of_child=None, slot_of_call=None, n_slots=0,
@@ -267,8 +291,20 @@ def build_tables(compiled: CompiledGraph, net, device="cpu") -> AttrTables:
             and np.array_equal(lvl.att_child[0], np.arange(K))
         )
         nxt = compiled.levels[d + 1]
+        child_offset = int(nxt.hop_ids[0])
+        np.add.at(slots_of_hop, offset + slot_segs // compiled.max_steps, 1)
+        slot_bases.append(slot_base)
+        by_slot = np.argsort(slot_of_call, kind="stable")
+        calls_of_slot.append(np.bincount(slot_of_call,
+                                         minlength=len(slot_segs)))
+        valid = lvl.att_valid[:, by_slot].T
+        atts_of_call.append(valid.sum(1))
+        att_hops.append(child_offset + lvl.att_child[:, by_slot].T[valid])
+        hop_rtt[child_offset:child_offset + C] = rtt[lvl.child_ids]
+        hop_timeout[child_offset:child_offset + C] = timeout
+        level_timeout.append(bool(np.isfinite(timeout).any()))
         levels.append(_LevelTables(
-            child_offset=int(nxt.hop_ids[0]), child_size=C,
+            child_offset=child_offset, child_size=C,
             parent_local=t(parent_local, I64),
             call_of_child=t(call_of_child, I64),
             slot_of_call=t(slot_of_call, I64),
@@ -290,12 +326,29 @@ def build_tables(compiled: CompiledGraph, net, device="cpu") -> AttrTables:
             has_timeout=bool(np.isfinite(timeout).any()),
             **common,
         ))
+
+    def ptr(counts):
+        return np.concatenate([[0], np.cumsum(np.concatenate(
+            counts or [np.zeros(0, np.int64)]))])
+
+    sweep = blame.pack_tables(
+        level_offset=[lv.offset for lv in levels] + [H],
+        level_timeout=level_timeout,
+        slot_ptr=ptr([slots_of_hop]),
+        slot_base=np.concatenate(slot_bases or [np.zeros(0, np.float32)]),
+        call_ptr=ptr(calls_of_slot),
+        att_ptr=ptr(atts_of_call),
+        att_hop=np.concatenate(att_hops or [np.zeros(0, np.int64)]),
+        hop_rtt=hop_rtt, hop_timeout=hop_timeout, hop_bin=hop_bin,
+        log_lo=_B_LOG_LO, inv_log_r=_B_INV_LOG_R, device=device,
+    )
     return AttrTables(
         levels=tuple(levels),
         num_hops=compiled.num_hops,
         num_services=compiled.num_services,
         root_net=float(rtt[0]),
         refused_net=float(2.0 * net.entry_one_way(0.0)),
+        sweep=sweep,
     )
 
 
@@ -361,8 +414,10 @@ def attribute_block(
     top_k: int = 0,
     ex_state: Optional[ExemplarBatch] = None,
     members: int = 0,
+    acc: Optional[AttributionSummary] = None,
 ) -> Tuple[AttributionSummary, Optional[ExemplarBatch]]:
-    """Reduce one block's SimResults to an AttributionSummary.
+    """Reduce one block's SimResults to an AttributionSummary, added to
+    the run's accumulator ``acc`` (None: the block's own summary).
 
     ``tail_cut`` arms the conditional-tail accumulators; ``top_k`` > 0
     merges this block's slowest requests into ``ex_state`` (returned
@@ -374,14 +429,77 @@ def attribute_block(
     sums run over each member's (M, N) view (float32 sums within
     summation order of the member's solo block), the histograms bin
     with member offsets (exact), the exemplars rank within each member.
+
+    On a CUDA tensor the ``blame_sweep`` kernel adds the block into
+    ``acc`` in place (an :func:`accumulator`; None makes one) and raises
+    on what it does not take; on the CPU the op chain :func:`_sweep`
+    gives the block's summary and :func:`accumulate` adds it.
     """
-    lat_all = res.hop_latency
-    wait_all = res.hop_wait
-    if wait_all is None:
+    if res.hop_wait is None:
         raise ValueError(
             "attribution needs SimResults.hop_wait (produced by "
             "Simulator runs; synthetic SimResults must fill it)"
         )
+    if res.hop_latency.device.type == "cuda":
+        shape = (members, tables.num_hops, tables.num_services)
+        if acc is None:
+            acc = accumulator(*shape, res.hop_latency.device)
+        blame.blame_sweep(res, tables,
+                          *_acc_buffers(acc, *shape, res.hop_latency.device),
+                          tail_cut=tail_cut, members=members)
+    else:
+        n = res.hop_latency.shape[0]
+        part = _sweep(res, tables, tail_cut, members,
+                      _member_sums(members, n), _column_sums)
+        acc = accumulate(acc, part)
+    if top_k > 0:
+        ex_state = _update_exemplars(res, ex_state, top_k, members)
+    return acc, ex_state
+
+
+def blame_sweep_sequential(res, tables: AttrTables, *,
+                           tail_cut: Optional[float] = None,
+                           members: int = 0,
+                           acc: Optional[AttributionSummary] = None,
+                           ) -> AttributionSummary:
+    """The ``blame_sweep`` kernel's own order of operations in plain
+    torch: the op chain :func:`_sweep` with its sums taken as the kernel
+    takes them (``native/blame.py`` ``kernel_sums``), then added to
+    ``acc`` (:func:`accumulate`).  The kernel equals it bit for bit on
+    the card."""
+    n = res.hop_latency.shape[0]
+    part = _sweep(res, tables, tail_cut, members,
+                  *blame.kernel_sums(tables.sweep, members, n))
+    return accumulate(acc, part)
+
+
+def _member_sums(members: int, n: int):
+    """The chain's row sum: each member's, (M, ...), in a folded block."""
+
+    def rsum(x):
+        if members:
+            return x.view(members, n // members, *x.shape[1:]).sum(1)
+        return x.sum(0)
+
+    return rsum
+
+
+def _column_sums(x: torch.Tensor, level: Optional[int]) -> torch.Tensor:
+    """The chain's per-request sum over a level's columns."""
+    return x.sum(1)
+
+
+def _sweep(res, tables: AttrTables, tail_cut: Optional[float],
+           members: int, rsum, colsum) -> AttributionSummary:
+    """One block's summary by the op chain.  ``rsum(x)`` sums ``x`` over
+    the rows (each member's); ``colsum(x, d)`` sums ``x`` over its
+    columns for each request: the children of level ``d``, or a level's
+    own hops where ``d`` is None.  The chain sums with torch's own
+    reductions (:func:`_member_sums`, :func:`_column_sums`),
+    ``native/blame.py`` ``blame_sweep_sequential`` in the kernel's order.
+    """
+    lat_all = res.hop_latency
+    wait_all = res.hop_wait
     dev = lat_all.device
     n = lat_all.shape[0]
     M = members
@@ -394,12 +512,6 @@ def attribute_block(
 
     def zeros(size, dtype=F32):
         return torch.zeros(lead + (size,), dtype=dtype, device=dev)
-
-    def rsum(x):
-        """The row sum: each member's, (M, ...), in a folded block."""
-        if M:
-            return x.view(M, n // M, *x.shape[1:]).sum(1)
-        return x.sum(0)
 
     n_hist = tables.num_services * NUM_BLAME_BUCKETS
     # each member's histogram bins past the earlier members'
@@ -423,7 +535,7 @@ def attribute_block(
     hist = torch.zeros(max(M, 1) * n_hist, dtype=I64, device=dev)
     t_hist = torch.zeros(max(M, 1) * n_hist, dtype=I64, device=dev)
 
-    for lvl in tables.levels:
+    for d, lvl in enumerate(tables.levels):
         sl = slice(lvl.offset, lvl.offset + lvl.size)
         lat = lat_all[:, sl]
         wait = wait_all[:, sl]
@@ -444,9 +556,9 @@ def attribute_block(
             tmo_l.append(
                 rsum(tmo_c) if tmo_c is not None else zeros(lvl.child_size)
             )
-            per_req = per_req + net_c.sum(1)
+            per_req = per_req + colsum(net_c, d)
             if tmo_c is not None:
-                per_req = per_req + tmo_c.sum(1)
+                per_req = per_req + colsum(tmo_c, d)
             if tail_w is not None:
                 t_net_l.append(rsum(net_c * tail_w[:, None]))
                 t_tmo_l.append(
@@ -463,7 +575,7 @@ def attribute_block(
         hop_wait = w * wait
         hop_self = w * (lat - wait) - D
         contrib = hop_wait + hop_self  # == w * lat - D
-        per_req = per_req + contrib.sum(1)
+        per_req = per_req + colsum(contrib, None)
         w_int = w.to(I64)
         crit_l.append(rsum(w_int))
         wait_l.append(rsum(hop_wait))
@@ -490,9 +602,6 @@ def attribute_block(
 
     resid = res.client_latency - per_req
     err_count = rsum(res.hop_sent & res.hop_error)
-
-    if top_k > 0:
-        ex_state = _update_exemplars(res, ex_state, top_k, M)
 
     S = tables.num_services
     summary = AttributionSummary(
@@ -522,7 +631,7 @@ def attribute_block(
         tail_hist=t_hist.reshape(*lead, S, NUM_BLAME_BUCKETS),
         exemplars=None,
     )
-    return summary, ex_state
+    return summary
 
 
 def _top_rows(latency: torch.Tensor, k: int) -> torch.Tensor:
@@ -568,6 +677,80 @@ def _update_exemplars(res, ex: Optional[ExemplarBatch], k: int,
         return ExemplarBatch(*(a[keep] for a in merged))
     pick = torch.arange(M, device=keep.device)[:, None]
     return ExemplarBatch(*(a[pick, keep] for a in merged))
+
+
+def _acc_layout(members: int, num_hops: int, num_services: int):
+    """``{field: (buffer, offset, length, shape)}`` of an
+    :func:`accumulator`'s views into its float32 (``"f"``) and int64
+    (``"i"``) buffers, each member's after the earlier members' (so a
+    field is contiguous, ``(M, ...)``); and the two buffers' sizes.  The
+    ``blame_sweep`` kernel writes to these offsets (``csrc/blame.cu``
+    ``blame_reduce_kernel``; the float32 fields in ``blame.FIELDS``'
+    order)."""
+    mp, h = max(members, 1), num_hops
+    nb = num_services * NUM_BLAME_BUCKETS
+    mh = mp * h
+    lay = {}
+    for k, name in enumerate(blame.FIELDS[:8]):
+        lay[name] = ("f", k * mh, h, (h,))
+    lay["residual"] = ("f", 8 * mh, 1, ())
+    lay["residual_abs"] = ("f", 8 * mh + mp, 1, ())
+    lay["tail_cut"] = ("f", 8 * mh + 2 * mp, 1, ())
+    lay["crit_count"] = ("i", 0, h, (h,))
+    lay["tail_crit_count"] = ("i", mh, h, (h,))
+    lay["error_count"] = ("i", 2 * mh, h, (h,))
+    lay["count"] = ("i", 3 * mh, 1, ())
+    lay["tail_count"] = ("i", 3 * mh + mp, 1, ())
+    lay["hist"] = ("i", 3 * mh + 2 * mp, nb, (num_services, NUM_BLAME_BUCKETS))
+    lay["tail_hist"] = ("i", 3 * mh + 2 * mp + mp * nb, nb,
+                        (num_services, NUM_BLAME_BUCKETS))
+    return lay, 8 * mh + 3 * mp, 3 * mh + 2 * mp + 2 * mp * nb
+
+
+def accumulator(members: int, num_hops: int, num_services: int,
+                device) -> AttributionSummary:
+    """An empty run accumulator for the ``blame_sweep`` kernel: zero
+    sums and counts, the tail cut at -inf (each block's cut is taken
+    with ``max``, as :func:`accumulate` takes it); its fields are views
+    of two flat buffers laid out by :func:`_acc_layout`."""
+    lay, nf, ni = _acc_layout(members, num_hops, num_services)
+    nf8 = -(-nf // 2) * 2                      # the int64 buffer 8-aligned
+    raw = torch.zeros(nf8 * 4 + ni * 8, dtype=torch.uint8, device=device)
+    bufs = {"f": raw[:nf * 4].view(F32), "i": raw[nf8 * 4:].view(I64)}
+    mp = max(members, 1)
+    lead = (members,) if members else ()
+    acc = AttributionSummary(**{
+        name: bufs[b][off:off + mp * n].view(lead + shape)
+        for name, (b, off, n, shape) in lay.items()
+    }, exemplars=None)
+    acc.tail_cut.fill_(-np.inf)
+    return acc
+
+
+def _acc_buffers(acc: AttributionSummary, members: int, num_hops: int,
+                 num_services: int, device) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The float32 and int64 buffers of ``acc``, which must be an
+    :func:`accumulator` of these shapes on ``device``."""
+    lay, nf, ni = _acc_layout(members, num_hops, num_services)
+    lead = (members,) if members else ()
+    bases = {"f": acc.wait_blame, "i": acc.crit_count}
+    for name, (b, off, _, shape) in lay.items():
+        x, base = getattr(acc, name), bases[b]
+        dtype = F32 if b == "f" else I64
+        if (not isinstance(x, torch.Tensor) or x.device != device
+                or x.dtype != dtype or tuple(x.shape) != lead + shape
+                or not x.is_contiguous()
+                or x.untyped_storage().data_ptr()
+                != base.untyped_storage().data_ptr()
+                or x.data_ptr() != base.data_ptr() + off * x.element_size()):
+            raise ValueError(
+                f"attribution: acc.{name} is not a view of an accumulator "
+                "of these shapes (pass None, or what attribute_block "
+                "returned)")
+    # the fields tile each buffer from its first to its last element
+    return (acc.wait_blame.as_strided((nf,), (1,)),
+            acc.crit_count.as_strided((ni,), (1,)))
 
 
 def accumulate(acc: Optional[AttributionSummary],

@@ -2095,11 +2095,10 @@ class Simulator:
                 )
             if attr:
                 with telemetry.span("attribution.block"):
-                    a, ex = attribution.attribute_block(
+                    a_acc, ex = attribution.attribute_block(
                         res, tables, tail_cut=tail_cut, top_k=top_k,
-                        ex_state=ex,
+                        ex_state=ex, acc=a_acc,
                     )
-                    a_acc = attribution.accumulate(a_acc, a)
             del res
             yield
         summary = summary_mod.reduce_stacked(summary_mod.stack(parts))
@@ -3226,11 +3225,10 @@ class Simulator:
                 )
             parts.append(summary_mod.summarize_members(res, M, window=win))
             if attr is not False:
-                a, ex = attribution.attribute_block(
+                a_acc, ex = attribution.attribute_block(
                     res, a_tables, tail_cut=attr, top_k=top_k,
-                    ex_state=ex, members=M,
+                    ex_state=ex, members=M, acc=a_acc,
                 )
-                a_acc = attribution.accumulate(a_acc, a)
         summary = summary_mod.reduce_stacked(summary_mod.stack(parts))
         attr_out = a_acc._replace(exemplars=ex) if attr is not False else None
         if carry is None:
